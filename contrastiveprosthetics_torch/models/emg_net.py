@@ -1,0 +1,58 @@
+"""sEMG encoder (reference ``EMGNet``, ``code/models.py:230-349``).
+
+The 12-channel frame is a 1x12 one-channel image (NCHW here, as in the
+reference): Conv(1->64, 3x3, pad 1) -> ReLU -> BN -> Conv(64->64) -> ReLU ->
+BN -> flatten (768, channel-major ``c*12+p``) -> ``n_linear`` x [Dense ->
+ReLU -> BN (+ Dropout on the last 4 blocks)] -> Dense(hidden->d_e, no
+bias). The Sequential indices are the reference's, Dropout and ReLU
+included, so the state_dict keys are the reference's
+(``train/torch_export.py:189-218`` of the JAX package).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from contrastiveprosthetics_torch.models.layers import AdaBN, BatchNorm, make_norm
+
+
+class EMGNet(nn.Module):
+    def __init__(self, d_e: int = 16, emg_dim: int = 12, adabn: bool = False,
+                 n_linear: int = 7, hidden: int = 512,
+                 conv_features: int = 64, device=None):
+        super().__init__()
+        self.emg_dim = emg_dim
+        F = conv_features
+        self.conv_emg = nn.Sequential(
+            nn.Conv2d(1, F, 3, padding=1, device=device),
+            nn.ReLU(),
+            make_norm(F, adabn, device),
+            nn.Conv2d(F, F, 3, padding=1, device=device),
+            nn.ReLU(),
+            make_norm(F, adabn, device),
+            nn.Flatten(),
+        )
+        blocks: list[nn.Module] = []
+        width = F * emg_dim
+        for i in range(n_linear):
+            blocks += [nn.Linear(width, hidden, device=device), nn.ReLU(),
+                       make_norm(hidden, adabn, device)]
+            if i >= n_linear - 4:  # dropout on the last 4 blocks
+                blocks.append(nn.Dropout(0.0))
+            width = hidden
+        self.linear = nn.Sequential(*blocks)
+        self.last = nn.Sequential(
+            nn.Linear(hidden, d_e, bias=False, device=device))
+
+    def norms(self) -> list[nn.Module]:
+        """The BatchNorm layers in forward order (2 conv + n_linear)."""
+        return [m for m in self.modules() if isinstance(m, BatchNorm)]
+
+    def forward(self, frames: torch.Tensor,
+                collect: list | None = None) -> torch.Tensor:
+        """(rows, emg_dim) frames -> (rows, d_e) unnormalized embeddings.
+        ``collect`` gathers each BatchNorm's batch statistics."""
+        x = frames.reshape(-1, 1, 1, self.emg_dim)
+        for m in (*self.conv_emg, *self.linear, *self.last):
+            x = m(x, collect) if isinstance(m, (BatchNorm, AdaBN)) else m(x)
+        return x

@@ -1,0 +1,80 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
+library, compiled by ``nvcc`` for Hopper (``sm_90a``) at first use and
+loaded with ctypes. The library's file name carries a hash of its source
+and flags, so an edited source is rebuilt and an unchanged one is reused.
+Libraries go to ``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``). No network and no package of prebuilt kernels is used.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNELS = ("dsp_frames", "encoder_chain", "vote_scan")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels are built from csrc/ at first use")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names=KERNELS) -> dict[str, float]:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` per source, all started together. Returns the seconds each
+    build took (0.0 for a library that was already there). The compiler's
+    ``-Xptxas -v`` report goes to ``<library>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, seconds = {}, {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = open(out.with_suffix(".log"), "w")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                       tmp, out, log, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, log, t0) in procs.items():
+        rc = proc.wait()
+        log.close()
+        seconds[name] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append(f"{name}: nvcc exit {rc}\n"
+                          + out.with_suffix(".log").read_text()[-4000:])
+        else:
+            os.replace(tmp, out)  # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    if name not in _loaded:
+        build((name,))
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]

@@ -1,0 +1,425 @@
+"""The serve path's kernels and the folds that feed them.
+
+Counterpart of the JAX package's ``ops/pallas_ops.py`` sections 2-4. On the
+TPU the tick chain was one Pallas kernel whose sequential grid step was the
+tick, with the weights resident in VMEM. Nothing in a tick depends on the
+previous tick's encoder: the IIR/RMS state depends only on the raw input
+and the vote window only on the per-tick preds. So here a recording runs
+as three phases over all its ticks, each a hand-written CUDA kernel for
+Hopper (``csrc/``):
+
+* ``dsp_frames``: prescale -> SOS band-pass -> trailing RMS -> normalize,
+  one thread per (session, channel) walking the samples in order;
+* ``encoder_chain`` (:func:`fused_encoder_logits`): the folded encoder
+  chain, 9 tiled-GEMM layer launches and 1 head launch;
+* ``vote_scan``: masked first-max prediction and the majority vote, one
+  thread per session walking the ticks in order.
+
+Every wrapper has its plain PyTorch version beside it (``*_reference``),
+which repeats the kernel's arithmetic with ``torch.matmul`` and loops. A
+wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches its kernel or raises, never falls back. ``launch_counts`` counts
+kernel launches, one per CUDA kernel launched.
+
+The folds (:func:`fold_encoder_params`, :func:`fold_encoder_params_shared`,
+:func:`session_bn_affines`) are plain torch on the weights, in the JAX
+package's layout: activations position-major (``p*F+c``), both convs as
+banded dense matrices, each BatchNorm affine absorbed into the following
+layer (``pallas_ops.py:280-397``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from contrastiveprosthetics_torch.config import INGEST_PRESCALE
+from contrastiveprosthetics_torch.ops import _build
+
+NEG = torch.finfo(torch.float32).min  # the mask value of stream.py:268
+
+launch_counts = {"dsp_frames": 0, "encoder_chain": 0, "vote_scan": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+# ------------------------------------------------------------------ folds
+@torch.no_grad()
+def _fold_chain(emg_net, bn_affine, class_emb) -> tuple[torch.Tensor, ...]:
+    """EMGNet weights + a ``bn_affine(i) -> (a, c)`` policy -> the flat
+    (A0, d0, ..., Ah, dh, Gt) chain; each BN affine goes into the next
+    layer's weights (``pallas_ops.py:280-323``). Biases are 1-D."""
+    conv1, conv2 = emg_net.conv_emg[0], emg_net.conv_emg[3]
+    # only the middle kernel row touches the 1x12 image
+    k1 = conv1.weight[:, 0, 1, :].T              # (3, F)
+    k2 = conv2.weight[:, :, 1, :].permute(2, 1, 0)  # (3, F_in, F_out)
+    F = k1.shape[1]
+    P = emg_net.emg_dim
+    m1 = k1.new_zeros((P, P * F))
+    m2 = k2.new_zeros((P * F, P * F))
+    for p in range(P):
+        for kw in range(3):
+            ps = p + kw - 1  # source position (SAME padding)
+            if 0 <= ps < P:
+                m1[ps, p * F:(p + 1) * F] = k1[kw]
+                m2[ps * F:(ps + 1) * F, p * F:(p + 1) * F] = k2[kw]
+
+    layers = [(m1, conv1.bias.repeat(P))]
+    a, c = (t.repeat(P) for t in bn_affine(0))
+    layers.append((a[:, None] * m2, conv2.bias.repeat(P) + c @ m2))
+    a, c = (t.repeat(P) for t in bn_affine(1))
+    lin = [m for m in emg_net.linear if isinstance(m, torch.nn.Linear)]
+    for i, m in enumerate(lin):
+        if i == 0:  # un-permute the reference's channel-major c*P+p input
+            w = (m.weight.reshape(-1, F, P).permute(2, 1, 0)
+                 .reshape(P * F, -1))  # (in, out), position-major p*F+c
+        else:
+            w = m.weight.T
+        layers.append((a[:, None] * w, m.bias + c @ w))
+        a, c = bn_affine(i + 2)
+    wh = emg_net.last[0].weight.T
+    layers.append((a[:, None] * wh, c @ wh))
+    flat = []
+    for w, b in layers:
+        flat += [w.float().contiguous(), b.float().contiguous()]
+    flat.append(class_emb.T.float().contiguous())  # Gt: (d_e, n_classes)
+    return tuple(flat)
+
+
+def fold_encoder_params(emg_net, class_emb, *, eps: float = 1e-5):
+    """EMGNet (running statistics absorbed) + normalized class embeddings
+    -> the chain :func:`fused_encoder_logits` takes
+    (``pallas_ops.py:326-351``)."""
+    norms = emg_net.norms()
+
+    def bn_affine(i):
+        bn = norms[i]
+        a = bn.weight / torch.sqrt(bn.running_var + eps)
+        return a, bn.bias - bn.running_mean * a
+
+    return _fold_chain(emg_net, bn_affine, class_emb)
+
+
+def fold_encoder_params_shared(emg_net, class_emb):
+    """The BN-free chain shared by every session of the batched engine; the
+    per-session statistics come as :func:`session_bn_affines`
+    (``pallas_ops.py:354-368``)."""
+    norms = emg_net.norms()
+
+    def identity(i):
+        return torch.ones_like(norms[i].weight), torch.zeros_like(norms[i].bias)
+
+    return _fold_chain(emg_net, identity, class_emb)
+
+
+@torch.no_grad()
+def session_bn_affines(emg_net, stats, *, eps: float = 1e-5):
+    """Per-session BatchNorm affines ``(a0, c0, a1, c1, ...)``, each
+    (S, width) f32: ``y = relu(h @ W + b) * a + c`` reproduces
+    Conv/Dense -> ReLU -> BN. ``stats``: one (mean, var) pair of (S, width)
+    tensors per BatchNorm. Conv affines are tiled over the P positions
+    (``pallas_ops.py:371-397``)."""
+    P = emg_net.emg_dim
+    flat = []
+    for i, (bn, (mean, var)) in enumerate(zip(emg_net.norms(), stats)):
+        a = bn.weight[None, :] / torch.sqrt(var + eps)
+        c = bn.bias[None, :] - mean * a
+        if i < 2:  # post-conv BNs act per channel at every position
+            a, c = a.repeat(1, P), c.repeat(1, P)
+        flat += [a.float().contiguous(), c.float().contiguous()]
+    return tuple(flat)
+
+
+# --------------------------------------------------------- wrapper helpers
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _expect(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, want {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, want {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+_SIGNATURES = {
+    "dsp_frames": ("dsp_frames_launch", 9, 6, True),
+    "encoder_layer": ("encoder_layer_launch", 6, 4, False),
+    "encoder_head": ("encoder_head_launch", 5, 4, False),
+    "vote_scan": ("vote_scan_launch", 8, 4, False),
+}
+
+
+_fns: dict = {}
+
+
+def _fn(name: str):
+    """The C launcher ``name`` with its ctypes signature: pointers, ints,
+    an optional float, then the stream; returns the cudaError_t."""
+    if name not in _fns:
+        symbol, n_ptr, n_int, has_float = _SIGNATURES[name]
+        lib = _build.load("encoder_chain" if name.startswith("encoder")
+                          else name)
+        fn = getattr(lib, symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + ([ctypes.c_float] if has_float else [])
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return _fns[name]
+
+
+def _launch(name: str, counter: str, *args) -> None:
+    rc = _fn(name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    launch_counts[counter] += 1
+
+
+# -------------------------------------------------------------- dsp_frames
+def dsp_frames_reference(iir_state, tail, blocks, sos, mean, std):
+    """Plain version of ``dsp_frames``. ``blocks`` (K, S, factor, D),
+    ``iir_state`` (S, n_sec, 2, D), ``tail`` (S, rms_window-1, D), ``sos``
+    (n_sec, 6) f32. Returns frames (K, S, D), new iir_state, new tail."""
+    K, S, factor, D = blocks.shape
+    R = tail.shape[1]
+    W = R + 1
+    n_sec = sos.shape[0]
+    z = [[iir_state[:, k, 0].clone(), iir_state[:, k, 1].clone()]
+         for k in range(n_sec)]
+    coef = [[sos[k, i] for i in range(6)] for k in range(n_sec)]
+    frames = blocks.new_empty((K, S, D))
+    x = blocks * INGEST_PRESCALE
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by
+    # its rounded reciprocal, the kernel (and the CPU) divide exactly
+    n_win = blocks.new_tensor(float(W))
+    for k in range(K):
+        filt = []
+        for t in range(factor):
+            y = x[k, :, t]
+            for j in range(n_sec):
+                b0, b1, b2, _, a1, a2 = coef[j]
+                yk = b0 * y + z[j][0]
+                z[j] = [b1 * y - a1 * yk + z[j][1], b2 * y - a2 * yk]
+                y = yk
+            filt.append(y)
+        buf = torch.cat([tail, torch.stack(filt, dim=1)], dim=1)
+        win = buf[:, R + factor - W:]
+        acc = win[:, 0] * win[:, 0]
+        for i in range(1, W):
+            acc = acc + win[:, i] * win[:, i]
+        frames[k] = (torch.sqrt(acc / n_win) - mean) / std
+        tail = buf[:, factor:]
+    new_iir = torch.stack([torch.stack(zk, dim=1) for zk in z], dim=1)
+    return frames, new_iir, tail.contiguous()
+
+
+def dsp_frames(iir_state, tail, blocks, sos, mean, std):
+    """The ``dsp_frames`` kernel (see :func:`dsp_frames_reference`)."""
+    if blocks.device.type == "cpu":
+        return dsp_frames_reference(iir_state, tail, blocks, sos, mean, std)
+    K, S, factor, D = blocks.shape
+    n_sec, R = sos.shape[0], tail.shape[1]
+    dev, f32 = blocks.device, torch.float32
+    for name, t, shape in (("blocks", blocks, (K, S, factor, D)),
+                           ("iir_state", iir_state, (S, n_sec, 2, D)),
+                           ("tail", tail, (S, R, D)), ("sos", sos, (n_sec, 6)),
+                           ("mean", mean, (D,)), ("std", std, (D,))):
+        _expect(name, t, shape, f32, dev)
+    frames = torch.empty((K, S, D), dtype=f32, device=dev)
+    iir_out = torch.empty_like(iir_state)
+    tail_out = torch.empty_like(tail)
+    _launch("dsp_frames", "dsp_frames",
+            _ptr(blocks), _ptr(iir_state), _ptr(tail), _ptr(sos), _ptr(mean),
+            _ptr(std), _ptr(frames), _ptr(iir_out), _ptr(tail_out),
+            K, S, factor, D, n_sec, R + 1, INGEST_PRESCALE, _stream(dev))
+    return frames, iir_out, tail_out
+
+
+# ----------------------------------------------------------- encoder_chain
+def fused_encoder_logits_reference(frames, folded, affines=None):
+    """Plain version of ``encoder_chain``: (N, emg_dim) frames -> (N,
+    n_classes) scores. With ``affines`` (the batched engine), rows are
+    (tick, session) ordered and row r takes session r % S's affine after
+    each hidden layer's ReLU."""
+    *ws, gt = folded
+    h = frames
+    for j in range(0, len(ws) - 2, 2):
+        h = torch.relu(h @ ws[j] + ws[j + 1])
+        if affines is not None:
+            a, c = affines[j], affines[j + 1]
+            S = a.shape[0]
+            h = (h.view(-1, S, h.shape[1]) * a + c).view(-1, h.shape[1])
+    e = h @ ws[-2] + ws[-1]
+    e = e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+    return e @ gt
+
+
+def fused_encoder_logits(frames, folded, affines=None):
+    """The ``encoder_chain`` kernels: one ``encoder_layer`` launch per hidden
+    layer, one ``encoder_head`` launch (see
+    :func:`fused_encoder_logits_reference`)."""
+    if frames.device.type == "cpu":
+        return fused_encoder_logits_reference(frames, folded, affines)
+    dev, f32 = frames.device, torch.float32
+    M, K = frames.shape
+    *ws, gt = folded
+    n_hidden = (len(ws) - 2) // 2
+    if affines is not None and len(affines) != 2 * n_hidden:
+        raise ValueError(f"{len(affines)} affines for {n_hidden} layers")
+    S = affines[0].shape[0] if affines is not None else 1
+    if affines is not None and M % S:
+        raise ValueError(f"{M} rows are not whole ticks of {S} sessions")
+    _expect("frames", frames, (M, K), f32, dev)
+    h = frames
+    for j in range(n_hidden):
+        w, b = ws[2 * j], ws[2 * j + 1]
+        N = w.shape[1]
+        _expect(f"w{j}", w, (K, N), f32, dev)
+        _expect(f"b{j}", b, (N,), f32, dev)
+        a = c = None
+        if affines is not None:
+            a, c = affines[2 * j], affines[2 * j + 1]
+            _expect(f"a{j}", a, (S, N), f32, dev)
+            _expect(f"c{j}", c, (S, N), f32, dev)
+        out = torch.empty((M, N), dtype=f32, device=dev)
+        _launch("encoder_layer", "encoder_chain", _ptr(h), _ptr(w), _ptr(b),
+                _ptr(a), _ptr(c), _ptr(out), M, K, N, S, _stream(dev))
+        h, K = out, N
+    wh, bh = ws[-2], ws[-1]
+    E, C = wh.shape[1], gt.shape[1]
+    _expect("wh", wh, (K, E), f32, dev)
+    _expect("bh", bh, (E,), f32, dev)
+    _expect("gt", gt, (E, C), f32, dev)
+    scores = torch.empty((M, C), dtype=f32, device=dev)
+    _launch("encoder_head", "encoder_chain", _ptr(h), _ptr(wh), _ptr(bh),
+            _ptr(gt), _ptr(scores), M, K, E, C, _stream(dev))
+    return scores
+
+
+# --------------------------------------------------------------- vote_scan
+def vote_scan_reference(scores, masks, votes, n_seen):
+    """Plain version of ``vote_scan``. ``scores`` (K, S, C) f32, ``masks``
+    (S, C) bool, ``votes`` (S, W) int32 oldest first, ``n_seen`` (S,) int32.
+    Returns preds (K, S), votes (K, S), new votes window, new n_seen."""
+    K, S, C = scores.shape
+    W = votes.shape[1]
+    preds = torch.empty((K, S), dtype=torch.int32, device=scores.device)
+    vote_out = torch.empty_like(preds)
+    slots = torch.arange(W, device=scores.device)
+    for k in range(K):
+        masked = torch.where(masks, scores[k], NEG)
+        pred = torch.argmax(masked, dim=1).to(torch.int32)  # first max
+        votes = torch.cat([votes[:, 1:], pred[:, None]], dim=1)
+        n_seen = torch.clamp(n_seen + 1, max=W)
+        valid = slots[None, :] >= (W - n_seen)[:, None]
+        hot = torch.nn.functional.one_hot(votes.long(), C) * valid[..., None]
+        counts = torch.where(masks, hot.sum(dim=1), -1)
+        preds[k] = pred
+        vote_out[k] = torch.argmax(counts, dim=1).to(torch.int32)
+    return preds, vote_out, votes.contiguous(), n_seen.to(torch.int32)
+
+
+def vote_scan(scores, masks, votes, n_seen):
+    """The ``vote_scan`` kernel (see :func:`vote_scan_reference`)."""
+    if scores.device.type == "cpu":
+        return vote_scan_reference(scores, masks, votes, n_seen)
+    K, S, C = scores.shape
+    W = votes.shape[1]
+    dev = scores.device
+    _expect("scores", scores, (K, S, C), torch.float32, dev)
+    _expect("masks", masks, (S, C), torch.bool, dev)
+    _expect("votes", votes, (S, W), torch.int32, dev)
+    _expect("n_seen", n_seen, (S,), torch.int32, dev)
+    preds = torch.empty((K, S), dtype=torch.int32, device=dev)
+    vote_out = torch.empty_like(preds)
+    votes_out = torch.empty_like(votes)
+    nseen_out = torch.empty_like(n_seen)
+    _launch("vote_scan", "vote_scan", _ptr(scores), _ptr(masks), _ptr(votes),
+            _ptr(n_seen), _ptr(preds), _ptr(vote_out), _ptr(votes_out),
+            _ptr(nseen_out), K, S, C, W, _stream(dev))
+    return preds, vote_out, votes_out, nseen_out
+
+
+# ------------------------------------------------------------- tick chains
+def _chain(dsp, enc, vote, iir_state, tail, votes, n_seen, blocks,
+           subset_masks, sos, mean, std, folded, affines=None):
+    """K ticks of S sessions through the three phases ``dsp -> enc ->
+    vote`` (the kernels or their plain versions)."""
+    K, S = blocks.shape[:2]
+    frames, iir_state, tail = dsp(iir_state, tail, blocks, sos, mean, std)
+    scores = enc(frames.reshape(K * S, -1), folded, affines).view(K, S, -1)
+    preds, vote_preds, votes, n_seen = vote(scores, subset_masks, votes, n_seen)
+    masked = torch.where(subset_masks, scores, NEG)
+    return (iir_state, tail, votes, n_seen), preds, vote_preds, masked
+
+
+def tick_chain(*args, **kwargs):
+    """K ticks of S sessions: dsp_frames -> encoder_chain -> vote_scan.
+
+    Takes ``(iir_state, tail, votes, n_seen, blocks, subset_masks, sos,
+    mean, std, folded, affines=None)``; all carry tensors lead with the
+    session axis and ``blocks`` is (K, S, factor, D). Returns ((iir_state,
+    tail, votes, n_seen), preds (K, S), votes (K, S), masked scores (K, S,
+    C))."""
+    return _chain(dsp_frames, fused_encoder_logits, vote_scan, *args, **kwargs)
+
+
+def tick_chain_reference(*args, **kwargs):
+    """Plain version of :func:`tick_chain`."""
+    return _chain(dsp_frames_reference, fused_encoder_logits_reference,
+                  vote_scan_reference, *args, **kwargs)
+
+
+def _single(chain, iir_state, tail, votes, n_seen, blocks, subset_mask, sos,
+            mean, std, folded):
+    """One session through ``chain`` as a batch of one."""
+    carry, preds, vote_preds, _ = chain(
+        iir_state[None], tail[None], votes[None], n_seen.reshape(1),
+        blocks[:, None], subset_mask[None], sos, mean, std, folded)
+    iir, tl, vw, ns = carry
+    return (iir[0], tl[0], vw[0], ns[0]), preds[:, 0], vote_preds[:, 0]
+
+
+def fused_tick_chain(*args):
+    """K ticks of one session (``pallas_ops.py:627`` signature):
+    ``(iir_state (n_sec, 2, D), tail (rms_window-1, D), votes (W,), n_seen
+    (), blocks (K, factor, D), subset_mask (C,) bool, sos, mean, std,
+    folded)``. Returns ((iir_state, tail, votes, n_seen), preds (K,), votes
+    (K,))."""
+    return _single(tick_chain, *args)
+
+
+def fused_tick_chain_reference(*args):
+    """Plain version of :func:`fused_tick_chain`."""
+    return _single(tick_chain_reference, *args)
+
+
+def fused_tick_chain_batched(iir_state, tail, votes, n_seen, blocks,
+                             subset_masks, sos, mean, std, shared, affines):
+    """K ticks of S sessions over the shared BN-free chain with
+    per-session affines (``pallas_ops.py:837`` signature, without the TPU's
+    ``session_block``). Returns ((iir_state, tail, votes, n_seen), preds
+    (K, S), votes (K, S))."""
+    return tick_chain(iir_state, tail, votes, n_seen, blocks, subset_masks,
+                      sos, mean, std, shared, affines)[:3]
+
+
+def fused_tick_chain_batched_reference(iir_state, tail, votes, n_seen,
+                                       blocks, subset_masks, sos, mean, std,
+                                       shared, affines):
+    """Plain version of :func:`fused_tick_chain_batched`."""
+    return tick_chain_reference(iir_state, tail, votes, n_seen, blocks,
+                                subset_masks, sos, mean, std, shared,
+                                affines)[:3]

@@ -1,0 +1,92 @@
+"""PyTorch port: package boundaries, config copy and the serve CLI
+(``contrastiveprosthetics_torch``)."""
+from __future__ import annotations
+
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import contrastiveprosthetics_torch
+from contrastiveprosthetics_torch import config as port_config
+from contrastiveprosthetics_torch.cli import serve as port_serve
+from contrastiveprosthetics_torch.ops import _build
+from contrastiveprosthetics_tpu import config as jax_config
+
+torch.set_num_threads(1)
+
+PKG = pathlib.Path(contrastiveprosthetics_torch.__file__).parent
+REPO = PKG.parent
+
+
+def test_port_imports_no_jax():
+    """(a) Importing the port and every submodule loads no jax, flax or
+    JAX-package module; no port source names the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import contrastiveprosthetics_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'contrastiveprosthetics_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    sources = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu")]
+    assert any(p.suffix == ".cu" for p in sources)
+    for path in sources:
+        assert "contrastiveprosthetics_tpu" not in path.read_text(), path
+
+
+def test_config_copy_matches_jax_config():
+    """(b) The port's own config values equal DEFAULT_CONFIG's."""
+    ours, theirs = port_config.DEFAULT_CONFIG, jax_config.DEFAULT_CONFIG
+    for name in ("hz", "factor", "rms_window", "prediction_window_size",
+                 "emg_dim", "glove_dim", "max_tasks"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+    assert port_config.INGEST_PRESCALE == jax_config.INGEST_PRESCALE == 2**10
+
+
+def test_kernel_sources_are_hashed_per_file():
+    """Each kernel builds into its own content-hashed library under the
+    git-ignored build directory."""
+    paths = {name: _build.library_path(name) for name in _build.KERNELS}
+    assert len(set(paths.values())) == len(_build.KERNELS)
+    for name, path in paths.items():
+        assert (_build.SRC_DIR / f"{name}.cu").exists()
+        assert path.parent == REPO / "build" / "kernels"
+    assert "build/" in (REPO / ".gitignore").read_text().split()
+
+
+@pytest.mark.parametrize("extra,shape", [
+    ([], (1, 25)),
+    (["--sessions", "3", "--replay", "--subset", "3,7,12"], (3, 25)),
+])
+def test_cli_demo_on_cpu_writes_npz(tmp_path, extra, shape):
+    """(h) ``cptorch-serve --demo --platform cpu`` writes its npz."""
+    out = tmp_path / "o.npz"
+    rc = port_serve.main(["--demo", "--platform", "cpu", "--seconds", "0.25",
+                          "--quiet", "--out", str(out), *extra])
+    assert rc == 0
+    with np.load(out) as z:
+        assert z["preds"].shape == z["votes"].shape == shape
+        if "--subset" in extra:
+            assert set(np.unique(z["votes"])) <= {3, 7, 12}
+
+
+def test_cli_default_platform_needs_a_gpu(monkeypatch):
+    """(h) The default platform is cuda, and without a GPU it raises
+    instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.delenv("CPTORCH_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_serve.main(["--demo", "--seconds", "0.1"])
+    monkeypatch.setenv("CPTORCH_PLATFORM", "cpu")
+    assert port_serve.main(["--demo", "--seconds", "0.1", "--quiet"]) == 0
