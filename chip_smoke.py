@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port's streaming serve path.
+"""Chip smoke test of the PyTorch/CUDA port: the streaming serve path and
+contrastive training.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from ``contrastiveprosthetics_torch/csrc``
-and drives the port at full model width (d_e=16, 64 conv features, 7 x 512
-dense, 41 classes) with weights from a seeded ``torch.Generator`` and raw
-recordings made with numpy from a seed:
+It builds the four CUDA kernel sources from
+``contrastiveprosthetics_torch/csrc`` and drives the port at full model
+width (d_e=16, 64 conv features, 7 x 512 dense, 41 classes) with weights
+from a seeded ``torch.Generator`` and raw recordings and synthetic data
+made with numpy from a seed:
 
 1. set-up: kernel build (seconds printed), the card's name and power limit;
 2. each kernel against its plain PyTorch version on the card, at the
@@ -23,14 +25,26 @@ recordings made with numpy from a seed:
 4. batched: 32,768 sessions (4 calibrated, with subset masks), one vote
    window of 25 ticks through ``BatchedStreamingEngine.steps``, held
    against the plain version;
-5. the ``cptorch-serve`` CLI on cuda, per tick and batched replay.
+5. the ``cptorch-serve`` CLI on cuda, per tick and batched replay;
+6. the K1 pair (``contrastive_loss_fwd``/``_bwd``) against its plain
+   version at the train step's N=8, T=41, d=16 and at a ragged N=3, and a
+   second run that must give the same bits;
+7. training at the canonical geometry: the synthetic store of all 46
+   people (DB3 view, D=1,800, bs 8: 225 steps per epoch); one ``_sgd_step``
+   with the kernels held against one with the plain loss; ``train_loop``
+   for 2 annealed epochs and ``run_test``, both accuracies above 0.5; one
+   epoch timed with CUDA events; a profiler trace of 20 steps by kernel
+   family; ``cptorch-train --synthetic`` on cuda, its checkpoint loaded
+   back strictly.
 
-Launch counts are reset just before phases 3 and 4 and read just after
-each; every kernel must have launched in both. TF32 is off throughout
+Launch counts are reset just before phases 3, 4 and 7's ``train_loop``
+and read just after each; every serve kernel must have launched in 3 and
+4, and each K1 kernel once per train step in 7. TF32 is off throughout
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set False), so the plain versions run
 in full f32. Any failure raises and the exit code is not 0. The last lines
-are the card line from nvidia-smi, one ``{"kernels": [...]}`` JSON line, and
+are ``{"single", "batched"}`` and ``{"train"}`` JSON lines, the card line
+from nvidia-smi, one ``{"kernels": [...]}`` JSON line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -38,6 +52,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -57,16 +72,41 @@ REPLACES = {
     "vote_scan": "contrastiveprosthetics_tpu/ops/pallas_ops.py:544 "
                  "(_tick_chain_kernel, vote part) and :746 "
                  "(_batched_tick_chain_kernel, vote part)",
+    "contrastive_loss_fwd": "contrastiveprosthetics_tpu/ops/pallas_ops.py:185 "
+                            "(_pallas_loss_call; body _loss_kernel :145)",
+    "contrastive_loss_bwd": "contrastiveprosthetics_tpu/ops/pallas_ops.py:213 "
+                            "(_pallas_bwd_call; body _bwd_kernel :169)",
 }
-SOURCES = {name: f"contrastiveprosthetics_torch/csrc/{name}.cu"
+SERVE_KERNELS = ("dsp_frames", "encoder_chain", "vote_scan")
+TRAIN_KERNELS = ("contrastive_loss_fwd", "contrastive_loss_bwd")
+SOURCES = {name: "contrastiveprosthetics_torch/csrc/"
+           f"{'contrastive_loss' if name in TRAIN_KERNELS else name}.cu"
            for name in REPLACES}
 # the CUDA functions each port kernel launches, as named in a profiler trace
 DEVICE_FUNCTIONS = {"dsp_frames_kernel": "dsp_frames",
                     "encoder_layer_kernel": "encoder_chain",
                     "encoder_head_kernel": "encoder_chain",
-                    "vote_scan_kernel": "vote_scan"}
+                    "vote_scan_kernel": "vote_scan",
+                    "contrastive_loss_fwd_kernel": "contrastive_loss_fwd",
+                    "contrastive_loss_bwd_kernel": "contrastive_loss_bwd"}
+# kernel families of a train step, by (lower-case) name fragment, in the
+# order they are tried
+TRAIN_FAMILIES = (
+    ("contrastive_loss_fwd", ("contrastive_loss_fwd",)),
+    ("contrastive_loss_bwd", ("contrastive_loss_bwd",)),
+    ("convolutions (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                              "winograd", "implicit")),
+    ("GEMMs (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "sm90_")),
+    ("Adam (foreach)", ("multi_tensor", "foreach")),
+    ("dropout random numbers", ("distribution", "philox", "rand")),
+    ("BatchNorm statistics and reductions", ("welford", "reduce",
+                                             "batch_norm")),
+    ("copies and fills", ("memcpy", "memset", "copy", "fill")),
+)
 SESSIONS = 32768  # the session count the JAX README gives one chip
 TICKS = 25        # one full vote window
+TRAIN_EPOCHS = 2
+CANONICAL = (1e-3, 1e-6, 0.5, 1e-3, 1e-6, 0.3)  # cli/train.py:189-190
 
 
 def log(msg: str) -> None:
@@ -99,7 +139,7 @@ def nbytes(*tensors) -> int:
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.double() - b.double()).abs().max())
+    return float((a.detach().double() - b.detach().double()).abs().max())
 
 
 def matmul_chain(frames, folded, affines):
@@ -154,6 +194,293 @@ def near_tie(scores: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Where the top two masked scores lie within ``eps``."""
     top2 = scores.topk(2, dim=-1).values
     return (top2[..., 0] - top2[..., 1]) < eps
+
+
+def family_of(name: str) -> str:
+    low = name.lower()
+    for family, parts in TRAIN_FAMILIES:
+        if any(part in low for part in parts):
+            return family
+    return "other elementwise (PyTorch ops)"
+
+
+def normalized(rng, shape, dev) -> torch.Tensor:
+    x = rng.standard_normal(shape).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    return torch.from_numpy(x).to(dev)
+
+
+def check_k1(K, dev) -> dict:
+    """Phase 6: the K1 pair against its plain version (forward, autograd
+    of the plain forward, and the closed-form plain backward) at N=8 and
+    N=3, T=41, d=16; a second run must give the same bits. Returns the
+    two ``kernels`` entries, timed at N=8."""
+    T, d = 41, 16
+    errs = {"contrastive_loss_fwd": {}, "contrastive_loss_bwd": {}}
+    for N in (8, 3):
+        rng = np.random.default_rng(100 + N)
+        e = normalized(rng, (N, T, d), dev).requires_grad_()
+        g = normalized(rng, (N, T, d), dev).requires_grad_()
+        loss, correct = K.fused_contrastive_loss(e, g)
+        de, dg = torch.autograd.grad(loss, (e, g))
+        loss_p, correct_p = K.fused_contrastive_reference(e, g)
+        de_p, dg_p = torch.autograd.grad(loss_p, (e, g))
+        one = torch.ones(1, device=dev)
+        with torch.no_grad():
+            de_w, dg_w = K.contrastive_loss_bwd_reference(e, g, one)
+            again = K.contrastive_loss_fwd(e.detach(), g.detach())
+            de2, dg2 = K.contrastive_loss_bwd(e.detach(), g.detach(), one)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+        if float(correct) != float(correct_p):
+            raise AssertionError(f"K1f correct {float(correct)} against "
+                                 f"{float(correct_p)} at N={N}")
+        for got, want in ((de, de_p), (dg, dg_p), (de, de_w), (dg, dg_w)):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+        if not (torch.equal(again[0], loss) and torch.equal(again[1], correct)
+                and torch.equal(de2, de) and torch.equal(dg2, dg)):
+            raise AssertionError(f"K1 is not bit-identical on a rerun, N={N}")
+        errs["contrastive_loss_fwd"][f"N={N}"] = max_abs(loss, loss_p)
+        errs["contrastive_loss_bwd"][f"N={N}"] = max(
+            max_abs(de, de_p), max_abs(dg, dg_p), max_abs(de, de_w),
+            max_abs(dg, dg_w))
+    N = 8
+    rng = np.random.default_rng(108)
+    e, g = normalized(rng, (N, T, d), dev), normalized(rng, (N, T, d), dev)
+    one = torch.ones(1, device=dev)
+    de, dg = K.contrastive_loss_bwd(e, g, one)
+    # operations: the logits (2 T^2 d), then ~6 per logit for the two
+    # softmaxes; the backward recomputes both and adds 2 x 2 T^2 d and ~4
+    # per logit for dlogits
+    fwd_b = bound_ms(nbytes(e, g) + 8, N * (2 * T * T * d + 6 * T * T))
+    bwd_b = bound_ms(nbytes(e, g, one, de, dg),
+                     N * (6 * T * T * d + 10 * T * T))
+    no_library = ("no single PyTorch call computes the symmetric "
+                  "contrastive loss with its first-max count, or its "
+                  "gradient")
+    entries = {}
+    with torch.no_grad():
+        for name, kernel, plain, (b, by), tol in (
+                ("contrastive_loss_fwd", lambda: K.contrastive_loss_fwd(e, g),
+                 lambda: K.fused_contrastive_reference(e, g), fwd_b,
+                 "loss rtol 1e-5, correct exact, a rerun bit-identical"),
+                ("contrastive_loss_bwd",
+                 lambda: K.contrastive_loss_bwd(e, g, one),
+                 lambda: K.contrastive_loss_bwd_reference(e, g, one), bwd_b,
+                 "de, dg rtol 1e-4 atol 1e-6 (test_pallas.py:58-59) against "
+                 "autograd of the plain forward and the closed form; a "
+                 "rerun bit-identical")):
+            entries[name] = dict(
+                route="cuda", max_abs_err=max(errs[name].values()),
+                max_abs_err_parts=errs[name], tolerance=tol,
+                ms=time_ms(kernel, reps=200, warmup=5),
+                plain_ms=time_ms(plain, reps=200, warmup=5),
+                bound_ms=b, bound_by=by, library_ms=None,
+                library_note=no_library,
+                shape=f"N={N} T={T} d={d} (also checked at N=3)")
+    log(f"[kernels] contrastive_loss_fwd/bwd ok at N=8 and N=3: "
+        f"{json.dumps(errs)}; reruns bit-identical")
+    return entries
+
+
+def trace_train_steps(trainer, state, hyper, n: int) -> dict:
+    """Profiler trace of ``n`` train steps (one ``train_epoch_from_indices``
+    call, synchronised once at the end, as an epoch runs): device time per
+    step by kernel family against the wall time per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from contrastiveprosthetics_torch.data.sampler import (
+        epoch_batches,
+        task_permutations,
+    )
+
+    v, dev = trainer.view_train, trainer.device
+    gen = trainer.generator(13)
+    emg_rand = task_permutations(gen, v.n_tasks, v.D)
+    batches, _ = epoch_batches(gen, v.D, trainer.batch_size)
+    none = batches.new_empty(0)
+    trainer.train_epoch_from_indices(state, emg_rand, batches[:2], none,
+                                     hyper, 1.0, 1.0, gen)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch_from_indices(state, emg_rand, batches[2:2 + n],
+                                         none, hyper, 1.0, 1.0, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    device_ms: dict = {}
+    launches: dict = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        family = family_of(ev.name)
+        device_ms[family] = device_ms.get(family, 0.0) + (
+            ev.time_range.end - ev.time_range.start) / 1e3 / n
+        launches[family] = launches.get(family, 0) + 1
+    busy = sum(device_ms.values())
+    k1 = sum(device_ms.get(k, 0.0) for k in TRAIN_KERNELS)
+    # the host side: self CPU time per step of the busiest operators
+    ops = [ev for ev in prof.key_averages() if ev.self_cpu_time_total > 0]
+    ops.sort(key=lambda ev: ev.self_cpu_time_total, reverse=True)
+    host_ms = {ev.key: ev.self_cpu_time_total / 1e3 / n for ev in ops[:15]}
+    host_calls = {ev.key: ev.count / n for ev in ops[:15]}
+    return dict(steps=n, wall_ms_per_step_traced=wall_ms,
+                host_self_ms_per_step=sum(ev.self_cpu_time_total
+                                          for ev in ops) / 1e3 / n,
+                host_self_ms_by_op_top15=host_ms,
+                host_calls_per_step_top15=host_calls,
+                device_ms_per_step=busy if busy > 0 else None,
+                device_ms_by_family=device_ms,
+                device_launches_per_step={k: c / n for k, c in
+                                          launches.items()},
+                device_idle_share=1 - busy / wall_ms if busy > 0 else None,
+                k1_share_of_device_time=k1 / busy if busy > 0 else None,
+                k1_share_of_wall=k1 / wall_ms)
+
+
+def train_phase(K, dev) -> tuple[dict, dict]:
+    """Phase 7: training at full width and the canonical geometry. Returns
+    the ``train`` results and the K1 launch counts of ``train_loop``."""
+    from contrastiveprosthetics_torch.cli import train as cli_train
+    from contrastiveprosthetics_torch.config import DEFAULT_CONFIG as cfg
+    from contrastiveprosthetics_torch.data.sampler import (
+        gather_train_batch,
+        task_permutations,
+    )
+    from contrastiveprosthetics_torch.data.store import DeviceStore
+    from contrastiveprosthetics_torch.data.synthetic import (
+        make_processed_dataset,
+    )
+    from contrastiveprosthetics_torch.models.convert import (
+        load_reference_checkpoint,
+        model_from_state_dict,
+    )
+    from contrastiveprosthetics_torch.train import engine
+    from contrastiveprosthetics_torch.train.loop import run_test, train_loop
+
+    t0 = time.perf_counter()
+    emg, pos, glove = make_processed_dataset(cfg)
+    store = DeviceStore(cfg, emg, pos, glove, device=dev)
+    trainer = engine.Trainer(cfg, store, adabn=False, batch_size=8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    v = trainer.view_train
+    if v.D != 1800:
+        raise AssertionError(f"DB3 train view has D={v.D}, want 1800")
+    steps_per_epoch = -(-v.D // trainer.batch_size)
+    hyper = engine.Hyper.single(*CANONICAL)
+    log(f"[train] store of {len(pos)} people on the card "
+        f"({nbytes(store.emg) / 1e6:.1f} MB), DB3 train D={v.D}, "
+        f"{steps_per_epoch} steps per epoch; set-up {setup_s:.2f} s")
+
+    # one step with the kernels and one with the plain loss, from the same
+    # seeded state, batch and dropout masks
+    gen = trainer.generator(7)
+    emg_rand = task_permutations(gen, v.n_tasks, v.D)
+    items = torch.randperm(v.D, generator=gen, device=dev)[:8]
+    emg_b = gather_train_batch(v.emg_flat, emg_rand, items)
+    steps = {}
+    for name, loss_fn in (("kernel", K.fused_contrastive_loss),
+                          ("plain", K.fused_contrastive_reference)):
+        engine.fused_contrastive_loss = loss_fn
+        try:
+            state = trainer.init_state(trainer.generator(0))
+            steps[name] = trainer.loss_and_grads(state, emg_b, hyper,
+                                                 trainer.generator(1))
+        finally:
+            engine.fused_contrastive_loss = K.fused_contrastive_loss
+    torch.cuda.synchronize()
+    (loss_k, _, grads_k), (loss_p, _, grads_p) = steps["kernel"], steps["plain"]
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+    grad_err = 0.0
+    for tower in grads_k:
+        for a, b in zip(grads_k[tower], grads_p[tower]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+            grad_err = max(grad_err, max_abs(a, b))
+    log(f"[train] one _sgd_step, kernel against plain loss: loss "
+        f"{float(loss_k):.6f} vs {float(loss_p):.6f}, max grad err "
+        f"{grad_err:.3g}")
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_loop(trainer, hyper, TRAIN_EPOCHS, seed=0, annealing=True,
+                     verbose=False)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = {name: K.launch_counts[name] for name in TRAIN_KERNELS}
+    n_steps = TRAIN_EPOCHS * steps_per_epoch
+    if any(c != n_steps for c in counts.values()):
+        raise AssertionError(f"K1 launches {counts}, want {n_steps} each")
+    test = run_test(trainer, res.state, hyper, trainer.generator(5))
+    D_test = trainer.view_test.D
+    if not (np.isfinite(res.train_losses).all()
+            and res.train_losses[-1] < res.train_losses[0]):
+        raise AssertionError(f"train losses {res.train_losses}")
+    if res.train_accs[-1] <= 0.5 or float(test.accuracy) <= 0.5:
+        raise AssertionError(f"train acc {res.train_accs[-1]}, test acc "
+                             f"{float(test.accuracy)}: not above 0.5")
+    if not (test.curve.shape == (D_test, cfg.n_voting_cols)
+            and test.y_pred.shape == (D_test, cfg.max_tasks)
+            and test.logits.shape == (D_test * 25, 41, 41)
+            and bool(torch.isfinite(test.logits).all())):
+        raise AssertionError("test outputs have the wrong shape or are "
+                             "not finite")
+    log(f"[train] train_loop {TRAIN_EPOCHS} epochs ({n_steps} steps) in "
+        f"{loop_s:.2f} s: losses {res.train_losses}, accs "
+        f"{res.train_accs}, val loss {res.val_loss:.4f} acc "
+        f"{res.val_acc:.4f}; test loss {float(test.loss):.4f} voted acc "
+        f"{float(test.accuracy):.4f}; launches {counts}")
+
+    state = res.state
+    gen = trainer.generator(11)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    trainer.train_epoch(state, gen, hyper)
+    end.record()
+    torch.cuda.synchronize()
+    epoch_wall_ms = (time.perf_counter() - t0) * 1e3
+    epoch_ms = start.elapsed_time(end)
+    windows = trainer.batch_size * v.n_tasks * steps_per_epoch
+    trace = trace_train_steps(trainer, state, hyper, 20)
+    log(f"[train] one epoch: {epoch_ms:.3f} ms by CUDA events "
+        f"({epoch_ms / steps_per_epoch:.5f} ms/step, "
+        f"{windows / epoch_ms * 1e3:.1f} train windows/s); "
+        f"profiler trace of 20 steps: {json.dumps(trace)}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--crossval_size", "0", "--final_epochs", "1",
+                "--batch_size", "8", "--test", "--no_adabn", "--data_dir",
+                tmp, "--checkpoint_dir", tmp]
+        if cli_train.main(argv) != 0:
+            raise AssertionError("cptorch-train failed")
+        model = model_from_state_dict(
+            load_reference_checkpoint(f"{tmp}/contrastive.pt"))
+    if model.adabn:
+        raise AssertionError("cptorch-train --no_adabn wrote an AdaBN model")
+    log("[cli] cptorch-train --synthetic --crossval_size 0 --final_epochs 1 "
+        "--batch_size 8 --test --no_adabn ok on cuda; contrastive.pt loads "
+        "strictly")
+    train_res = dict(
+        geometry=dict(batch_size=8, n_tasks=v.n_tasks, D=v.D,
+                      steps_per_epoch=steps_per_epoch,
+                      windows_per_step=trainer.batch_size * v.n_tasks),
+        setup_s=setup_s, step_check=dict(
+            loss_kernel=float(loss_k), loss_plain=float(loss_p),
+            max_grad_abs_err=grad_err, tolerance="loss rtol 1e-5, grads "
+            "rtol 1e-4 atol 1e-6"),
+        train_loop_s=loop_s, train_losses=res.train_losses,
+        train_accs=res.train_accs, val_loss=res.val_loss,
+        val_acc=res.val_acc, test_loss=float(test.loss),
+        test_acc=float(test.accuracy), k1_launches=counts, steps=n_steps,
+        epoch_ms=epoch_ms, epoch_wall_ms=epoch_wall_ms,
+        ms_per_step=epoch_ms / steps_per_epoch,
+        train_windows_per_s=windows / epoch_ms * 1e3, step_trace=trace)
+    return train_res, counts
 
 
 def main() -> int:
@@ -368,7 +695,7 @@ def main() -> int:
                                                 batch_blocks, masks)
     torch.cuda.synchronize()
     batched_counts = dict(K.launch_counts)
-    for name in K.launch_counts:
+    for name in SERVE_KERNELS:
         if not single_counts[name] or not batched_counts[name]:
             raise AssertionError(f"{name} never launched on the main path: "
                                  f"{single_counts} {batched_counts}")
@@ -418,15 +745,29 @@ def main() -> int:
     log("[cli] cptorch-serve --demo --sessions 1 and --sessions 64 "
         "--replay ok on cuda")
 
+    # ------------------------------------------------ 6. the K1 kernels
+    entries.update(check_k1(K, dev))
+
+    # ---------------------------------------------------------- 7. train
+    train_res, train_counts = train_phase(K, dev)
+
     for name, entry in entries.items():
+        if name in TRAIN_KERNELS:
+            by_path = {"train": train_counts[name]}
+            fam = train_res["step_trace"]["device_ms_by_family"]
+            per = train_res["step_trace"]["device_launches_per_step"]
+            entry["device_ms_per_launch_traced"] = (
+                fam[name] / per[name] if per.get(name) else None)
+        else:
+            by_path = {"single": single_counts[name],
+                       "batched": batched_counts[name]}
         entry.update(name=name, source=SOURCES[name], replaces=REPLACES[name],
-                     kernel_ms=entry["ms"],
-                     launches=single_counts[name] + batched_counts[name],
-                     launches_by_path={"single": single_counts[name],
-                                       "batched": batched_counts[name]},
+                     kernel_ms=entry["ms"], launches=sum(by_path.values()),
+                     launches_by_path=by_path,
                      peaks={"f32_flops": PEAK_F32_FLOPS,
                             "bytes_per_s": PEAK_BYTES_PER_S})
     print(json.dumps({"single": single_res, "batched": batched_res}))
+    print(json.dumps({"train": train_res}))
     print(card)
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {

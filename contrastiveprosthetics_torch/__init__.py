@@ -1,9 +1,12 @@
-"""PyTorch/CUDA port of the contrastive sEMG serving path.
+"""PyTorch/CUDA port of the contrastive sEMG system.
 
-The package mirrors the JAX package's file names so each
-module's counterpart is easy to find, but it imports only torch, numpy and
-scipy. Its hot path (the streaming tick chain) runs three hand-written CUDA
-kernels for Hopper (``csrc/``), each with a plain PyTorch version beside it
+The package mirrors the JAX package's file names so each module's
+counterpart is easy to find, but it imports only torch, numpy and scipy.
+Two paths are ported: streaming serve (``serve/stream.py``,
+``cptorch-serve``), whose tick chain runs three hand-written CUDA kernels,
+and contrastive training (``train/``, ``cptorch-train``), whose loss and
+its gradient run the hand-written K1 pair. The kernels are Hopper CUDA C++
+(``csrc/``), each with a plain PyTorch version beside it
 (``ops/kernels.py``).
 
 Entry points run on the CUDA device unless the caller asks for the CPU

@@ -1,0 +1,142 @@
+"""Training CLI (``cptorch-train``), the port of ``cptpu-train``.
+
+Keeps the reference's flags (``train.py:251-268``; the ``--no_*`` flags
+are ``store_false``: passing one switches the feature off), less
+``--crossval_epochs``, which only the unported sweep reads, and adds
+``--data_dir``, ``--checkpoint_dir``, ``--synthetic`` (fabricated,
+class-separable data), ``--seed``, ``--crossval_id``, ``--compat`` and
+``--platform`` (cuda by default).
+
+Flow (``train.py:168-249``): load the store -> hyperparameters
+(``--crossval_size 0``: the canonical ones; ``--crossval_load``: the
+cached sweep) -> final annealed train, checkpointing on val loss -> reload
+the best checkpoint -> ``--test``. The sweep itself, ``--prediction`` and
+``--glove`` are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from contrastiveprosthetics_torch.device import add_platform_flag, select_device
+
+NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
+              "(ROADMAP.md, queue 1 item {item}); {hint}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Training on ninapro dataset")
+    p.add_argument("--crossval_size", type=int, default=10)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--final_epochs", type=int, default=10)
+    p.add_argument("--glove", action="store_true")
+    p.add_argument("--db2", action="store_true")
+    p.add_argument("--load_model", action="store_true")
+    p.add_argument("--crossval_load", action="store_true")
+    p.add_argument("--prediction", action="store_true")
+    p.add_argument("--no_adabn", action="store_false")
+    p.add_argument("--no_checkpoint", action="store_false")
+    p.add_argument("--no_verbose", action="store_false")
+    p.add_argument("--test", action="store_true")
+    p.add_argument("--data_dir", type=str, default="data")
+    p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on fabricated class-separable data")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--crossval_id", type=str, default="",
+                   help="suffix of cross_val_{keys,values}<id>.npy")
+    p.add_argument("--compat", action="store_true",
+                   help="reproduce every reference quirk (config.py)")
+    add_platform_flag(p)
+    return p
+
+
+def build_store(args, cfg, device):
+    from contrastiveprosthetics_torch.data.store import DeviceStore
+    from contrastiveprosthetics_torch.data.synthetic import (
+        make_processed_dataset,
+    )
+
+    if args.synthetic:
+        emg, pos, glove = make_processed_dataset(cfg)
+        return DeviceStore(cfg, emg, pos, glove, device=device)
+    return DeviceStore.load(cfg, args.data_dir, device=device)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.prediction or args.glove:
+        raise SystemExit(NOT_PORTED.format(
+            what="--prediction/--glove training", item=3,
+            hint="only contrastive training with the one-hot class encoder "
+                 "runs"))
+    cache = os.path.join(args.data_dir,
+                         f"cross_val_values{args.crossval_id}.npy")
+    if args.crossval_size >= 1 and not (args.crossval_load
+                                        and os.path.exists(cache)):
+        raise SystemExit(NOT_PORTED.format(
+            what="the crossval sweep", item=8,
+            hint="pass --crossval_size 0 (canonical hyperparameters) or "
+                 "--crossval_load with a cached sweep"))
+    device = select_device(args.platform)
+
+    from contrastiveprosthetics_torch.config import DEFAULT_CONFIG, compat_config
+    from contrastiveprosthetics_torch.train.checkpoint import load_checkpoint
+    from contrastiveprosthetics_torch.train.crossval import (
+        best_config,
+        hyper_from_key,
+        keys_array,
+        load_crossval,
+    )
+    from contrastiveprosthetics_torch.train.engine import Hyper, Trainer
+    from contrastiveprosthetics_torch.train.loop import run_test, train_loop
+
+    cfg = compat_config(DEFAULT_CONFIG) if args.compat else DEFAULT_CONFIG
+    print("Loading dataset")
+    store = build_store(args, cfg, device)
+    trainer = Trainer(cfg, store, db2=args.db2, adabn=args.no_adabn,
+                      batch_size=args.batch_size)
+    print("Dataset loaded")
+
+    if args.crossval_size >= 1:
+        values, keys = load_crossval(args.data_dir, id_=args.crossval_id)
+    else:
+        print("crossval skipped (--crossval_size 0): canonical "
+              "hyperparameters")
+        canonical = Hyper(*[[v] for v in (1e-3, 1e-6, 0.5, 1e-3, 1e-6, 0.3)])
+        keys = keys_array(canonical, trainer.d_e)
+        values = np.zeros((1, 2))
+    best_key = best_config(values, keys)
+    print(f"Best combination: {best_key}")
+    _, hyper = hyper_from_key(best_key)
+    if args.load_model:
+        tenth = lambda lr: float(np.float32(lr) / np.float32(10))  # noqa: E731
+        hyper = hyper._replace(lr_emg=tenth(hyper.lr_emg),
+                               lr_glove=tenth(hyper.lr_glove))
+
+    ckpt_path = os.path.join(args.checkpoint_dir, "contrastive.pt")
+    init_state = None
+    if args.load_model and os.path.exists(ckpt_path):
+        print("Loading model")
+        init_state = load_checkpoint(ckpt_path, device)
+    res = train_loop(trainer, hyper, epochs=args.final_epochs,
+                     seed=args.seed, annealing=True,
+                     checkpoint=args.no_checkpoint, checkpoint_path=ckpt_path,
+                     init_state=init_state, verbose=args.no_verbose)
+    print("Final validation model statistics")
+    print(f"val loss {res.val_loss:.4f}  val acc {res.val_acc:.6f}")
+
+    state = res.state
+    if args.no_checkpoint and os.path.exists(ckpt_path):
+        state = load_checkpoint(ckpt_path, device)
+    if args.test:
+        t = run_test(trainer, state, hyper, trainer.generator(args.seed + 5))
+        print("loss,\t\t\tcorrect")
+        print((float(t.loss), float(t.accuracy)))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

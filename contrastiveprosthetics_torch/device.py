@@ -29,6 +29,13 @@ def select_device(choice: str | None = None) -> torch.device:
     return torch.device(resolved)
 
 
+def f32_convolutions():
+    """A context with cuDNN's TF32 convolutions off: they default to TF32
+    (about three decimal digits), and the port's training, evaluation and
+    calibration passes run in f32, as the JAX package's do."""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+
+
 def add_platform_flag(parser) -> None:
     """Attach the shared ``--platform`` flag to a CLI parser."""
     parser.add_argument(

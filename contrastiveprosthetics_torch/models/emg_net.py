@@ -6,14 +6,21 @@ BN -> flatten (768, channel-major ``c*12+p``) -> ``n_linear`` x [Dense ->
 ReLU -> BN (+ Dropout on the last 4 blocks)] -> Dense(hidden->d_e, no
 bias). The Sequential indices are the reference's, Dropout and ReLU
 included, so the state_dict keys are the reference's
-(``train/torch_export.py:189-218`` of the JAX package).
+(``train/torch_export.py:189-218`` of the JAX package). The dropout rate
+is a forward argument (the JAX package's ``RateDropout``), so one module
+trains at any rate.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from contrastiveprosthetics_torch.models.layers import AdaBN, BatchNorm, make_norm
+from contrastiveprosthetics_torch.models.layers import (
+    AdaBN,
+    BatchNorm,
+    RateDropout,
+    make_norm,
+)
 
 
 class EMGNet(nn.Module):
@@ -38,7 +45,7 @@ class EMGNet(nn.Module):
             blocks += [nn.Linear(width, hidden, device=device), nn.ReLU(),
                        make_norm(hidden, adabn, device)]
             if i >= n_linear - 4:  # dropout on the last 4 blocks
-                blocks.append(nn.Dropout(0.0))
+                blocks.append(RateDropout())
             width = hidden
         self.linear = nn.Sequential(*blocks)
         self.last = nn.Sequential(
@@ -48,11 +55,19 @@ class EMGNet(nn.Module):
         """The BatchNorm layers in forward order (2 conv + n_linear)."""
         return [m for m in self.modules() if isinstance(m, BatchNorm)]
 
-    def forward(self, frames: torch.Tensor,
-                collect: list | None = None) -> torch.Tensor:
+    def forward(self, frames: torch.Tensor, collect: list | None = None,
+                dropout: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """(rows, emg_dim) frames -> (rows, d_e) unnormalized embeddings.
-        ``collect`` gathers each BatchNorm's batch statistics."""
+        ``collect`` gathers each BatchNorm's batch statistics; in train
+        mode the dropout layers drop at rate ``dropout`` with masks drawn
+        from ``generator``."""
         x = frames.reshape(-1, 1, 1, self.emg_dim)
         for m in (*self.conv_emg, *self.linear, *self.last):
-            x = m(x, collect) if isinstance(m, (BatchNorm, AdaBN)) else m(x)
+            if isinstance(m, (BatchNorm, AdaBN)):
+                x = m(x, collect)
+            elif isinstance(m, RateDropout):
+                x = m(x, dropout, generator)
+            else:
+                x = m(x)
         return x

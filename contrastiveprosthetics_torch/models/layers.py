@@ -5,13 +5,21 @@
 the JAX package's flax BatchNorm does (``models/layers.py:91-113``):
 
 * inference: ``(x - mean) * (weight * rsqrt(var + eps)) + bias``;
-* batch statistics: ``mean = E[x]``, ``var = max(0, E[x^2] - E[x]^2)``,
-  the *biased* variance. ``nn.BatchNorm``'s running update uses the
-  unbiased one, so the calibration update is written out here
-  (:func:`update_running`), not left to torch.
+* batch statistics: the mean and the *biased* variance (flax's
+  ``E[x^2] - E[x]^2``, taken here in one Welford pass, see
+  :meth:`BatchNorm.batch_stats`). ``nn.BatchNorm``'s running update uses the
+  unbiased one, so the update is written out here
+  (:func:`update_running`, flax momentum 0.9), not left to torch. A
+  train-mode forward of a plain BatchNorm moves its running statistics
+  toward the batch's, outside autograd, as a flax train step with
+  ``mutable=["batch_stats"]`` does; a calibration pass (``collect``)
+  leaves them to its caller.
 
 ``AdaBN`` (reference ``models.py:17-35``) wraps a stat-less BatchNorm in a
 ``.bn`` submodule and always normalizes with the current batch.
+
+``RateDropout`` takes its rate as a call argument and its keep mask from
+the caller's generator (the JAX package's ``models/layers.py:116-127``).
 """
 from __future__ import annotations
 
@@ -45,11 +53,14 @@ class BatchNorm(nn.Module):
         return [1, -1] + [1] * (x.dim() - 2)
 
     def batch_stats(self, x: torch.Tensor):
-        """Per-channel (mean, biased var) of ``x``, as flax computes them."""
+        """Per-channel (mean, biased var) of ``x``. flax takes
+        ``E[x^2] - E[x]^2`` with XLA's pairwise sums; PyTorch's CPU sum
+        over the row axis is sequential, so a few thousand rows lose
+        digits that way. One Welford pass keeps both within f32 roundoff
+        of the exact statistics."""
         dims = [0] + list(range(2, x.dim()))
-        mean = x.mean(dim=dims)
-        mean2 = (x * x).mean(dim=dims)
-        return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+        var, mean = torch.var_mean(x, dim=dims, correction=0)
+        return mean, var
 
     def normalize(self, x, mean, var) -> torch.Tensor:
         shape = self._shape(x)
@@ -59,11 +70,19 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, collect: list | None = None):
         """Batch statistics in train mode or without running stats,
         running averages otherwise. ``collect``, when given, receives each
-        batch's (mean, var) in layer order (the calibration pass)."""
+        batch's (mean, var) in layer order (the calibration pass) and the
+        running statistics stay as they are; without it a train-mode
+        forward updates them."""
         if self.training or not self.track_running_stats:
             mean, var = self.batch_stats(x)
             if collect is not None:
                 collect.append((mean, var))
+            elif self.training and self.track_running_stats:
+                with torch.no_grad():
+                    self.running_mean.copy_(
+                        update_running(self.running_mean, mean))
+                    self.running_var.copy_(
+                        update_running(self.running_var, var))
             return self.normalize(x, mean, var)
         return self.normalize(x, self.running_mean, self.running_var)
 
@@ -79,6 +98,24 @@ class AdaBN(nn.Module):
 
     def forward(self, x, collect: list | None = None):
         return self.bn(x, collect)
+
+
+class RateDropout(nn.Module):
+    """Inverted dropout whose rate is a call argument: keep each value
+    with probability ``1 - rate`` (mask from ``generator``) and scale the
+    kept ones by ``1 / (1 - rate)``. The identity at rate 0 and in eval
+    mode."""
+
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout at a nonzero rate needs an explicit "
+                             "torch.Generator for its mask")
+        keep = 1.0 - rate
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
 
 
 def make_norm(num_features: int, adabn: bool, device=None) -> nn.Module:

@@ -1,4 +1,5 @@
-"""The serve path's kernels and the folds that feed them.
+"""The port's kernels: the serve path's three, the train step's fused
+contrastive loss, and the folds that feed the serve kernels.
 
 Counterpart of the JAX package's ``ops/pallas_ops.py`` sections 2-4. On the
 TPU the tick chain was one Pallas kernel whose sequential grid step was the
@@ -14,6 +15,11 @@ Hopper (``csrc/``):
   chain, 9 tiled-GEMM layer launches and 1 head launch;
 * ``vote_scan``: masked first-max prediction and the majority vote, one
   thread per session walking the ticks in order.
+
+The train step's K1 pair (``pallas_ops.py:185,213``) is
+:func:`fused_contrastive_loss`, a ``torch.autograd.Function`` whose forward
+launches ``contrastive_loss_fwd`` and whose backward launches
+``contrastive_loss_bwd`` (``csrc/contrastive_loss.cu``).
 
 Every wrapper has its plain PyTorch version beside it (``*_reference``),
 which repeats the kernel's arithmetic with ``torch.matmul`` and loops. A
@@ -38,7 +44,8 @@ from contrastiveprosthetics_torch.ops import _build
 
 NEG = torch.finfo(torch.float32).min  # the mask value of stream.py:268
 
-launch_counts = {"dsp_frames": 0, "encoder_chain": 0, "vote_scan": 0}
+launch_counts = {"dsp_frames": 0, "encoder_chain": 0, "vote_scan": 0,
+                 "contrastive_loss_fwd": 0, "contrastive_loss_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -153,11 +160,16 @@ def _expect(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
+# launcher -> (library, C symbol, pointers, ints, has a float argument)
 _SIGNATURES = {
-    "dsp_frames": ("dsp_frames_launch", 9, 6, True),
-    "encoder_layer": ("encoder_layer_launch", 6, 4, False),
-    "encoder_head": ("encoder_head_launch", 5, 4, False),
-    "vote_scan": ("vote_scan_launch", 8, 4, False),
+    "dsp_frames": ("dsp_frames", "dsp_frames_launch", 9, 6, True),
+    "encoder_layer": ("encoder_chain", "encoder_layer_launch", 6, 4, False),
+    "encoder_head": ("encoder_chain", "encoder_head_launch", 5, 4, False),
+    "vote_scan": ("vote_scan", "vote_scan_launch", 8, 4, False),
+    "contrastive_loss_fwd": ("contrastive_loss", "contrastive_loss_fwd_launch",
+                             5, 3, False),
+    "contrastive_loss_bwd": ("contrastive_loss", "contrastive_loss_bwd_launch",
+                             5, 3, False),
 }
 
 
@@ -168,10 +180,8 @@ def _fn(name: str):
     """The C launcher ``name`` with its ctypes signature: pointers, ints,
     an optional float, then the stream; returns the cudaError_t."""
     if name not in _fns:
-        symbol, n_ptr, n_int, has_float = _SIGNATURES[name]
-        lib = _build.load("encoder_chain" if name.startswith("encoder")
-                          else name)
-        fn = getattr(lib, symbol)
+        library, symbol, n_ptr, n_int, has_float = _SIGNATURES[name]
+        fn = getattr(_build.load(library), symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + ([ctypes.c_float] if has_float else [])
                        + [ctypes.c_void_p])
@@ -423,3 +433,97 @@ def fused_tick_chain_batched_reference(iir_state, tail, votes, n_seen,
     return tick_chain_reference(iir_state, tail, votes, n_seen, blocks,
                                 subset_masks, sos, mean, std, shared,
                                 affines)[:3]
+
+
+# ------------------------------------------------------ contrastive loss
+CONTRASTIVE_MAX_T = CONTRASTIVE_MAX_D = 64  # what one block holds (csrc)
+
+
+def fused_contrastive_reference(e, g):
+    """Plain version of the K1 forward: ``e``, ``g`` (N, T, d) normalized
+    -> (mean over items of the symmetric CE, number of rows whose first
+    maximum is the diagonal, f32) (``pallas_ops.py:1019-1031``)."""
+    logits = torch.bmm(e, g.transpose(1, 2))
+    T = logits.shape[-1]
+    diag_r = torch.log_softmax(logits, dim=-1).diagonal(dim1=-2, dim2=-1)
+    diag_c = torch.log_softmax(logits, dim=-2).diagonal(dim1=-2, dim2=-1)
+    loss = -(diag_r.sum(-1) + diag_c.sum(-1)) / (2.0 * T)
+    labels = torch.arange(T, device=e.device)
+    correct = (logits.argmax(dim=-1) == labels).sum().to(torch.float32)
+    return loss.mean(), correct
+
+
+def contrastive_loss_bwd_reference(e, g, dloss):
+    """Plain version of the K1 backward: the gradient of the mean loss,
+    times the upstream scalar ``dloss``, written out as the TPU kernel
+    computes it (``pallas_ops.py:169-182``): dlogits = (softmax_row - I +
+    softmax_col - I) / (2T N), de = dlogits g, dg = dlogits^T e."""
+    N, T, _ = e.shape
+    logits = torch.bmm(e, g.transpose(1, 2))
+    eye = torch.eye(T, device=e.device)
+    denom = logits.new_tensor(2.0 * T * N)  # a tensor: exact division
+    dl = (torch.softmax(logits, -1) - eye + torch.softmax(logits, -2) - eye
+          ) / denom
+    return (torch.bmm(dl, g) * dloss, torch.bmm(dl.transpose(1, 2), e) * dloss)
+
+
+def _check_contrastive(e, g) -> tuple[int, int, int]:
+    if e.dim() != 3:
+        raise ValueError(f"e: shape {tuple(e.shape)}, want (N, T, d)")
+    N, T, d = e.shape
+    if N < 1 or not 1 <= T <= CONTRASTIVE_MAX_T or not 1 <= d <= CONTRASTIVE_MAX_D:
+        raise ValueError(f"contrastive loss kernel takes N >= 1 and T, d in "
+                         f"[1, {CONTRASTIVE_MAX_T}]; got {(N, T, d)}")
+    _expect("e", e, (N, T, d), torch.float32, e.device)
+    _expect("g", g, (N, T, d), torch.float32, e.device)
+    return N, T, d
+
+
+def contrastive_loss_fwd(e, g):
+    """The ``contrastive_loss_fwd`` kernel on CUDA tensors: (loss,
+    correct), both 0-d f32 on the card."""
+    N, T, d = _check_contrastive(e, g)
+    dev = e.device
+    items = torch.empty((2, N), dtype=torch.float32, device=dev)
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    _launch("contrastive_loss_fwd", "contrastive_loss_fwd", _ptr(e), _ptr(g),
+            _ptr(items), _ptr(ticket), _ptr(out), N, T, d, _stream(dev))
+    return out[0], out[1]
+
+
+def contrastive_loss_bwd(e, g, dloss):
+    """The ``contrastive_loss_bwd`` kernel on CUDA tensors: (de, dg) for
+    the upstream scalar ``dloss``, read on the card."""
+    N, T, d = _check_contrastive(e, g)
+    dloss = dloss.reshape(1)
+    _expect("dloss", dloss, (1,), torch.float32, e.device)
+    de, dg = torch.empty_like(e), torch.empty_like(g)
+    _launch("contrastive_loss_bwd", "contrastive_loss_bwd", _ptr(e), _ptr(g),
+            _ptr(dloss), _ptr(de), _ptr(dg), N, T, d, _stream(e.device))
+    return de, dg
+
+
+class _FusedContrastiveLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, e, g):
+        loss, correct = contrastive_loss_fwd(e, g)
+        ctx.save_for_backward(e, g)
+        ctx.mark_non_differentiable(correct)
+        return loss, correct
+
+    @staticmethod
+    def backward(ctx, dloss, _dcorrect):
+        e, g = ctx.saved_tensors
+        return contrastive_loss_bwd(e, g, dloss.contiguous())
+
+
+def fused_contrastive_loss(e, g):
+    """Fused symmetric contrastive loss of normalized ``e``, ``g`` (N, T,
+    d): ``(mean loss, correct rows)``; divide ``correct`` by N*T for the
+    train accuracy. On CUDA the K1 kernels run forward and backward
+    (``correct`` takes no gradient); on the CPU the plain version runs
+    under autograd."""
+    if e.device.type == "cpu":
+        return fused_contrastive_reference(e, g)
+    return _FusedContrastiveLoss.apply(e, g)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from contrastiveprosthetics_torch.config import INGEST_PRESCALE, Config
+from contrastiveprosthetics_torch.device import f32_convolutions
 from contrastiveprosthetics_torch.models.clip import ContrastiveModel
 from contrastiveprosthetics_torch.models.layers import update_running
 from contrastiveprosthetics_torch.ops.kernels import (
@@ -65,8 +66,7 @@ def recalibrate_batch_stats(model: ContrastiveModel, frames: torch.Tensor,
     try:
         for bn in norms:
             bn.train()
-        # cuDNN convolutions default to TF32 (about 3 decimal digits)
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with f32_convolutions():
             model.emg_net(frames, batch)
     finally:
         for bn, mode in zip(norms, modes):

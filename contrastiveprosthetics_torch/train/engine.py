@@ -1,0 +1,308 @@
+"""The training engine: contrastive train steps, epochs and the voted
+evaluation (the JAX package's ``train/engine.py:49-831``, contrastive mode
+only).
+
+A step is the reference's (train.py:65-138): gather one window of every
+task per item, forward both encoders, the fused contrastive loss (the K1
+kernels on CUDA, ``ops/kernels.py``) plus the L2 penalties, backward, then
+two Adam chains, one per encoder, with the lr times the epoch's schedule
+factor applied outside them. PyTorch runs eagerly, so an epoch is a Python
+loop over steps; its losses stay on the device and the host reads them
+once per epoch.
+
+Randomness: every draw (init, task permutations, batch order, dropout)
+comes from the ``torch.Generator`` the caller passes, on the store's
+device. The ``*_from_indices`` entries take the index matrices instead, so
+tests can feed the JAX package's.
+
+Precision: the forward and backward run in f32 with cuDNN's TF32
+convolutions off (``device.f32_convolutions``, as calibration does);
+matmuls keep PyTorch's f32 default.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from contrastiveprosthetics_torch.config import Config
+from contrastiveprosthetics_torch.data.sampler import (
+    epoch_batches,
+    epoch_batches_padded,
+    gather_eval_batch,
+    gather_train_batch,
+    task_permutations,
+)
+from contrastiveprosthetics_torch.data.store import DeviceStore, SplitView
+from contrastiveprosthetics_torch.device import f32_convolutions
+from contrastiveprosthetics_torch.eval.voting import vote_from_logits
+from contrastiveprosthetics_torch.models.clip import ContrastiveModel, l2_penalty
+from contrastiveprosthetics_torch.ops.kernels import fused_contrastive_loss
+from contrastiveprosthetics_torch.train.loss import (
+    symmetric_contrastive_loss_per_item,
+)
+
+
+class Hyper(NamedTuple):
+    """The reference's ``params`` minus d_e and epochs (train.py:149-153);
+    each value is an f32 number held as a Python float."""
+
+    lr_emg: float
+    reg_emg: float
+    dp_emg: float
+    lr_glove: float
+    reg_glove: float
+    dp_glove: float
+
+    @classmethod
+    def single(cls, lr_emg, reg_emg, dp_emg, lr_glove, reg_glove, dp_glove):
+        return cls(*[float(np.float32(v)) for v in
+                     (lr_emg, reg_emg, dp_emg, lr_glove, reg_glove, dp_glove)])
+
+
+@dataclasses.dataclass
+class AdamState:
+    """``optax.scale_by_adam``'s state: the step count and both moments."""
+
+    count: int
+    mu: list
+    nu: list
+
+
+def adam_init(params) -> AdamState:
+    params = list(params)
+    return AdamState(0, [torch.zeros_like(p) for p in params],
+                     [torch.zeros_like(p) for p in params])
+
+
+def _f32_product(a: float, b: float) -> float:
+    return float(np.float32(a) * np.float32(b))
+
+
+@torch.no_grad()
+def adam_step_(params, grads, state: AdamState, lr: float,
+               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
+    """One ``optax.scale_by_adam`` update (eps_root 0) followed by
+    ``p -= lr * u``, in place over ``params`` and the moments, in optax's
+    order of operations: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu,
+    u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps), with the bias
+    corrections taken in f32. (``torch.optim.Adam`` orders the bias
+    correction differently.)"""
+    params, grads = list(params), list(grads)
+    state.count += 1
+    t = np.float32(state.count)
+    bc1 = float(np.float32(1) - np.float32(b1) ** t)
+    bc2 = float(np.float32(1) - np.float32(b2) ** t)
+    torch._foreach_mul_(state.mu, b1)
+    torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1 - b1))
+    torch._foreach_mul_(state.nu, b2)
+    torch._foreach_add_(state.nu, torch._foreach_mul(
+        torch._foreach_mul(grads, grads), 1 - b2))
+    denom = torch._foreach_div(state.nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    update = torch._foreach_div(state.mu, bc1)
+    torch._foreach_div_(update, denom)
+    torch._foreach_mul_(update, lr)
+    torch._foreach_sub_(params, update)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (parameters and BatchNorm running statistics) and the two
+    Adam chains, over ``model.towers()``."""
+
+    model: ContrastiveModel
+    opt_emg: AdamState
+    opt_glove: AdamState
+
+    @classmethod
+    def fresh(cls, model: ContrastiveModel) -> "TrainState":
+        towers = model.towers()
+        return cls(model, adam_init(towers["emg_net"].parameters()),
+                   adam_init(towers["glove_net"].parameters()))
+
+
+class EvalResult(NamedTuple):
+    loss: torch.Tensor      # scalar mean loss over the split's items
+    accuracy: torch.Tensor  # scalar voted accuracy
+    curve: torch.Tensor     # (D, n_prefix) voting curves, item order
+    y_pred: torch.Tensor    # (D, T)
+    y_true: torch.Tensor    # (D, T)
+    logits: torch.Tensor    # (D*W, T, T) raw logits, item order
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Train steps, epochs and evaluation over one store, contrastive mode
+    with the one-hot class encoder."""
+
+    cfg: Config
+    store: DeviceStore
+    db2: bool = False
+    adabn: bool = True
+    d_e: int = 16
+    batch_size: int = 8
+    n_linear: int = 7
+    hidden: int = 512
+
+    def __post_init__(self):
+        self.device = self.store.device
+        self.view_train = self.store.view("train", db2=self.db2)
+        self.view_val = self.store.view("val", db2=self.db2)
+        self.view_test = self.store.view("test", db2=self.db2)
+
+    def generator(self, seed: int) -> torch.Generator:
+        """A generator on the store's device, seeded ``seed``."""
+        return torch.Generator(self.device).manual_seed(seed)
+
+    # ------------------------------------------------------------------ init
+    def init_state(self, generator: torch.Generator) -> TrainState:
+        """A fresh model (torch's default init from ``generator``) with
+        zeroed Adam chains."""
+        model = ContrastiveModel(
+            d_e=self.d_e, emg_dim=self.cfg.emg_dim,
+            n_classes=self.cfg.max_tasks, adabn=self.adabn,
+            n_linear=self.n_linear, hidden=self.hidden, generator=generator,
+            device=self.device)
+        return TrainState.fresh(model)
+
+    # ------------------------------------------------------------- train step
+    def loss_and_grads(self, state: TrainState, emg_b: torch.Tensor,
+                       hyper: Hyper, generator: torch.Generator | None):
+        """Forward (train mode: batch statistics, which also move the
+        running ones), the fused loss plus ``reg * l2`` of each tower, and
+        the gradients of that total. Returns (loss, accuracy, grads by
+        tower), the first two 0-d tensors on the device."""
+        model = state.model.train()
+        towers = model.towers()
+        params = {k: list(t.parameters()) for k, t in towers.items()}
+        B, T = emg_b.shape[:2]
+        with f32_convolutions():
+            e, g = model.embed(emg_b, hyper.dp_emg, generator)
+            loss, correct = fused_contrastive_loss(e.contiguous(),
+                                                   g.contiguous())
+            total = (loss
+                     + hyper.reg_emg * l2_penalty(towers["emg_net"])
+                     + hyper.reg_glove * l2_penalty(towers["glove_net"]))
+            flat = torch.autograd.grad(
+                total, params["emg_net"] + params["glove_net"])
+        n = len(params["emg_net"])
+        grads = {"emg_net": list(flat[:n]), "glove_net": list(flat[n:])}
+        return loss.detach(), correct / (B * T), grads
+
+    def _sgd_step(self, state: TrainState, emg_b, hyper: Hyper,
+                  lr_emg: float, lr_glove: float,
+                  generator: torch.Generator | None):
+        """One optimization step: forward, loss + L2, backward, then the
+        two Adam updates. Returns (loss, accuracy) on the device."""
+        loss, acc, grads = self.loss_and_grads(state, emg_b, hyper, generator)
+        towers = state.model.towers()
+        adam_step_(towers["emg_net"].parameters(), grads["emg_net"],
+                   state.opt_emg, lr_emg)
+        adam_step_(towers["glove_net"].parameters(), grads["glove_net"],
+                   state.opt_glove, lr_glove)
+        return loss, acc
+
+    # ----------------------------------------------------------------- epoch
+    def train_epoch_from_indices(self, state: TrainState, emg_rand, batches,
+                                 tail, hyper: Hyper, lr_emg_factor: float,
+                                 lr_glove_factor: float,
+                                 generator: torch.Generator | None):
+        """One epoch over given index matrices: ``emg_rand`` (n_tasks, D)
+        task permutations, ``batches`` (n_batches, bs) and the (D % bs,)
+        ``tail``, which trains as a smaller batch (DataLoader
+        ``drop_last=False``, train.py:86). Returns the per-step losses and
+        accuracies, on the device."""
+        v = self.view_train
+        lr_e = _f32_product(hyper.lr_emg, lr_emg_factor)
+        lr_g = _f32_product(hyper.lr_glove, lr_glove_factor)
+        steps = list(batches) + ([tail] if tail.numel() else [])
+        losses, accs = [], []
+        for items in steps:
+            # one-hot contrastive mode: the class encoder never reads glove
+            # values, so the glove gather is skipped
+            emg_b = gather_train_batch(v.emg_flat, emg_rand, items)
+            loss, acc = self._sgd_step(state, emg_b, hyper, lr_e, lr_g,
+                                       generator)
+            losses.append(loss)
+            accs.append(acc)
+        return torch.stack(losses), torch.stack(accs)
+
+    def train_epoch(self, state: TrainState, generator: torch.Generator,
+                    hyper: Hyper, lr_emg_factor: float = 1.0,
+                    lr_glove_factor: float = 1.0):
+        """One epoch: task permutations and batch order from
+        ``generator``, then every step. Returns (state, mean loss, mean
+        accuracy), the last two on the device; ``state`` is updated in
+        place."""
+        v = self.view_train
+        emg_rand = task_permutations(generator, v.n_tasks, v.D)
+        batches, tail = epoch_batches(generator, v.D, self.batch_size)
+        losses, accs = self.train_epoch_from_indices(
+            state, emg_rand, batches, tail, hyper, lr_emg_factor,
+            lr_glove_factor, generator)
+        return state, losses.mean(), accs.mean()
+
+    def train_epochs(self, state: TrainState, generator: torch.Generator,
+                     hyper: Hyper, emg_factors, glove_factors):
+        """``len(emg_factors)`` epochs, one schedule factor each. Returns
+        (state, per-epoch losses, per-epoch accuracies) on the device."""
+        losses, accs = [], []
+        for f_e, f_g in zip(emg_factors, glove_factors):
+            state, loss, acc = self.train_epoch(state, generator, hyper,
+                                                float(f_e), float(f_g))
+            losses.append(loss)
+            accs.append(acc)
+        return state, torch.stack(losses), torch.stack(accs)
+
+    # ------------------------------------------------------------------ eval
+    def evaluate(self, state: TrainState, generator: torch.Generator,
+                 hyper: Hyper, split: str = "val",
+                 batch_size: int | None = None) -> EvalResult:
+        """Voted evaluation of a split. Val batches hold ``batch_size``
+        items, test ``8 * batch_size`` (train.py:32,51)."""
+        if batch_size is None:
+            batch_size = self.batch_size * (1 if split == "val" else 8)
+        v = {"val": self.view_val, "test": self.view_test}[split]
+        emg_rand = task_permutations(generator, v.n_tasks, v.D)
+        batches, weights, inverse = epoch_batches_padded(generator, v.D,
+                                                         batch_size)
+        return self.evaluate_from_indices(state, v, emg_rand, batches,
+                                          weights, inverse)
+
+    @torch.no_grad()
+    def evaluate_from_indices(self, state: TrainState, view: SplitView,
+                              emg_rand, batches, weights,
+                              inverse) -> EvalResult:
+        """Every item once: padded batches (``weights`` 0 on the pad
+        duplicates, which the loss leaves out), per-item outputs back in
+        item order through ``inverse`` (engine.py:624-749)."""
+        model = state.model.eval()
+        W = self.cfg.prediction_window_size
+        n_prefix = self.cfg.n_voting_cols
+        T = view.n_tasks
+        loss_sums, curves, y_preds, y_trues, logits_all = [], [], [], [], []
+        with f32_convolutions():
+            for items, w in zip(batches, weights):
+                bs = items.shape[0]
+                emg_b = gather_eval_batch(view.emg_groups, emg_rand, items)
+                logits = model(emg_b)                     # (bs*W, T, T)
+                item_loss = symmetric_contrastive_loss_per_item(
+                    logits).reshape(bs, W).mean(dim=-1)
+                res = vote_from_logits(logits, window=W, n_prefix=n_prefix)
+                loss_sums.append((item_loss * w).sum())
+                curves.append(res.curve)
+                y_preds.append(res.y_pred)
+                y_trues.append(res.y_true)
+                logits_all.append(logits.reshape(bs, W, T, T))
+        curve = torch.cat(curves)[inverse]
+        return EvalResult(
+            loss=torch.stack(loss_sums).sum() / view.D,
+            accuracy=curve[:, -1].mean(),
+            curve=curve,
+            y_pred=torch.cat(y_preds)[inverse],
+            y_true=torch.cat(y_trues)[inverse],
+            logits=torch.cat(logits_all)[inverse].reshape(-1, T, T))

@@ -118,3 +118,60 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         K.vote_scan(scores.transpose(0, 1).contiguous().transpose(0, 1),
                     masks, votes, n_seen)
+
+
+def _normalized(rng, shape, device):
+    x = rng.standard_normal(shape).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("N", [8, 3])
+def test_contrastive_loss_kernels_match_plain(cuda, N):
+    """K1f and K1b against their plain versions at the train step's T=41,
+    d=16: the canonical batch of 8 and a ragged 3 (a tail batch)."""
+    rng = np.random.default_rng(N)
+    e = _normalized(rng, (N, 41, 16), cuda).requires_grad_()
+    g = _normalized(rng, (N, 41, 16), cuda).requires_grad_()
+    before = dict(K.launch_counts)
+    loss, correct = K.fused_contrastive_loss(e, g)
+    de, dg = torch.autograd.grad(loss * 1.5, (e, g))
+    assert K.launch_counts["contrastive_loss_fwd"] == (
+        before["contrastive_loss_fwd"] + 1)
+    assert K.launch_counts["contrastive_loss_bwd"] == (
+        before["contrastive_loss_bwd"] + 1)
+    loss_p, correct_p = K.fused_contrastive_reference(e, g)
+    de_p, dg_p = torch.autograd.grad(loss_p * 1.5, (e, g))
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    assert float(correct) == float(correct_p)
+    # the tolerance of the JAX package's own VJP test (test_pallas.py)
+    torch.testing.assert_close(de, de_p, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(dg, dg_p, rtol=1e-4, atol=1e-6)
+    with torch.no_grad():
+        up = torch.tensor(1.5, device=cuda)
+        de_w, dg_w = K.contrastive_loss_bwd_reference(e, g, up)
+        torch.testing.assert_close(de, de_w, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(dg, dg_w, rtol=1e-4, atol=1e-6)
+        # no float atomics: a second run gives the same bits
+        again = K.contrastive_loss_fwd(e.detach(), g.detach())
+        assert torch.equal(again[0], loss) and torch.equal(again[1], correct)
+        de2, dg2 = K.contrastive_loss_bwd(e.detach(), g.detach(), up)
+        assert torch.equal(de2, de) and torch.equal(dg2, dg)
+
+
+def test_contrastive_loss_rejects_what_it_does_not_take(cuda):
+    """The CUDA wrapper raises, never falls back to the plain version."""
+    rng = np.random.default_rng(0)
+    e = _normalized(rng, (2, 65, 16), cuda)
+    with pytest.raises(ValueError, match="T, d in"):
+        K.fused_contrastive_loss(e, e)
+    e = _normalized(rng, (2, 41, 16), cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        K.fused_contrastive_loss(e.double(), e.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        K.fused_contrastive_loss(e.transpose(0, 1).contiguous().transpose(0, 1),
+                                 e)
+    before = K.launch_counts["contrastive_loss_fwd"]
+    with pytest.raises(ValueError, match="on cpu"):
+        K.fused_contrastive_loss(e, e.cpu())
+    assert K.launch_counts["contrastive_loss_fwd"] == before

@@ -2,6 +2,7 @@
 (``contrastiveprosthetics_torch``)."""
 from __future__ import annotations
 
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -44,13 +45,37 @@ def test_port_imports_no_jax():
         assert "contrastiveprosthetics_tpu" not in path.read_text(), path
 
 
-def test_config_copy_matches_jax_config():
-    """(b) The port's own config values equal DEFAULT_CONFIG's."""
+@pytest.mark.parametrize("compat", [False, True])
+def test_config_copy_matches_jax_config(compat):
+    """(b) Every field, derived property and split of the port's own
+    config equals the JAX package's, default and compat."""
     ours, theirs = port_config.DEFAULT_CONFIG, jax_config.DEFAULT_CONFIG
-    for name in ("hz", "factor", "rms_window", "prediction_window_size",
-                 "emg_dim", "glove_dim", "max_tasks"):
-        assert getattr(ours, name) == getattr(theirs, name), name
-    assert port_config.INGEST_PRESCALE == jax_config.INGEST_PRESCALE == 2**10
+    if compat:
+        ours = port_config.compat_config(ours)
+        theirs = jax_config.compat_config(theirs)
+    fields = [f.name for f in dataclasses.fields(theirs)]
+    assert [f.name for f in dataclasses.fields(ours)] == fields
+    properties = [n for n, v in vars(type(theirs)).items()
+                  if isinstance(v, property)]
+    assert properties == [n for n, v in vars(type(ours)).items()
+                          if isinstance(v, property)]
+    for name in fields + properties + ["people_d2", "people_d3", "people",
+                                       "tasks", "tasks_mask", "time_mask",
+                                       "train_person_set"]:
+        a, b = getattr(ours, name), getattr(theirs, name)
+        if callable(b):
+            a, b = a(), b()
+        np.testing.assert_array_equal(a, b, err_msg=name)
+        assert np.asarray(a).dtype == np.asarray(b).dtype, name
+    for db2 in (False, True):
+        np.testing.assert_array_equal(ours.people_mask(db2),
+                                      theirs.people_mask(db2))
+        for split in ("train", "val", "test"):
+            np.testing.assert_array_equal(ours.rep_mask(split, db2),
+                                          theirs.rep_mask(split, db2))
+    for name in ("D2_IDXS", "D3_IDXS", "TASKS_A", "TASKS_B", "PEOPLE_D3_RAW",
+                 "INGEST_PRESCALE"):
+        assert getattr(port_config, name) == getattr(jax_config, name), name
 
 
 def test_kernel_sources_are_hashed_per_file():
