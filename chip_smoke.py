@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port: the streaming serve path and
-contrastive training.
+"""Chip smoke test of the PyTorch/CUDA port: the streaming serve path,
+contrastive training, and training on the fused chain.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernel sources from
+It builds the five CUDA kernel sources from
 ``contrastiveprosthetics_torch/csrc`` and drives the port at full model
 width (d_e=16, 64 conv features, 7 x 512 dense, 41 classes) with weights
 from a seeded ``torch.Generator`` and raw recordings and synthetic data
@@ -35,15 +35,26 @@ made with numpy from a seed:
    for 2 annealed epochs and ``run_test``, both accuracies above 0.5; one
    epoch timed with CUDA events; a profiler trace of 20 steps by kernel
    family; ``cptorch-train --synthetic`` on cuda, its checkpoint loaded
-   back strictly.
+   back strictly;
+8. the fused training chain: K5f, K5b (``dense_block_fwd``/``_bwd``) and
+   K5m (``dropout_masks``) against their plain versions at N=328 and a
+   ragged 123 rows, 768 and 512 inputs, with reruns that must give the
+   same bits, the drawn masks against the replayed ones, and the kernels'
+   Philox against cuRAND's; one ``Trainer(use_fused_train=True)`` step at
+   dropout 0 against the eager one; ``train_loop`` on the fused chain for 2
+   annealed epochs (test accuracy above 0.5, 7 K5f and 7 K5b launches per
+   step); eager and fused epochs timed in turns with CUDA events; a
+   profiler trace of 20 fused steps; ``cptorch-train --fused_train on``.
 
-Launch counts are reset just before phases 3, 4 and 7's ``train_loop``
-and read just after each; every serve kernel must have launched in 3 and
-4, and each K1 kernel once per train step in 7. TF32 is off throughout
+Launch counts are reset just before phases 3, 4, 7's and 8's
+``train_loop`` and read just after each; every serve kernel must have
+launched in 3 and 4, each K1 kernel once per train step in 7, and the K5
+kernels as the chain's depth says in 8. TF32 is off throughout
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set False), so the plain versions run
 in full f32. Any failure raises and the exit code is not 0. The last lines
-are ``{"single", "batched"}`` and ``{"train"}`` JSON lines, the card line
+are ``{"single", "batched"}``, ``{"train"}`` and ``{"fused_train"}`` JSON
+lines, the card line
 from nvidia-smi, one ``{"kernels": [...]}`` JSON line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -76,22 +87,37 @@ REPLACES = {
                             "(_pallas_loss_call; body _loss_kernel :145)",
     "contrastive_loss_bwd": "contrastiveprosthetics_tpu/ops/pallas_ops.py:213 "
                             "(_pallas_bwd_call; body _bwd_kernel :169)",
+    "dense_block_fwd": "contrastiveprosthetics_tpu/ops/train_fused.py:362 "
+                       "(_fwd_block_call; body _fwd_block_kernel :183)",
+    "dense_block_bwd": "contrastiveprosthetics_tpu/ops/train_fused.py:412 "
+                       "(_bwd_block_call; body _bwd_block_kernel :239)",
+    "dropout_masks": "contrastiveprosthetics_tpu/ops/train_fused.py:777 "
+                     "(extract_prng_masks; body _mask_kernel :771, "
+                     "_draw_mask :146)",
 }
 SERVE_KERNELS = ("dsp_frames", "encoder_chain", "vote_scan")
 TRAIN_KERNELS = ("contrastive_loss_fwd", "contrastive_loss_bwd")
-SOURCES = {name: "contrastiveprosthetics_torch/csrc/"
-           f"{'contrastive_loss' if name in TRAIN_KERNELS else name}.cu"
-           for name in REPLACES}
+FUSED_KERNELS = ("dense_block_fwd", "dense_block_bwd", "dropout_masks")
+SOURCES = {name: "contrastiveprosthetics_torch/csrc/" + (
+    "contrastive_loss" if name in TRAIN_KERNELS else
+    "train_fused" if name in FUSED_KERNELS else name) + ".cu"
+    for name in REPLACES}
 # the CUDA functions each port kernel launches, as named in a profiler trace
 DEVICE_FUNCTIONS = {"dsp_frames_kernel": "dsp_frames",
                     "encoder_layer_kernel": "encoder_chain",
                     "encoder_head_kernel": "encoder_chain",
                     "vote_scan_kernel": "vote_scan",
                     "contrastive_loss_fwd_kernel": "contrastive_loss_fwd",
-                    "contrastive_loss_bwd_kernel": "contrastive_loss_bwd"}
+                    "contrastive_loss_bwd_kernel": "contrastive_loss_bwd",
+                    "dense_block_fwd_kernel": "dense_block_fwd",
+                    "dense_block_bwd_kernel": "dense_block_bwd",
+                    "dropout_masks_kernel": "dropout_masks"}
 # kernel families of a train step, by (lower-case) name fragment, in the
 # order they are tried
 TRAIN_FAMILIES = (
+    ("dense_block_fwd", ("dense_block_fwd",)),
+    ("dense_block_bwd", ("dense_block_bwd",)),
+    ("dropout_masks", ("dropout_masks",)),
     ("contrastive_loss_fwd", ("contrastive_loss_fwd",)),
     ("contrastive_loss_bwd", ("contrastive_loss_bwd",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
@@ -340,7 +366,7 @@ def trace_train_steps(trainer, state, hyper, n: int) -> dict:
                 k1_share_of_wall=k1 / wall_ms)
 
 
-def train_phase(K, dev) -> tuple[dict, dict]:
+def train_phase(K, dev) -> tuple[dict, dict, object]:
     """Phase 7: training at full width and the canonical geometry. Returns
     the ``train`` results and the K1 launch counts of ``train_loop``."""
     from contrastiveprosthetics_torch.cli import train as cli_train
@@ -480,7 +506,329 @@ def train_phase(K, dev) -> tuple[dict, dict]:
         epoch_ms=epoch_ms, epoch_wall_ms=epoch_wall_ms,
         ms_per_step=epoch_ms / steps_per_epoch,
         train_windows_per_s=windows / epoch_ms * 1e3, step_trace=trace)
-    return train_res, counts
+    return train_res, counts, trainer
+
+def k5_case(N: int, K_in: int, F: int, seed: int, dev):
+    """One dense block's inputs at the chain's widths: a ReLU output as
+    input, the previous block's (5, K_in) statistics, Linear-scaled
+    weights, the gradient arriving from above and two seed words."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    x = t(np.maximum(rng.standard_normal((N, K_in)), 0.0))
+    mean, var = t(rng.uniform(0.2, 0.6, K_in)), t(rng.uniform(0.2, 0.5, K_in))
+    rstd = torch.rsqrt(var + 1e-5)
+    a = t(rng.uniform(0.8, 1.2, K_in)) * rstd
+    in_stats = torch.stack([mean, var, rstd, a,
+                            t(rng.normal(0, 0.1, K_in)) - mean * a])
+    w = t(rng.uniform(-1, 1, (K_in, F)) / np.sqrt(K_in))
+    vecs = (t(rng.normal(0, 0.1, F)), t(rng.uniform(0.8, 1.2, F)),
+            t(rng.normal(0, 0.1, F)))
+    dz = t(rng.standard_normal((N, F)) * 0.01)
+    seed_words = torch.tensor([int(v) for v in rng.integers(-2**31, 2**31, 2)],
+                              dtype=torch.int32, device=dev)
+    return x, w, vecs, in_stats, dz, seed_words
+
+
+def close(got, want, rtol: float, scale_atol: float) -> float:
+    """assert_close with atol ``scale_atol`` times the largest |want|;
+    returns the max abs error."""
+    atol = scale_atol * max(float(want.abs().max()), 1e-3)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    return max_abs(got, want)
+
+
+def check_k5(TF, K, dev) -> dict:
+    """Phase 8, kernels: K5f and K5b against their plain versions at N=328
+    (bs 8 x 41 tasks) and a ragged N=123, block 0's form (768 inputs, no
+    affine, no dropout) and an inner dropped block's (512 inputs, affine,
+    drawn dropout at rate 0.5); reruns bit-identical; the drawn masks equal
+    to ``dropout_masks``' replay fed back as input masks; K5m exact against
+    its plain version; the Philox against cuRAND's. Returns the three
+    ``kernels`` entries, timed at N=328 on the inner block."""
+    F = 512
+    keep = torch.full((1,), 0.5, device=dev)
+    errs = {name: {} for name in FUSED_KERNELS}
+    for N in (328, 123):
+        for K_in, inner in ((768, False), (512, True)):
+            x, w, (b, gamma, beta), in_stats, dz, seed = k5_case(
+                N, K_in, F, N + K_in, dev)
+            kw = dict(seed=seed, keep=keep, drop_block=3) if inner else {}
+            in_st = in_stats if inner else None
+            r, st = TF.dense_block_fwd(x, w, b, gamma, beta, in_st, **kw)
+            r_p, st_p = TF.dense_block_fwd_reference(x, w, b, gamma, beta,
+                                                     in_st, **kw)
+            sums = torch.stack([dz.sum(0),
+                                (dz * (r_p - st_p[0]) * st_p[2]).sum(0)])
+            got = TF.dense_block_bwd(dz, r_p, x, w, st_p, sums, in_st, **kw)
+            want = TF.dense_block_bwd_reference(dz, r_p, x, w, st_p, sums,
+                                                in_st, **kw)
+            torch.cuda.synchronize()
+            case = f"N={N} K={K_in}"
+            errs["dense_block_fwd"][case] = max(close(r, r_p, 1e-5, 1e-5),
+                                                close(st, st_p, 1e-4, 1e-5))
+            errs["dense_block_bwd"][case] = max(
+                close(g, v, 1e-4, 1e-5) for g, v in zip(got, want)
+                if v is not None)
+            again = (TF.dense_block_fwd(x, w, b, gamma, beta, in_st, **kw),
+                     TF.dense_block_bwd(dz, r_p, x, w, st_p, sums, in_st,
+                                        **kw))
+            same = [torch.equal(a, c) for a, c in
+                    zip((r, st, *got), (*again[0], *again[1]))
+                    if a is not None]
+            if inner:  # the drawn masks against the replayed ones
+                mask = TF.dropout_masks(seed, keep, N, K_in, 3)
+                fed = dict(keep=keep, mask=mask)
+                fwd_in = TF.dense_block_fwd(x, w, b, gamma, beta, in_st,
+                                            **fed)
+                bwd_in = TF.dense_block_bwd(dz, r_p, x, w, st_p, sums, in_st,
+                                            **fed)
+                same += [torch.equal(a, c) for a, c in
+                         zip((r, st, *got), (*fwd_in, *bwd_in))]
+            if not all(same):
+                raise AssertionError(f"K5 not bit-identical on a rerun or "
+                                     f"against replayed masks at {case}")
+    seed = torch.tensor([123456789, -98765], dtype=torch.int32, device=dev)
+    for N in (328, 123):
+        got = TF.dropout_masks(seed, keep, N, F, 6)
+        if not torch.equal(got, TF.dropout_masks_reference(seed, keep, N, F,
+                                                           6)):
+            raise AssertionError(f"dropout_masks disagrees at N={N}")
+        errs["dropout_masks"][f"N={N}"] = 0.0
+    rng = np.random.default_rng(9)
+    ctr = torch.from_numpy(rng.integers(-2**31, 2**31, (4096, 4)).astype(
+        np.int32)).to(dev)
+    key = torch.from_numpy(rng.integers(-2**31, 2**31, (4096, 2)).astype(
+        np.int32)).to(dev)
+    ours, theirs = TF.philox_check(ctr, key)
+    if not torch.equal(ours, theirs):
+        raise AssertionError("the kernels' Philox disagrees with cuRAND's")
+    log(f"[kernels] K5f/K5b ok at N=328 and 123, K=768 and 512: "
+        f"{json.dumps(errs)}; reruns and replayed masks bit-identical; "
+        "dropout_masks exact; Philox equals curand_Philox4x32_10 on 4096 "
+        "counters")
+
+    N, K_in = 328, 512
+    x, w, (b, gamma, beta), in_stats, dz, seed = k5_case(N, K_in, F, 1, dev)
+    kw = dict(seed=seed, keep=keep, drop_block=3)
+    r, st = TF.dense_block_fwd(x, w, b, gamma, beta, in_stats, **kw)
+    sums = torch.stack([dz.sum(0), dz.sum(0)])
+    dx, dw, db, osums = TF.dense_block_bwd(dz, r, x, w, st, sums, in_stats,
+                                           **kw)
+    mask = TF.dropout_masks(seed, keep, N, F, 6)
+    x0, w0 = k5_case(N, 768, F, 2, dev)[:2]
+    small = nbytes(b, gamma, beta, in_stats, seed, keep)
+    fwd_b = bound_ms(nbytes(x, w, r, st) + small, 2.0 * N * K_in * F)
+    bwd_b = bound_ms(nbytes(dz, r, x, w, st, sums, dx, dw, db, osums) + small,
+                     4.0 * N * K_in * F)
+    mask_b = bound_ms(nbytes(mask, seed, keep), 0.0)
+    gemm = "not the same function: the cuBLAS GEMM{} alone, without {}"
+    entries = {}
+    with torch.no_grad():
+        for name, kernel, plain, (bd, by), extra, tol in (
+                ("dense_block_fwd",
+                 lambda: TF.dense_block_fwd(x, w, b, gamma, beta, in_stats,
+                                            **kw),
+                 lambda: TF.dense_block_fwd_reference(x, w, b, gamma, beta,
+                                                      in_stats, **kw),
+                 fwd_b, dict(
+                     gemm_only_ms=time_ms(lambda: torch.addmm(b, x, w), 200, 5),
+                     gemm_only_note=gemm.format(
+                         "", "the input affine, dropout, ReLU and column "
+                         "statistics"),
+                     block0_ms=time_ms(lambda: TF.dense_block_fwd(
+                         x0, w0, b, gamma, beta), 200, 5),
+                     block0_shape=f"N={N} K=768 F={F}, no affine or "
+                                  "dropout"),
+                 "r rtol 1e-5, stats rtol 1e-4, atol 1e-5 x max|want| (f32 "
+                 "sums in another order); reruns and replayed masks "
+                 "bit-identical"),
+                ("dense_block_bwd",
+                 lambda: TF.dense_block_bwd(dz, r, x, w, st, sums, in_stats,
+                                            **kw),
+                 lambda: TF.dense_block_bwd_reference(dz, r, x, w, st, sums,
+                                                      in_stats, **kw),
+                 bwd_b, dict(
+                     gemm_only_ms=time_ms(lambda: (dz @ w.T, x.T @ dz),
+                                          200, 5),
+                     gemm_only_note=gemm.format(
+                         "s dy W^T and h^T dy", "the BatchNorm backward, "
+                         "the input's affine and dropout, db and the lower "
+                         "block's sums")),
+                 "rtol 1e-4, atol 1e-5 x max|want|; reruns and replayed "
+                 "masks bit-identical"),
+                ("dropout_masks",
+                 lambda: TF.dropout_masks(seed, keep, N, F, 6),
+                 lambda: TF.dropout_masks_reference(seed, keep, N, F, 6),
+                 mask_b, {}, "exact")):
+            entries[name] = dict(
+                route="cuda", max_abs_err=max(errs[name].values()),
+                max_abs_err_parts=errs[name], tolerance=tol,
+                ms=time_ms(kernel, reps=200, warmup=5),
+                plain_ms=time_ms(plain, reps=20, warmup=2),
+                bound_ms=bd, bound_by=by, library_ms=None,
+                library_note=(
+                    "no single PyTorch call computes it: "
+                    + ("GEMM + bias + ReLU + column statistics"
+                       if name != "dropout_masks" else
+                       "Philox bits at (seed, block, row, column)")),
+                shape=(f"N={N} K={K_in} F={F}, affine + dropout 0.5 on the "
+                       "input" if name != "dropout_masks" else
+                       f"N={N} F={F}"), **extra)
+    return entries
+
+
+def fused_train_phase(K, eager) -> tuple[dict, dict]:
+    """Phase 8, training on the fused chain at the canonical geometry, on
+    phase 7's store. Returns the ``fused_train`` results and the K5 launch
+    counts of ``train_loop``."""
+    from contrastiveprosthetics_torch.cli import train as cli_train
+    from contrastiveprosthetics_torch.data.sampler import (
+        gather_train_batch,
+        task_permutations,
+    )
+    from contrastiveprosthetics_torch.models.convert import (
+        load_reference_checkpoint,
+        model_from_state_dict,
+    )
+    from contrastiveprosthetics_torch.train import engine
+    from contrastiveprosthetics_torch.train.loop import run_test, train_loop
+
+    cfg, dev = eager.cfg, eager.device
+    fused = engine.Trainer(cfg, eager.store, adabn=False, batch_size=8,
+                           use_fused_train=True)
+    v = fused.view_train
+    steps_per_epoch = -(-v.D // fused.batch_size)
+    n_linear = fused.n_linear
+
+    # one step on each path from the same state and batch, at dropout 0,
+    # and the same eager step in float64 on the CPU
+    gen = fused.generator(7)
+    emg_rand = task_permutations(gen, v.n_tasks, v.D)
+    items = torch.randperm(v.D, generator=gen, device=dev)[:8]
+    emg_b = gather_train_batch(v.emg_flat, emg_rand, items)
+    hyper0 = engine.Hyper.single(1e-3, 1e-6, 0.0, 1e-3, 1e-6, 0.0)
+    steps = {}
+    for name, trainer in (("fused", fused), ("eager", eager), ("f64", eager)):
+        state = trainer.init_state(trainer.generator(0))
+        batch = emg_b
+        if name == "f64":
+            state = engine.TrainState.fresh(state.model.cpu().double())
+            batch = emg_b.cpu().double()
+        steps[name] = trainer.loss_and_grads(state, batch, hyper0, None)
+    torch.cuda.synchronize()
+
+    def rel_l2(a, b):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    loss = {k: float(v[0]) for k, v in steps.items()}
+    names = [f"{tower}.{i}" for tower in steps["fused"][2]
+             for i in range(len(steps["fused"][2][tower]))]
+    flat = {k: [g for tower in v[2] for g in v[2][tower]]
+            for k, v in steps.items()}
+    rel = {pair: [rel_l2(a, b) for a, b in zip(flat[pair[0]], flat[pair[1]])]
+           for pair in (("fused", "f64"), ("eager", "f64"),
+                        ("fused", "eager"))}
+    errs = {f"{x}_vs_{y}": dict(max_rel_l2=max(r),
+                                worst=names[int(np.argmax(r))])
+            for (x, y), r in rel.items()}
+    log(f"[fused] one step at dropout 0: losses {json.dumps(loss)}; "
+        f"gradient errors, relative 2-norm per tensor (max over tensors) "
+        f"{json.dumps(errs)}")
+    # f32 rounding on the card moves a few of the step's pre-activations
+    # across ReLU's kink against float64, and cancellation-dominated
+    # gradients (biases ahead of a BatchNorm) amplify it, on the eager path
+    # as on the fused one. So the fused step is held, tensor by tensor, to
+    # be no further from float64 than the eager step is
+    torch.testing.assert_close(steps["fused"][0], steps["eager"][0],
+                               rtol=1e-5, atol=0)
+    worse = [(n, f, e) for n, f, e in zip(names, rel[("fused", "f64")],
+                                          rel[("eager", "f64")])
+             if f > 2 * e + 1e-5]
+    if worse:
+        raise AssertionError(f"fused gradients further from float64 than "
+                             f"eager ones: {worse}")
+
+    hyper = engine.Hyper.single(*CANONICAL)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_loop(fused, hyper, TRAIN_EPOCHS, seed=0, annealing=True,
+                     verbose=False)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = {name: K.launch_counts[name]
+              for name in (*FUSED_KERNELS, *TRAIN_KERNELS)}
+    n_steps = TRAIN_EPOCHS * steps_per_epoch
+    want = {"dense_block_fwd": n_linear * n_steps,
+            "dense_block_bwd": n_linear * n_steps,
+            "dropout_masks": n_steps, "contrastive_loss_fwd": n_steps,
+            "contrastive_loss_bwd": n_steps}
+    if counts != want:
+        raise AssertionError(f"fused launches {counts}, want {want}")
+    test = run_test(fused, res.state, hyper, fused.generator(5))
+    if not (np.isfinite(res.train_losses).all()
+            and res.train_losses[-1] < res.train_losses[0]):
+        raise AssertionError(f"fused train losses {res.train_losses}")
+    if res.train_accs[-1] <= 0.5 or float(test.accuracy) <= 0.5:
+        raise AssertionError(f"fused train acc {res.train_accs[-1]}, test "
+                             f"acc {float(test.accuracy)}: not above 0.5")
+    if not bool(torch.isfinite(test.logits).all()):
+        raise AssertionError("fused test logits are not finite")
+    log(f"[fused] train_loop {TRAIN_EPOCHS} epochs ({n_steps} steps) in "
+        f"{loop_s:.2f} s: losses {res.train_losses}, accs {res.train_accs}, "
+        f"val loss {res.val_loss:.4f} acc {res.val_acc:.4f}; test loss "
+        f"{float(test.loss):.4f} voted acc {float(test.accuracy):.4f}; "
+        f"launches {counts}")
+
+    # eager and fused epochs in turns, from the trained state, by CUDA events
+    state = res.state
+    epoch_ms = {"eager": [], "fused": []}
+    for name in ("eager", "fused", "fused", "eager"):
+        trainer = fused if name == "fused" else eager
+        gen = trainer.generator(11)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        trainer.train_epoch(state, gen, hyper)
+        end.record()
+        torch.cuda.synchronize()
+        epoch_ms[name].append(start.elapsed_time(end))
+    windows = fused.batch_size * v.n_tasks * steps_per_epoch
+    timing = {name: dict(epoch_ms=ms, ms_per_step=[m / steps_per_epoch
+                                                   for m in ms],
+                         train_windows_per_s=[windows / m * 1e3 for m in ms])
+              for name, ms in epoch_ms.items()}
+    trace = trace_train_steps(fused, state, hyper, 20)
+    log(f"[fused] epochs in turns (eager, fused, fused, eager): "
+        f"{json.dumps(timing)}; profiler trace of 20 fused steps: "
+        f"{json.dumps(trace)}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--crossval_size", "0", "--final_epochs", "1",
+                "--batch_size", "8", "--test", "--no_adabn", "--fused_train",
+                "on", "--data_dir", tmp, "--checkpoint_dir", tmp]
+        if cli_train.main(argv) != 0:
+            raise AssertionError("cptorch-train --fused_train on failed")
+        model_from_state_dict(load_reference_checkpoint(
+            f"{tmp}/contrastive.pt"))
+    log("[cli] cptorch-train --synthetic --fused_train on ok on cuda; "
+        "contrastive.pt loads strictly")
+    fused_res = dict(
+        step_check=dict(losses=loss, grad_errors=errs, tolerance=(
+            "loss rtol 1e-5 against eager; each gradient tensor's relative "
+            "2-norm error against float64 on the CPU at most twice the "
+            "eager step's plus 1e-5")),
+        train_loop_s=loop_s, train_losses=res.train_losses,
+        train_accs=res.train_accs, val_loss=res.val_loss,
+        val_acc=res.val_acc, test_loss=float(test.loss),
+        test_acc=float(test.accuracy), launches=counts, steps=n_steps,
+        launches_per_step={k: c / n_steps for k, c in counts.items()},
+        epochs_in_turns=timing, step_trace=trace)
+    return fused_res, counts
 
 
 def main() -> int:
@@ -749,10 +1097,22 @@ def main() -> int:
     entries.update(check_k1(K, dev))
 
     # ---------------------------------------------------------- 7. train
-    train_res, train_counts = train_phase(K, dev)
+    train_res, train_counts, trainer = train_phase(K, dev)
+
+    # ------------------------------------------- 8. the fused train chain
+    from contrastiveprosthetics_torch.ops import train_fused as TF
+
+    entries.update(check_k5(TF, K, dev))
+    fused_res, fused_counts = fused_train_phase(K, trainer)
 
     for name, entry in entries.items():
-        if name in TRAIN_KERNELS:
+        if name in FUSED_KERNELS:
+            by_path = {"fused_train": fused_counts[name]}
+            fam = fused_res["step_trace"]["device_ms_by_family"]
+            per = fused_res["step_trace"]["device_launches_per_step"]
+            entry["device_ms_per_launch_traced"] = (
+                fam[name] / per[name] if per.get(name) else None)
+        elif name in TRAIN_KERNELS:
             by_path = {"train": train_counts[name]}
             fam = train_res["step_trace"]["device_ms_by_family"]
             per = train_res["step_trace"]["device_launches_per_step"]
@@ -768,6 +1128,7 @@ def main() -> int:
                             "bytes_per_s": PEAK_BYTES_PER_S})
     print(json.dumps({"single": single_res, "batched": batched_res}))
     print(json.dumps({"train": train_res}))
+    print(json.dumps({"fused_train": fused_res}))
     print(card)
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {

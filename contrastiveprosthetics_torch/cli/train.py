@@ -4,8 +4,9 @@ Keeps the reference's flags (``train.py:251-268``; the ``--no_*`` flags
 are ``store_false``: passing one switches the feature off), less
 ``--crossval_epochs``, which only the unported sweep reads, and adds
 ``--data_dir``, ``--checkpoint_dir``, ``--synthetic`` (fabricated,
-class-separable data), ``--seed``, ``--crossval_id``, ``--compat`` and
-``--platform`` (cuda by default).
+class-separable data), ``--seed``, ``--crossval_id``, ``--compat``,
+``--fused_train`` (the JAX CLI's flag) and ``--platform`` (cuda by
+default).
 
 Flow (``train.py:168-249``): load the store -> hyperparameters
 (``--crossval_size 0``: the canonical ones; ``--crossval_load``: the
@@ -49,6 +50,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="suffix of cross_val_{keys,values}<id>.npy")
     p.add_argument("--compat", action="store_true",
                    help="reproduce every reference quirk (config.py)")
+    p.add_argument("--fused_train", type=str, default="auto",
+                   choices=("auto", "on", "off"),
+                   help="the fused training chain for the EMG dense stack "
+                        "(ops/train_fused.py: BatchNorm statistics ride the "
+                        "GEMM kernels, dropout masks drawn in the kernels). "
+                        "auto = the Trainer's default (off)")
     add_platform_flag(p)
     return p
 
@@ -97,7 +104,9 @@ def main(argv=None) -> int:
     print("Loading dataset")
     store = build_store(args, cfg, device)
     trainer = Trainer(cfg, store, db2=args.db2, adabn=args.no_adabn,
-                      batch_size=args.batch_size)
+                      batch_size=args.batch_size,
+                      use_fused_train={"auto": None, "on": True,
+                                       "off": False}[args.fused_train])
     print("Dataset loaded")
 
     if args.crossval_size >= 1:

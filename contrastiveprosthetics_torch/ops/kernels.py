@@ -16,6 +16,9 @@ Hopper (``csrc/``):
 * ``vote_scan``: masked first-max prediction and the majority vote, one
   thread per session walking the ticks in order.
 
+The fused training chain's K5 kernels (``ops/train_fused.py``) launch
+through the same table and count here too.
+
 The train step's K1 pair (``pallas_ops.py:185,213``) is
 :func:`fused_contrastive_loss`, a ``torch.autograd.Function`` whose forward
 launches ``contrastive_loss_fwd`` and whose backward launches
@@ -45,7 +48,9 @@ from contrastiveprosthetics_torch.ops import _build
 NEG = torch.finfo(torch.float32).min  # the mask value of stream.py:268
 
 launch_counts = {"dsp_frames": 0, "encoder_chain": 0, "vote_scan": 0,
-                 "contrastive_loss_fwd": 0, "contrastive_loss_bwd": 0}
+                 "contrastive_loss_fwd": 0, "contrastive_loss_bwd": 0,
+                 "dense_block_fwd": 0, "dense_block_bwd": 0,
+                 "dropout_masks": 0}
 
 
 def reset_launch_counts() -> None:
@@ -170,6 +175,10 @@ _SIGNATURES = {
                              5, 3, False),
     "contrastive_loss_bwd": ("contrastive_loss", "contrastive_loss_bwd_launch",
                              5, 3, False),
+    "dense_block_fwd": ("train_fused", "dense_block_fwd_launch", 13, 6, True),
+    "dense_block_bwd": ("train_fused", "dense_block_bwd_launch", 16, 6, False),
+    "dropout_masks": ("train_fused", "dropout_masks_launch", 3, 3, False),
+    "philox_check": ("train_fused", "philox_check_launch", 4, 1, False),
 }
 
 

@@ -1,0 +1,514 @@
+"""The fused training chain of EMGNet's dense stack (the JAX package's
+``ops/train_fused.py``).
+
+Per dense block i of L (``models/emg_net.py``)::
+
+    y_i = h_i W_i + b_i;  r_i = relu(y_i);  z_i = BN_i(r_i)
+    h_{i+1} = dropout(z_i) if i >= L - 4 else z_i
+
+with h_0 the flattened, batch-normalized conv output and h_L the head's
+input. On CUDA each block is one kernel forward and one backward
+(``csrc/train_fused.cu``):
+
+* ``dense_block_fwd`` (K5f): the previous block's BatchNorm affine and
+  dropout applied to the input on load, GEMM + bias + ReLU, and the
+  BatchNorm statistics of the output finished in the same launch;
+* ``dense_block_bwd`` (K5b): the BatchNorm backward, dgrad, wgrad, db and
+  the lower block's two BatchNorm-backward sums, one launch;
+* ``dropout_masks`` (K5m): one block's {0,1} dropout mask. The chain draws
+  the last block's mask with it (its consumer, the head GEMM, is outside
+  the kernels); K5f and K5b draw every other mask where they apply it.
+
+A mask is a function of the step's two seed words, the dropped block's
+index, the row and the column (Philox4x32-10, :func:`philox4x32_10`), so
+the backward redraws the forward's bits and ``dropout_masks`` replays
+them. ``mask_mode="input"`` feeds explicit masks through the same kernels
+instead, for the tests.
+
+Every wrapper has its plain PyTorch version beside it (``*_reference``).
+Given CPU tensors a wrapper runs the plain version; given CUDA tensors it
+launches its kernel or raises. Launches count in
+``ops.kernels.launch_counts``. BatchNorm follows flax, as the JAX package
+does: statistics ``max(0, E[r^2] - E[r]^2)`` over the rows, ``rsqrt(var +
+eps)``, running averages with momentum 0.9 and the biased variance.
+Gradients flow through the batch statistics inside the backward, and the
+chain's (means, variances) outputs take none.
+
+Only f32 runs here; other compute dtypes raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from contrastiveprosthetics_torch.models.layers import AdaBN, BatchNorm
+from contrastiveprosthetics_torch.ops import kernels as K
+
+U32 = 0xFFFFFFFF
+# the largest f32 below 1: keep * 2^32 then stays below 2^32 in f32
+KEEP_CLIP = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+BM, BN = 32, 64  # the kernels' output tile (csrc/train_fused.cu)
+MOMENTUM = 0.9  # flax's BatchNorm momentum (layers.update_running)
+F32_ONLY = ("the fused training chain runs in float32 only; a bf16 compute "
+            "dtype is ROADMAP.md queue 1 item 15")
+
+
+def keep_threshold(keep) -> torch.Tensor:
+    """The integer threshold t on 32 random bits with P(bits <= t) ~ keep,
+    exact at keep 1, so rate 0 keeps every element (``_keep_threshold``,
+    ``train_fused.py:89-101``). Returns int64."""
+    keep = torch.as_tensor(keep, dtype=torch.float32)
+    t = (keep.clamp(0.0, KEEP_CLIP) * 4294967296.0).to(torch.int64)
+    return torch.where(keep >= 1.0, U32, t)
+
+
+# ------------------------------------------------------------------ Philox
+def _mulhilo(m: int, c: torch.Tensor):
+    """(hi, lo) 32-bit words of m * c for a 32-bit constant m and int64 c in
+    [0, 2^32), with every partial product below 2^49."""
+    p1 = c * (m & 0xFFFF)
+    p2 = c * (m >> 16)
+    low = ((p2 & 0xFFFF) << 16) + p1
+    return (p2 >> 16) + (low >> 32), low & U32
+
+
+def philox4x32_10(counter, key):
+    """Plain Philox4x32-10 (Salmon et al. 2011, Random123's constants) on
+    int64 tensors holding 32-bit words: ``counter`` four words, ``key`` two,
+    broadcast together. Returns the four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for rnd in range(10):
+        if rnd:
+            k0, k1 = (k0 + PHILOX_W[0]) & U32, (k1 + PHILOX_W[1]) & U32
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def mask_bits(seed: torch.Tensor, n_rows: int, width: int,
+              block: int) -> torch.Tensor:
+    """(n_rows, width) int64: the 32 random bits of each element of block
+    ``block``'s mask. Key = the two seed words, counter = (column // 4,
+    row, block, 0); one Philox call covers four neighbouring columns."""
+    dev = seed.device
+    words = seed.to(torch.int64) & U32
+    groups = -(-width // 4)
+    c0 = torch.arange(groups, device=dev, dtype=torch.int64)[None, :]
+    c1 = torch.arange(n_rows, device=dev, dtype=torch.int64)[:, None]
+    c2 = torch.full((1, 1), block, device=dev, dtype=torch.int64)
+    out = philox4x32_10((c0, c1, c2, torch.zeros_like(c2)),
+                        (words[0], words[1]))
+    bits = torch.stack(torch.broadcast_tensors(*out), dim=-1)
+    return bits.reshape(n_rows, 4 * groups)[:, :width]
+
+
+def dropout_masks_reference(seed, keep, n_rows: int, width: int,
+                            block: int) -> torch.Tensor:
+    """Plain version of ``dropout_masks``: block ``block``'s {0,1} f32 mask,
+    (n_rows, width)."""
+    thr = keep_threshold(keep).to(seed.device).reshape(())
+    return (mask_bits(seed, n_rows, width, block) <= thr).to(torch.float32)
+
+
+def dropout_masks(seed, keep, n_rows: int, width: int,
+                  block: int) -> torch.Tensor:
+    """The ``dropout_masks`` kernel (K5m): ``seed`` (2,) int32 and ``keep``
+    (1,) f32, both read on the device."""
+    if seed.device.type == "cpu":
+        return dropout_masks_reference(seed, keep, n_rows, width, block)
+    dev = seed.device
+    K._expect("seed", seed, (2,), torch.int32, dev)
+    K._expect("keep", keep, (1,), torch.float32, dev)
+    if n_rows < 1 or width < 1:
+        raise ValueError(f"mask shape {(n_rows, width)} is empty")
+    out = torch.empty((n_rows, width), dtype=torch.float32, device=dev)
+    K._launch("dropout_masks", "dropout_masks", K._ptr(seed), K._ptr(keep),
+              K._ptr(out), n_rows, width, block, K._stream(dev))
+    return out
+
+
+def philox_check(counters: torch.Tensor, keys: torch.Tensor):
+    """The kernels' Philox4x32-10 and the CUDA toolkit's
+    ``curand_Philox4x32_10`` on (n, 4) counters and (n, 2) keys (int32 bit
+    patterns on a CUDA device): returns both (n, 4) outputs. A check of the
+    generator only; it is on no path and counts no launch."""
+    n = counters.shape[0]
+    dev = counters.device
+    K._expect("counters", counters, (n, 4), torch.int32, dev)
+    K._expect("keys", keys, (n, 2), torch.int32, dev)
+    ours, theirs = torch.empty_like(counters), torch.empty_like(counters)
+    rc = K._fn("philox_check")(K._ptr(counters), K._ptr(keys), K._ptr(ours),
+                               K._ptr(theirs), n, K._stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"philox_check kernel launch failed: cudaError {rc}")
+    return ours, theirs
+
+
+# ------------------------------------------------------- one dense block
+def _col_sum(t: torch.Tensor) -> torch.Tensor:
+    """Column sums taken in f64 and rounded once: the CPU's sequential sum
+    over thousands of rows would lose digits that XLA's pairwise sums and
+    the kernels' per-tile sums keep."""
+    return t.sum(0, dtype=torch.float64).to(torch.float32)
+
+
+def _block_input(x, in_stats, seed, keep, mask, drop_block):
+    """h = dropout(a x + c): the previous block's BatchNorm affine
+    (``in_stats`` rows 3, 4) and dropout, as the kernels apply them on
+    load. Returns h and the kept elements (None without dropout)."""
+    z = x if in_stats is None else x * in_stats[3] + in_stats[4]
+    if keep is None:
+        return z, None
+    if mask is None:
+        mask = dropout_masks_reference(seed, keep, *x.shape, drop_block)
+    kept = mask > 0
+    return torch.where(kept, z / keep, 0.0), kept
+
+
+def dense_block_fwd_reference(x, w, b, gamma, beta, in_stats=None, *,
+                              seed=None, keep=None, mask=None,
+                              drop_block: int = -1, eps: float = 1e-5):
+    """Plain version of ``dense_block_fwd`` (``_fwd_block_kernel`` then
+    ``_finalize_stats``/``_affine``, ``train_fused.py:183-236,495-505``).
+
+    ``x`` (N, K), ``w`` (K, F), ``b``/``gamma``/``beta`` (F,); ``in_stats``
+    the previous block's (5, K) statistics, whose affine (rows 3, 4) is
+    applied to ``x``; dropout on the input when ``keep`` is given, with
+    ``mask`` or the bits of block ``drop_block`` drawn from ``seed``.
+    Returns r (N, F) and stats (5, F): mean, var, rstd, a, c."""
+    h, _ = _block_input(x, in_stats, seed, keep, mask, drop_block)
+    r = torch.relu(h @ w + b)
+    n = r.new_tensor(float(r.shape[0]))  # a tensor: exact division on CUDA
+    mean = _col_sum(r) / n
+    var = torch.clamp(_col_sum(r * r) / n - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    a = gamma * rstd
+    return r, torch.stack([mean, var, rstd, a, beta - mean * a])
+
+
+def dense_block_bwd_reference(dz, r, x, w, stats, sums, in_stats=None, *,
+                              seed=None, keep=None, mask=None,
+                              drop_block: int = -1):
+    """Plain version of ``dense_block_bwd`` (``_bwd_block_kernel``,
+    ``train_fused.py:239-324``), the BatchNorm backward written out, not
+    autograd.
+
+    ``dz`` (N, F) the gradient at this block's BatchNorm output, ``r`` its
+    ReLU output, ``x`` its input, ``stats`` its (5, F) statistics, ``sums``
+    (2, F) = (sum dz, sum dz xhat); the rest as in
+    :func:`dense_block_fwd_reference`. Returns dx (N, K), dW (K, F, laid
+    out as ``w``), db (F,) and, with ``in_stats``, the lower block's (2, K)
+    sums (sum dx, sum dx xhat_in), else None."""
+    mean, _, rstd, a, _ = stats
+    inv_n = 1.0 / dz.new_tensor(float(dz.shape[0]))
+    xn = (r - mean) * rstd
+    t = dz - sums[0] * inv_n - xn * (sums[1] * inv_n)
+    dy = torch.where(r > 0, a * t, 0.0)
+    h, kept = _block_input(x, in_stats, seed, keep, mask, drop_block)
+    dx = dy @ w.T
+    if kept is not None:
+        dx = torch.where(kept, dx / keep, 0.0)
+    dw = torch.empty_like(w).copy_(h.T @ dy)
+    out_sums = None
+    if in_stats is not None:
+        xn_in = (x - in_stats[0]) * in_stats[2]
+        out_sums = torch.stack([_col_sum(dx), _col_sum(dx * xn_in)])
+    return dx, dw, _col_sum(dy), out_sums
+
+
+def _check_weight(w, shape, dev):
+    """``w`` may be row-major or the transpose of a row-major tensor (a
+    Linear weight's ``.T``); returns its element strides."""
+    if tuple(w.shape) != tuple(shape) or w.dtype != torch.float32 \
+            or w.device != dev:
+        K._expect("w", w, shape, torch.float32, dev)
+    if not (w.is_contiguous() or w.T.is_contiguous()):
+        raise ValueError("w: neither contiguous nor a contiguous transpose")
+    return w.stride()
+
+
+def _check_dropout(seed, keep, mask, shape, dev):
+    if keep is None:
+        if seed is not None or mask is not None:
+            raise ValueError("seed or mask given without keep")
+        return
+    K._expect("keep", keep, (1,), torch.float32, dev)
+    if mask is not None:
+        K._expect("mask", mask, shape, torch.float32, dev)
+    elif seed is None:
+        raise ValueError("dropout needs a seed or a mask")
+    else:
+        K._expect("seed", seed, (2,), torch.int32, dev)
+
+
+_tickets: dict = {}
+
+
+def _zeroed_tickets(dev: torch.device, n: int) -> torch.Tensor:
+    """One zeroed int32 counter per column strip. The kernels reset each
+    counter they use, so one buffer serves every launch on the stream."""
+    t = _tickets.get(dev)
+    if t is None or t.numel() < n:
+        t = _tickets[dev] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                        device=dev)
+    return t
+
+
+def dense_block_fwd(x, w, b, gamma, beta, in_stats=None, *, seed=None,
+                    keep=None, mask=None, drop_block: int = -1,
+                    eps: float = 1e-5):
+    """The ``dense_block_fwd`` kernel (K5f); see
+    :func:`dense_block_fwd_reference`."""
+    if x.device.type == "cpu":
+        return dense_block_fwd_reference(
+            x, w, b, gamma, beta, in_stats, seed=seed, keep=keep, mask=mask,
+            drop_block=drop_block, eps=eps)
+    dev = x.device
+    if x.dim() != 2:
+        raise ValueError(f"x: shape {tuple(x.shape)}, want (N, K)")
+    N, Kw = x.shape
+    F = w.shape[-1]
+    K._expect("x", x, (N, Kw), torch.float32, dev)
+    wsk, wsn = _check_weight(w, (Kw, F), dev)
+    for name, t in (("b", b), ("gamma", gamma), ("beta", beta)):
+        K._expect(name, t, (F,), torch.float32, dev)
+    if in_stats is not None:
+        K._expect("in_stats", in_stats, (5, Kw), torch.float32, dev)
+    _check_dropout(seed, keep, mask, (N, Kw), dev)
+    r = torch.empty((N, F), dtype=torch.float32, device=dev)
+    stats = torch.empty((5, F), dtype=torch.float32, device=dev)
+    partial = torch.empty((-(-N // BM), 2, F), dtype=torch.float32,
+                          device=dev)
+    tickets = _zeroed_tickets(dev, -(-F // BN))
+    K._launch("dense_block_fwd", "dense_block_fwd", K._ptr(x), K._ptr(w),
+              K._ptr(b), K._ptr(gamma), K._ptr(beta), K._ptr(in_stats),
+              K._ptr(seed), K._ptr(keep), K._ptr(mask), K._ptr(r),
+              K._ptr(partial), K._ptr(tickets), K._ptr(stats), N, Kw, F, wsk,
+              wsn, drop_block, eps, K._stream(dev))
+    return r, stats
+
+
+def dense_block_bwd(dz, r, x, w, stats, sums, in_stats=None, *, seed=None,
+                    keep=None, mask=None, drop_block: int = -1):
+    """The ``dense_block_bwd`` kernel (K5b), dgrad and wgrad tiles in one
+    launch; see :func:`dense_block_bwd_reference`."""
+    if dz.device.type == "cpu":
+        return dense_block_bwd_reference(
+            dz, r, x, w, stats, sums, in_stats, seed=seed, keep=keep,
+            mask=mask, drop_block=drop_block)
+    dev = dz.device
+    if dz.dim() != 2 or x.dim() != 2:
+        raise ValueError("dz and x must be (N, F) and (N, K)")
+    N, F = dz.shape
+    Kw = x.shape[1]
+    K._expect("dz", dz, (N, F), torch.float32, dev)
+    K._expect("r", r, (N, F), torch.float32, dev)
+    K._expect("x", x, (N, Kw), torch.float32, dev)
+    wsk, wsn = _check_weight(w, (Kw, F), dev)
+    K._expect("stats", stats, (5, F), torch.float32, dev)
+    K._expect("sums", sums, (2, F), torch.float32, dev)
+    if in_stats is not None:
+        K._expect("in_stats", in_stats, (5, Kw), torch.float32, dev)
+    _check_dropout(seed, keep, mask, (N, Kw), dev)
+    dx = torch.empty((N, Kw), dtype=torch.float32, device=dev)
+    dw = torch.empty_like(w)  # the strides of w
+    db = torch.empty((F,), dtype=torch.float32, device=dev)
+    out_sums = partial = None
+    if in_stats is not None:
+        out_sums = torch.empty((2, Kw), dtype=torch.float32, device=dev)
+        partial = torch.empty((-(-N // BM), 2, Kw), dtype=torch.float32,
+                              device=dev)
+    tickets = _zeroed_tickets(dev, -(-Kw // BN))
+    K._launch("dense_block_bwd", "dense_block_bwd", K._ptr(dz), K._ptr(r),
+              K._ptr(x), K._ptr(w), K._ptr(stats), K._ptr(sums),
+              K._ptr(in_stats), K._ptr(seed), K._ptr(keep), K._ptr(mask),
+              K._ptr(dx), K._ptr(dw), K._ptr(db), K._ptr(out_sums),
+              K._ptr(partial), K._ptr(tickets), N, Kw, F, wsk, wsn,
+              drop_block, K._stream(dev))
+    return dx, dw, db, out_sums
+
+
+# --------------------------------------------------------------- the chain
+@dataclasses.dataclass(frozen=True)
+class _Chain:
+    n_linear: int
+    dropout_from: int  # the first block whose output is dropped
+    mask_mode: str     # "prng" | "input"
+    eps: float
+
+    def dropout(self, block: int, seed, keep, masks) -> dict:
+        """Keyword arguments of dropout on block ``block``'s input (the
+        output of block - 1), or none."""
+        if block < 1 or block - 1 < self.dropout_from:
+            return {}
+        if self.mask_mode == "input":
+            return dict(keep=keep, mask=masks[block - 1 - self.dropout_from])
+        return dict(keep=keep, seed=seed, drop_block=block - 1)
+
+
+class _FusedDenseChain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, chain, seed, keep, masks, x0, *params):
+        L = chain.n_linear
+        ws, bs, gammas, betas = (params[j * L:(j + 1) * L] for j in range(4))
+        rs, stats = [], []
+        x, in_stats = x0, None
+        for i in range(L):
+            r, st = dense_block_fwd(x, ws[i], bs[i], gammas[i], betas[i],
+                                    in_stats, eps=chain.eps,
+                                    **chain.dropout(i, seed, keep, masks))
+            rs.append(r)
+            stats.append(st)
+            x, in_stats = r, st
+        h = x * in_stats[3] + in_stats[4]
+        last_mask = None
+        if L - 1 >= chain.dropout_from:
+            last_mask = (masks[-1] if chain.mask_mode == "input" else
+                         dropout_masks(seed, keep, *x.shape, L - 1))
+            h = torch.where(last_mask > 0, h / keep, 0.0)
+        means = torch.stack([s[0] for s in stats])
+        variances = torch.stack([s[1] for s in stats])
+        ctx.chain = chain
+        ctx.save_for_backward(x0, seed, keep, last_mask, *ws, *rs, *stats,
+                              *masks)
+        ctx.mark_non_differentiable(means, variances)
+        return h, means, variances
+
+    @staticmethod
+    def backward(ctx, dh, _dmeans, _dvariances):
+        chain = ctx.chain
+        L = chain.n_linear
+        x0, seed, keep, last_mask, *rest = ctx.saved_tensors
+        ws, rs, stats = rest[:L], rest[L:2 * L], rest[2 * L:3 * L]
+        masks = tuple(rest[3 * L:])
+        # the last dropout and the top BatchNorm's two backward sums
+        dz = dh.contiguous()
+        if last_mask is not None:
+            dz = torch.where(last_mask > 0, dz / keep, 0.0)
+        xn = (rs[-1] - stats[-1][0]) * stats[-1][2]
+        sums = torch.stack([_col_sum(dz), _col_sum(dz * xn)])
+        dws, dbs, dgammas, dbetas = ([None] * L for _ in range(4))
+        for i in range(L - 1, -1, -1):
+            dbetas[i], dgammas[i] = sums[0], sums[1]
+            dz, dws[i], dbs[i], sums = dense_block_bwd(
+                dz, rs[i], x0 if i == 0 else rs[i - 1], ws[i], stats[i],
+                sums, None if i == 0 else stats[i - 1],
+                **chain.dropout(i, seed, keep, masks))
+        return (None, None, None, None, dz, *dws, *dbs, *dgammas, *dbetas)
+
+
+def fused_dense_chain(x0, ws, bs, gammas, betas, seeds, rate, *,
+                      mask_mode: str = "prng", ext_masks=(),
+                      eps: float = 1e-5):
+    """The dense stack as fused kernels with their own backward
+    (``fused_dense_chain``, ``train_fused.py:669-714``).
+
+    ``x0`` (N, D0) f32; ``ws`` (D_in, F) per block (a Linear weight's
+    ``.T`` is taken without a copy), ``bs``/``gammas``/``betas`` (F,);
+    ``seeds`` (2,) int32, the step's Philox key; ``rate`` the dropout
+    rate. ``mask_mode="input"`` takes the masks from
+    ``ext_masks`` instead, one (N, F) {0,1} f32 tensor per dropped block
+    (the last is the final block's). Dropout acts on the last
+    ``min(4, L)`` blocks' outputs.
+
+    Returns ``(h_L, means (L, F), variances (L, F))``; the statistics are
+    for the running averages and take no gradient."""
+    if x0.dtype != torch.float32:
+        raise ValueError(f"{F32_ONLY}; got {x0.dtype}")
+    if mask_mode not in ("prng", "input"):
+        raise ValueError(f"mask_mode must be 'prng' or 'input', not "
+                         f"{mask_mode!r}")
+    L = len(ws)
+    chain = _Chain(L, max(0, L - 4), mask_mode, eps)
+    masks = tuple(ext_masks) if mask_mode == "input" else ()
+    if mask_mode == "input":
+        if len(masks) != L - chain.dropout_from:
+            raise ValueError(f"{len(masks)} masks for "
+                             f"{L - chain.dropout_from} dropped blocks")
+        seeds = None
+    elif seeds is None:
+        raise ValueError("mask_mode='prng' needs the step's seed words")
+    # a fill kernel, not a host-to-device copy: no sync
+    keep = torch.full((1,), 1.0 - rate, dtype=torch.float32,
+                      device=x0.device)
+    return _FusedDenseChain.apply(chain, seeds, keep, masks, x0, *ws, *bs,
+                                  *gammas, *betas)
+
+
+def dense_chain_reference(x0, ws, bs, gammas, betas, masks, keep, *,
+                          dropout_from: int, eps: float = 1e-5):
+    """The chain in plain PyTorch with explicit {0,1} masks, differentiable
+    by autograd (``dense_chain_reference``, ``train_fused.py:722-763``)."""
+    L = len(ws)
+    x, affine = x0, None
+    means, variances = [], []
+    mi = 0
+    for i in range(L):
+        z = x if affine is None else x * affine[0] + affine[1]
+        if i > 0 and i - 1 >= dropout_from:
+            z = torch.where(masks[mi] > 0, z / keep, 0.0)
+            mi += 1
+        r = torch.relu(z @ ws[i] + bs[i])
+        mu = r.mean(0)
+        var = torch.clamp((r * r).mean(0) - mu * mu, min=0.0)
+        a = gammas[i] * torch.rsqrt(var + eps)
+        means.append(mu)
+        variances.append(var)
+        x, affine = r, (a, betas[i] - mu * a)
+    z = x * affine[0] + affine[1]
+    if L - 1 >= dropout_from:
+        z = torch.where(masks[mi] > 0, z / keep, 0.0)
+    return z, torch.stack(means), torch.stack(variances)
+
+
+# ---------------------------------------------- the whole EMG encoder
+def _norm(module) -> BatchNorm:
+    return module.bn if isinstance(module, AdaBN) else module
+
+
+def fused_emg_embed(emg_net, frames, rate, seeds, *, mask_mode: str = "prng",
+                    ext_masks=()):
+    """EMGNet's train-mode forward with the fused dense chain
+    (``fused_emg_embed``, ``train_fused.py:848-921``): the conv stack in
+    plain PyTorch (cuDNN convolutions, as the JAX package leaves it to
+    XLA), the chain, then the head as ``torch.matmul``.
+
+    Returns ``(embeddings (rows, d_e) f32, new running statistics)``: for a
+    plain-BatchNorm model one (mean, var) pair per BatchNorm in forward
+    order, moved toward the batch's with flax's momentum; None for
+    AdaBN."""
+    if frames.dtype != torch.float32:
+        raise ValueError(f"{F32_ONLY}; got {frames.dtype}")
+    conv = emg_net.conv_emg
+    x = frames.reshape(-1, 1, 1, emg_net.emg_dim)
+    batch = []
+    for c, bn in ((conv[0], conv[2]), (conv[3], conv[5])):
+        x = torch.relu(c(x))
+        bn = _norm(bn)
+        mean, var = bn.batch_stats(x)
+        x = bn.normalize(x, mean, var)
+        batch.append((mean, var))
+    x0 = x.flatten(1)  # channel-major c*P+p, the reference's flatten
+    lins = [m for m in emg_net.linear if isinstance(m, torch.nn.Linear)]
+    norms = [_norm(m) for m in emg_net.norms()]
+    h, means, variances = fused_dense_chain(
+        x0, [m.weight.T for m in lins], [m.bias for m in lins],
+        [bn.weight for bn in norms[2:]], [bn.bias for bn in norms[2:]],
+        seeds, rate, mask_mode=mask_mode, ext_masks=ext_masks,
+        eps=norms[2].eps)
+    e = h @ emg_net.last[0].weight.T
+    if not norms[0].track_running_stats:
+        return e, None
+    batch += list(zip(means, variances))
+    with torch.no_grad():
+        old = [t for bn in norms for t in (bn.running_mean, bn.running_var)]
+        new = torch._foreach_mul(old, MOMENTUM)
+        torch._foreach_add_(new, [t.detach() for mv in batch for t in mv],
+                            alpha=1.0 - MOMENTUM)
+    return e, list(zip(new[0::2], new[1::2]))

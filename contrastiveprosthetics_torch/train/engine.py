@@ -10,6 +10,13 @@ factor applied outside them. PyTorch runs eagerly, so an epoch is a Python
 loop over steps; its losses stay on the device and the host reads them
 once per epoch.
 
+``Trainer(use_fused_train=True)`` runs the EMG encoder's dense stack
+through the fused training chain instead (``ops/train_fused.py``: the K5
+kernels on CUDA), as the JAX package's flag of that name does
+(``engine.py:315-357``). Its dropout masks come from two Philox seed words
+per step, drawn from the same generator; they differ from the eager
+path's masks, equally valid. At rate 0 both paths compute the same step.
+
 Randomness: every draw (init, task permutations, batch order, dropout)
 comes from the ``torch.Generator`` the caller passes, on the store's
 device. The ``*_from_indices`` entries take the index matrices instead, so
@@ -38,8 +45,13 @@ from contrastiveprosthetics_torch.data.sampler import (
 from contrastiveprosthetics_torch.data.store import DeviceStore, SplitView
 from contrastiveprosthetics_torch.device import f32_convolutions
 from contrastiveprosthetics_torch.eval.voting import vote_from_logits
-from contrastiveprosthetics_torch.models.clip import ContrastiveModel, l2_penalty
+from contrastiveprosthetics_torch.models.clip import (
+    ContrastiveModel,
+    l2_normalize,
+    l2_penalty,
+)
 from contrastiveprosthetics_torch.ops.kernels import fused_contrastive_loss
+from contrastiveprosthetics_torch.ops.train_fused import fused_emg_embed
 from contrastiveprosthetics_torch.train.loss import (
     symmetric_contrastive_loss_per_item,
 )
@@ -147,8 +159,13 @@ class Trainer:
     batch_size: int = 8
     n_linear: int = 7
     hidden: int = 512
+    # the fused training chain for the EMG tower's dense stack; None is
+    # off, as in the JAX package, until a benchmark's A/B on the card says
+    # otherwise (PERF.md)
+    use_fused_train: bool | None = None
 
     def __post_init__(self):
+        self.use_fused_train = bool(self.use_fused_train)
         self.device = self.store.device
         self.view_train = self.store.view("train", db2=self.db2)
         self.view_val = self.store.view("val", db2=self.db2)
@@ -170,18 +187,54 @@ class Trainer:
         return TrainState.fresh(model)
 
     # ------------------------------------------------------------- train step
+    def _embed_fused(self, model: ContrastiveModel, emg_b, dp_emg: float,
+                     generator: torch.Generator | None, ext_masks):
+        """``model.embed`` with the EMG tower's dense stack on the fused
+        chain; a plain-BatchNorm model's running statistics move as in the
+        eager forward. ``ext_masks``: explicit dropout masks (the tests)."""
+        B, T = emg_b.shape[:2]
+        seeds = None
+        if ext_masks is None:
+            if generator is not None:
+                seeds = torch.randint(-2**31, 2**31, (2,), dtype=torch.int32,
+                                      generator=generator,
+                                      device=self.device)
+            elif dp_emg == 0.0:  # every mask keeps everything
+                seeds = torch.zeros(2, dtype=torch.int32, device=self.device)
+            else:
+                raise ValueError("dropout at a nonzero rate needs an explicit "
+                                 "torch.Generator for its mask")
+        e, stats = fused_emg_embed(
+            model.emg_net, emg_b.reshape(-1, emg_b.shape[-1]), dp_emg, seeds,
+            mask_mode="prng" if ext_masks is None else "input",
+            ext_masks=ext_masks or ())
+        if stats is not None:
+            with torch.no_grad():
+                torch._foreach_copy_(
+                    [t for bn in model.emg_net.norms()
+                     for t in (bn.running_mean, bn.running_var)],
+                    [t for mv in stats for t in mv])
+        g = model._class_rows(B, T).reshape(B, T, -1)
+        return l2_normalize(e.reshape(B, T, -1)), l2_normalize(g)
+
     def loss_and_grads(self, state: TrainState, emg_b: torch.Tensor,
-                       hyper: Hyper, generator: torch.Generator | None):
+                       hyper: Hyper, generator: torch.Generator | None,
+                       ext_masks=None):
         """Forward (train mode: batch statistics, which also move the
         running ones), the fused loss plus ``reg * l2`` of each tower, and
         the gradients of that total. Returns (loss, accuracy, grads by
-        tower), the first two 0-d tensors on the device."""
+        tower), the first two 0-d tensors on the device. ``ext_masks``
+        (fused chain only) replaces the drawn dropout masks."""
         model = state.model.train()
         towers = model.towers()
         params = {k: list(t.parameters()) for k, t in towers.items()}
         B, T = emg_b.shape[:2]
         with f32_convolutions():
-            e, g = model.embed(emg_b, hyper.dp_emg, generator)
+            if self.use_fused_train:
+                e, g = self._embed_fused(model, emg_b, hyper.dp_emg,
+                                         generator, ext_masks)
+            else:
+                e, g = model.embed(emg_b, hyper.dp_emg, generator)
             loss, correct = fused_contrastive_loss(e.contiguous(),
                                                    g.contiguous())
             total = (loss
@@ -195,10 +248,11 @@ class Trainer:
 
     def _sgd_step(self, state: TrainState, emg_b, hyper: Hyper,
                   lr_emg: float, lr_glove: float,
-                  generator: torch.Generator | None):
+                  generator: torch.Generator | None, ext_masks=None):
         """One optimization step: forward, loss + L2, backward, then the
         two Adam updates. Returns (loss, accuracy) on the device."""
-        loss, acc, grads = self.loss_and_grads(state, emg_b, hyper, generator)
+        loss, acc, grads = self.loss_and_grads(state, emg_b, hyper, generator,
+                                               ext_masks)
         towers = state.model.towers()
         adam_step_(towers["emg_net"].parameters(), grads["emg_net"],
                    state.opt_emg, lr_emg)
@@ -210,23 +264,26 @@ class Trainer:
     def train_epoch_from_indices(self, state: TrainState, emg_rand, batches,
                                  tail, hyper: Hyper, lr_emg_factor: float,
                                  lr_glove_factor: float,
-                                 generator: torch.Generator | None):
+                                 generator: torch.Generator | None,
+                                 ext_masks=None):
         """One epoch over given index matrices: ``emg_rand`` (n_tasks, D)
         task permutations, ``batches`` (n_batches, bs) and the (D % bs,)
         ``tail``, which trains as a smaller batch (DataLoader
-        ``drop_last=False``, train.py:86). Returns the per-step losses and
-        accuracies, on the device."""
+        ``drop_last=False``, train.py:86). ``ext_masks``, for the fused
+        chain in tests, holds each step's explicit dropout masks. Returns
+        the per-step losses and accuracies, on the device."""
         v = self.view_train
         lr_e = _f32_product(hyper.lr_emg, lr_emg_factor)
         lr_g = _f32_product(hyper.lr_glove, lr_glove_factor)
         steps = list(batches) + ([tail] if tail.numel() else [])
         losses, accs = [], []
-        for items in steps:
+        for i, items in enumerate(steps):
             # one-hot contrastive mode: the class encoder never reads glove
             # values, so the glove gather is skipped
             emg_b = gather_train_batch(v.emg_flat, emg_rand, items)
-            loss, acc = self._sgd_step(state, emg_b, hyper, lr_e, lr_g,
-                                       generator)
+            loss, acc = self._sgd_step(
+                state, emg_b, hyper, lr_e, lr_g, generator,
+                None if ext_masks is None else ext_masks[i])
             losses.append(loss)
             accs.append(acc)
         return torch.stack(losses), torch.stack(accs)

@@ -15,6 +15,7 @@ import torch
 
 from contrastiveprosthetics_torch.models.clip import ContrastiveModel
 from contrastiveprosthetics_torch.ops import kernels as K
+from contrastiveprosthetics_torch.ops import train_fused as TF
 from contrastiveprosthetics_torch.ops.signal import butter_bandpass_sos
 
 torch.set_num_threads(1)
@@ -175,3 +176,195 @@ def test_contrastive_loss_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         K.fused_contrastive_loss(e, e.cpu())
     assert K.launch_counts["contrastive_loss_fwd"] == before
+
+
+# ------------------------------------------------- the fused training chain
+def _block_case(N, K_in, F=512, seed=0, dev="cuda"):
+    """One dense block's inputs at the chain's widths: a ReLU output as
+    input, the previous block's statistics, Linear-scaled weights, and the
+    gradients arriving from above."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    x = t(np.maximum(rng.standard_normal((N, K_in)), 0.0))
+    mean = t(rng.uniform(0.2, 0.6, K_in))
+    var = t(rng.uniform(0.2, 0.5, K_in))
+    rstd = torch.rsqrt(var + 1e-5)
+    a = t(rng.uniform(0.8, 1.2, K_in)) * rstd
+    in_stats = torch.stack([mean, var, rstd, a, t(rng.normal(0, 0.1, K_in))
+                            - mean * a])
+    w = t(rng.uniform(-1, 1, (K_in, F)) / np.sqrt(K_in))
+    vecs = [t(rng.normal(0, 0.1, F)), t(rng.uniform(0.8, 1.2, F)),
+            t(rng.normal(0, 0.1, F))]
+    dz = t(rng.standard_normal((N, F)) * 0.01)
+    seed_words = torch.tensor([int(v) for v in rng.integers(-2**31, 2**31,
+                                                            2)],
+                              dtype=torch.int32, device=dev)
+    return x, w, vecs, in_stats, dz, seed_words
+
+
+def _close(got, want, rtol=1e-4, scale_atol=1e-5):
+    atol = scale_atol * max(float(want.abs().max()), 1e-3)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("N", [328, 123])
+@pytest.mark.parametrize("K_in,inner", [(768, False), (512, True)])
+def test_dense_block_kernels_match_plain(cuda, N, K_in, inner):
+    """K5f and K5b against their plain versions at the train step's N = 328
+    rows and a ragged 123: block 0's form (768 inputs, no affine, no
+    dropout) and an inner dropped block's (512 inputs, the previous
+    block's affine and drawn dropout at rate 0.5). A rerun gives the same
+    bits."""
+    x, w, (b, gamma, beta), in_stats, dz, seed = _block_case(N, K_in)
+    kw, in_st = {}, None
+    if inner:
+        kw = dict(seed=seed, keep=torch.full((1,), 0.5, device=cuda),
+                  drop_block=3)
+        in_st = in_stats
+    before = dict(K.launch_counts)
+    r, stats = TF.dense_block_fwd(x, w, b, gamma, beta, in_st, **kw)
+    r_p, stats_p = TF.dense_block_fwd_reference(x, w, b, gamma, beta, in_st,
+                                                **kw)
+    sums = torch.stack([dz.sum(0), (dz * (r_p - stats_p[0])
+                                    * stats_p[2]).sum(0)])
+    got = TF.dense_block_bwd(dz, r_p, x, w, stats_p, sums, in_st, **kw)
+    want = TF.dense_block_bwd_reference(dz, r_p, x, w, stats_p, sums, in_st,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts["dense_block_fwd"] == before["dense_block_fwd"] + 1
+    assert K.launch_counts["dense_block_bwd"] == before["dense_block_bwd"] + 1
+    # f32 sums over 512-768 products in another order than cuBLAS's
+    _close(r, r_p, rtol=1e-5)
+    _close(stats, stats_p)
+    for g, wnt in zip(got, want):
+        if wnt is None:
+            assert g is None
+        else:
+            _close(g, wnt)
+    assert torch.equal(TF.dense_block_fwd(x, w, b, gamma, beta, in_st,
+                                          **kw)[0], r)
+    again = TF.dense_block_bwd(dz, r_p, x, w, stats_p, sums, in_st, **kw)
+    for g, a in zip(got, again):
+        assert g is None or torch.equal(g, a)
+
+
+def test_transposed_weight_gives_transposed_gradient(cuda):
+    """A Linear weight's ``.T`` goes in without a copy, and dW comes back
+    laid out as that weight."""
+    x, w, (b, gamma, beta), _, dz, _ = _block_case(64, 512, F=256)
+    wt = w.T.contiguous().T
+    r, stats = TF.dense_block_fwd(x, wt, b, gamma, beta)
+    assert torch.equal(r, TF.dense_block_fwd(x, w, b, gamma, beta)[0])
+    sums = torch.stack([dz.sum(0), dz.sum(0)])
+    dx, dw, db, _ = TF.dense_block_bwd(dz, r, x, wt, stats, sums)
+    dx2, dw2, db2, _ = TF.dense_block_bwd(dz, r, x, w, stats, sums)
+    assert dw.stride() == wt.stride() and torch.equal(dw, dw2)
+    assert torch.equal(dx, dx2) and torch.equal(db, db2)
+
+
+@pytest.mark.parametrize("N", [328, 123])
+def test_dropout_masks_kernel_matches_plain(cuda, N):
+    seed = torch.tensor([123456789, -98765], dtype=torch.int32, device=cuda)
+    for keep, block in ((0.5, 6), (0.7, 3), (1.0, 4)):
+        kt = torch.full((1,), keep, device=cuda)
+        got = TF.dropout_masks(seed, kt, N, 512, block)
+        want = TF.dropout_masks_reference(seed, kt, N, 512, block)
+        assert torch.equal(got, want)
+        if keep == 1.0:
+            assert bool((got == 1).all())
+        else:
+            assert abs(float(got.mean()) - keep) < 0.02
+
+
+def test_prng_chain_equals_input_chain_fed_replayed_masks(cuda):
+    """The masks drawn inside K5f/K5b are the ones ``dropout_masks``
+    replays at the dropped block's index: the chain in prng mode and in
+    input mode fed those masks give the same bits, forward and backward,
+    at the full width and depth."""
+    rng = np.random.default_rng(5)
+    L, N, F = 7, 328, 512
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    x0 = t(rng.standard_normal((N, 768))).requires_grad_()
+    params = ([t(rng.uniform(-1, 1, (768 if i == 0 else F, F))
+                 / np.sqrt(768 if i == 0 else F)) for i in range(L)]
+              + [t(rng.normal(0, 0.1, F)) for _ in range(L)]
+              + [t(rng.uniform(0.8, 1.2, F)) for _ in range(L)]
+              + [t(rng.normal(0, 0.1, F)) for _ in range(L)])
+    for p in params:
+        p.requires_grad_()
+    seed = torch.tensor([7, -11], dtype=torch.int32, device=cuda)
+    rate = 0.4
+    keep = torch.full((1,), 1 - rate, device=cuda)
+    masks = [TF.dropout_masks(seed, keep, N, F, b) for b in range(3, L)]
+    outs = []
+    for mode, ext in (("prng", ()), ("input", masks)):
+        h, m, v = TF.fused_dense_chain(x0, params[:L], params[L:2 * L],
+                                       params[2 * L:3 * L], params[3 * L:],
+                                       seed, rate, mask_mode=mode,
+                                       ext_masks=ext)
+        grads = torch.autograd.grad((h * h).sum(), [x0, *params])
+        outs.append((h, m, v, *grads))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_philox_matches_curand(cuda):
+    """The kernels' Philox4x32-10 against the CUDA toolkit's
+    ``curand_Philox4x32_10`` on random counters and keys, and Random123's
+    known answer for a zero counter and key."""
+    rng = np.random.default_rng(9)
+    ctr = torch.from_numpy(rng.integers(-2**31, 2**31, (4096, 4),
+                                        dtype=np.int64).astype(np.int32))
+    key = torch.from_numpy(rng.integers(-2**31, 2**31, (4096, 2),
+                                        dtype=np.int64).astype(np.int32))
+    ctr[0], key[0] = 0, 0
+    ours, theirs = TF.philox_check(ctr.to(cuda), key.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(ours, theirs)
+    assert [v & 0xFFFFFFFF for v in ours[0].tolist()] == [
+        0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+    # and the plain version on the CPU agrees with both
+    words = TF.philox4x32_10(
+        [ctr[:64, j].long() & 0xFFFFFFFF for j in range(4)],
+        [key[:64, j].long() & 0xFFFFFFFF for j in range(2)])
+    plain = torch.stack(words, dim=1)
+    assert torch.equal(plain, ours[:64].cpu().long() & 0xFFFFFFFF)
+
+
+def test_train_fused_wrappers_reject_bad_inputs(cuda):
+    """Each K5 wrapper raises on a wrong dtype, device or layout and
+    launches nothing."""
+    x, w, (b, gamma, beta), in_stats, dz, seed = _block_case(40, 512)
+    keep = torch.full((1,), 0.5, device=cuda)
+    r, stats = TF.dense_block_fwd(x, w, b, gamma, beta)
+    sums = torch.zeros((2, 512), device=cuda)
+    before = dict(K.launch_counts)
+    with pytest.raises(ValueError, match="dtype"):
+        TF.dense_block_fwd(x.double(), w, b, gamma, beta)
+    with pytest.raises(ValueError, match="on cpu"):
+        TF.dense_block_fwd(x, w, b.cpu(), gamma, beta)
+    with pytest.raises(ValueError, match="contiguous"):
+        TF.dense_block_fwd(x.T.contiguous().T, w, b, gamma, beta)
+    with pytest.raises(ValueError, match="seed or a mask"):
+        TF.dense_block_fwd(x, w, b, gamma, beta, in_stats, keep=keep)
+    with pytest.raises(ValueError, match="dtype"):
+        TF.dense_block_bwd(dz, r, x, w, stats, sums.double())
+    with pytest.raises(ValueError, match="on cpu"):
+        TF.dense_block_bwd(dz, r.cpu(), x, w, stats, sums)
+    with pytest.raises(ValueError, match="contiguous"):
+        TF.dense_block_bwd(dz, r, x, torch.empty((512, 1024), device=cuda)
+                           [:, ::2], stats, sums)
+    with pytest.raises(ValueError, match="dtype"):
+        TF.dropout_masks(seed.long(), keep, 40, 512, 3)
+    with pytest.raises(ValueError, match="on cpu"):
+        TF.dropout_masks(seed, keep.cpu(), 40, 512, 3)
+    with pytest.raises(ValueError, match="float32 only"):
+        TF.fused_dense_chain(x.half(), [w], [b], [gamma], [beta], seed, 0.0)
+    assert K.launch_counts == before
