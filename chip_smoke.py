@@ -14,17 +14,22 @@ made with numpy from a seed:
 
 1. set-up: kernel build (seconds printed), the card's name and power limit;
 2. each kernel against its plain PyTorch version on the card, at the
-   path's shapes (``encoder_chain`` at 1 and 25 x 32,768 rows,
-   ``dsp_frames`` and ``vote_scan`` at 32,768 sessions x 25 ticks), timed
-   with CUDA events beside its bound and, for the encoder, the plain
-   ``torch.matmul`` chain;
+   path's shapes (``dsp_frames`` and ``vote_scan`` at 32,768 sessions x
+   25 ticks; ``encoder_chain`` at 1, 16, 200, its regime threshold -+ 1,
+   32,768 and 25 x 32,768 rows, with and without per-session affines,
+   every call's first rows bit-identical to the smaller call's and to a
+   rerun, and both f32 paths against float64), timed with CUDA events
+   beside its bound and, for the encoder, the ``torch.addmm`` chain at 1,
+   32,768 and 819,200 rows, and both of its tilings from 16 to 1,024 rows;
 3. single session: calibration (timed; its IIR runs on the host), 50
    per-tick ``step`` calls (p50/p99 tick latency) and a 200-tick ``steps``
    replay, which must agree, then a profiler trace of 20 ``step`` calls:
    device time per step by CUDA function against the wall time;
 4. batched: 32,768 sessions (4 calibrated, with subset masks), one vote
    window of 25 ticks through ``BatchedStreamingEngine.steps``, held
-   against the plain version;
+   against the plain version, timed, and traced (device time by kernel,
+   idle share); one live ``BatchedStreamingEngine.step`` of all sessions
+   timed;
 5. the ``cptorch-serve`` CLI on cuda, per tick and batched replay;
 6. the K1 pair (``contrastive_loss_fwd``/``_bwd``) against its plain
    version at the train step's N=8, T=41, d=16 and at a ragged N=3, and a
@@ -52,10 +57,11 @@ launched in 3 and 4, each K1 kernel once per train step in 7, and the K5
 kernels as the chain's depth says in 8. TF32 is off throughout
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set False), so the plain versions run
-in full f32. Any failure raises and the exit code is not 0. The last lines
-are ``{"single", "batched"}``, ``{"train"}`` and ``{"fused_train"}`` JSON
-lines, the card line
-from nvidia-smi, one ``{"kernels": [...]}`` JSON line, and
+in full f32 (``encoder_chain`` runs 3xTF32 by its own instructions,
+whatever the flags). Any failure raises and the exit code is not 0. The
+last lines are ``{"single", "batched"}``, ``{"train"}`` and
+``{"fused_train"}`` JSON lines, the card line from nvidia-smi, one
+``{"kernels": [...]}`` JSON line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -70,8 +76,10 @@ import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores and HBM3 bandwidth; a card below its 700 W limit runs slower.
+# cores, dense TF32 on the tensor cores and HBM3 bandwidth; a card below
+# its 700 W limit runs slower.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 REPLACES = {
     "dsp_frames": "contrastiveprosthetics_tpu/ops/pallas_ops.py:544 "
@@ -104,7 +112,8 @@ SOURCES = {name: "contrastiveprosthetics_torch/csrc/" + (
     for name in REPLACES}
 # the CUDA functions each port kernel launches, as named in a profiler trace
 DEVICE_FUNCTIONS = {"dsp_frames_kernel": "dsp_frames",
-                    "encoder_layer_kernel": "encoder_chain",
+                    "encoder_layer_large_kernel": "encoder_chain",
+                    "encoder_layer_small_kernel": "encoder_chain",
                     "encoder_head_kernel": "encoder_chain",
                     "vote_scan_kernel": "vote_scan",
                     "contrastive_loss_fwd_kernel": "contrastive_loss_fwd",
@@ -154,9 +163,10 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float,
+             peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -183,10 +193,46 @@ def matmul_chain(frames, folded, affines):
     return e @ gt
 
 
+def device_summary(prof, n: int, wall_ms: float) -> dict:
+    """Device time per step from a profiler trace of ``n`` steps: busy as
+    the union of the kernels' intervals (with programmatic dependent
+    launch a layer starts, fetches its weights and waits inside the layer
+    before it), by port kernel and by CUDA function of the port's kernels
+    (each summed over its own interval), against the wall time."""
+    from torch.autograd import DeviceType
+
+    spans, device_ms, by_function, launches = [], {}, {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        fn = next((k for k in DEVICE_FUNCTIONS if k in e.name), None)
+        name = DEVICE_FUNCTIONS[fn] if fn else "other (PyTorch ops, copies)"
+        device_ms[name] = device_ms.get(name, 0.0) + (end - start) / 1e3 / n
+        launches[name] = launches.get(name, 0) + 1
+        if fn:
+            by_function[fn] = by_function.get(fn, 0.0) + (end - start) / 1e3 / n
+    busy, last = 0.0, None
+    for start, end in sorted(spans):
+        if last is None or start > last:
+            busy += end - start
+            last = end
+        elif end > last:
+            busy += end - last
+            last = end
+    busy /= 1e3 * n
+    return dict(steps=n, wall_ms_per_step_traced=wall_ms,
+                device_ms_per_step=busy if busy > 0 else None,
+                device_ms_by_function=device_ms,
+                device_ms_by_cuda_function=by_function,
+                device_launches_per_step={k: v / n for k, v in launches.items()},
+                device_idle_share=1 - busy / wall_ms if busy > 0 else None)
+
+
 def trace_steps(engine, blocks, mask, n: int) -> dict:
     """Profiler trace of ``n`` synchronised ``engine.step`` calls: device
     time per step, by CUDA function, against the wall time per step."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     carry, *_ = engine.step(engine.init_carry(), blocks[0], mask)  # warm
@@ -198,22 +244,23 @@ def trace_steps(engine, blocks, mask, n: int) -> dict:
             carry, *_ = engine.step(carry, blocks[i], mask)
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    device_ms: dict = {}
-    launches: dict = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = next((v for k, v in DEVICE_FUNCTIONS.items() if k in e.name),
-                    "other (PyTorch ops, copies)")
-        device_ms[name] = device_ms.get(name, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3 / n
-        launches[name] = launches.get(name, 0) + 1
-    busy = sum(device_ms.values())
-    return dict(steps=n, wall_ms_per_step_traced=wall_ms,
-                device_ms_per_step=busy if busy > 0 else None,
-                device_ms_by_function=device_ms,
-                device_launches_per_step={k: v / n for k, v in launches.items()},
-                device_idle_share=1 - busy / wall_ms if busy > 0 else None)
+    return device_summary(prof, n, wall_ms)
+
+
+def trace_batched(engine, blocks, masks) -> dict:
+    """Profiler trace of one synchronised ``engine.steps`` call over all
+    its ticks: device time by kernel and the idle share of the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.steps(engine.init_carries(), blocks, masks)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.steps(engine.init_carries(), blocks, masks)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_summary(prof, 1, wall_ms)
 
 
 def near_tie(scores: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -507,6 +554,106 @@ def train_phase(K, dev) -> tuple[dict, dict, object]:
         ms_per_step=epoch_ms / steps_per_epoch,
         train_windows_per_s=windows / epoch_ms * 1e3, step_trace=trace)
     return train_res, counts, trainer
+
+def check_encoder(K, rows, single, batched):
+    """Phase 2, ``encoder_chain``: at every M of the ladder (1, 16, 200, the
+    regime threshold -+ 1, one tick of 32,768 sessions, 25 ticks) on the
+    batched engine's shared chain with per-session affines (M <= S: one
+    tick of M sessions) and on the single engine's folded chain, held
+    against the plain version; each call's first rows bit-identical to the
+    smaller call before it, across the regime switch, and a rerun
+    bit-identical. Times both tilings over a range of M (the threshold's
+    evidence). Returns the 25-tick scores and the ``kernels`` entry."""
+    S = batched.n_sessions
+    M_all = rows.shape[0]
+    thr = K.ENCODER_SMALL_ROWS
+    shared, affines = batched.shared_chain, batched.session_affines()
+    folded = single.folded_chain
+    chains = {"affines": lambda M: (shared, tuple(x[:min(M, S)]
+                                                  for x in affines)),
+              "folded": lambda M: (folded, None)}
+    errs, prev = {}, {}
+    for M in sorted({1, 16, 200, thr - 1, thr + 1, S, M_all}):
+        for kind, make in chains.items():
+            chain, aff = make(M)
+            got = K.fused_encoder_logits(rows[:M], chain, aff)
+            again = K.fused_encoder_logits(rows[:M], chain, aff)
+            want = K.fused_encoder_logits_reference(rows[:M], chain, aff)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+            if not torch.equal(got, again):
+                raise AssertionError(f"encoder_chain rerun differs, M={M}")
+            if kind in prev and not torch.equal(got[:len(prev[kind])],
+                                                prev[kind]):
+                raise AssertionError(
+                    f"encoder_chain rows differ between M={len(prev[kind])} "
+                    f"and M={M} ({kind})")
+            errs[f"M={M} {kind}"] = max_abs(got, want)
+            prev[kind] = got
+            del again, want
+    scores = prev["affines"]
+    # both f32 paths against float64 on one tick of S sessions
+    aff = chains["affines"](S)[1]
+    want64 = K.fused_encoder_logits_reference(
+        rows[:S].double(), tuple(t.double() for t in shared),
+        tuple(t.double() for t in aff))
+    vs_f64 = dict(kernel=max_abs(scores[:S], want64), plain_f32=max_abs(
+        K.fused_encoder_logits_reference(rows[:S], shared, aff), want64))
+    del want64
+    log(f"[kernels] encoder_chain ok at M = 1 .. {M_all} (threshold "
+        f"{thr}), affines and folded: max abs err {max(errs.values()):.3g}; "
+        "first rows bit-identical across M and the regime switch; reruns "
+        f"bit-identical; against float64 at M={S}: {json.dumps(vs_f64)}")
+
+    macs = sum(w.numel() for w in shared[0:-1:2]) + shared[-1].numel()
+
+    def bounds(M, tensors):
+        b, by = bound_ms(nbytes(*tensors), 3 * 2.0 * macs * M,
+                         PEAK_TF32_FLOPS)
+        return dict(bound_ms=b, bound_by=by,
+                    bound_ms_f32_simt=bound_ms(nbytes(*tensors),
+                                               2.0 * macs * M)[0])
+
+    enc = dict(
+        route="cuda", max_abs_err=max(errs.values()), max_abs_err_parts=errs,
+        tolerance="rtol 2e-4 atol 2e-5 against the plain f32 version (3xTF32 "
+                  "sums in another order); rows bit-identical across M, "
+                  "tilings and reruns",
+        ms=time_ms(lambda: K.fused_encoder_logits(rows, shared, affines), 3),
+        plain_ms=time_ms(
+            lambda: K.fused_encoder_logits_reference(rows, shared, affines),
+            2),
+        library_ms=time_ms(lambda: matmul_chain(rows, shared, affines), 2),
+        **bounds(M_all, (rows, scores, *shared, *affines)),
+        shape=f"rows={M_all} (tick, session) with per-session affines",
+        max_abs_err_vs_f64_at_one_tick=vs_f64, macs_per_row=macs,
+        regime_threshold=thr)
+    one = rows[:1]
+    s1 = K.fused_encoder_logits(one, folded)
+    enc["rows_1"] = dict(
+        ms=time_ms(lambda: K.fused_encoder_logits(one, folded), 200, 5),
+        plain_ms=time_ms(lambda: K.fused_encoder_logits_reference(one, folded),
+                         200, 5),
+        library_ms=time_ms(lambda: matmul_chain(one, folded, None), 200, 5),
+        **bounds(1, (one, s1, *folded)))
+    tick = rows[:S]
+    enc[f"rows_{S}"] = dict(
+        ms=time_ms(lambda: K.fused_encoder_logits(tick, shared, affines), 10),
+        library_ms=time_ms(lambda: matmul_chain(tick, shared, affines), 10),
+        **bounds(S, (tick, scores[:S], *shared, *affines)))
+    plan = K.encoder_plan(folded)
+    enc["tiling_ms_by_rows"] = {
+        M: {name: time_ms(lambda: K.encoder_chain(rows[:M], plan, regime),
+                          50, 3)
+            for name, regime in (("small", 0), ("large", 1))}
+        for M in (16, 64, 128, 256, 384, 512, 640, 768, 1024)}
+    log(f"[kernels] encoder_chain: {enc['ms']:.3f} ms at {M_all} rows "
+        f"(addmm chain {enc['library_ms']:.3f}, bound {enc['bound_ms']:.3f}), "
+        f"{enc['rows_1']['ms']:.5f} ms at 1 row (addmm chain "
+        f"{enc['rows_1']['library_ms']:.5f}); both tilings by rows: "
+        f"{json.dumps(enc['tiling_ms_by_rows'])}")
+    return scores, enc
+
 
 def k5_case(N: int, K_in: int, F: int, seed: int, dev):
     """One dense block's inputs at the chain's widths: a ReLU output as
@@ -941,44 +1088,8 @@ def main() -> int:
         shape=f"K={T} S={S} factor={F} D={D}")
     log(f"[kernels] dsp_frames ok: max abs err {parts}")
 
-    rows = frames.reshape(T * S, D)
-    shared, affines = batched.shared_chain, batched.session_affines()
-    scores = K.fused_encoder_logits(rows, shared, affines)
-    scores_p = K.fused_encoder_logits_reference(rows, shared, affines)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(scores, scores_p, rtol=2e-4, atol=2e-5)
-    err = max_abs(scores, scores_p)
-    macs = sum(w.numel() for w in shared[0:-1:2]) + shared[-1].numel()
-    b, by = bound_ms(nbytes(rows, scores, *shared, *affines),
-                     2.0 * macs * rows.shape[0])
-    enc = dict(
-        route="cuda", max_abs_err=err,
-        tolerance="rtol 2e-4 atol 2e-5 (f32 sums in another order)",
-        ms=time_ms(lambda: K.fused_encoder_logits(rows, shared, affines), 3),
-        plain_ms=time_ms(
-            lambda: K.fused_encoder_logits_reference(rows, shared, affines),
-            2),
-        bound_ms=b, bound_by=by,
-        library_ms=time_ms(lambda: matmul_chain(rows, shared, affines), 2),
-        shape=f"rows={T * S} (tick, session) with per-session affines",
-        macs_per_row=macs)
-    one = frames[0, :1].contiguous()
-    folded = single.folded_chain
-    s1 = K.fused_encoder_logits(one, folded)
-    s1_p = K.fused_encoder_logits_reference(one, folded)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(s1, s1_p, rtol=2e-4, atol=2e-5)
-    b1, by1 = bound_ms(nbytes(one, s1, *folded), 2.0 * macs)
-    enc["rows_1"] = dict(
-        max_abs_err=max_abs(s1, s1_p),
-        ms=time_ms(lambda: K.fused_encoder_logits(one, folded), 200, 5),
-        plain_ms=time_ms(lambda: K.fused_encoder_logits_reference(one, folded),
-                         200, 5),
-        library_ms=time_ms(lambda: matmul_chain(one, folded, None), 200, 5),
-        bound_ms=b1, bound_by=by1)
+    scores, enc = check_encoder(K, frames.reshape(T * S, D), single, batched)
     entries["encoder_chain"] = enc
-    log(f"[kernels] encoder_chain ok: max abs err {err:.3g} at {T * S} rows, "
-        f"{enc['rows_1']['max_abs_err']:.3g} at 1 row")
 
     scores = scores.view(T, S, C)
     vote_args = (scores, masks_t, carries.votes, carries.n_seen)
@@ -998,7 +1109,7 @@ def main() -> int:
         bound_ms=b, bound_by=by, library_ms=None,
         shape=f"K={T} S={S} C={C} W={W}")
     log("[kernels] vote_scan ok: exact")
-    del frames_p, scores_p, want, got
+    del frames_p, want, got
 
     # ------------------------------------------------- 3. single session
     blocks = recording[: 200 * F].reshape(200, F, D)
@@ -1047,6 +1158,7 @@ def main() -> int:
         if not single_counts[name] or not batched_counts[name]:
             raise AssertionError(f"{name} never launched on the main path: "
                                  f"{single_counts} {batched_counts}")
+    shared, affines = batched.shared_chain, batched.session_affines()
     chain_args = (*batched.init_carries(), blocks_t, masks_t, sos, mu, sd,
                   shared, affines)
     _, k_preds, k_votes, k_scores = K.tick_chain(*chain_args)
@@ -1074,15 +1186,23 @@ def main() -> int:
                                                blocks_t, masks_t), reps=3)
     host_ms = time_ms(lambda: batched.steps(batched.init_carries(),
                                             batch_blocks, masks), reps=2)
+    live = batched.init_carries()
+    live_ms = time_ms(lambda: batched.step(live, blocks_t[0], masks_t),
+                      reps=10, warmup=2)
+    steps_trace = trace_batched(batched, blocks_t, masks_t)
     batched_res = dict(sessions=S, ticks=T, steps_ms=batched_ms,
                        ms_per_tick=batched_ms / T,
                        steps_ms_numpy_input=host_ms,
+                       live_step_ms=live_ms, steps_trace=steps_trace,
                        pred_near_tie_disagreements=int(diff.sum()))
     log(f"[batched] {S} sessions x {T} ticks: {batched_ms:.3f} ms per "
         f"steps call on device-resident blocks, {batched_ms / T:.4f} "
-        f"ms/tick; {host_ms:.3f} ms with numpy blocks copied in; "
+        f"ms/tick; {host_ms:.3f} ms with numpy blocks copied in; one live "
+        f"step of all {S} sessions {live_ms:.4f} ms; "
         f"{int(diff.sum())} near-tie pred differences vs plain; "
         f"launches {batched_counts}")
+    log(f"[batched] profiler trace of one {T}-tick steps call: "
+        f"{json.dumps(steps_trace)}")
     del k_scores, p_scores, blocks_t
 
     # ----------------------------------------------------------- 5. CLI
@@ -1125,6 +1245,7 @@ def main() -> int:
                      kernel_ms=entry["ms"], launches=sum(by_path.values()),
                      launches_by_path=by_path,
                      peaks={"f32_flops": PEAK_F32_FLOPS,
+                            "tf32_flops": PEAK_TF32_FLOPS,
                             "bytes_per_s": PEAK_BYTES_PER_S})
     print(json.dumps({"single": single_res, "batched": batched_res}))
     print(json.dumps({"train": train_res}))

@@ -5,114 +5,432 @@
 //   inside ::_tick_chain_kernel (pallas_ops.py:588-593) and
 //   ::_batched_tick_chain_kernel (pallas_ops.py:801-808).
 //
-// Two kernels, launched 9 + 1 times per chain at full width:
-//   encoder_layer: out = relu(h @ W + b), then, for the batched engine,
-//     out = out * a[s] + c[s] with s the row's session (the per-session
-//     BatchNorm affine of pallas_ops.py:805);
-//   encoder_head: e = h @ Wh + bh; e /= ||e|| (no eps); scores = e @ Gt.
+// One host call per chain (encoder_chain_launch) issues 9 + 1 launches at
+// full width:
+//   a layer kernel per hidden layer: out = relu(h @ W + b), then, for the
+//     batched engine, out = out * a[s] + c[s] with s = r % S the row's
+//     session (the per-session BatchNorm affine of pallas_ops.py:805);
+//   encoder_head_kernel: e = h @ Wh + bh; e /= ||e|| (no eps); e @ Gt, in
+//     f32 on the CUDA cores.
 //
-// What bounds it on an H100: at the batched replay's shapes (25 ticks x
-// 32,768 sessions = 819,200 rows) the operations, 2 x 2,573,968 f32 FLOP
-// per row against the 67 TFLOP/s f32 SIMT peak; the 10.3 MB of weights
-// are re-read from L2 by every row tile. At one row (the per-tick step)
-// it is the k-loop's serial latency: only N/64 = 8 or 12 CTAs run, each
-// walking 32-48 dependent k-steps of global loads and __syncthreads.
-// chip_smoke.py's profiler trace of the step reads about 0.41 ms of
-// device time per 10-launch chain on an H100, most of the step's time;
-// a split-K or GEMV layout for small M is later work.
+// Arithmetic: 3xTF32 on the tensor cores (mma.sync m16n8k8 .tf32). Each
+// operand splits as x = big + small, big = cvt.rna.tf32(x), small =
+// cvt.rna.tf32(x - big). Each k8 chunk sums small*big, big*small and
+// big*big, in that order, in the tensor core from zero, and the chunk's sum
+// is added to the row's f32 sum with one round-to-nearest add. The dropped
+// small*small and small's own rounding leave about 2^-22 of each product.
+// The tensor core's own f32 accumulation does not round to nearest: fed
+// the running sum 3 x 96 times per 768-wide output, it put 2 of 656 scores
+// of chip_smoke.py's calibrated sessions 2.2e-5 from the plain f32 version
+// (atol 2e-5). With the per-chunk add the chain is about as far from
+// float64 as the plain f32 version is (chip_smoke.py reports both), well
+// within rtol 2e-4, atol 2e-5 of it. One TF32 pass keeps 10 mantissa bits,
+// ~5e-4 per product, and misses that tolerance by 4x
+// (tests/test_torch_port_encoder_tf32.py). The kernel rounds to TF32 with
+// its own instructions, so torch.backends.cuda.matmul.allow_tf32 has no
+// effect on it.
 //
-// Design: the TPU kept the whole ~10 MB chain resident in VMEM across a
-// sequential grid. An SM has at most 227 KB of shared memory, so here each
-// layer is its own launch and the weights stream through L2 (50 MB holds
-// them all). The layer kernel is a plain tiled SIMT GEMM: 64x64 output
-// tiles, 16-deep k-steps staged through shared memory, 256 threads each
-// owning a 4x4 micro-tile. Each output element is one thread's sequential
-// fmaf chain over k = 0..K-1, so a row's result does not depend on which
-// tile it falls in or on how many rows the call has: a one-tick `step`
-// and a K-tick `steps` give identical scores. Rows are ordered (tick,
-// session), so the session of row r is r % S and a row tile reads 64
-// consecutive sessions' affines. The banded conv fold's zero blocks are
-// multiplied like any other weights; skipping them is later work.
+// What bounds it on an H100: at the batched replay's 819,200 rows, the
+// operations: 3 TF32 products x 2 x 2,573,968 MACs per row over 495
+// TFLOP/s, 25.6 ms (mma.sync reaches only part of that rate, which wgmma
+// alone reaches); the bytes (activations read and written once per layer,
+// 15 GB in and 17 GB out, and the affines) take ~10 ms at 3.35 TB/s. At
+// one row (the per-tick step) it is latency: each output tile is one
+// warp's chain of ceil(K/8) chunks of 3 dependent MMAs.
+//
+// Design. Two tilings of the same per-element arithmetic, chosen by the
+// caller from the row count M alone (ops/kernels.py::encoder_regime):
+//  * large (encoder_layer_large_kernel): 128 x 128 output tiles, 8 warps
+//    of 64 x 32, two CTAs to an SM, BK = 32, a 3-stage ring of 16-byte
+//    cp.async copies that keeps the next k-tiles in flight; A rows padded
+//    to 36 floats and B rows to 136 so fragment loads hit 32 distinct
+//    banks. The epilogue stages the tile through shared memory, adds the
+//    bias, ReLU and the session's affine on float4s and stores 16 bytes a
+//    thread. Row tiles are walked session block by session block across
+//    the ticks, so a block's affine rows stay in L2 for all of its ticks,
+//    and the column tiles of one row tile run next to each other, so A is
+//    read from device memory once.
+//  * small (encoder_layer_small_kernel): 16-row tiles (padded rows zero
+//    and never stored) by 8 columns, one warp each, so N = 512-768 spreads
+//    over 64-96 CTAs; each CTA stages its weights, then its rows in 4
+//    cp.async groups along K, and starts its MMA chain as the first lands.
+// Every layer and the head launch with programmatic stream serialization:
+// a kernel fetches its weights, waits for the previous grid (its input),
+// then lets the next layer launch and fetch its own weights meanwhile.
+// A row sits at the same place of its m16 tile in both (r % 16), walks the
+// same k8 chunks in the same order with the same three products, and no
+// sum is split over K or over CTAs: a row's scores have the same bits
+// whatever M is and whichever tiling ran them, and reruns repeat them.
+// The first layer's K = 12 is zero-filled to 16. The banded conv fold's
+// zero blocks are multiplied like any other weights; skipping them is
+// later work.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBM = 64, kBN = 64, kBK = 16, kThreads = 256;
+// ----------------------------------------------------------- 3xTF32 MMA
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
 
-__global__ void __launch_bounds__(kThreads) encoder_layer_kernel(
-    const float* __restrict__ h, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ a,
-    const float* __restrict__ c, float* __restrict__ out, int M, int K,
-    int N, int S) {
-  __shared__ __align__(16) float As[kBK][kBM];  // A tile, transposed
-  __shared__ __align__(16) float Ws[kBK][kBN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const long long row0 = (long long)blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
-  float acc[4][4] = {};
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
+}
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k8 chunk, in the order both tilings share: the three products from
+// zero in the tensor core, then one round-to-nearest add per element.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           uint32_t b_big0, uint32_t b_big1,
+                                           uint32_t b_small0,
+                                           uint32_t b_small1) {
+  float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(p, a_small, b_big0, b_big1);
+  mma_tf32(p, a_big, b_small0, b_small1);
+  mma_tf32(p, a_big, b_big0, b_big1);
 #pragma unroll
-    for (int i = 0; i < (kBM * kBK) / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int m = idx / kBK, kk = idx % kBK;
+  for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], p[i]);
+}
+
+// A fragment (m16 x k8, row-major, stride ld floats) at p = &A[g][t]:
+// rows g and g + 8, columns t and t + 4.
+__device__ __forceinline__ void load_a(const float* p, int ld, bool lo,
+                                       bool hi, uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  split_tf32(lo ? p[0] : 0.0f, big[0], small[0]);
+  split_tf32(hi ? p[8 * ld] : 0.0f, big[1], small[1]);
+  split_tf32(lo ? p[4] : 0.0f, big[2], small[2]);
+  split_tf32(hi ? p[8 * ld + 4] : 0.0f, big[3], small[3]);
+}
+
+// ------------------------------------------------------------ cp.async
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Programmatic dependent launch: a kernel fetches its weights, then waits
+// for the previous grid in the stream (its input) to finish, then lets the
+// next one launch and fetch its own weights meanwhile.
+__device__ __forceinline__ void wait_for_input() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------- epilogue
+// bias, ReLU, then the session's affine, on 4 columns n..n+3 of row `row`
+__device__ __forceinline__ float4 finish4(float4 v, const float* __restrict__ b,
+                                          const float* __restrict__ a,
+                                          const float* __restrict__ c,
+                                          long long row, int n, int N, int S) {
+  const float4 bias = *reinterpret_cast<const float4*>(b + n);
+  v.x = fmaxf(__fadd_rn(v.x, bias.x), 0.0f);
+  v.y = fmaxf(__fadd_rn(v.y, bias.y), 0.0f);
+  v.z = fmaxf(__fadd_rn(v.z, bias.z), 0.0f);
+  v.w = fmaxf(__fadd_rn(v.w, bias.w), 0.0f);
+  if (a != nullptr) {
+    const long long off = (row % S) * N + n;
+    const float4 av = *reinterpret_cast<const float4*>(a + off);
+    const float4 cv = *reinterpret_cast<const float4*>(c + off);
+    v.x = __fadd_rn(__fmul_rn(v.x, av.x), cv.x);
+    v.y = __fadd_rn(__fmul_rn(v.y, av.y), cv.y);
+    v.z = __fadd_rn(__fmul_rn(v.z, av.z), cv.z);
+    v.w = __fadd_rn(__fmul_rn(v.w, av.w), cv.w);
+  }
+  return v;
+}
+
+// ------------------------------------------------------- large tiling
+constexpr int kBM = 128, kBN = 128, kBK = 32;
+constexpr int kWarpsM = 2, kWarpsN = 4, kMinBlocks = 2, kStages = 3;
+constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+constexpr int kMI = kBM / kWarpsM / 16, kNI = kBN / kWarpsN / 8;
+constexpr int kAS = kBK + 4;  // A row stride: fragment banks 4g + t
+constexpr int kBS = kBN + 8;  // B row stride: fragment banks 8t + g
+constexpr int kCS = kBN + 8;  // staged output stride: float2 stores 8g + 2t
+constexpr int kStageFloats = kBM * kAS + kBK * kBS;
+constexpr size_t kLargeSmem = sizeof(float) * kStages * kStageFloats;
+static_assert(kBM * kCS <= kStages * kStageFloats, "output tile fits");
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    encoder_layer_large_kernel(const float* __restrict__ h,
+                               const float* __restrict__ w,
+                               const float* __restrict__ b,
+                               const float* __restrict__ a,
+                               const float* __restrict__ c,
+                               float* __restrict__ out, int M, int K, int N,
+                               int S, int tiles_per_tick, int ticks) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (N + kBN - 1) / kBN;
+  const int nt = blockIdx.x % n_tiles;
+  int rt = blockIdx.x / n_tiles;
+  if (tiles_per_tick > 0)  // session block by session block over the ticks
+    rt = (rt % ticks) * tiles_per_tick + rt / ticks;
+  const long long row0 = (long long)rt * kBM;
+  const int col0 = nt * kBN;
+  const int k_tiles = (K + kBK - 1) / kBK;
+  const int k_chunks = (K + 7) / 8;
+
+  auto load_a_tile = [&](int kt, int stage) {
+    float* As = smem + stage * kStageFloats;
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int i = 0; i < kBM * kBK / 4 / kThreads; ++i) {
+      const int id = tid + i * kThreads;
+      const int m = id / (kBK / 4), kc = (id % (kBK / 4)) * 4;
       const long long gm = row0 + m;
-      const int gk = k0 + kk;
-      As[kk][m] = (gm < M && gk < K) ? h[gm * K + gk] : 0.0f;
+      const int gk = k0 + kc;
+      const bool ok = gm < M && gk < K;
+      cp_async16(As + m * kAS + kc, ok ? h + gm * K + gk : h, ok);
     }
+  };
+  auto load_b_tile = [&](int kt, int stage) {
+    float* Bs = smem + stage * kStageFloats + kBM * kAS;
+    const int k0 = kt * kBK;
 #pragma unroll
-    for (int i = 0; i < (kBK * kBN) / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int kk = idx / kBN, n = idx % kBN;
-      const int gk = k0 + kk, gn = col0 + n;
-      Ws[kk][n] = (gk < K && gn < N) ? w[(long long)gk * N + gn] : 0.0f;
+    for (int i = 0; i < kBK * kBN / 4 / kThreads; ++i) {
+      const int id = tid + i * kThreads;
+      const int kr = id / (kBN / 4), nc = (id % (kBN / 4)) * 4;
+      const int gk = k0 + kr, gn = col0 + nc;
+      const bool ok = gk < K && gn < N;
+      cp_async16(Bs + kr * kBS + nc, ok ? w + (long long)gk * N + gn : w, ok);
     }
-    __syncthreads();
+  };
+
+  // the first stages' weights, then the input once the previous layer is
+  // done: one commit group per stage, the weights riding in the first
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 wv = *reinterpret_cast<const float4*>(&Ws[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+  for (int s = 0; s < kStages - 1; ++s)
+    if (s < k_tiles) load_b_tile(s, s);
+  wait_for_input();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], wr[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < k_tiles) load_a_tile(s, s);
+    cp_async_commit();
   }
 
+  float acc[kMI][kNI][4] = {};
+  const int wm = (warp % kWarpsM) * (kBM / kWarpsM);
+  const int wn = (warp / kWarpsM) * (kBN / kWarpsN);
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int next = kt + kStages - 1;
+    if (next < k_tiles) {
+      load_a_tile(next, next % kStages);
+      load_b_tile(next, next % kStages);
+    }
+    cp_async_commit();
+    const float* As = smem + (kt % kStages) * kStageFloats;
+    const float* Bs = As + kBM * kAS;
+    const int n_kk = min(kBK / 8, k_chunks - kt * (kBK / 8));
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long r = row0 + ty * 4 + i;
-    if (r >= M) continue;
-    const long long s = a ? r % S : 0;
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      if (kk < n_kk) {
+        uint32_t a_big[kMI][4], a_small[kMI][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = col0 + tx * 4 + j;
-      if (n >= N) continue;
-      float v = fmaxf(__fadd_rn(acc[i][j], b[n]), 0.0f);
-      if (a) v = __fadd_rn(__fmul_rn(v, a[s * N + n]), c[s * N + n]);
-      out[r * N + n] = v;
+        for (int mi = 0; mi < kMI; ++mi)
+          load_a(As + (wm + mi * 16 + g) * kAS + kk * 8 + t, kAS, true, true,
+                 a_big[mi], a_small[mi]);
+#pragma unroll
+        for (int ni = 0; ni < kNI; ++ni) {
+          const float* q = Bs + (kk * 8 + t) * kBS + wn + ni * 8 + g;
+          uint32_t bb0, bs0, bb1, bs1;
+          split_tf32(q[0], bb0, bs0);
+          split_tf32(q[4 * kBS], bb1, bs1);
+          // mma_3xtf32's order for each accumulator, the row fragments
+          // interleaved so that no MMA waits on the one before
+          float p[kMI][4] = {};
+#pragma unroll
+          for (int mi = 0; mi < kMI; ++mi)
+            mma_tf32(p[mi], a_small[mi], bb0, bb1);
+#pragma unroll
+          for (int mi = 0; mi < kMI; ++mi)
+            mma_tf32(p[mi], a_big[mi], bs0, bs1);
+#pragma unroll
+          for (int mi = 0; mi < kMI; ++mi)
+            mma_tf32(p[mi], a_big[mi], bb0, bb1);
+#pragma unroll
+          for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              acc[mi][ni][i] = __fadd_rn(acc[mi][ni][i], p[mi][i]);
+        }
+      }
+    }
+  }
+
+  // epilogue: stage the tile, then bias/ReLU/affine and 16-byte stores
+  cp_async_wait<0>();
+  __syncthreads();
+  float* Cs = smem;
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni) {
+      const int r = wm + mi * 16 + g, col = wn + ni * 8 + 2 * t;
+      *reinterpret_cast<float2*>(Cs + r * kCS + col) =
+          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<float2*>(Cs + (r + 8) * kCS + col) =
+          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  __syncthreads();
+#pragma unroll 4
+  for (int i = 0; i < kBM * kBN / 4 / kThreads; ++i) {
+    const int id = tid + i * kThreads;
+    const int m = id / (kBN / 4), nc = (id % (kBN / 4)) * 4;
+    const long long gm = row0 + m;
+    const int gn = col0 + nc;
+    if (gm < M && gn < N) {
+      const float4 v = *reinterpret_cast<const float4*>(Cs + m * kCS + nc);
+      *reinterpret_cast<float4*>(out + gm * N + gn) =
+          finish4(v, b, a, c, gm, gn, N, S);
     }
   }
 }
 
+// ------------------------------------------------------- small tiling
+constexpr int kSM = 16, kSN = 8, kGroups = 4;
+
+__host__ __device__ constexpr int small_a_stride(int K) {
+  return (K + 31) / 32 * 32 + 4;  // fragment banks 4g + t
+}
+
+__host__ __device__ constexpr size_t small_smem(int K) {
+  return sizeof(float) *
+         ((size_t)kSM * small_a_stride(K) + (size_t)(K + 7) / 8 * 8 * kSN);
+}
+
+__global__ void __launch_bounds__(32) encoder_layer_small_kernel(
+    const float* __restrict__ h, const float* __restrict__ w,
+    const float* __restrict__ b, const float* __restrict__ a,
+    const float* __restrict__ c, float* __restrict__ out, int M, int K, int N,
+    int S) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const int col0 = blockIdx.x * kSN;
+  const long long row0 = (long long)blockIdx.y * kSM;
+  const int rows = (int)min((long long)kSM, M - row0);
+  const int k_chunks = (K + 7) / 8;
+  const int lda = small_a_stride(K);
+  float* As = smem;              // rows < `rows` only; the rest never read
+  float* Bs = smem + kSM * lda;  // (k_chunks * 8) x 8, zero past K and N
+
+  // all of this CTA's weights (one commit group), then the input rows once
+  // the previous layer is done, in kGroups commit groups along K
+  for (int i = lane; i < k_chunks * 8 * 2; i += 32) {
+    const int k = i / 2, n = col0 + (i % 2) * 4;
+    const bool ok = k < K && n < N;
+    cp_async16(Bs + k * kSN + (i % 2) * 4, ok ? w + (long long)k * N + n : w,
+               ok);
+  }
+  cp_async_commit();
+  wait_for_input();
+#pragma unroll
+  for (int gi = 0; gi < kGroups; ++gi) {
+    const int k_lo = gi * k_chunks / kGroups * 8;
+    const int k_hi = (gi + 1) * k_chunks / kGroups * 8;
+    const int per_row = (k_hi - k_lo) / 4;
+    for (int i = lane; i < rows * per_row; i += 32) {
+      const int r = i / per_row, k = k_lo + (i % per_row) * 4;
+      const bool ok = k < K;
+      cp_async16(As + r * lda + k, ok ? h + (row0 + r) * K + k : h, ok);
+    }
+    cp_async_commit();
+  }
+
+  float d[4] = {};
+  const bool lo = g < rows, hi = g + 8 < rows;
+#pragma unroll
+  for (int gi = 0; gi < kGroups; ++gi) {
+    if (gi == 0) cp_async_wait<kGroups - 1>();
+    if (gi == 1) cp_async_wait<kGroups - 2>();
+    if (gi == 2) cp_async_wait<kGroups - 3>();
+    if (gi == 3) cp_async_wait<0>();
+    __syncthreads();  // one warp: the other lanes' copies are visible
+    const int c_lo = gi * k_chunks / kGroups;
+    const int c_hi = (gi + 1) * k_chunks / kGroups;
+#pragma unroll 4
+    for (int ch = c_lo; ch < c_hi; ++ch) {
+      uint32_t a_big[4], a_small[4];
+      load_a(As + g * lda + ch * 8 + t, lda, lo, hi, a_big, a_small);
+      const float* q = Bs + (ch * 8 + t) * kSN + g;
+      uint32_t bb0, bs0, bb1, bs1;
+      split_tf32(q[0], bb0, bs0);
+      split_tf32(q[4 * kSN], bb1, bs1);
+      mma_3xtf32(d, a_big, a_small, bb0, bb1, bs0, bs1);
+    }
+  }
+
+  // lane (g, t) holds rows g, g+8 at columns 2t, 2t+1; pair lanes t, t^1
+  // so that an even t stores row g and an odd t row g+8, 4 columns each
+  const unsigned full = 0xffffffffu;
+  const float p0 = __shfl_xor_sync(full, d[0], 1);
+  const float p1 = __shfl_xor_sync(full, d[1], 1);
+  const float p2 = __shfl_xor_sync(full, d[2], 1);
+  const float p3 = __shfl_xor_sync(full, d[3], 1);
+  const bool even = (t & 1) == 0;
+  const int r = even ? g : g + 8;
+  const int n = col0 + (even ? 2 * t : 2 * t - 2);
+  if (r < rows && n < N) {
+    const float4 v = even ? make_float4(d[0], d[1], p0, p1)
+                          : make_float4(p2, p3, d[2], d[3]);
+    *reinterpret_cast<float4*>(out + (row0 + r) * N + n) =
+        finish4(v, b, a, c, row0 + r, n, N, S);
+  }
+}
+
+// ---------------------------------------------------------------- head
 constexpr int kMaxE = 32;  // embedding width held per lane
 
-__global__ void encoder_head_kernel(
+__global__ void __launch_bounds__(256) encoder_head_kernel(
     const float* __restrict__ h, const float* __restrict__ wh,
     const float* __restrict__ bh, const float* __restrict__ gt,
     float* __restrict__ out, int M, int K, int E, int C) {
   // Wh transposed to (E, K), so the lanes' consecutive k hit consecutive
-  // banks | Gt (E, C)
-  extern __shared__ float smem[];
-  float* wht_s = smem;
-  float* gt_s = smem + K * E;
-  for (int i = threadIdx.x; i < K * E; i += blockDim.x)
-    wht_s[(i % E) * K + i / E] = wh[i];
+  // banks | Gt (E, C); E % 4 == 0, so a float4 of Wh lies in one row
+  extern __shared__ __align__(16) float head_smem[];
+  float* wht_s = head_smem;
+  float* gt_s = head_smem + K * E;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < K * E / 4; i += blockDim.x) {
+    const float4 v = reinterpret_cast<const float4*>(wh)[i];
+    const int k = 4 * i / E, j = 4 * i % E;
+    wht_s[j * K + k] = v.x;
+    wht_s[(j + 1) * K + k] = v.y;
+    wht_s[(j + 2) * K + k] = v.z;
+    wht_s[(j + 3) * K + k] = v.w;
+  }
   for (int i = threadIdx.x; i < E * C; i += blockDim.x) gt_s[i] = gt[i];
+  wait_for_input();
   __syncthreads();
 
   const int lane = threadIdx.x % 32;
@@ -122,6 +440,7 @@ __global__ void encoder_head_kernel(
     float e[kMaxE];
 #pragma unroll
     for (int j = 0; j < kMaxE; ++j) e[j] = 0.0f;
+#pragma unroll 4
     for (int k = lane; k < K; k += 32) {
       const float x = h[r * K + k];
 #pragma unroll
@@ -139,49 +458,124 @@ __global__ void encoder_head_kernel(
       }
     }
     const float norm = sqrtf(sq);
+#pragma unroll
+    for (int j = 0; j < kMaxE; ++j) e[j] /= norm;
     for (int cls = lane; cls < C; cls += 32) {
       float acc = 0.0f;
 #pragma unroll
       for (int j = 0; j < kMaxE; ++j)
-        if (j < E) acc = fmaf(e[j] / norm, gt_s[j * C + cls], acc);
+        if (j < E) acc = fmaf(e[j], gt_s[j * C + cls], acc);
       out[r * C + cls] = acc;
     }
   }
 }
 
-}  // namespace
-
-extern "C" int encoder_layer_launch(const float* h, const float* w,
-                                    const float* b, const float* a,
-                                    const float* c, float* out, int M, int K,
-                                    int N, int S, void* stream) {
-  if ((a == nullptr) != (c == nullptr) || (a && S < 1))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  if (M > 0 && N > 0)
-    encoder_layer_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        h, w, b, a, c, out, M, K, N, S);
-  return (int)cudaGetLastError();
+cudaError_t allow_smem(const void* kernel, size_t bytes, size_t* allowed) {
+  if (bytes <= 48 * 1024 || bytes <= *allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) *allowed = bytes;
+  return err;
 }
 
-extern "C" int encoder_head_launch(const float* h, const float* wh,
-                                   const float* bh, const float* gt,
-                                   float* out, int M, int K, int E, int C,
-                                   void* stream) {
-  if (E > kMaxE) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)K * E + (size_t)E * C);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        encoder_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+size_t large_allowed = 0, small_allowed = 0, head_allowed = 0;
+
+// launch with programmatic stream serialization (see wait_for_input)
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), dim3 grid, int threads,
+                   size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+}  // namespace
+
+// The whole chain in one call. `layers`: per hidden layer j, the pointers
+// w_j (K_j, N_j), b_j (N_j), a_j, c_j (S, N_j) or null, null; then Wh (K,
+// E), bh (E), Gt (E, C). `widths`: K_0, N_0 .. N_{n_hidden-1}, E, C, all
+// hidden widths multiples of 4 and every pointer 16-byte aligned.
+// `scratch` holds 2 x M x max(N_j) floats. `regime` 0 runs the small-row
+// tiling, 1 the large one. Returns the first launch's cudaError_t that is
+// not cudaSuccess.
+extern "C" int encoder_chain_launch(const void* const* layers,
+                                    const int* widths, int n_hidden,
+                                    const float* frames, float* scratch,
+                                    float* scores, int M, int S, int regime,
+                                    void* stream_ptr) {
+  const cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (M <= 0) return (int)cudaSuccess;
+  const bool affine = layers[2] != nullptr;
+  if (S < 1 || (affine && M % S) || (regime != 0 && regime != 1))
+    return (int)cudaErrorInvalidValue;
+  long long max_n = 0;
+  for (int j = 0; j < n_hidden; ++j) {
+    if (widths[j] % 4 || widths[j + 1] % 4) return (int)cudaErrorInvalidValue;
+    if ((layers[4 * j + 2] == nullptr) != !affine ||
+        (layers[4 * j + 3] == nullptr) != !affine)
+      return (int)cudaErrorInvalidValue;
+    if (widths[j + 1] > max_n) max_n = widths[j + 1];
   }
+  // the large tiling walks a session block's ticks together when row tiles
+  // hold whole session blocks
+  const int tiles_per_tick = affine && S % kBM == 0 ? S / kBM : 0;
+  const int ticks = M / S;
+
+  const float* h = frames;
+  for (int j = 0; j < n_hidden; ++j) {
+    const int K = widths[j], N = widths[j + 1];
+    const float* w = static_cast<const float*>(layers[4 * j]);
+    const float* b = static_cast<const float*>(layers[4 * j + 1]);
+    const float* a = static_cast<const float*>(layers[4 * j + 2]);
+    const float* c = static_cast<const float*>(layers[4 * j + 3]);
+    float* out = scratch + (size_t)(j & 1) * (size_t)M * (size_t)max_n;
+    cudaError_t err;
+    if (regime == 0) {
+      const size_t smem = small_smem(K);
+      err = allow_smem((const void*)encoder_layer_small_kernel, smem,
+                       &small_allowed);
+      if (err != cudaSuccess) return (int)err;
+      const dim3 grid((N + kSN - 1) / kSN, (M + kSM - 1) / kSM);
+      err = launch(encoder_layer_small_kernel, grid, 32, smem, stream, h, w,
+                   b, a, c, out, M, K, N, S);
+    } else {
+      err = allow_smem((const void*)encoder_layer_large_kernel, kLargeSmem,
+                       &large_allowed);
+      if (err != cudaSuccess) return (int)err;
+      const long long blocks =
+          (long long)((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+      err = launch(encoder_layer_large_kernel, dim3((unsigned)blocks),
+                   kThreads, kLargeSmem, stream, h, w, b, a, c, out, M, K, N,
+                   S, tiles_per_tick, ticks);
+    }
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    h = out;
+  }
+
+  const int K = widths[n_hidden], E = widths[n_hidden + 1],
+            C = widths[n_hidden + 2];
+  if (E > kMaxE || E % 4) return (int)cudaErrorInvalidValue;
+  const float* wh = static_cast<const float*>(layers[4 * n_hidden]);
+  const float* bh = static_cast<const float*>(layers[4 * n_hidden + 1]);
+  const float* gt = static_cast<const float*>(layers[4 * n_hidden + 2]);
+  const size_t smem = sizeof(float) * ((size_t)K * E + (size_t)E * C);
+  cudaError_t err =
+      allow_smem((const void*)encoder_head_kernel, smem, &head_allowed);
+  if (err != cudaSuccess) return (int)err;
   const int threads = 256, rows_per_block = threads / 32;
   long long blocks = ((long long)M + rows_per_block - 1) / rows_per_block;
   if (blocks > 132 * 8) blocks = 132 * 8;  // grid-stride over the rest
-  if (blocks > 0)
-    encoder_head_kernel<<<(unsigned)blocks, threads, smem,
-                          (cudaStream_t)stream>>>(h, wh, bh, gt, out, M, K,
-                                                  E, C);
-  return (int)cudaGetLastError();
+  err = launch(encoder_head_kernel, dim3((unsigned)blocks), threads, smem,
+               stream, h, wh, bh, gt, scores, M, K, E, C);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return (int)err;
 }

@@ -12,7 +12,8 @@ Hopper (``csrc/``):
 * ``dsp_frames``: prescale -> SOS band-pass -> trailing RMS -> normalize,
   one thread per (session, channel) walking the samples in order;
 * ``encoder_chain`` (:func:`fused_encoder_logits`): the folded encoder
-  chain, 9 tiled-GEMM layer launches and 1 head launch;
+  chain in 3xTF32 on the tensor cores, one host call that issues 9 layer
+  launches and 1 head launch;
 * ``vote_scan``: masked first-max prediction and the majority vote, one
   thread per session walking the ticks in order.
 
@@ -39,6 +40,7 @@ layer (``pallas_ops.py:280-397``).
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -168,8 +170,6 @@ def _expect(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 # launcher -> (library, C symbol, pointers, ints, has a float argument)
 _SIGNATURES = {
     "dsp_frames": ("dsp_frames", "dsp_frames_launch", 9, 6, True),
-    "encoder_layer": ("encoder_chain", "encoder_layer_launch", 6, 4, False),
-    "encoder_head": ("encoder_chain", "encoder_head_launch", 5, 4, False),
     "vote_scan": ("vote_scan", "vote_scan_launch", 8, 4, False),
     "contrastive_loss_fwd": ("contrastive_loss", "contrastive_loss_fwd_launch",
                              5, 3, False),
@@ -189,11 +189,18 @@ def _fn(name: str):
     """The C launcher ``name`` with its ctypes signature: pointers, ints,
     an optional float, then the stream; returns the cudaError_t."""
     if name not in _fns:
-        library, symbol, n_ptr, n_int, has_float = _SIGNATURES[name]
-        fn = getattr(_build.load(library), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + ([ctypes.c_float] if has_float else [])
-                       + [ctypes.c_void_p])
+        if name == "encoder_chain":  # the layer table, then as above
+            fn = _build.load(name).encoder_chain_launch
+            fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p),
+                            ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+                           + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+        else:
+            library, symbol, n_ptr, n_int, has_float = _SIGNATURES[name]
+            fn = getattr(_build.load(library), symbol)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                           + ([ctypes.c_float] if has_float else [])
+                           + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -285,46 +292,141 @@ def fused_encoder_logits_reference(frames, folded, affines=None):
     return e @ gt
 
 
-def fused_encoder_logits(frames, folded, affines=None):
-    """The ``encoder_chain`` kernels: one ``encoder_layer`` launch per hidden
-    layer, one ``encoder_head`` launch (see
-    :func:`fused_encoder_logits_reference`)."""
-    if frames.device.type == "cpu":
-        return fused_encoder_logits_reference(frames, folded, affines)
-    dev, f32 = frames.device, torch.float32
-    M, K = frames.shape
+# Calls of at most this many rows run the small-row tiling (16-row tiles,
+# N over 64-96 CTAs), larger ones the 128 x 128 pipelined tiling; both give
+# a row the same bits. Fixed where chip_smoke.py's timing of both tilings
+# crosses on an H100 (between 640 and 768 rows, PERF.md).
+ENCODER_SMALL_ROWS = 640
+ENCODER_MAX_K = 2048  # the small tiling stages a 16-row A and K x 8 of W
+ENCODER_MAX_E = 32    # the head's embedding width held per lane
+
+
+def encoder_regime(M: int) -> int:
+    """The tiling ``encoder_chain`` runs ``M`` rows with: 0 small, 1 large."""
+    return 0 if M <= ENCODER_SMALL_ROWS else 1
+
+
+class EncoderPlan:
+    """A folded chain (and per-session affines) checked once for the
+    ``encoder_chain`` kernels, with its launch table: the layer pointers and
+    widths as ctypes arrays. Holds its tensors by weak reference."""
+
+    def __init__(self, folded, affines, device, tensors, widths):
+        self.refs = tuple(weakref.ref(t) for t in (*folded, *(affines or ())))
+        self.device = device
+        self.n_hidden = len(widths) - 3
+        self.S = affines[0].shape[0] if affines is not None else 1
+        self.widths = tuple(widths)
+        self.max_n = max(widths[1:self.n_hidden + 1])
+        self.table = (ctypes.c_void_p * len(tensors))(
+            *(t.data_ptr() if t is not None else None for t in tensors))
+        self.dims = (ctypes.c_int * len(widths))(*widths)
+
+    def serves(self, folded, affines) -> bool:
+        tensors = (*folded, *(affines or ()))
+        return (len(tensors) == len(self.refs)
+                and all(r() is t for r, t in zip(self.refs, tensors)))
+
+
+def _expect_aligned(name: str, t: torch.Tensor, shape, device) -> None:
+    _expect(name, t, shape, torch.float32, device)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned")
+
+
+def encoder_plan(folded, affines=None) -> EncoderPlan:
+    """Check ``folded`` (and ``affines``) for the ``encoder_chain`` kernels
+    and build their launch table; raises ``ValueError`` on what the
+    kernels do not take: a shape, dtype, device or layout that does not
+    chain, a hidden width that is not a multiple of 4 (rows of 16 bytes),
+    a pointer that is not 16-byte aligned, K above ``ENCODER_MAX_K`` or E
+    above ``ENCODER_MAX_E``."""
     *ws, gt = folded
     n_hidden = (len(ws) - 2) // 2
+    if len(ws) % 2 or n_hidden < 1:
+        raise ValueError(f"a chain of {len(folded)} tensors: want (W, b) "
+                         "per hidden layer, Wh, bh and Gt")
     if affines is not None and len(affines) != 2 * n_hidden:
         raise ValueError(f"{len(affines)} affines for {n_hidden} layers")
+    dev = gt.device
     S = affines[0].shape[0] if affines is not None else 1
-    if affines is not None and M % S:
-        raise ValueError(f"{M} rows are not whole ticks of {S} sessions")
-    _expect("frames", frames, (M, K), f32, dev)
-    h = frames
+    K = ws[0].shape[0]
+    widths, tensors = [K], []
     for j in range(n_hidden):
         w, b = ws[2 * j], ws[2 * j + 1]
-        N = w.shape[1]
-        _expect(f"w{j}", w, (K, N), f32, dev)
-        _expect(f"b{j}", b, (N,), f32, dev)
+        N = w.shape[-1]
+        if K % 4 or N % 4 or K > ENCODER_MAX_K:
+            raise ValueError(f"layer {j}: K={K}, N={N}; the kernels take "
+                             f"multiples of 4 and K <= {ENCODER_MAX_K}")
+        _expect_aligned(f"w{j}", w, (K, N), dev)
+        _expect_aligned(f"b{j}", b, (N,), dev)
         a = c = None
         if affines is not None:
             a, c = affines[2 * j], affines[2 * j + 1]
-            _expect(f"a{j}", a, (S, N), f32, dev)
-            _expect(f"c{j}", c, (S, N), f32, dev)
-        out = torch.empty((M, N), dtype=f32, device=dev)
-        _launch("encoder_layer", "encoder_chain", _ptr(h), _ptr(w), _ptr(b),
-                _ptr(a), _ptr(c), _ptr(out), M, K, N, S, _stream(dev))
-        h, K = out, N
+            _expect_aligned(f"a{j}", a, (S, N), dev)
+            _expect_aligned(f"c{j}", c, (S, N), dev)
+        tensors += [w, b, a, c]
+        widths.append(N)
+        K = N
     wh, bh = ws[-2], ws[-1]
-    E, C = wh.shape[1], gt.shape[1]
-    _expect("wh", wh, (K, E), f32, dev)
-    _expect("bh", bh, (E,), f32, dev)
-    _expect("gt", gt, (E, C), f32, dev)
-    scores = torch.empty((M, C), dtype=f32, device=dev)
-    _launch("encoder_head", "encoder_chain", _ptr(h), _ptr(wh), _ptr(bh),
-            _ptr(gt), _ptr(scores), M, K, E, C, _stream(dev))
+    E, C = wh.shape[-1], gt.shape[-1]
+    if E > ENCODER_MAX_E or E % 4:
+        raise ValueError(f"embedding width {E}: the head takes multiples of "
+                         f"4 up to {ENCODER_MAX_E}")
+    _expect_aligned("wh", wh, (K, E), dev)
+    _expect("bh", bh, (E,), torch.float32, dev)
+    _expect("gt", gt, (E, C), torch.float32, dev)
+    return EncoderPlan(folded, affines, dev, tensors + [wh, bh, gt],
+                       widths + [E, C])
+
+
+_plans: dict = {}
+
+
+def _plan_for(folded, affines) -> EncoderPlan:
+    """The cached plan of a chain, checked where it is first used."""
+    key = (id(folded), id(affines))
+    plan = _plans.get(key)
+    if plan is None or not plan.serves(folded, affines):
+        if len(_plans) >= 8:
+            _plans.clear()
+        plan = _plans[key] = encoder_plan(folded, affines)
+    return plan
+
+
+def encoder_chain(frames, plan: EncoderPlan, regime: int) -> torch.Tensor:
+    """One ``encoder_chain_launch`` call on ``frames`` (M, K_0): every
+    layer launch and the head launch, in the tiling ``regime``."""
+    M = frames.shape[0]
+    _expect_aligned("frames", frames, (M, plan.widths[0]), plan.device)
+    if M % plan.S:
+        raise ValueError(f"{M} rows are not whole ticks of {plan.S} sessions")
+    scores = torch.empty((M, plan.widths[-1]), dtype=torch.float32,
+                         device=plan.device)
+    if M == 0:
+        return scores
+    scratch = torch.empty((2, M, plan.max_n), dtype=torch.float32,
+                          device=plan.device)
+    rc = _fn("encoder_chain")(plan.table, plan.dims, plan.n_hidden,
+                              frames.data_ptr(), scratch.data_ptr(),
+                              scores.data_ptr(), M, plan.S, regime,
+                              _stream(plan.device))
+    if rc != 0:
+        raise RuntimeError(f"encoder_chain kernel launch failed: cudaError "
+                           f"{rc}")
+    launch_counts["encoder_chain"] += plan.n_hidden + 1
     return scores
+
+
+def fused_encoder_logits(frames, folded, affines=None):
+    """The ``encoder_chain`` kernels (see
+    :func:`fused_encoder_logits_reference`): one host call launches one
+    3xTF32 tensor-core layer kernel per hidden layer and the head, in the
+    tiling :func:`encoder_regime` picks from the row count."""
+    if frames.device.type == "cpu":
+        return fused_encoder_logits_reference(frames, folded, affines)
+    return encoder_chain(frames, _plan_for(folded, affines),
+                         encoder_regime(frames.shape[0]))
 
 
 # --------------------------------------------------------------- vote_scan

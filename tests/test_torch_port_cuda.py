@@ -64,35 +64,93 @@ def test_dsp_frames_kernel_matches_plain(cuda):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("with_affines", [False, True])
-def test_encoder_chain_kernel_matches_plain(cuda, with_affines):
-    model = ContrastiveModel(n_linear=2, hidden=64,
-                             generator=torch.Generator().manual_seed(1))
-    model = model.to(cuda).eval()
-    S, n_ticks = 6, 11
+def _encoder_chains(device, width, S):
+    """A seeded model's folded chain, its shared chain and per-session
+    affines of S sessions, at full width or narrow (2 dense layers of 64)."""
+    kw = {} if width == "full" else dict(n_linear=2, hidden=64)
+    model = ContrastiveModel(**kw, generator=torch.Generator().manual_seed(1))
+    model = model.to(device).eval()
+    ramp = torch.arange(S, device=device)[:, None] / S
     with torch.no_grad():
         emb = model.encode_classes()
-        if with_affines:
-            folded = K.fold_encoder_params_shared(model.emg_net, emb)
-            stats = [(bn.running_mean.expand(S, -1) * 0.5 + 0.1,
-                      bn.running_var.expand(S, -1) * 2.0)
-                     for bn in model.emg_net.norms()]
-            affines = K.session_bn_affines(model.emg_net, stats)
-        else:
-            folded = K.fold_encoder_params(model.emg_net, emb)
-            affines = None
-    frames = torch.randn(n_ticks * S, D, device=cuda,
-                         generator=torch.Generator(cuda).manual_seed(0))
-    before = K.launch_counts["encoder_chain"]
-    got = K.fused_encoder_logits(frames, folded, affines)
-    want = K.fused_encoder_logits_reference(frames, folded, affines)
+        stats = [(bn.running_mean.expand(S, -1) * 0.5 + 0.1 * ramp,
+                  bn.running_var.expand(S, -1) * (1.5 + ramp))
+                 for bn in model.emg_net.norms()]
+        return (K.fold_encoder_params(model.emg_net, emb),
+                K.fold_encoder_params_shared(model.emg_net, emb),
+                K.session_bn_affines(model.emg_net, stats))
+
+
+def _frames(device, M, seed=0):
+    return torch.randn(M, D, device=device,
+                       generator=torch.Generator(device).manual_seed(seed))
+
+
+@pytest.mark.parametrize("width", ["narrow", "full"])
+@pytest.mark.parametrize("with_affines", [False, True])
+def test_encoder_chain_kernel_matches_plain(cuda, with_affines, width):
+    """At M = 1, 16, 200, the regime threshold -+ 1 and 32,768 rows (with
+    affines: one tick of M sessions, so S is ragged against both row
+    tiles): within the tolerance of the plain version, one launch per
+    layer and the head, a rerun bit-identical, and each call's first rows
+    bit-identical to the smaller call before it, across the switch from
+    the small-row to the large tiling."""
+    thr = K.ENCODER_SMALL_ROWS
+    ladder = sorted({1, 16, 200, thr - 1, thr + 1, 32768})
+    folded, shared, affines = _encoder_chains(cuda, width, ladder[-1])
+    frames = _frames(cuda, ladder[-1])
+    launches = (len(folded) - 1) // 2  # hidden layers and the head
+    prev = None
+    for M in ladder:
+        chain, aff = ((shared, tuple(a[:M] for a in affines)) if with_affines
+                      else (folded, None))
+        before = K.launch_counts["encoder_chain"]
+        got = K.fused_encoder_logits(frames[:M], chain, aff)
+        want = K.fused_encoder_logits_reference(frames[:M], chain, aff)
+        torch.cuda.synchronize()
+        assert K.launch_counts["encoder_chain"] == before + launches
+        torch.testing.assert_close(got, want, **SCORE_TOL)
+        assert torch.equal(K.fused_encoder_logits(frames[:M], chain, aff),
+                           got)
+        if prev is not None:
+            assert torch.equal(got[:len(prev)], prev)
+        prev = got
+
+
+@pytest.mark.parametrize("S,ticks", [(37, 3), (37, 11), (6, 11), (256, 2)])
+def test_encoder_chain_both_tilings_agree_on_ragged_sessions(cuda, S, ticks):
+    """Ticks of S sessions, S ragged against the 16- and 128-row tiles (or
+    whole session blocks, 256): both tilings give the plain version's
+    scores and the same bits, and the first tick's rows equal a one-tick
+    call."""
+    _, shared, affines = _encoder_chains(cuda, "narrow", S)
+    frames = _frames(cuda, S * ticks, seed=S)
+    plan = K.encoder_plan(shared, affines)
+    small = K.encoder_chain(frames, plan, 0)
+    large = K.encoder_chain(frames, plan, 1)
+    want = K.fused_encoder_logits_reference(frames, shared, affines)
     torch.cuda.synchronize()
-    # 2 conv + 2 dense layers, then the head
-    assert K.launch_counts["encoder_chain"] == before + 5
-    torch.testing.assert_close(got, want, **SCORE_TOL)
-    # a row's scores do not depend on how many rows the call has
-    first = K.fused_encoder_logits(frames[:S].contiguous(), folded, affines)
-    assert torch.equal(first, got[:S])
+    torch.testing.assert_close(small, want, **SCORE_TOL)
+    assert torch.equal(small, large)
+    assert torch.equal(K.fused_encoder_logits(frames[:S], shared, affines),
+                       small[:S])
+
+
+def test_encoder_chain_rejects_bad_inputs(cuda):
+    """A misaligned, non-contiguous or ragged input raises before any
+    launch, never faults or falls back."""
+    folded, shared, affines = _encoder_chains(cuda, "narrow", 6)
+    before = K.launch_counts["encoder_chain"]
+    misaligned = torch.zeros(17 * D + 1, device=cuda)[1:].view(17, D)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.fused_encoder_logits(misaligned, folded)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.fused_encoder_logits(torch.zeros((D, 17), device=cuda).T, folded)
+    with pytest.raises(ValueError, match="whole ticks"):
+        K.fused_encoder_logits(_frames(cuda, 13), shared, affines)
+    with pytest.raises(ValueError, match="want cpu"):
+        K.fused_encoder_logits(_frames(cuda, 6), tuple(t.cpu() for t in folded))
+    assert K.launch_counts["encoder_chain"] == before
 
 
 def test_vote_scan_kernel_matches_plain(cuda):
