@@ -41,15 +41,20 @@ made with numpy from a seed:
    epoch timed with CUDA events; a profiler trace of 20 steps by kernel
    family; ``cptorch-train --synthetic`` on cuda, its checkpoint loaded
    back strictly;
-8. the fused training chain: K5f, K5b (``dense_block_fwd``/``_bwd``) and
-   K5m (``dropout_masks``) against their plain versions at N=328 and a
-   ragged 123 rows, 768 and 512 inputs, with reruns that must give the
-   same bits, the drawn masks against the replayed ones, and the kernels'
-   Philox against cuRAND's; one ``Trainer(use_fused_train=True)`` step at
-   dropout 0 against the eager one; ``train_loop`` on the fused chain for 2
-   annealed epochs (test accuracy above 0.5, 7 K5f and 7 K5b launches per
-   step); eager and fused epochs timed in turns with CUDA events; a
-   profiler trace of 20 fused steps; ``cptorch-train --fused_train on``.
+8. the fused training chain: K5f, K5b (``dense_block_fwd``/``_bwd``, 3xTF32
+   on the tensor cores) and K5m (``dropout_masks``) against their plain
+   versions at N=328 and a ragged 123 rows, 768 and 512 inputs, with
+   reruns that must give the same bits, the drawn masks against the
+   replayed ones, and the kernels' Philox against cuRAND's; K5f and K5b
+   and their plain versions against float64 on an inner block; device
+   time per launch from a profiler trace of 50 bare calls, for both
+   tilings of each kernel in the chain's three block forms, beside the
+   cuBLAS GEMMs of the same shapes; one ``Trainer(use_fused_train=True)``
+   step at dropout 0 against the eager one; ``train_loop`` on the fused
+   chain for 2 annealed epochs (test accuracy above 0.5, 7 K5f and 7 K5b
+   launches per step); eager and fused epochs timed in turns with CUDA
+   events; a profiler trace of 20 fused steps; ``cptorch-train
+   --fused_train on``.
 
 Launch counts are reset just before phases 3, 4, 7's and 8's
 ``train_loop`` and read just after each; every serve kernel must have
@@ -57,9 +62,9 @@ launched in 3 and 4, each K1 kernel once per train step in 7, and the K5
 kernels as the chain's depth says in 8. TF32 is off throughout
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set False), so the plain versions run
-in full f32 (``encoder_chain`` runs 3xTF32 by its own instructions,
-whatever the flags). Any failure raises and the exit code is not 0. The
-last lines are ``{"single", "batched"}``, ``{"train"}`` and
+in full f32 (``encoder_chain``, K5f and K5b run 3xTF32 by their own
+instructions, whatever the flags). Any failure raises and the exit code
+is not 0. The last lines are ``{"single", "batched"}``, ``{"train"}`` and
 ``{"fused_train"}`` JSON lines, the card line from nvidia-smi, one
 ``{"kernels": [...]}`` JSON line, and
 ``{"ok": true, "device": {...}}``.
@@ -161,6 +166,30 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms_per_call(fn, n: int = 50) -> float:
+    """Device milliseconds per call of ``fn`` from a profiler trace of
+    ``n`` bare calls (the sum of the CUDA kernels' intervals over ``n``):
+    the kernel's own time, without the wrapper's host work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    # a profiler session now and then records no device events: try again,
+    # and fail rather than report 0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / n
+    raise RuntimeError("the profiler recorded no device time in 3 traces")
 
 
 def bound_ms(n_bytes: float, flops: float,
@@ -693,8 +722,12 @@ def check_k5(TF, K, dev) -> dict:
     affine, no dropout) and an inner dropped block's (512 inputs, affine,
     drawn dropout at rate 0.5); reruns bit-identical; the drawn masks equal
     to ``dropout_masks``' replay fed back as input masks; K5m exact against
-    its plain version; the Philox against cuRAND's. Returns the three
-    ``kernels`` entries, timed at N=328 on the inner block."""
+    its plain version; the Philox against cuRAND's; K5f, K5b and their
+    plain versions against float64 on the inner block; both tilings timed
+    by device time in the chain's three block forms beside cuBLAS. Returns
+    the three ``kernels`` entries, timed at N=328 on the inner block, with
+    ``bound_ms`` at three TF32 products per multiply-add and the f32 SIMT
+    bound beside it."""
     F = 512
     keep = torch.full((1,), 0.5, device=dev)
     errs = {name: {} for name in FUSED_KERNELS}
@@ -766,12 +799,68 @@ def check_k5(TF, K, dev) -> dict:
                                            **kw)
     mask = TF.dropout_masks(seed, keep, N, F, 6)
     x0, w0 = k5_case(N, 768, F, 2, dev)[:2]
+
+    # the kernels and the plain f32 versions against float64 on this block
+    r_p, st_p = TF.dense_block_fwd_reference(x, w, b, gamma, beta, in_stats,
+                                             **kw)
+    d64 = [t.double() for t in (x, w, b, gamma, beta, in_stats)]
+    r64, st64 = TF.dense_block_fwd_reference(*d64, seed=seed,
+                                             keep=keep.double(), drop_block=3)
+    got_b = TF.dense_block_bwd(dz, r_p, x, w, st_p, sums, in_stats, **kw)
+    plain_b = TF.dense_block_bwd_reference(dz, r_p, x, w, st_p, sums, in_stats,
+                                           **kw)
+    want_b = TF.dense_block_bwd_reference(
+        dz.double(), r_p.double(), d64[0], d64[1], st_p.double(),
+        sums.double(), d64[5], seed=seed, keep=keep.double(), drop_block=3)
+    torch.cuda.synchronize()
+    vs_f64 = {"dense_block_fwd": {}, "dense_block_bwd": {}}
+    for name, outs in (("dense_block_fwd", zip(("r", "stats"), (r, st),
+                                               (r_p, st_p), (r64, st64))),
+                       ("dense_block_bwd", zip(("dx", "dw", "db", "out_sums"),
+                                               got_b, plain_b, want_b))):
+        for part, g, pl, wnt in outs:
+            vs_f64[name][part] = dict(kernel=max_abs(g, wnt),
+                                      plain_f32=max_abs(pl, wnt))
+    del r64, st64, want_b, d64
+    log(f"[kernels] K5 against float64 at N={N} K={K_in} F={F}, affine + "
+        f"dropout 0.5: {json.dumps(vs_f64)}")
+
+    # device time per launch of both tilings in the chain's three block
+    # forms (block 0: 768 inputs, no affine, no dropout; blocks 1-3:
+    # affine; blocks 4-6: affine + dropout), beside the cuBLAS GEMMs
+    forms = {"block0 768->512": (x0, w0, None, {}),
+             "affine 512->512": (x, w, in_stats, {}),
+             "affine+dropout 512->512": (x, w, in_stats, kw)}
+    tilings = {}
+    for form, (xf, wf, insf, kwf) in forms.items():
+        rf, sf = TF.dense_block_fwd(xf, wf, b, gamma, beta, insf, **kwf)
+        row = {}
+        for t in range(len(TF.FWD_TILES)):
+            row[f"fwd tiling {t} {TF.FWD_TILES[t]}"] = device_ms_per_call(
+                lambda: TF.dense_block_fwd(xf, wf, b, gamma, beta, insf,
+                                           tiling=t, **kwf))
+            row[f"bwd tiling {t} dgrad {TF.DGRAD_TILES[t]}"] = (
+                device_ms_per_call(lambda: TF.dense_block_bwd(
+                    dz, rf, xf, wf, sf, sums, insf, tiling=t, **kwf)))
+        row["cuBLAS addmm"] = device_ms_per_call(
+            lambda: torch.addmm(b, xf, wf))
+        row["cuBLAS dz @ w.T + x.T @ dz"] = device_ms_per_call(
+            lambda: (dz @ wf.T, xf.T @ dz))
+        tilings[form] = row
+    log(f"[kernels] K5 device ms per launch by tiling (defaults: fwd "
+        f"{TF.FWD_TILING}, bwd {TF.BWD_TILING}): {json.dumps(tilings)}")
+
     small = nbytes(b, gamma, beta, in_stats, seed, keep)
-    fwd_b = bound_ms(nbytes(x, w, r, st) + small, 2.0 * N * K_in * F)
-    bwd_b = bound_ms(nbytes(dz, r, x, w, st, sums, dx, dw, db, osums) + small,
-                     4.0 * N * K_in * F)
+    fwd_bytes = nbytes(x, w, r, st) + small
+    bwd_bytes = nbytes(dz, r, x, w, st, sums, dx, dw, db, osums) + small
+    # 3xTF32: three TF32 products per multiply-add
+    fwd_b = bound_ms(fwd_bytes, 3 * 2.0 * N * K_in * F, PEAK_TF32_FLOPS)
+    bwd_b = bound_ms(bwd_bytes, 3 * 4.0 * N * K_in * F, PEAK_TF32_FLOPS)
+    simt = {"dense_block_fwd": bound_ms(fwd_bytes, 2.0 * N * K_in * F)[0],
+            "dense_block_bwd": bound_ms(bwd_bytes, 4.0 * N * K_in * F)[0]}
     mask_b = bound_ms(nbytes(mask, seed, keep), 0.0)
     gemm = "not the same function: the cuBLAS GEMM{} alone, without {}"
+    inner = tilings["affine+dropout 512->512"]
     entries = {}
     with torch.no_grad():
         for name, kernel, plain, (bd, by), extra, tol in (
@@ -782,6 +871,7 @@ def check_k5(TF, K, dev) -> dict:
                                                       in_stats, **kw),
                  fwd_b, dict(
                      gemm_only_ms=time_ms(lambda: torch.addmm(b, x, w), 200, 5),
+                     gemm_only_device_ms=inner["cuBLAS addmm"],
                      gemm_only_note=gemm.format(
                          "", "the input affine, dropout, ReLU and column "
                          "statistics"),
@@ -800,6 +890,7 @@ def check_k5(TF, K, dev) -> dict:
                  bwd_b, dict(
                      gemm_only_ms=time_ms(lambda: (dz @ w.T, x.T @ dz),
                                           200, 5),
+                     gemm_only_device_ms=inner["cuBLAS dz @ w.T + x.T @ dz"],
                      gemm_only_note=gemm.format(
                          "s dy W^T and h^T dy", "the BatchNorm backward, "
                          "the input's affine and dropout, db and the lower "
@@ -810,6 +901,15 @@ def check_k5(TF, K, dev) -> dict:
                  lambda: TF.dropout_masks(seed, keep, N, F, 6),
                  lambda: TF.dropout_masks_reference(seed, keep, N, F, 6),
                  mask_b, {}, "exact")):
+            if name in simt:
+                extra.update(
+                    device_ms=device_ms_per_call(kernel),
+                    bound_ms_f32_simt=simt[name],
+                    max_abs_err_vs_f64=vs_f64[name],
+                    device_ms_by_tiling=tilings,
+                    tilings=dict(fwd=TF.FWD_TILES, dgrad=TF.DGRAD_TILES,
+                                 default_fwd=TF.FWD_TILING,
+                                 default_bwd=TF.BWD_TILING))
             entries[name] = dict(
                 route="cuda", max_abs_err=max(errs[name].values()),
                 max_abs_err_parts=errs[name], tolerance=tol,

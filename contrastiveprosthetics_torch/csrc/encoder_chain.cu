@@ -67,44 +67,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
-
-// ----------------------------------------------------------- 3xTF32 MMA
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One k8 chunk, in the order both tilings share: the three products from
-// zero in the tensor core, then one round-to-nearest add per element.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&a_big)[4],
-                                           const uint32_t (&a_small)[4],
-                                           uint32_t b_big0, uint32_t b_big1,
-                                           uint32_t b_small0,
-                                           uint32_t b_small1) {
-  float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma_tf32(p, a_small, b_big0, b_big1);
-  mma_tf32(p, a_big, b_small0, b_small1);
-  mma_tf32(p, a_big, b_big0, b_big1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], p[i]);
-}
 
 // A fragment (m16 x k8, row-major, stride ld floats) at p = &A[g][t]:
 // rows g and g + 8, columns t and t + 4.
@@ -115,24 +80,6 @@ __device__ __forceinline__ void load_a(const float* p, int ld, bool lo,
   split_tf32(hi ? p[8 * ld] : 0.0f, big[1], small[1]);
   split_tf32(lo ? p[4] : 0.0f, big[2], small[2]);
   split_tf32(hi ? p[8 * ld + 4] : 0.0f, big[3], small[3]);
-}
-
-// ------------------------------------------------------------ cp.async
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Programmatic dependent launch: a kernel fetches its weights, then waits

@@ -21,52 +21,110 @@
 //   K5m: the {0,1} f32 dropout mask of one block.
 //
 // What bounds them on an H100: at the train step's N = 328 rows and K = F
-// = 512, K5f does 0.17 GFLOP on 2.4 MB (2.6 us at the 67 TFLOP/s f32 SIMT
-// peak against 0.7 us of bytes) and K5b twice the FLOP: operations. At
-// this size the launch and the dependent k-loop dominate, far above both.
+// = 512, K5f does 2 x 328 x 512 x 512 = 0.17 GFLOP on 2.4 MB; in 3xTF32
+// that is 3 x 0.17 GFLOP over 495 TFLOP/s, 1.04 us, against 0.72 us of
+// bytes (2.6 us at the 67 TFLOP/s f32 SIMT peak); K5b twice the
+// operations. Measured on an H100 (PERF.md) they sit far above that: at
+// tiles small enough to give 132 SMs work, the copies from L2 (every x
+// tile read by each column tile, every weight tile by each row tile),
+// mma.sync's TF32 rate times three products, and a fixed ~5 us of launch,
+// epilogue and ticket each take a share; of the tiles, ring depths and
+// k-tile depths tried, only K5b's wider tiles (fewer copies) moved them.
 //
-// Design. The TPU summed the statistics, dW and db across a sequential grid
-// of row tiles in VMEM. Blocks here run in parallel in no order, so:
-//  * every GEMM is a plain SIMT tile of 32 x 64 outputs, 16-deep k-steps
-//    staged through shared memory, 128 threads with a 4 x 4 micro-tile each;
-//    each output is one thread's sequential fmaf chain over k;
-//  * column sums over rows (K5f's sum r, sum r^2; K5b's two sums for the
-//    block below) are written as one partial per row tile; the last row
-//    tile of a column strip to finish (an integer ticket after a
-//    __threadfence, as contrastive_loss.cu does) adds them in row-tile order
-//    and finishes the statistics, so the small glue the JAX package left to
-//    XLA costs no launches. No float atomics: a rerun gives the same bits.
-//    The ticket counters are reset by that last tile, so one zeroed buffer
-//    serves every launch on the stream;
-//  * K5b is one launch with two roles of block: dgrad tiles (N x K outputs,
-//    contraction over F) and wgrad tiles (K x F outputs, contraction over
-//    the N rows, looped inside the block); the wgrad tiles of the first K
-//    strip also sum db. dy is recomputed on load by both roles;
-//  * dropout bits come from a counter-based Philox4x32-10: key = the step's
-//    two seed words, counter = (column / 4, row, dropped block, 0), one call
-//    giving the bits of four neighbouring columns. A mask is a function of
-//    (seed words, block, row, column) only, never of the launch geometry,
-//    so the backward redraws the forward's bits and K5m replays them. An
-//    element is kept iff its 32 bits are <= the keep threshold, computed
-//    here from keep exactly as the plain version's keep_threshold does. The
-//    coordinate is the index of the block whose output is dropped (i - 1
-//    for block i's input).
-//  * the seed words and keep are read from device memory, so a step never
-//    waits for the host.
-//  * the elementwise parts use the _rn intrinsics, so nothing is contracted
-//    into an fma: h and dy are exactly the plain version's.
+// Arithmetic: 3xTF32 on the tensor cores (tf32_mma.cuh): mma.sync
+// m16n8k8, each k8 chunk's three products summed from zero, then one
+// round-to-nearest add into the f32 accumulator. Chunks run in k order and
+// no sum is split over K, so r, dx and dW have the same bits whatever the
+// tiling or the weight layout.
 //
-// Layouts: x, r, dz, dx (N, K or F) f32 row-major; W and dW (K, F) with
-// element strides (wsk, wsn), so the transpose of a Linear weight is taken
-// without a copy; stats (5, F) rows mean, var, rstd, a, c; sums (2, F) rows
-// sum dz, sum dz xhat; partial (row tiles, 2, width) scratch; tickets one
-// uint32 per column strip, 0 at launch.
+// Design. Every GEMM (K5f; K5b's dgrad dx = dy W^T and wgrad dW = h^T dy)
+// runs the same pipeline over k-tiles 32 deep (run_pipeline):
+//  * a ring of 4 slots filled by 16-byte cp.async copies of each operand's
+//    tile as it lies in device memory (x, dz and r rows; the weight along
+//    whichever dimension is contiguous), zero past the edges, rows padded
+//    so that fragment reads hit 32 distinct banks; the copies of the next
+//    two k-tiles stay in flight while one is computed;
+//  * one pass over each landed tile applies the operand's elementwise part
+//    once per CTA -- h = dropout(a_in x + c_in) with one Philox call per 4
+//    columns, or dy from dz, r and the column vectors staged when the CTA
+//    starts -- and writes the f32 result back in place; each warp splits
+//    its fragments into TF32 halves in registers. (Writing both halves to
+//    shared memory, so that each element is split once per CTA, doubles the
+//    shared-memory traffic and was no faster on the card.) The pass for
+//    k-tile kt + 1 runs in the shadow of the MMAs of kt, between the same
+//    two barriers;
+//  * the epilogue stages the tile in shared memory and stores 16 bytes a
+//    thread along the output's contiguous dimension, dW included in either
+//    layout.
+// Column sums over rows (K5f's sum r, sum r^2; K5b's two sums for the block
+// below) are written as one partial per row tile; the last row tile of a
+// column strip to finish (an integer ticket after a __threadfence) adds
+// them in row-tile order and finishes the statistics, so the glue the JAX
+// package left to XLA costs no launch. No float atomics: a rerun gives the
+// same bits. The ticket counters are reset by that last tile, so one zeroed
+// buffer serves every launch on the stream. db is summed by the wgrad
+// tiles of the first k strip: each thread over its rows in order, then the
+// threads of a column in a fixed order.
+// K5b is one launch with two roles of CTA: dgrad tiles (first in the grid;
+// N x K outputs, contraction over F) and wgrad tiles (K x F outputs,
+// contraction over the N rows, ragged rows zero-filled). At N = 328 and
+// K = F = 512, K5f's tiling 0 launches 21 x 16 = 336 CTAs of 4 warps, two
+// or three on every SM, and K5b's 88 + 128 = 216 CTAs of 8 warps, whose
+// wider tiles read dz and r from L2 half as often as 32 x 32 ones.
+//
+// Dropout bits come from a counter-based Philox4x32-10: key = the step's
+// two seed words, counter = (column / 4, row, dropped block, 0), one call
+// giving the bits of four neighbouring columns. A mask is a function of
+// (seed words, block, row, column) only, never of the launch geometry, so
+// the backward redraws the forward's bits and K5m replays them. An element
+// is kept iff its 32 bits are <= the keep threshold, computed here from
+// keep exactly as the plain version's keep_threshold does. The coordinate
+// is the index of the block whose output is dropped (i - 1 for block i's
+// input). The seed words and keep are read from device memory, so a step
+// never waits for the host. The elementwise parts use the _rn intrinsics,
+// so nothing is contracted into an fma: h and dy are exactly the plain
+// version's.
+//
+// Layouts: x, r, dz, dx (N, K or F) f32 row-major; W and dW (K, F) either
+// row-major or the transpose of a row-major (F, K) Linear weight, dW laid
+// out as W; K and F multiples of 4 and every array 16-byte aligned (the
+// launchers refuse the rest); stats (5, F) rows mean, var, rstd, a, c;
+// sums (2, F) rows sum dz, sum dz xhat; partial (row tiles, 2, width)
+// scratch; tickets one uint32 per column strip, 0 at launch.
 #include <cuda_runtime.h>
 #include <curand_philox4x32_x.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kBM = 32, kBN = 64, kBK = 16, kThreads = 128;
+// ------------------------------------------------------------- tilings
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
+  static constexpr int kThreads = 32 * WARPS_M * WARPS_N;
+  static constexpr int MI = BM / WARPS_M / 16, NI = BN / WARPS_N / 8;
+  static_assert(MI >= 1 && NI >= 1 && MI * 16 * WARPS_M == BM &&
+                    NI * 8 * WARPS_N == BN,
+                "the warps' m16 x n8 tiles cover the block's tile");
+};
+
+constexpr int kBK = 32;     // depth of a k-tile
+constexpr int kStages = 4;  // cp.async ring slots
+
+// Tilings: output tile rows x columns, then warps along rows x columns;
+// tiling 0 is the chain's. The wrapper (ops/train_fused.py FWD_TILES,
+// DGRAD_TILES) sizes partials and tickets from the same (rows, columns).
+using FwdTile0 = Tile<16, 32, 1, 4>;
+using FwdTile1 = Tile<16, 64, 1, 8>;
+using DgradTile0 = Tile<32, 64, 2, 4>;
+using WgradTile0 = Tile<64, 32, 4, 2>;
+using DgradTile1 = Tile<32, 32, 2, 2>;
+using WgradTile1 = Tile<32, 32, 2, 2>;
+
+// ------------------------------------------------------------- Philox
 constexpr unsigned kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
 constexpr unsigned kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
 constexpr float kKeepClip = 0.99999994f;  // the largest f32 below 1
@@ -77,7 +135,7 @@ __device__ __forceinline__ uint4 philox_round(uint4 c, uint2 k) {
   return make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
 }
 
-__device__ uint4 philox4x32_10(uint4 c, uint2 k) {
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll
   for (int i = 0; i < 9; ++i) {
     c = philox_round(c, k);
@@ -88,11 +146,10 @@ __device__ uint4 philox4x32_10(uint4 c, uint2 k) {
 }
 
 // the bits of columns 4*col4 .. 4*col4+3 of `row` in block `block`'s mask
-__device__ __forceinline__ uint4 mask_bits(const int* seed, int block, int row,
+__device__ __forceinline__ uint4 mask_bits(uint2 key, int block, int row,
                                            int col4) {
   return philox4x32_10(
-      make_uint4((unsigned)col4, (unsigned)row, (unsigned)block, 0u),
-      make_uint2((unsigned)seed[0], (unsigned)seed[1]));
+      make_uint4((unsigned)col4, (unsigned)row, (unsigned)block, 0u), key);
 }
 
 __device__ __forceinline__ unsigned word(uint4 v, int j) {
@@ -114,88 +171,359 @@ struct Dropout {
   int block;
 };
 
-struct Keep {
-  float value;
+// The same, read once per CTA.
+struct Drop {
+  bool on;
+  const float* mask;
+  uint2 key;
   unsigned threshold;
+  float keep;
+  int block;
 };
 
-__device__ __forceinline__ Keep read_keep(const Dropout& d) {
-  const float v = d.keep ? *d.keep : 1.0f;
-  return {v, keep_threshold(v)};
+__device__ __forceinline__ Drop read_drop(const Dropout& d) {
+  Drop r;
+  r.on = d.keep != nullptr;
+  r.mask = d.mask;
+  r.keep = r.on ? *d.keep : 1.0f;
+  r.threshold = keep_threshold(r.keep);
+  r.key = r.on && !d.mask ? make_uint2((unsigned)d.seed[0], (unsigned)d.seed[1])
+                          : make_uint2(0u, 0u);
+  r.block = d.block;
+  return r;
 }
 
-// h = dropout(a x + c) at x[n, k0 .. k0+3] (k0 a multiple of 4); 0 past
-// the edges.
-__device__ __forceinline__ void load_input4(const float* __restrict__ x,
-                                            int N, int K, int n, int k0,
-                                            const float* a, const float* c,
-                                            const Dropout& d, Keep kp,
-                                            float out[4]) {
-  uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-  if (d.keep && !d.mask && n < N) bits = mask_bits(d.seed, d.block, n, k0 >> 2);
+// dropout of block d.block's mask at (n, k .. k+3), n < N and k < K
+__device__ __forceinline__ float4 drop4(float4 v, const Drop& d, int n, int k,
+                                        int K) {
+  if (!d.on) return v;
+  bool kept[4];
+  if (d.mask) {
+    const float4 m =
+        __ldg(reinterpret_cast<const float4*>(d.mask + (size_t)n * K + k));
+    kept[0] = m.x > 0.0f;
+    kept[1] = m.y > 0.0f;
+    kept[2] = m.z > 0.0f;
+    kept[3] = m.w > 0.0f;
+  } else {
+    const uint4 bits = mask_bits(d.key, d.block, n, k >> 2);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int k = k0 + j;
-    if (n >= N || k >= K) {
-      out[j] = 0.0f;
-      continue;
+    for (int j = 0; j < 4; ++j) kept[j] = word(bits, j) <= d.threshold;
+  }
+  v.x = kept[0] ? __fdiv_rn(v.x, d.keep) : 0.0f;
+  v.y = kept[1] ? __fdiv_rn(v.y, d.keep) : 0.0f;
+  v.z = kept[2] ? __fdiv_rn(v.z, d.keep) : 0.0f;
+  v.w = kept[3] ? __fdiv_rn(v.w, d.keep) : 0.0f;
+  return v;
+}
+
+// ------------------------------------------------ elementwise operands
+// h = dropout(a x + c) at x[n, k .. k+3], 0 past the edges; a and c hold
+// the affine of columns k_base.., or a is null (no affine)
+__device__ __forceinline__ float4 block_input4(float4 v, int n, int k, int N,
+                                               int K, const float* a,
+                                               const float* c, int k_base,
+                                               const Drop& d) {
+  if (n >= N || k >= K) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (a) {
+    const float4 av = *reinterpret_cast<const float4*>(a + k - k_base);
+    const float4 cv = *reinterpret_cast<const float4*>(c + k - k_base);
+    v.x = __fadd_rn(__fmul_rn(v.x, av.x), cv.x);
+    v.y = __fadd_rn(__fmul_rn(v.y, av.y), cv.y);
+    v.z = __fadd_rn(__fmul_rn(v.z, av.z), cv.z);
+    v.w = __fadd_rn(__fmul_rn(v.w, av.w), cv.w);
+  }
+  return drop4(v, d, n, k, K);
+}
+
+// dy's column vectors for column f at slot j of rows of width W: mean,
+// rstd, a, S1/N, S2/N
+__device__ __forceinline__ void stage_dy_vectors(float* vec, int W, int j,
+                                                 int f, const float* stats,
+                                                 const float* sums, int F,
+                                                 float inv_n) {
+  vec[j] = stats[f];
+  vec[W + j] = stats[2 * F + f];
+  vec[2 * W + j] = stats[3 * F + f];
+  vec[3 * W + j] = __fmul_rn(sums[f], inv_n);
+  vec[4 * W + j] = __fmul_rn(sums[F + f], inv_n);
+}
+
+__device__ __forceinline__ float dy1(float dz, float r, float mean, float rstd,
+                                     float a, float u1, float u2) {
+  const float xn = __fmul_rn(__fsub_rn(r, mean), rstd);
+  const float t = __fsub_rn(__fsub_rn(dz, u1), __fmul_rn(xn, u2));
+  return r > 0.0f ? __fmul_rn(a, t) : 0.0f;
+}
+
+// dy at (n, f .. f+3), 0 past the edges; vec as stage_dy_vectors left it,
+// for columns f_base..
+__device__ __forceinline__ float4 dy4(float4 dz, float4 r, int n, int f,
+                                      int N, int F, const float* vec, int W,
+                                      int f_base) {
+  if (n >= N || f >= F) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int j = f - f_base;
+  const float4 mean = *reinterpret_cast<const float4*>(vec + j);
+  const float4 rstd = *reinterpret_cast<const float4*>(vec + W + j);
+  const float4 a = *reinterpret_cast<const float4*>(vec + 2 * W + j);
+  const float4 u1 = *reinterpret_cast<const float4*>(vec + 3 * W + j);
+  const float4 u2 = *reinterpret_cast<const float4*>(vec + 4 * W + j);
+  return make_float4(dy1(dz.x, r.x, mean.x, rstd.x, a.x, u1.x, u2.x),
+                     dy1(dz.y, r.y, mean.y, rstd.y, a.y, u1.y, u2.y),
+                     dy1(dz.z, r.z, mean.z, rstd.z, a.z, u1.z, u2.z),
+                     dy1(dz.w, r.w, mean.w, rstd.w, a.w, u1.w, u2.w));
+}
+
+// -------------------------------------------------- the k-tile pipeline
+// One operand's k-tile in a ring slot, in the orientation it has in device
+// memory: KD_OUTER false [EXT][kBK], rows of kBK + 4 floats (fragment
+// reads at (x = g, kd = t) hit banks 4g + t); KD_OUTER true [kBK][EXT],
+// rows of EXT + 8 (banks 8t + g).
+template <int EXT, bool KD_OUTER>
+struct Operand {
+  static constexpr int kRows = KD_OUTER ? kBK : EXT;
+  static constexpr int kCols = KD_OUTER ? EXT : kBK;
+  static constexpr int kLd = KD_OUTER ? EXT + 8 : kBK + 4;
+  static constexpr int kTile = kRows * kLd;
+  __device__ static __forceinline__ int at(int x, int kd) {
+    return KD_OUTER ? kd * kLd + x : x * kLd + kd;
+  }
+};
+
+// 16-byte cp.async copies of the R x C tile at (r0, c0) of a row-major
+// (rows, cols) array with row stride ld, into rows of LD floats; zeros past
+// the array's edges
+template <int R, int C, int LD, int T>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
+                                          int ld, int r0, int rows, int c0,
+                                          int cols) {
+  constexpr int kPieces = R * C / 4;
+#pragma unroll
+  for (int p = 0; p < (kPieces + T - 1) / T; ++p) {
+    const int i = threadIdx.x + p * T;
+    if (kPieces % T == 0 || i < kPieces) {
+      const int r = i / (C / 4), c = (i % (C / 4)) * 4;
+      const bool ok = r0 + r < rows && c0 + c < cols;
+      cp_async16(dst + r * LD + c,
+                 ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
     }
-    const size_t i = (size_t)n * K + k;
-    float z = x[i];
-    if (a) z = __fadd_rn(__fmul_rn(z, a[k]), c[k]);
-    if (d.keep) {
-      const bool kept =
-          d.mask ? d.mask[i] > 0.0f : word(bits, j) <= kp.threshold;
-      z = kept ? __fdiv_rn(z, kp.value) : 0.0f;
-    }
-    out[j] = z;
   }
 }
 
-// acc[i][j] += sum_kk As[kk][ty*4+i] * Bs[kk][tx*4+j], in kk order
-__device__ __forceinline__ void mma_tile(const float (&As)[kBK][kBM],
-                                         const float (&Bs)[kBK][kBN],
-                                         float (&acc)[4][4], int tx, int ty) {
+// A thread's float4s of an R x C tile: one column quad, every kStep-th row
+template <int R, int C, int T>
+struct Pieces {
+  static constexpr int kQuads = C / 4;
+  static_assert(T % kQuads == 0, "a thread keeps one column quad");
+  static constexpr int kStep = T / kQuads;
+  static constexpr int kPer = (R + kStep - 1) / kStep;
+  __device__ static __forceinline__ int col() {
+    return (threadIdx.x % kQuads) * 4;
+  }
+  __device__ static __forceinline__ int row(int p) {
+    return threadIdx.x / kQuads + p * kStep;
+  }
+  __device__ static __forceinline__ bool has(int p) {
+    return R % kStep == 0 || row(p) < R;
+  }
+};
+
+// op(row, col, float4) on the thread's float4s of the R x C tile in rows of
+// LD floats at `raw`, written back in place. Loads first, then the ops
+// (which may share their column's loads), then the stores.
+template <int R, int C, int LD, int T, class Op>
+__device__ __forceinline__ void prep_tile(float* raw, Op op) {
+  using P = Pieces<R, C, T>;
+  const int c = P::col();
+  float4 v[P::kPer];
 #pragma unroll
-  for (int kk = 0; kk < kBK; ++kk) {
-    const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-    const float4 wv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
-    const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+  for (int p = 0; p < P::kPer; ++p)
+    if (P::has(p))
+      v[p] = *reinterpret_cast<const float4*>(raw + P::row(p) * LD + c);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int p = 0; p < P::kPer; ++p)
+    if (P::has(p)) v[p] = op(P::row(p), c, v[p]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], wr[j], acc[i][j]);
+  for (int p = 0; p < P::kPer; ++p)
+    if (P::has(p))
+      *reinterpret_cast<float4*>(raw + P::row(p) * LD + c) = v[p];
+}
+
+// The MMAs of one k-tile, issued before the chunk sums are added: the
+// warp's MI x NI m16n8 tiles at (wm, wn) from the f32 ring slots a and b,
+// each fragment split into TF32 halves in registers, each chunk's three
+// products (mma_3xtf32's) into p[chunk] from zero (chunks past n_chunks
+// stay 0)
+template <class G>
+struct ChunkSums {
+  float p[kBK / 8][G::MI][G::NI][4];
+};
+
+template <class G, class A, class B>
+__device__ __forceinline__ void mma_ktile(const float* a, const float* b,
+                                          int n_chunks, ChunkSums<G>& cs,
+                                          int wm, int wn, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 8; ++kk) {
+#pragma unroll
+    for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < G::NI; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) cs.p[kk][mi][ni][q] = 0.0f;
+    if (kk < n_chunks) {
+      const int kd = kk * 8 + t;
+      uint32_t ab[G::MI][4], as[G::MI][4];
+#pragma unroll
+      for (int mi = 0; mi < G::MI; ++mi) {
+        const int m = wm + mi * 16 + g;
+        const int o[4] = {A::at(m, kd), A::at(m + 8, kd), A::at(m, kd + 4),
+                          A::at(m + 8, kd + 4)};
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split_tf32(a[o[q]], ab[mi][q], as[mi][q]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < G::NI; ++ni) {
+        const int n = wn + ni * 8 + g;
+        uint32_t bb0, bb1, bs0, bs1;
+        split_tf32(b[B::at(n, kd)], bb0, bs0);
+        split_tf32(b[B::at(n, kd + 4)], bb1, bs1);
+#pragma unroll
+        for (int mi = 0; mi < G::MI; ++mi) {  // mma_3xtf32's products
+          mma_tf32(cs.p[kk][mi][ni], as[mi], bb0, bb1);
+          mma_tf32(cs.p[kk][mi][ni], ab[mi], bs0, bs1);
+          mma_tf32(cs.p[kk][mi][ni], ab[mi], bb0, bb1);
+        }
+      }
+    }
   }
 }
 
-// Column sums of the two staged tiles into this row tile's partials, then
-// the ticket: returns true in the last row tile of the strip to finish.
-// Threads [0, 64) sum S[0], [64, 128) S[1], rows in order.
-__device__ bool tile_partials(const float (&S)[2][kBM][kBN + 1],
+// ... then mma_3xtf32's round-to-nearest adds, chunk by chunk in k order
+template <class G>
+__device__ __forceinline__ void add_chunks(float (&acc)[G::MI][G::NI][4],
+                                           const ChunkSums<G>& cs) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 8; ++kk)
+#pragma unroll
+    for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < G::NI; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[mi][ni][q] = __fadd_rn(acc[mi][ni][q], cs.p[kk][mi][ni][q]);
+}
+
+// k-tiles 0 .. n_kt-1 through the ring: load(kt, slot) issues k-tile kt's
+// copies into ring slot `slot`; prep(slot, kt) runs the elementwise pass of
+// a landed slot in place; mma(slot, kt, cs) issues a slot's MMAs into cs,
+// added to acc after the next pass so that the pass runs in the MMAs'
+// shadow. mma(kt) and prep(kt+1) run between the same two barriers while
+// the copies of kt+2 and kt+3 are in flight. Ends with every copy landed
+// and the shared memory free for the epilogue.
+template <class G, class Load, class Prep, class Mma>
+__device__ __forceinline__ void run_pipeline(int n_kt, Load load, Prep prep,
+                                             Mma mma,
+                                             float (&acc)[G::MI][G::NI][4]) {
+  // slot kt is read by mma(kt) and slot kt + 1 by prep(kt + 1): the rest
+  // are ahead
+  constexpr int kAhead = kStages - 1;
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) {
+    if (s < n_kt) load(s, s);
+    cp_async_commit();
+  }
+  cp_async_wait<kAhead - 1>();
+  __syncthreads();  // k-tile 0 and the staged vectors are visible
+  prep(0, 0);
+  ChunkSums<G> cs;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<kAhead - 2>();  // this thread's copies of kt + 1
+    // everyone's copies of kt + 1 and prep(kt) are visible; mma(kt - 1) is
+    // done, so its slot is free for the next copies
+    __syncthreads();
+    const int next = kt + kAhead;
+    if (next < n_kt) load(next, next % kStages);
+    cp_async_commit();
+    mma(kt % kStages, kt, cs);
+    if (kt + 1 < n_kt) prep((kt + 1) % kStages, kt + 1);
+    add_chunks<G>(acc, cs);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The warp's accumulators into a staged tile Cs[m][n] (row stride ld,
+// float2 stores at banks 8g + 2t for ld = 8 mod 32)
+template <class G>
+__device__ __forceinline__ void stage_acc(float* Cs, int ld,
+                                          const float (&acc)[G::MI][G::NI][4],
+                                          int wm, int wn, int g, int t) {
+#pragma unroll
+  for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < G::NI; ++ni) {
+      const int r = wm + mi * 16 + g, c = wn + ni * 8 + 2 * t;
+      *reinterpret_cast<float2*>(Cs + r * ld + c) =
+          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<float2*>(Cs + (r + 8) * ld + c) =
+          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+}
+
+// ... transposed: Ct[n][m] (banks 8t + g for ld = 4 mod 32)
+template <class G>
+__device__ __forceinline__ void stage_acc_t(float* Ct, int ld,
+                                            const float (&acc)[G::MI][G::NI][4],
+                                            int wm, int wn, int g, int t) {
+#pragma unroll
+  for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < G::NI; ++ni) {
+      const int r = wm + mi * 16 + g, c = wn + ni * 8 + 2 * t;
+      Ct[c * ld + r] = acc[mi][ni][0];
+      Ct[(c + 1) * ld + r] = acc[mi][ni][1];
+      Ct[c * ld + r + 8] = acc[mi][ni][2];
+      Ct[(c + 1) * ld + r + 8] = acc[mi][ni][3];
+    }
+}
+
+// Column sums of the staged BM x BN tiles S0 and S1 (row stride LD) into
+// this row tile's partials, rows in order; then the ticket: returns true
+// in the last row tile of the strip to finish.
+template <int BM, int BN, int LD, int T>
+__device__ bool tile_partials(const float* S0, const float* S1,
                               float* __restrict__ partial,
                               unsigned* __restrict__ ticket, int row_tile,
                               int n_row_tiles, int col0, int width) {
+  static_assert(2 * BN <= T, "a thread per column sum");
   __shared__ bool last;
-  const int n = threadIdx.x % kBN, which = threadIdx.x / kBN;
-  float s = 0.0f;
-  for (int m = 0; m < kBM; ++m) s = __fadd_rn(s, S[which][m][n]);
-  if (col0 + n < width)
-    partial[((size_t)row_tile * 2 + which) * width + col0 + n] = s;
+  const int tid = threadIdx.x;
+  if (tid < 2 * BN) {
+    const int n = tid % BN, which = tid / BN;
+    const float* S = which ? S1 : S0;
+    float s = 0.0f;
+    for (int m = 0; m < BM; ++m) s = __fadd_rn(s, S[m * LD + n]);
+    if (col0 + n < width)
+      partial[((size_t)row_tile * 2 + which) * width + col0 + n] = s;
+  }
   __threadfence();  // the partials reach device memory before the ticket
   __syncthreads();
-  if (threadIdx.x == 0)
+  if (tid == 0)
     last = atomicAdd(ticket, 1u) == (unsigned)(n_row_tiles - 1);
   __syncthreads();
   return last;
 }
 
 // In the last row tile: the strip's two column sums, over row tiles in
-// order, for the calling thread's column (threadIdx.x < kBN).
+// order, for one column.
 __device__ __forceinline__ float2 strip_sums(const float* __restrict__ partial,
                                              int n_row_tiles, int col,
                                              int width) {
   float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll 4
   for (int t = 0; t < n_row_tiles; ++t) {
     s1 = __fadd_rn(s1, __ldcg(&partial[((size_t)t * 2) * width + col]));
     s2 = __fadd_rn(s2, __ldcg(&partial[((size_t)t * 2 + 1) * width + col]));
@@ -203,226 +531,405 @@ __device__ __forceinline__ float2 strip_sums(const float* __restrict__ partial,
   return make_float2(s1, s2);
 }
 
-__global__ void __launch_bounds__(kThreads) dense_block_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ gamma,
-    const float* __restrict__ beta, const float* __restrict__ in_stats,
-    Dropout d, float* __restrict__ r, float* __restrict__ partial,
-    unsigned* __restrict__ tickets, float* __restrict__ stats, int N, int K,
-    int F, int wsk, int wsn, float eps) {
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  __shared__ float S[2][kBM][kBN + 1];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.x * kBM, col0 = blockIdx.y * kBN;
-  const float* a_in = in_stats ? in_stats + 3 * K : nullptr;
-  const float* c_in = in_stats ? in_stats + 4 * K : nullptr;
-  const Keep kp = read_keep(d);
-  float acc[4][4] = {};
+// ---------------------------------------------------------------- K5f
+struct FwdArgs {
+  const float *x, *w, *b, *gamma, *beta, *in_stats;
+  Dropout d;
+  float *r, *partial;
+  unsigned* tickets;
+  float* stats;
+  int N, K, F;
+  float eps;
+};
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    {
-      const int m = tid / 4, kq = (tid % 4) * 4;
-      float h[4];
-      load_input4(x, N, K, row0 + m, k0 + kq, a_in, c_in, d, kp, h);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) As[kq + j][m] = h[j];
-    }
-#pragma unroll
-    for (int i = 0; i < kBK * kBN / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int kk = idx / kBN, n = idx % kBN;
-      const int gk = k0 + kk, gn = col0 + n;
-      Bs[kk][n] = (gk < K && gn < F)
-                      ? w[(size_t)gk * wsk + (size_t)gn * wsn]
-                      : 0.0f;
-    }
-    __syncthreads();
-    mma_tile(As, Bs, acc, tx, ty);
-    __syncthreads();
+// WROW: w is a row-major (K, F); else the transpose of a Linear weight
+// (F, K), contiguous along k
+template <class G, bool WROW>
+struct FwdLayout {
+  using A = Operand<G::BM, false>;  // h as (n, k)
+  using B = Operand<G::BN, WROW>;   // W as (f, k) or (k, f)
+  static constexpr int kStage = A::kTile + B::kTile;  // x (h in place), W
+  static constexpr int kCs = G::BN + 8;  // staged output row stride
+  // the ring, then a_in and c_in (K floats each)
+  static constexpr int kFloats = kStages * kStage;
+  static_assert(2 * G::BM * kCs <= kFloats, "the staged outputs fit");
+  static size_t bytes(int K) {
+    return sizeof(float) * ((size_t)kFloats + 2 * (size_t)K);
   }
+};
 
+template <class G, bool WROW>
+__global__ void __launch_bounds__(G::kThreads)
+    dense_block_fwd_kernel(const FwdArgs p) {
+  using L = FwdLayout<G, WROW>;
+  using A = typename L::A;
+  using B = typename L::B;
+  constexpr int T = G::kThreads;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* vec = smem + L::kFloats;  // a_in, c_in
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp % G::WARPS_M) * (G::BM / G::WARPS_M);
+  const int wn = (warp / G::WARPS_M) * (G::BN / G::WARPS_N);
+  const int row0 = blockIdx.x * G::BM, col0 = blockIdx.y * G::BN;
+  const int N = p.N, K = p.K, F = p.F;
+  const bool affine = p.in_stats != nullptr;
+  const Drop drop = read_drop(p.d);
+  if (affine)
+    for (int i = tid; i < K; i += T) {
+      vec[i] = p.in_stats[3 * K + i];
+      vec[K + i] = p.in_stats[4 * K + i];
+    }
+
+  auto load = [&](int kt, int slot) {
+    float* s = ring + slot * L::kStage;
+    const int k0 = kt * kBK;
+    load_tile<A::kRows, A::kCols, A::kLd, T>(s, p.x, K, row0, N, k0, K);
+    if constexpr (WROW)  // w[k * F + f]
+      load_tile<B::kRows, B::kCols, B::kLd, T>(s + A::kTile, p.w, F, k0, K,
+                                               col0, F);
+    else  // w[f * K + k]
+      load_tile<B::kRows, B::kCols, B::kLd, T>(s + A::kTile, p.w, K, col0, F,
+                                               k0, K);
+  };
+  auto prep = [&](int slot, int kt) {
+    const int k0 = kt * kBK;
+    prep_tile<A::kRows, A::kCols, A::kLd, T>(
+        ring + slot * L::kStage, [&](int i, int j, float4 v) {
+          return block_input4(v, row0 + i, k0 + j, N, K,
+                              affine ? vec : nullptr, vec + K, 0, drop);
+        });
+  };
+  float acc[G::MI][G::NI][4] = {};
+  auto mma = [&](int slot, int kt, ChunkSums<G>& cs) {
+    const float* a = ring + slot * L::kStage;
+    mma_ktile<G, A, B>(a, a + A::kTile, min(kBK / 8, (K - kt * kBK + 7) / 8),
+                       cs, wm, wn, g, t);
+  };
+  run_pipeline<G>((K + kBK - 1) / kBK, load, prep, mma, acc);
+
+  // epilogue: bias, ReLU, 16-byte stores of r; the tile's v and v^2 staged
+  // for the column sums (0 past the edges)
+  float* Cs = smem;
+  float* Cs2 = smem + G::BM * L::kCs;
+  stage_acc<G>(Cs, L::kCs, acc, wm, wn, g, t);
+  __syncthreads();
+  constexpr int kPieces = G::BM * G::BN / 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = ty * 4 + i, gm = row0 + m;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = tx * 4 + j, gn = col0 + n;
-      float v = 0.0f;
+  for (int q = 0; q < (kPieces + T - 1) / T; ++q) {
+    const int i = tid + q * T;
+    if (kPieces % T == 0 || i < kPieces) {
+      const int m = i / (G::BN / 4), c = (i % (G::BN / 4)) * 4;
+      const int gm = row0 + m, gn = col0 + c;
+      float4* at = reinterpret_cast<float4*>(Cs + m * L::kCs + c);
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (gm < N && gn < F) {
-        v = fmaxf(__fadd_rn(acc[i][j], b[gn]), 0.0f);
-        r[(size_t)gm * F + gn] = v;
+        const float4 a = *at;
+        const float4 bias = *reinterpret_cast<const float4*>(p.b + gn);
+        v = make_float4(fmaxf(__fadd_rn(a.x, bias.x), 0.0f),
+                        fmaxf(__fadd_rn(a.y, bias.y), 0.0f),
+                        fmaxf(__fadd_rn(a.z, bias.z), 0.0f),
+                        fmaxf(__fadd_rn(a.w, bias.w), 0.0f));
+        *reinterpret_cast<float4*>(p.r + (size_t)gm * F + gn) = v;
       }
-      S[0][m][n] = v;
-      S[1][m][n] = __fmul_rn(v, v);
+      *at = v;
+      *reinterpret_cast<float4*>(Cs2 + m * L::kCs + c) =
+          make_float4(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y),
+                      __fmul_rn(v.z, v.z), __fmul_rn(v.w, v.w));
     }
   }
   __syncthreads();
-  if (!tile_partials(S, partial, &tickets[blockIdx.y], blockIdx.x, gridDim.x,
-                     col0, F))
+  if (!tile_partials<G::BM, G::BN, L::kCs, T>(Cs, Cs2, p.partial,
+                                              &p.tickets[blockIdx.y],
+                                              blockIdx.x, gridDim.x, col0, F))
     return;
   const int gn = col0 + tid;
-  if (tid < kBN && gn < F) {
-    const float2 s = strip_sums(partial, gridDim.x, gn, F);
+  if (tid < G::BN && gn < F) {
+    const float2 s = strip_sums(p.partial, gridDim.x, gn, F);
     const float nf = (float)N;
     const float mean = __fdiv_rn(s.x, nf);
     const float var =
         fmaxf(0.0f, __fsub_rn(__fdiv_rn(s.y, nf), __fmul_rn(mean, mean)));
-    const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
-    const float a = __fmul_rn(gamma[gn], rstd);
-    stats[gn] = mean;
-    stats[F + gn] = var;
-    stats[2 * F + gn] = rstd;
-    stats[3 * F + gn] = a;
-    stats[4 * F + gn] = __fsub_rn(beta[gn], __fmul_rn(mean, a));
+    const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, p.eps)));
+    const float a = __fmul_rn(p.gamma[gn], rstd);
+    p.stats[gn] = mean;
+    p.stats[F + gn] = var;
+    p.stats[2 * F + gn] = rstd;
+    p.stats[3 * F + gn] = a;
+    p.stats[4 * F + gn] = __fsub_rn(p.beta[gn], __fmul_rn(mean, a));
   }
-  if (tid == 0) tickets[blockIdx.y] = 0u;  // ready for the next launch
+  if (tid == 0) p.tickets[blockIdx.y] = 0u;  // ready for the next launch
 }
 
-// dy at (n, f): the BatchNorm backward finished, times the ReLU's mask
-__device__ __forceinline__ float dy_value(const float* __restrict__ dz,
-                                          const float* __restrict__ r,
-                                          const float* __restrict__ stats,
-                                          const float* __restrict__ sums,
-                                          int N, int F, int n, int f,
-                                          float inv_n) {
-  if (n >= N || f >= F) return 0.0f;
-  const size_t i = (size_t)n * F + f;
-  const float rv = r[i];
-  const float xn = __fmul_rn(__fsub_rn(rv, stats[f]), stats[2 * F + f]);
-  float t = __fsub_rn(dz[i], __fmul_rn(sums[f], inv_n));
-  t = __fsub_rn(t, __fmul_rn(xn, __fmul_rn(sums[F + f], inv_n)));
-  return rv > 0.0f ? __fmul_rn(stats[3 * F + f], t) : 0.0f;
-}
+// ---------------------------------------------------------------- K5b
+struct BwdArgs {
+  const float *dz, *r, *x, *w, *stats, *sums, *in_stats;
+  Dropout d;
+  float *dx, *dw, *db, *out_sums, *partial;
+  unsigned* tickets;
+  int N, K, F;
+  int n_dgrad;  // CTAs of the dgrad role, first in the grid
+};
 
-__global__ void __launch_bounds__(kThreads) dense_block_bwd_kernel(
-    const float* __restrict__ dz, const float* __restrict__ r,
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ stats, const float* __restrict__ sums,
-    const float* __restrict__ in_stats, Dropout d, float* __restrict__ dx,
-    float* __restrict__ dw, float* __restrict__ db,
-    float* __restrict__ out_sums, float* __restrict__ partial,
-    unsigned* __restrict__ tickets, int N, int K, int F, int wsk, int wsn,
-    int n_dgrad_blocks) {
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  __shared__ float S[2][kBM][kBN + 1];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+template <class G, bool WROW>
+struct DgradLayout {
+  using A = Operand<G::BM, false>;  // dy as (n, f)
+  using B = Operand<G::BN, !WROW>;  // W as (k, f) or (f, k)
+  // dz (dy in place), r, W
+  static constexpr int kStage = 2 * A::kTile + B::kTile;
+  static constexpr int kCs = G::BN + 8;
+  // the ring, then dy's 5 column vectors (F each)
+  static constexpr int kFloats = kStages * kStage;
+  static_assert(2 * G::BM * kCs <= kFloats, "the staged outputs fit");
+  static size_t bytes(int F) {
+    return sizeof(float) * ((size_t)kFloats + 5 * (size_t)F);
+  }
+};
+
+template <class G, bool WROW>
+struct WgradLayout {
+  using A = Operand<G::BM, true>;  // h as (n, k)
+  using B = Operand<G::BN, true>;  // dy as (n, f)
+  // x (h in place), dz (dy in place), r
+  static constexpr int kStage = A::kTile + 2 * B::kTile;
+  static_assert(G::kThreads % (G::BN / 4) == 0,
+                "each thread sums db over one column quad");
+  static constexpr int kGroups = G::kThreads / (G::BN / 4);  // per column
+  // staged dW: [k][f] for a row-major W, [f][k] for a Linear weight
+  static constexpr int kCs = WROW ? G::BN + 8 : G::BM + 4;
+  static constexpr int kFloats = kStages * kStage;
+  // then dy's 5 column vectors (BN each), a_in and c_in (BM each)
+  static constexpr int kVec = 5 * G::BN + 2 * G::BM;
+  static_assert((WROW ? G::BM : G::BN) * kCs + kGroups * G::BN <= kFloats,
+                "the staged dW and db partials fit");
+  static size_t bytes() { return sizeof(float) * (size_t)(kFloats + kVec); }
+};
+
+// dgrad: the dx tile at (rows n, columns k), contraction over f
+template <class G, bool WROW>
+__device__ __forceinline__ void dgrad_tile(const BwdArgs& p, int bid) {
+  using L = DgradLayout<G, WROW>;
+  using A = typename L::A;
+  using B = typename L::B;
+  constexpr int T = G::kThreads;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* vec = smem + L::kFloats;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp % G::WARPS_M) * (G::BM / G::WARPS_M);
+  const int wn = (warp / G::WARPS_M) * (G::BN / G::WARPS_N);
+  const int N = p.N, K = p.K, F = p.F;
+  const int n_row_tiles = (N + G::BM - 1) / G::BM;
+  const int rt = bid % n_row_tiles, ct = bid / n_row_tiles;
+  const int row0 = rt * G::BM, col0 = ct * G::BN;
+  const Drop drop = read_drop(p.d);
   const float inv_n = __fdiv_rn(1.0f, (float)N);
-  const Keep kp = read_keep(d);
-  float acc[4][4] = {};
+  for (int i = tid; i < F; i += T)
+    stage_dy_vectors(vec, F, i, i, p.stats, p.sums, F, inv_n);
 
-  if ((int)blockIdx.x < n_dgrad_blocks) {
-    // ---- dgrad: dx tile (rows n, columns k), contraction over f
-    const int n_row_tiles = (N + kBM - 1) / kBM;
-    const int rt = blockIdx.x % n_row_tiles, kt = blockIdx.x / n_row_tiles;
-    const int row0 = rt * kBM, col0 = kt * kBN;
-    for (int f0 = 0; f0 < F; f0 += kBK) {
-      {
-        const int m = tid / 4, fq = (tid % 4) * 4;
+  auto load = [&](int kt, int slot) {
+    float* s = ring + slot * L::kStage;
+    const int f0 = kt * kBK;
+    load_tile<A::kRows, A::kCols, A::kLd, T>(s, p.dz, F, row0, N, f0, F);
+    load_tile<A::kRows, A::kCols, A::kLd, T>(s + A::kTile, p.r, F, row0, N,
+                                             f0, F);
+    if constexpr (WROW)  // w[k * F + f]
+      load_tile<B::kRows, B::kCols, B::kLd, T>(s + 2 * A::kTile, p.w, F,
+                                               col0, K, f0, F);
+    else  // w[f * K + k]
+      load_tile<B::kRows, B::kCols, B::kLd, T>(s + 2 * A::kTile, p.w, K, f0,
+                                               F, col0, K);
+  };
+  auto prep = [&](int slot, int kt) {
+    float* s = ring + slot * L::kStage;
+    const float* rs = s + A::kTile;
+    const int f0 = kt * kBK;
+    prep_tile<A::kRows, A::kCols, A::kLd, T>(s, [&](int i, int j, float4 dz) {
+      const float4 rv = *reinterpret_cast<const float4*>(rs + i * A::kLd + j);
+      return dy4(dz, rv, row0 + i, f0 + j, N, F, vec, F, 0);
+    });
+  };
+  float acc[G::MI][G::NI][4] = {};
+  auto mma = [&](int slot, int kt, ChunkSums<G>& cs) {
+    const float* a = ring + slot * L::kStage;
+    mma_ktile<G, A, B>(a, a + 2 * A::kTile,
+                       min(kBK / 8, (F - kt * kBK + 7) / 8), cs, wm, wn, g, t);
+  };
+  run_pipeline<G>((F + kBK - 1) / kBK, load, prep, mma, acc);
+
+  // epilogue: dropout with the redrawn bits, 16-byte stores of dx; dx and
+  // dx xhat_in staged for the lower block's two sums (0 past the edges)
+  float* Cs = smem;
+  float* Cx = smem + G::BM * L::kCs;
+  stage_acc<G>(Cs, L::kCs, acc, wm, wn, g, t);
+  __syncthreads();
+  const bool sums_out = p.out_sums != nullptr;
+  constexpr int kPieces = G::BM * G::BN / 4;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          As[fq + j][m] =
-              dy_value(dz, r, stats, sums, N, F, row0 + m, f0 + fq + j, inv_n);
-      }
-#pragma unroll
-      for (int i = 0; i < kBK * kBN / kThreads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int fl = idx / kBN, kl = idx % kBN;
-        const int gf = f0 + fl, gk = col0 + kl;
-        Bs[fl][kl] = (gk < K && gf < F)
-                         ? w[(size_t)gk * wsk + (size_t)gf * wsn]
-                         : 0.0f;
-      }
-      __syncthreads();
-      mma_tile(As, Bs, acc, tx, ty);
-      __syncthreads();
-    }
-    const float* mean_in = in_stats;
-    const float* rstd_in = in_stats ? in_stats + 2 * K : nullptr;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ty * 4 + i, gm = row0 + m;
-      const int kq = col0 + tx * 4;
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (d.keep && !d.mask && gm < N)
-        bits = mask_bits(d.seed, d.block, gm, kq >> 2);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gk = kq + j;
-        float v = 0.0f, vx = 0.0f;
-        if (gm < N && gk < K) {
-          const size_t e = (size_t)gm * K + gk;
-          v = acc[i][j];
-          if (d.keep) {
-            const bool kept =
-                d.mask ? d.mask[e] > 0.0f : word(bits, j) <= kp.threshold;
-            v = kept ? __fdiv_rn(v, kp.value) : 0.0f;
-          }
-          dx[e] = v;
-          if (out_sums)
-            vx = __fmul_rn(
-                v, __fmul_rn(__fsub_rn(x[e], mean_in[gk]), rstd_in[gk]));
+  for (int q = 0; q < (kPieces + T - 1) / T; ++q) {
+    const int i = tid + q * T;
+    if (kPieces % T == 0 || i < kPieces) {
+      const int m = i / (G::BN / 4), c = (i % (G::BN / 4)) * 4;
+      const int gm = row0 + m, gk = col0 + c;
+      float4* at = reinterpret_cast<float4*>(Cs + m * L::kCs + c);
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f), vx = v;
+      if (gm < N && gk < K) {
+        const size_t e = (size_t)gm * K + gk;
+        v = drop4(*at, drop, gm, gk, K);
+        *reinterpret_cast<float4*>(p.dx + e) = v;
+        if (sums_out) {
+          const float4 xv = __ldg(reinterpret_cast<const float4*>(p.x + e));
+          const float4 mu =
+              __ldg(reinterpret_cast<const float4*>(p.in_stats + gk));
+          const float4 rs =
+              __ldg(reinterpret_cast<const float4*>(p.in_stats + 2 * K + gk));
+          vx = make_float4(
+              __fmul_rn(v.x, __fmul_rn(__fsub_rn(xv.x, mu.x), rs.x)),
+              __fmul_rn(v.y, __fmul_rn(__fsub_rn(xv.y, mu.y), rs.y)),
+              __fmul_rn(v.z, __fmul_rn(__fsub_rn(xv.z, mu.z), rs.z)),
+              __fmul_rn(v.w, __fmul_rn(__fsub_rn(xv.w, mu.w), rs.w)));
         }
-        S[0][m][tx * 4 + j] = v;
-        S[1][m][tx * 4 + j] = vx;
       }
+      *at = v;
+      *reinterpret_cast<float4*>(Cx + m * L::kCs + c) = vx;
     }
-    if (!out_sums) return;
-    __syncthreads();
-    if (!tile_partials(S, partial, &tickets[kt], rt, n_row_tiles, col0, K))
-      return;
-    const int gk = col0 + tid;
-    if (tid < kBN && gk < K) {
-      const float2 s = strip_sums(partial, n_row_tiles, gk, K);
-      out_sums[gk] = s.x;
-      out_sums[K + gk] = s.y;
-    }
-    if (tid == 0) tickets[kt] = 0u;
+  }
+  if (!sums_out) return;
+  __syncthreads();
+  if (!tile_partials<G::BM, G::BN, L::kCs, T>(Cs, Cx, p.partial,
+                                              &p.tickets[ct], rt,
+                                              n_row_tiles, col0, K))
     return;
+  const int gk = col0 + tid;
+  if (tid < G::BN && gk < K) {
+    const float2 s = strip_sums(p.partial, n_row_tiles, gk, K);
+    p.out_sums[gk] = s.x;
+    p.out_sums[K + gk] = s.y;
   }
-
-  // ---- wgrad: dW tile (rows k, columns f), contraction over the N rows;
-  // the tiles of the first k strip also sum db
-  const int n_k_tiles = (K + kBM - 1) / kBM;
-  const int wid = blockIdx.x - n_dgrad_blocks;
-  const int ktw = wid % n_k_tiles, ft = wid / n_k_tiles;
-  const int row0 = ktw * kBM, col0 = ft * kBN;
-  const float* a_in = in_stats ? in_stats + 3 * K : nullptr;
-  const float* c_in = in_stats ? in_stats + 4 * K : nullptr;
-  float db_acc = 0.0f;
-  for (int n0 = 0; n0 < N; n0 += kBK) {
-    {
-      const int nl = tid / 8, kq = (tid % 8) * 4;
-      float h[4];
-      load_input4(x, N, K, n0 + nl, row0 + kq, a_in, c_in, d, kp, h);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) As[nl][kq + j] = h[j];
-    }
-#pragma unroll
-    for (int i = 0; i < kBK * kBN / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int nl = idx / kBN, fl = idx % kBN;
-      Bs[nl][fl] = dy_value(dz, r, stats, sums, N, F, n0 + nl, col0 + fl, inv_n);
-    }
-    __syncthreads();
-    if (ktw == 0 && tid < kBN)
-      for (int nl = 0; nl < kBK; ++nl) db_acc = __fadd_rn(db_acc, Bs[nl][tid]);
-    mma_tile(As, Bs, acc, tx, ty);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gk = row0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gf = col0 + tx * 4 + j;
-      if (gk < K && gf < F) dw[(size_t)gk * wsk + (size_t)gf * wsn] = acc[i][j];
-    }
-  }
-  if (ktw == 0 && tid < kBN && col0 + tid < F) db[col0 + tid] = db_acc;
+  if (tid == 0) p.tickets[ct] = 0u;
 }
 
+// wgrad: the dW tile at (rows k, columns f), contraction over the N rows;
+// the tiles of the first k strip also sum db
+template <class G, bool WROW>
+__device__ __forceinline__ void wgrad_tile(const BwdArgs& p, int wid) {
+  using L = WgradLayout<G, WROW>;
+  using A = typename L::A;
+  using B = typename L::B;
+  constexpr int T = G::kThreads;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* vec = smem + L::kFloats;    // dy's vectors of columns f0..
+  float* avec = vec + 5 * G::BN;     // a_in, c_in of columns k0..
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp % G::WARPS_M) * (G::BM / G::WARPS_M);
+  const int wn = (warp / G::WARPS_M) * (G::BN / G::WARPS_N);
+  const int N = p.N, K = p.K, F = p.F;
+  const int n_k_tiles = (K + G::BM - 1) / G::BM;
+  const int kt0 = wid % n_k_tiles, ft = wid / n_k_tiles;
+  const int k0 = kt0 * G::BM, f0 = ft * G::BN;
+  const bool affine = p.in_stats != nullptr;
+  const Drop drop = read_drop(p.d);
+  const float inv_n = __fdiv_rn(1.0f, (float)N);
+  for (int i = tid; i < G::BN; i += T)
+    if (f0 + i < F)
+      stage_dy_vectors(vec, G::BN, i, f0 + i, p.stats, p.sums, F, inv_n);
+  if (affine)
+    for (int i = tid; i < G::BM; i += T)
+      if (k0 + i < K) {
+        avec[i] = p.in_stats[3 * K + k0 + i];
+        avec[G::BM + i] = p.in_stats[4 * K + k0 + i];
+      }
+
+  auto load = [&](int kt, int slot) {
+    float* s = ring + slot * L::kStage;
+    const int n0 = kt * kBK;
+    load_tile<A::kRows, A::kCols, A::kLd, T>(s, p.x, K, n0, N, k0, K);
+    load_tile<B::kRows, B::kCols, B::kLd, T>(s + A::kTile, p.dz, F, n0, N,
+                                             f0, F);
+    load_tile<B::kRows, B::kCols, B::kLd, T>(s + A::kTile + B::kTile, p.r, F,
+                                             n0, N, f0, F);
+  };
+  // this thread's share of db: one column quad, its rows in order
+  float4 db4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  auto prep = [&](int slot, int kt) {
+    float* s = ring + slot * L::kStage;
+    const float* rs = s + A::kTile + B::kTile;
+    const int n0 = kt * kBK;
+    prep_tile<A::kRows, A::kCols, A::kLd, T>(s, [&](int i, int j, float4 v) {
+      return block_input4(v, n0 + i, k0 + j, N, K, affine ? avec : nullptr,
+                          avec + G::BM, k0, drop);
+    });
+    prep_tile<B::kRows, B::kCols, B::kLd, T>(
+        s + A::kTile, [&](int i, int j, float4 dz) {
+          const float4 rv =
+              *reinterpret_cast<const float4*>(rs + i * B::kLd + j);
+          const float4 y = dy4(dz, rv, n0 + i, f0 + j, N, F, vec, G::BN, f0);
+          db4 = make_float4(__fadd_rn(db4.x, y.x), __fadd_rn(db4.y, y.y),
+                            __fadd_rn(db4.z, y.z), __fadd_rn(db4.w, y.w));
+          return y;
+        });
+  };
+  float acc[G::MI][G::NI][4] = {};
+  auto mma = [&](int slot, int kt, ChunkSums<G>& cs) {
+    const float* a = ring + slot * L::kStage;
+    mma_ktile<G, A, B>(a, a + A::kTile, min(kBK / 8, (N - kt * kBK + 7) / 8),
+                       cs, wm, wn, g, t);
+  };
+  run_pipeline<G>((N + kBK - 1) / kBK, load, prep, mma, acc);
+
+  // epilogue: dW staged along its contiguous dimension, 16-byte stores;
+  // db from the column's thread partials in a fixed order
+  float* Cs = smem;
+  float* dbp = smem + (WROW ? G::BM : G::BN) * L::kCs;  // kGroups x BN
+  if constexpr (WROW)
+    stage_acc<G>(Cs, L::kCs, acc, wm, wn, g, t);
+  else
+    stage_acc_t<G>(Cs, L::kCs, acc, wm, wn, g, t);
+  *reinterpret_cast<float4*>(dbp + (tid / (G::BN / 4)) * G::BN +
+                             (tid % (G::BN / 4)) * 4) = db4;
+  __syncthreads();
+  constexpr int kRows = WROW ? G::BM : G::BN, kCols = WROW ? G::BN : G::BM;
+  constexpr int kPieces = kRows * kCols / 4;
+#pragma unroll
+  for (int q = 0; q < (kPieces + T - 1) / T; ++q) {
+    const int i = tid + q * T;
+    if (kPieces % T == 0 || i < kPieces) {
+      const int m = i / (kCols / 4), c = (i % (kCols / 4)) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(Cs + m * L::kCs + c);
+      if constexpr (WROW) {  // dw[k * F + f]
+        if (k0 + m < K && f0 + c < F)
+          *reinterpret_cast<float4*>(p.dw + (size_t)(k0 + m) * F + f0 + c) =
+              v;
+      } else {  // dw[f * K + k]
+        if (f0 + m < F && k0 + c < K)
+          *reinterpret_cast<float4*>(p.dw + (size_t)(f0 + m) * K + k0 + c) =
+              v;
+      }
+    }
+  }
+  if (kt0 == 0 && tid < G::BN && f0 + tid < F) {
+    float s = 0.0f;
+    for (int grp = 0; grp < L::kGroups; ++grp)
+      s = __fadd_rn(s, dbp[grp * G::BN + tid]);
+    p.db[f0 + tid] = s;
+  }
+}
+
+template <class GD, class GW, bool WROW>
+__global__ void __launch_bounds__(GD::kThreads)
+    dense_block_bwd_kernel(const BwdArgs p) {
+  static_assert(GD::kThreads == GW::kThreads, "one block size per launch");
+  if ((int)blockIdx.x < p.n_dgrad)
+    dgrad_tile<GD, WROW>(p, blockIdx.x);
+  else
+    wgrad_tile<GW, WROW>(p, blockIdx.x - p.n_dgrad);
+}
+
+// ---------------------------------------------------------------- K5m
 __global__ void dropout_masks_kernel(const int* __restrict__ seed,
                                      const float* __restrict__ keep,
                                      float* __restrict__ out, int N, int F,
@@ -432,7 +939,8 @@ __global__ void dropout_masks_kernel(const int* __restrict__ seed,
   if (i >= (long long)N * groups) return;
   const int n = (int)(i / groups), g = (int)(i % groups);
   const unsigned thr = keep_threshold(*keep);
-  const uint4 bits = mask_bits(seed, block, n, g);
+  const uint4 bits =
+      mask_bits(make_uint2((unsigned)seed[0], (unsigned)seed[1]), block, n, g);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int f = g * 4 + j;
@@ -463,43 +971,122 @@ __global__ void philox_check_kernel(const unsigned* __restrict__ ctr,
   theirs[4 * i + 3] = b.w;
 }
 
+// ------------------------------------------------------------ launching
 bool bad_dropout(const int* seed, const float* keep, const float* mask) {
   return keep != nullptr && seed == nullptr && mask == nullptr;
 }
 
+bool misaligned(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) != 0;
+}
+
+// 1 for a row-major (K, F) w, 0 for the transpose of a row-major (F, K),
+// -1 for anything else
+int weight_layout(int K, int F, int wsk, int wsn) {
+  if (wsk == F && wsn == 1) return 1;
+  if (wsk == 1 && wsn == K) return 0;
+  return -1;
+}
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Dynamic shared memory above 48 KB is opted into once per kernel.
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  constexpr int kMax = 16;
+  static const void* kernels[kMax];
+  static size_t allowed[kMax];
+  static int n = 0;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int i = 0;
+  while (i < n && kernels[i] != kernel) ++i;
+  if (i < n && allowed[i] >= bytes) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  if (i == n && n < kMax) kernels[n++] = kernel;
+  if (i < n) allowed[i] = bytes;
+  return cudaSuccess;
+}
+
+template <class G, bool WROW>
+int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  const size_t smem = FwdLayout<G, WROW>::bytes(a.K);
+  const auto kernel = dense_block_fwd_kernel<G, WROW>;
+  cudaError_t err = allow_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(cdiv(a.N, G::BM), cdiv(a.F, G::BN));
+  kernel<<<grid, G::kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <class GD, class GW, bool WROW>
+int launch_bwd(BwdArgs a, cudaStream_t stream) {
+  a.n_dgrad = cdiv(a.N, GD::BM) * cdiv(a.K, GD::BN);
+  const int n_wgrad = cdiv(a.K, GW::BM) * cdiv(a.F, GW::BN);
+  const size_t smem_d = DgradLayout<GD, WROW>::bytes(a.F);
+  const size_t smem_w = WgradLayout<GW, WROW>::bytes();
+  const size_t smem = smem_d > smem_w ? smem_d : smem_w;
+  const auto kernel = dense_block_bwd_kernel<GD, GW, WROW>;
+  cudaError_t err = allow_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<a.n_dgrad + n_wgrad, GD::kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// `tiling` 0 or 1 picks FwdTile0 or FwdTile1.
 extern "C" int dense_block_fwd_launch(
     const float* x, const float* w, const float* b, const float* gamma,
     const float* beta, const float* in_stats, const int* seed,
     const float* keep, const float* mask, float* r, float* partial,
     unsigned* tickets, float* stats, int N, int K, int F, int wsk, int wsn,
-    int drop_block, float eps, void* stream) {
-  if (N < 1 || K < 1 || F < 1 || bad_dropout(seed, keep, mask))
+    int drop_block, int tiling, float eps, void* stream) {
+  const int wrow = weight_layout(K, F, wsk, wsn);
+  if (N < 1 || K < 1 || F < 1 || K % 4 || F % 4 || wrow < 0 ||
+      bad_dropout(seed, keep, mask) || misaligned(x) || misaligned(w) ||
+      misaligned(b) || misaligned(in_stats) || misaligned(mask) ||
+      misaligned(r))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kBM - 1) / kBM, (F + kBN - 1) / kBN);
-  dense_block_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, w, b, gamma, beta, in_stats, Dropout{seed, keep, mask, drop_block},
-      r, partial, tickets, stats, N, K, F, wsk, wsn, eps);
-  return (int)cudaGetLastError();
+  const FwdArgs a{x, w, b, gamma, beta, in_stats,
+                  Dropout{seed, keep, mask, drop_block},
+                  r, partial, tickets, stats, N, K, F, eps};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (tiling * 2 + wrow) {
+    case 0: return launch_fwd<FwdTile0, false>(a, s);
+    case 1: return launch_fwd<FwdTile0, true>(a, s);
+    case 2: return launch_fwd<FwdTile1, false>(a, s);
+    case 3: return launch_fwd<FwdTile1, true>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
+// `tiling` 0 or 1 picks DgradTile0 + WgradTile0 or DgradTile1 + WgradTile1.
 extern "C" int dense_block_bwd_launch(
     const float* dz, const float* r, const float* x, const float* w,
     const float* stats, const float* sums, const float* in_stats,
     const int* seed, const float* keep, const float* mask, float* dx,
     float* dw, float* db, float* out_sums, float* partial, unsigned* tickets,
-    int N, int K, int F, int wsk, int wsn, int drop_block, void* stream) {
-  if (N < 1 || K < 1 || F < 1 || bad_dropout(seed, keep, mask) ||
-      (in_stats == nullptr) != (out_sums == nullptr))
+    int N, int K, int F, int wsk, int wsn, int drop_block, int tiling,
+    void* stream) {
+  const int wrow = weight_layout(K, F, wsk, wsn);
+  if (N < 1 || K < 1 || F < 1 || K % 4 || F % 4 || wrow < 0 ||
+      bad_dropout(seed, keep, mask) ||
+      (in_stats == nullptr) != (out_sums == nullptr) || misaligned(dz) ||
+      misaligned(r) || misaligned(x) || misaligned(w) || misaligned(in_stats) ||
+      misaligned(mask) || misaligned(dx) || misaligned(dw))
     return (int)cudaErrorInvalidValue;
-  const int n_dgrad = ((N + kBM - 1) / kBM) * ((K + kBN - 1) / kBN);
-  const int n_wgrad = ((K + kBM - 1) / kBM) * ((F + kBN - 1) / kBN);
-  dense_block_bwd_kernel<<<n_dgrad + n_wgrad, kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      dz, r, x, w, stats, sums, in_stats, Dropout{seed, keep, mask, drop_block},
-      dx, dw, db, out_sums, partial, tickets, N, K, F, wsk, wsn, n_dgrad);
-  return (int)cudaGetLastError();
+  const BwdArgs a{dz, r, x, w, stats, sums, in_stats,
+                  Dropout{seed, keep, mask, drop_block},
+                  dx, dw, db, out_sums, partial, tickets, N, K, F, 0};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (tiling * 2 + wrow) {
+    case 0: return launch_bwd<DgradTile0, WgradTile0, false>(a, s);
+    case 1: return launch_bwd<DgradTile0, WgradTile0, true>(a, s);
+    case 2: return launch_bwd<DgradTile1, WgradTile1, false>(a, s);
+    case 3: return launch_bwd<DgradTile1, WgradTile1, true>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int dropout_masks_launch(const int* seed, const float* keep,

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, compiled by ``nvcc`` for Hopper (``sm_90a``) at first use and
-loaded with ctypes. The library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+loaded with ctypes. The library's file name carries a hash of its source,
+of every header in ``csrc/`` (``*.cuh``) and of the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.
 Libraries go to ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``). No network and no package of prebuilt kernels is used.
 """
@@ -36,9 +37,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict[str, float]:

@@ -175,8 +175,8 @@ _SIGNATURES = {
                              5, 3, False),
     "contrastive_loss_bwd": ("contrastive_loss", "contrastive_loss_bwd_launch",
                              5, 3, False),
-    "dense_block_fwd": ("train_fused", "dense_block_fwd_launch", 13, 6, True),
-    "dense_block_bwd": ("train_fused", "dense_block_bwd_launch", 16, 6, False),
+    "dense_block_fwd": ("train_fused", "dense_block_fwd_launch", 13, 7, True),
+    "dense_block_bwd": ("train_fused", "dense_block_bwd_launch", 16, 7, False),
     "dropout_masks": ("train_fused", "dropout_masks_launch", 3, 3, False),
     "philox_check": ("train_fused", "philox_check_launch", 4, 1, False),
 }

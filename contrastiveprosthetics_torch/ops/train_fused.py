@@ -19,6 +19,10 @@ input. On CUDA each block is one kernel forward and one backward
   the last block's mask with it (its consumer, the head GEMM, is outside
   the kernels); K5f and K5b draw every other mask where they apply it.
 
+The kernels' GEMMs run in 3xTF32 on the tensor cores with their own
+rounding instructions, whatever ``torch.backends.cuda.matmul.allow_tf32``
+says (``csrc/tf32_mma.cuh``); the plain versions use ``torch.matmul``.
+
 A mask is a function of the step's two seed words, the dropped block's
 index, the row and the column (Philox4x32-10, :func:`philox4x32_10`), so
 the backward redraws the forward's bits and ``dropout_masks`` replays
@@ -51,7 +55,13 @@ U32 = 0xFFFFFFFF
 KEEP_CLIP = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-BM, BN = 32, 64  # the kernels' output tile (csrc/train_fused.cu)
+# (rows, columns) of the kernels' output tiles per tiling, as
+# csrc/train_fused.cu's FwdTile* and DgradTile* say: they size the column
+# partial sums and the tickets. The chain runs tiling 0, the faster one
+# measured on an H100 (PERF.md); tiling 1 is kept for tests and timing
+FWD_TILES = ((16, 32), (16, 64))
+DGRAD_TILES = ((32, 64), (32, 32))
+FWD_TILING, BWD_TILING = 0, 0
 MOMENTUM = 0.9  # flax's BatchNorm momentum (layers.update_running)
 F32_ONLY = ("the fused training chain runs in float32 only; a bf16 compute "
             "dtype is ROADMAP.md queue 1 item 15")
@@ -233,6 +243,20 @@ def _check_weight(w, shape, dev):
     return w.stride()
 
 
+def _check_tiled(K_in: int, F: int, tiling: int, *tensors) -> None:
+    """What the kernels' 16-byte copies need: widths that are multiples of
+    4 and 16-byte aligned arrays; and a tiling they have."""
+    if tiling not in range(len(FWD_TILES)):
+        raise ValueError(f"tiling {tiling}: the kernels have "
+                         f"0 .. {len(FWD_TILES) - 1}")
+    if K_in % 4 or F % 4:
+        raise ValueError(f"widths {K_in} -> {F}: the kernels take multiples "
+                         "of 4")
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("an input is not 16-byte aligned")
+
+
 def _check_dropout(seed, keep, mask, shape, dev):
     if keep is None:
         if seed is not None or mask is not None:
@@ -262,9 +286,10 @@ def _zeroed_tickets(dev: torch.device, n: int) -> torch.Tensor:
 
 def dense_block_fwd(x, w, b, gamma, beta, in_stats=None, *, seed=None,
                     keep=None, mask=None, drop_block: int = -1,
-                    eps: float = 1e-5):
+                    eps: float = 1e-5, tiling: int = FWD_TILING):
     """The ``dense_block_fwd`` kernel (K5f); see
-    :func:`dense_block_fwd_reference`."""
+    :func:`dense_block_fwd_reference`. ``tiling`` picks one of the kernel's
+    two tilings (for tests and timing); both give the same r."""
     if x.device.type == "cpu":
         return dense_block_fwd_reference(
             x, w, b, gamma, beta, in_stats, seed=seed, keep=keep, mask=mask,
@@ -281,23 +306,27 @@ def dense_block_fwd(x, w, b, gamma, beta, in_stats=None, *, seed=None,
     if in_stats is not None:
         K._expect("in_stats", in_stats, (5, Kw), torch.float32, dev)
     _check_dropout(seed, keep, mask, (N, Kw), dev)
+    _check_tiled(Kw, F, tiling, x, w, b, in_stats, mask)
     r = torch.empty((N, F), dtype=torch.float32, device=dev)
     stats = torch.empty((5, F), dtype=torch.float32, device=dev)
-    partial = torch.empty((-(-N // BM), 2, F), dtype=torch.float32,
+    bm, bn = FWD_TILES[tiling]
+    partial = torch.empty((-(-N // bm), 2, F), dtype=torch.float32,
                           device=dev)
-    tickets = _zeroed_tickets(dev, -(-F // BN))
+    tickets = _zeroed_tickets(dev, -(-F // bn))
     K._launch("dense_block_fwd", "dense_block_fwd", K._ptr(x), K._ptr(w),
               K._ptr(b), K._ptr(gamma), K._ptr(beta), K._ptr(in_stats),
               K._ptr(seed), K._ptr(keep), K._ptr(mask), K._ptr(r),
               K._ptr(partial), K._ptr(tickets), K._ptr(stats), N, Kw, F, wsk,
-              wsn, drop_block, eps, K._stream(dev))
+              wsn, drop_block, tiling, eps, K._stream(dev))
     return r, stats
 
 
 def dense_block_bwd(dz, r, x, w, stats, sums, in_stats=None, *, seed=None,
-                    keep=None, mask=None, drop_block: int = -1):
+                    keep=None, mask=None, drop_block: int = -1,
+                    tiling: int = BWD_TILING):
     """The ``dense_block_bwd`` kernel (K5b), dgrad and wgrad tiles in one
-    launch; see :func:`dense_block_bwd_reference`."""
+    launch; see :func:`dense_block_bwd_reference`. ``tiling`` as for
+    :func:`dense_block_fwd`."""
     if dz.device.type == "cpu":
         return dense_block_bwd_reference(
             dz, r, x, w, stats, sums, in_stats, seed=seed, keep=keep,
@@ -316,21 +345,22 @@ def dense_block_bwd(dz, r, x, w, stats, sums, in_stats=None, *, seed=None,
     if in_stats is not None:
         K._expect("in_stats", in_stats, (5, Kw), torch.float32, dev)
     _check_dropout(seed, keep, mask, (N, Kw), dev)
+    _check_tiled(Kw, F, tiling, dz, r, x, w, in_stats, mask)
     dx = torch.empty((N, Kw), dtype=torch.float32, device=dev)
     dw = torch.empty_like(w)  # the strides of w
     db = torch.empty((F,), dtype=torch.float32, device=dev)
     out_sums = partial = None
     if in_stats is not None:
         out_sums = torch.empty((2, Kw), dtype=torch.float32, device=dev)
-        partial = torch.empty((-(-N // BM), 2, Kw), dtype=torch.float32,
-                              device=dev)
-    tickets = _zeroed_tickets(dev, -(-Kw // BN))
+        partial = torch.empty((-(-N // DGRAD_TILES[tiling][0]), 2, Kw),
+                              dtype=torch.float32, device=dev)
+    tickets = _zeroed_tickets(dev, -(-Kw // DGRAD_TILES[tiling][1]))
     K._launch("dense_block_bwd", "dense_block_bwd", K._ptr(dz), K._ptr(r),
               K._ptr(x), K._ptr(w), K._ptr(stats), K._ptr(sums),
               K._ptr(in_stats), K._ptr(seed), K._ptr(keep), K._ptr(mask),
               K._ptr(dx), K._ptr(dw), K._ptr(db), K._ptr(out_sums),
               K._ptr(partial), K._ptr(tickets), N, Kw, F, wsk, wsn,
-              drop_block, K._stream(dev))
+              drop_block, tiling, K._stream(dev))
     return dx, dw, db, out_sums
 
 

@@ -265,7 +265,8 @@ def _block_case(N, K_in, F=512, seed=0, dev="cuda"):
 
 def _close(got, want, rtol=1e-4, scale_atol=1e-5):
     atol = scale_atol * max(float(want.abs().max()), 1e-3)
-    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    torch.testing.assert_close(got.to(want.dtype), want, rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.parametrize("N", [328, 123])
@@ -307,6 +308,85 @@ def test_dense_block_kernels_match_plain(cuda, N, K_in, inner):
     again = TF.dense_block_bwd(dz, r_p, x, w, stats_p, sums, in_st, **kw)
     for g, a in zip(got, again):
         assert g is None or torch.equal(g, a)
+
+
+def _max_err(got, want):
+    return float((got.double() - want.double()).abs().max())
+
+
+@pytest.mark.parametrize("tiling", [0, 1])
+@pytest.mark.parametrize("K_in", [512, 768])
+@pytest.mark.parametrize("N", [17, 123, 328, 1000])
+def test_dense_block_kernels_match_float64(cuda, N, K_in, tiling):
+    """K5f and K5b in 3xTF32 on an inner dropped block (the previous
+    block's affine, drawn dropout at rate 0.5), every tiling, against the
+    plain version evaluated in float64, at the tolerances they are held to
+    against the plain f32 version, and no further from float64 than twice
+    the plain f32 version's distance (plus 1e-6 of the largest value).
+    Reruns give the same bits, and so do the drawn masks replayed by
+    ``dropout_masks`` and fed back in."""
+    x, w, (b, gamma, beta), in_stats, dz, seed = _block_case(N, K_in,
+                                                             seed=N + K_in)
+    keep = torch.full((1,), 0.5, device=cuda)
+    kw = dict(seed=seed, keep=keep, drop_block=3)
+    r, stats = TF.dense_block_fwd(x, w, b, gamma, beta, in_stats, tiling=tiling,
+                                  **kw)
+    r_p, st_p = TF.dense_block_fwd_reference(x, w, b, gamma, beta, in_stats,
+                                             **kw)
+    d = [t.double() for t in (x, w, b, gamma, beta, in_stats)]
+    r64, st64 = TF.dense_block_fwd_reference(*d, seed=seed,
+                                             keep=keep.double(), drop_block=3)
+    sums = torch.stack([dz.sum(0), (dz * (r_p - st_p[0]) * st_p[2]).sum(0)])
+    got = TF.dense_block_bwd(dz, r_p, x, w, st_p, sums, in_stats,
+                             tiling=tiling, **kw)
+    plain = TF.dense_block_bwd_reference(dz, r_p, x, w, st_p, sums, in_stats,
+                                         **kw)
+    want = TF.dense_block_bwd_reference(
+        dz.double(), r_p.double(), d[0], d[1], st_p.double(), sums.double(),
+        d[5], seed=seed, keep=keep.double(), drop_block=3)
+    torch.cuda.synchronize()
+    _close(r, r64, rtol=1e-5)
+    _close(stats, st64)
+    for g, wnt in zip(got, want):
+        if wnt is not None:
+            _close(g, wnt)
+    # the GEMM outputs: r, dx, dW (the sums are taken in f32 in row-tile
+    # order, the plain version's in float64)
+    for g, p, wnt in ((r, r_p, r64), (got[0], plain[0], want[0]),
+                      (got[1], plain[1], want[1])):
+        bound = 2 * _max_err(p, wnt) + 1e-6 * float(wnt.abs().max())
+        assert _max_err(g, wnt) <= bound
+    again = (*TF.dense_block_fwd(x, w, b, gamma, beta, in_stats,
+                                 tiling=tiling, **kw),
+             *TF.dense_block_bwd(dz, r_p, x, w, st_p, sums, in_stats,
+                                 tiling=tiling, **kw))
+    mask = TF.dropout_masks(seed, keep, N, K_in, 3)
+    fed = dict(keep=keep, mask=mask, tiling=tiling)
+    replayed = (*TF.dense_block_fwd(x, w, b, gamma, beta, in_stats, **fed),
+                *TF.dense_block_bwd(dz, r_p, x, w, st_p, sums, in_stats,
+                                    **fed))
+    for g, a, m in zip((r, stats, *got), again, replayed):
+        assert g is None or (torch.equal(g, a) and torch.equal(g, m))
+
+
+def test_dense_block_tilings_agree_on_r_dx_and_dw(cuda):
+    """Both tilings walk the same k8 chunks in the same order, so r, dx and
+    dW have the same bits (the column sums are taken over other row tiles
+    and may differ in the last place)."""
+    x, w, (b, gamma, beta), in_stats, dz, seed = _block_case(328, 512)
+    kw = dict(seed=seed, keep=torch.full((1,), 0.5, device=cuda),
+              drop_block=3)
+    tilings = range(len(TF.FWD_TILES))
+    fwd = [TF.dense_block_fwd(x, w, b, gamma, beta, in_stats, tiling=t, **kw)
+           for t in tilings]
+    r, st = fwd[0]
+    sums = torch.stack([dz.sum(0), dz.sum(0)])
+    bwd = [TF.dense_block_bwd(dz, r, x, w, st, sums, in_stats, tiling=t, **kw)
+           for t in tilings]
+    for t in tilings:
+        assert torch.equal(fwd[t][0], r)
+        assert torch.equal(bwd[t][0], bwd[0][0])
+        assert torch.equal(bwd[t][1], bwd[0][1])
 
 
 def test_transposed_weight_gives_transposed_gradient(cuda):
@@ -425,4 +505,11 @@ def test_train_fused_wrappers_reject_bad_inputs(cuda):
         TF.dropout_masks(seed, keep.cpu(), 40, 512, 3)
     with pytest.raises(ValueError, match="float32 only"):
         TF.fused_dense_chain(x.half(), [w], [b], [gamma], [beta], seed, 0.0)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        TF.dense_block_fwd(x[:, :510].contiguous(), w[:510], b, gamma, beta)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TF.dense_block_fwd(torch.empty(x.numel() + 1, device=cuda)[1:]
+                           .view(x.shape), w, b, gamma, beta)
+    with pytest.raises(ValueError, match="tiling"):
+        TF.dense_block_bwd(dz, r, x, w, stats, sums, tiling=9)
     assert K.launch_counts == before

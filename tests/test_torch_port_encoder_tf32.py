@@ -6,9 +6,9 @@ splits as ``x = big + small``, ``big = cvt.rna.tf32.f32(x)``, ``small =
 cvt.rna.tf32.f32(x - big)``, and every k8 chunk sums ``small*big``,
 ``big*small`` and ``big*big`` in the tensor core and adds that sum to an
 f32 accumulator, rounded to nearest. Here that arithmetic is emulated with
-numpy (TF32 rounding on the f32 bit pattern, each chunk's products summed
-exactly in float64 and rounded to f32, then added to the f32 accumulator)
-on a seeded full-width chain, and held against float64: it must
+numpy (``tests/tf32_emulation.py``: TF32 rounding on the f32 bit pattern,
+each chunk's products summed exactly in float64 and rounded to f32, then
+added to the f32 accumulator) on a seeded full-width chain, and held against float64: it must
 sit inside the tolerance the card holds the kernel to against the plain
 f32 version (rtol 2e-4, atol 2e-5) with a wide margin, while one TF32 pass
 must not. The regime choice, the layer table and its checks are plain
@@ -25,40 +25,11 @@ import torch
 
 from contrastiveprosthetics_torch.models.clip import ContrastiveModel
 from contrastiveprosthetics_torch.ops import kernels as K
+from tf32_emulation import gemm_tf32, split_tf32, tf32_rna
 
 torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-4, 2e-5  # the card's tolerance against the plain version
-
-
-def tf32_rna(x) -> np.ndarray:
-    """``cvt.rna.tf32.f32``: keep 10 mantissa bits, round to nearest with
-    ties away from zero, on the f32 bit pattern (the 13 low bits become
-    zero; a carry may move into the exponent, up to infinity)."""
-    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
-    finite = (u & 0x7F800000) != 0x7F800000
-    r = np.where(finite, (u + np.uint32(0x1000)) & np.uint32(0xFFFFE000), u)
-    return r.astype(np.uint32).view(np.float32)
-
-
-def split_tf32(x):
-    big = tf32_rna(x)
-    return big, tf32_rna(np.asarray(x, np.float32) - big)
-
-
-def gemm_tf32(h: np.ndarray, w: np.ndarray, passes: int) -> np.ndarray:
-    """h (M, K) @ w (K, N) as the kernels sum it: per k8 chunk, in order,
-    the chunk's TF32 products (exact in float64) rounded to f32 and added
-    to an f32 accumulator."""
-    hb, hs = split_tf32(h)
-    wb, ws = split_tf32(w)
-    terms = [(hs, wb), (hb, ws), (hb, wb)] if passes == 3 else [(hb, wb)]
-    acc = np.zeros((h.shape[0], w.shape[1]), np.float32)
-    for k0 in range(0, h.shape[1], 8):
-        part = sum(a[:, k0:k0 + 8].astype(np.float64)
-                   @ b[k0:k0 + 8].astype(np.float64) for a, b in terms)
-        acc = acc + part.astype(np.float32)  # f32 + f32, rounded to nearest
-    return acc
 
 
 def chain_tf32(frames, folded, affines, passes: int) -> np.ndarray:
@@ -164,6 +135,8 @@ def test_the_kernel_source_tiles_rows_as_the_regimes_assume():
     both place row r at r % 16 of its MMA tile (the bit-identity across
     regimes rests on it)."""
     src = (K._build.SRC_DIR / "encoder_chain.cu").read_text()
+    assert '#include "tf32_mma.cuh"' in src  # the MMA lives in the header
+    src += (K._build.SRC_DIR / "tf32_mma.cuh").read_text()
     assert "constexpr int kSM = 16, kSN = 8" in src
     assert "constexpr int kBM = 128, kBN = 128, kBK = 32;" in src
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
