@@ -23,8 +23,9 @@ made with numpy from a seed:
    32,768 and 819,200 rows, and both of its tilings from 16 to 1,024 rows;
 3. single session: calibration (timed; its IIR runs on the host), 50
    per-tick ``step`` calls (p50/p99 tick latency) and a 200-tick ``steps``
-   replay, which must agree, then a profiler trace of 20 ``step`` calls:
-   device time per step by CUDA function against the wall time;
+   replay, which must agree, then profiler traces of 20 ``step`` calls
+   and of one ``steps`` call: device time by CUDA function against the
+   wall time;
 4. batched: 32,768 sessions (4 calibrated, with subset masks), one vote
    window of 25 ticks through ``BatchedStreamingEngine.steps``, held
    against the plain version, timed, and traced (device time by kernel,
@@ -32,8 +33,12 @@ made with numpy from a seed:
    timed;
 5. the ``cptorch-serve`` CLI on cuda, per tick and batched replay;
 6. the K1 pair (``contrastive_loss_fwd``/``_bwd``) against its plain
-   version at the train step's N=8, T=41, d=16 and at a ragged N=3, and a
-   second run that must give the same bits;
+   version at T=41, d=16 for one config of the train step's N=8, a ragged
+   N=3 and N=1, and for the crossval sweep's 150 configs of N=8; a second
+   run must give the same bits, and each config the same bits alone as
+   inside the 150; both shapes timed (CUDA events per call, profiler
+   device time per launch, an empty kernel launched the same way as the
+   floor);
 7. training at the canonical geometry: the synthetic store of all 46
    people (DB3 view, D=1,800, bs 8: 225 steps per epoch); one ``_sgd_step``
    with the kernels held against one with the plain loss; ``train_loop``
@@ -57,9 +62,11 @@ made with numpy from a seed:
    --fused_train on``.
 
 Launch counts are reset just before phases 3, 4, 7's and 8's
-``train_loop`` and read just after each; every serve kernel must have
-launched in 3 and 4, each K1 kernel once per train step in 7, and the K5
-kernels as the chain's depth says in 8. TF32 is off throughout
+``train_loop`` and read just after each (phase 3's after its ``step``
+loop and after its ``steps`` call); every serve kernel must have
+launched on each of the three serve paths, each K1 kernel once per train
+step in 7 and 8, and the K5 kernels as the chain's depth says in 8. TF32
+is off throughout
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set False), so the plain versions run
 in full f32 (``encoder_chain``, K5f and K5b run 3xTF32 by their own
@@ -276,20 +283,26 @@ def trace_steps(engine, blocks, mask, n: int) -> dict:
     return device_summary(prof, n, wall_ms)
 
 
-def trace_batched(engine, blocks, masks) -> dict:
-    """Profiler trace of one synchronised ``engine.steps`` call over all
-    its ticks: device time by kernel and the idle share of the call."""
+def trace_call(fn) -> dict:
+    """Profiler trace of one synchronised call of ``fn`` (a whole replay):
+    device time by kernel and the idle share of the call."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine.steps(engine.init_carries(), blocks, masks)  # warm
+    fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.steps(engine.init_carries(), blocks, masks)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     return device_summary(prof, 1, wall_ms)
+
+
+def per_launch(trace: dict, name: str) -> float | None:
+    """Device milliseconds per launch of port kernel ``name`` in a trace."""
+    n = trace["device_launches_per_step"].get(name)
+    return trace["device_ms_by_function"][name] / n if n else None
 
 
 def near_tie(scores: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -312,76 +325,135 @@ def normalized(rng, shape, dev) -> torch.Tensor:
     return torch.from_numpy(x).to(dev)
 
 
+def k1_floor_ms(backward: int, C: int, N: int, T: int, d: int) -> float:
+    """Device milliseconds per launch of an empty kernel launched with the
+    grid, block and shared memory of K1f (``backward`` 0) or K1b (1) at
+    this shape: what launch latency alone costs a K1 kernel."""
+    import ctypes
+
+    from contrastiveprosthetics_torch.ops import _build
+
+    fn = _build.load("contrastive_loss").contrastive_loss_floor_launch
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        rc = fn(backward, C, N, T, d, stream)
+        if rc != 0:
+            raise RuntimeError(f"empty kernel launch failed: cudaError {rc}")
+
+    return device_ms_per_call(launch)
+
+
 def check_k1(K, dev) -> dict:
     """Phase 6: the K1 pair against its plain version (forward, autograd
-    of the plain forward, and the closed-form plain backward) at N=8 and
-    N=3, T=41, d=16; a second run must give the same bits. Returns the
-    two ``kernels`` entries, timed at N=8."""
+    of the plain forward, and the closed-form plain backward) at T=41,
+    d=16 for C=1 config of N=8, 3 and 1 items (the 3-d call) and for the
+    sweep's C=150 configs of N=8, with one upstream scalar per config; a
+    second run must give the same bits, and each of the 150 configs the
+    same bits alone as inside the batch. Returns the two ``kernels``
+    entries, timed at the train step's C=1, N=8 and at C=150, N=8: CUDA
+    events per wrapper call, profiler device time per launch, the device
+    time of an empty kernel launched the same way (``floor_ms``) and the
+    bound."""
     T, d = 41, 16
     errs = {"contrastive_loss_fwd": {}, "contrastive_loss_bwd": {}}
-    for N in (8, 3):
-        rng = np.random.default_rng(100 + N)
-        e = normalized(rng, (N, T, d), dev).requires_grad_()
-        g = normalized(rng, (N, T, d), dev).requires_grad_()
+    for C, N in ((1, 8), (1, 3), (1, 1), (150, 8)):
+        rng = np.random.default_rng(100 + N + C)
+        shape = (N, T, d) if C == 1 else (C, N, T, d)
+        e = normalized(rng, shape, dev).requires_grad_()
+        g = normalized(rng, shape, dev).requires_grad_()
+        up = torch.from_numpy(rng.uniform(0.5, 2.0, C).astype(
+            np.float32)).to(dev)
+        if C == 1:
+            up = up[0]  # the 3-d call's 0-d loss takes a 0-d scalar
         loss, correct = K.fused_contrastive_loss(e, g)
-        de, dg = torch.autograd.grad(loss, (e, g))
+        de, dg = torch.autograd.grad((loss * up).sum(), (e, g))
         loss_p, correct_p = K.fused_contrastive_reference(e, g)
-        de_p, dg_p = torch.autograd.grad(loss_p, (e, g))
-        one = torch.ones(1, device=dev)
+        de_p, dg_p = torch.autograd.grad((loss_p * up).sum(), (e, g))
         with torch.no_grad():
-            de_w, dg_w = K.contrastive_loss_bwd_reference(e, g, one)
-            again = K.contrastive_loss_fwd(e.detach(), g.detach())
-            de2, dg2 = K.contrastive_loss_bwd(e.detach(), g.detach(), one)
+            e, g = e.detach(), g.detach()
+            de_w, dg_w = K.contrastive_loss_bwd_reference(e, g, up)
+            again = K.contrastive_loss_fwd(e, g) + K.contrastive_loss_bwd(
+                e, g, up)
+            alone = [K.contrastive_loss_fwd(e[c], g[c])
+                     + K.contrastive_loss_bwd(e[c], g[c], up[c])
+                     for c in range(C)] if C > 1 else []
         torch.cuda.synchronize()
+        case = f"C={C} N={N}"
         torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
-        if float(correct) != float(correct_p):
-            raise AssertionError(f"K1f correct {float(correct)} against "
-                                 f"{float(correct_p)} at N={N}")
+        if not torch.equal(correct, correct_p):
+            raise AssertionError(f"K1f correct {correct.tolist()} against "
+                                 f"{correct_p.tolist()} at {case}")
         for got, want in ((de, de_p), (dg, dg_p), (de, de_w), (dg, dg_w)):
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
-        if not (torch.equal(again[0], loss) and torch.equal(again[1], correct)
-                and torch.equal(de2, de) and torch.equal(dg2, dg)):
-            raise AssertionError(f"K1 is not bit-identical on a rerun, N={N}")
-        errs["contrastive_loss_fwd"][f"N={N}"] = max_abs(loss, loss_p)
-        errs["contrastive_loss_bwd"][f"N={N}"] = max(
+        if not all(torch.equal(a, b) for a, b in
+                   zip((loss, correct, de, dg), again)):
+            raise AssertionError(f"K1 is not bit-identical on a rerun, {case}")
+        for c, outs in enumerate(alone):
+            if not all(torch.equal(a, b[c]) for a, b in
+                       zip(outs, (loss, correct, de, dg))):
+                raise AssertionError(f"K1 config {c} has other bits alone "
+                                     f"than inside C={C}")
+        errs["contrastive_loss_fwd"][case] = max_abs(loss, loss_p)
+        errs["contrastive_loss_bwd"][case] = max(
             max_abs(de, de_p), max_abs(dg, dg_p), max_abs(de, de_w),
             max_abs(dg, dg_w))
-    N = 8
-    rng = np.random.default_rng(108)
-    e, g = normalized(rng, (N, T, d), dev), normalized(rng, (N, T, d), dev)
-    one = torch.ones(1, device=dev)
-    de, dg = K.contrastive_loss_bwd(e, g, one)
-    # operations: the logits (2 T^2 d), then ~6 per logit for the two
-    # softmaxes; the backward recomputes both and adds 2 x 2 T^2 d and ~4
-    # per logit for dlogits
-    fwd_b = bound_ms(nbytes(e, g) + 8, N * (2 * T * T * d + 6 * T * T))
-    bwd_b = bound_ms(nbytes(e, g, one, de, dg),
-                     N * (6 * T * T * d + 10 * T * T))
+    log(f"[kernels] contrastive_loss_fwd/bwd ok at C=1 (N=8, 3, 1) and "
+        f"C=150 (N=8): {json.dumps(errs)}; reruns bit-identical; each of "
+        "the 150 configs bit-identical alone and inside the batch")
+
+    def timings(C, N) -> dict:
+        rng = np.random.default_rng(108 + C)
+        shape = (N, T, d) if C == 1 else (C, N, T, d)
+        e, g = normalized(rng, shape, dev), normalized(rng, shape, dev)
+        up = torch.ones(C, device=dev)
+        de, dg = K.contrastive_loss_bwd(e, g, up)
+        out = torch.empty(2, C, device=dev)
+        # operations: the logits (2 T^2 d), then ~6 per logit for the two
+        # softmaxes; the backward recomputes both and adds 2 x 2 T^2 d and
+        # ~4 per logit for dlogits
+        fwd_b = bound_ms(nbytes(e, g, out), C * N * (2 * T * T * d
+                                                     + 6 * T * T))
+        bwd_b = bound_ms(nbytes(e, g, up, de, dg),
+                         C * N * (6 * T * T * d + 10 * T * T))
+        res = {}
+        for name, kernel, plain, (b, by), backward in (
+                ("contrastive_loss_fwd", lambda: K.contrastive_loss_fwd(e, g),
+                 lambda: K.fused_contrastive_reference(e, g), fwd_b, 0),
+                ("contrastive_loss_bwd",
+                 lambda: K.contrastive_loss_bwd(e, g, up),
+                 lambda: K.contrastive_loss_bwd_reference(e, g, up), bwd_b,
+                 1)):
+            res[name] = dict(
+                shape=f"C={C} N={N} T={T} d={d}",
+                ms=time_ms(kernel, reps=200, warmup=5),
+                plain_ms=time_ms(plain, reps=50, warmup=5),
+                device_ms_per_call=device_ms_per_call(kernel),
+                floor_ms=k1_floor_ms(backward, C, N, T, d),
+                bound_ms=b, bound_by=by)
+        return res
+
+    with torch.no_grad():
+        step, sweep = timings(1, 8), timings(150, 8)
     no_library = ("no single PyTorch call computes the symmetric "
                   "contrastive loss with its first-max count, or its "
                   "gradient")
-    entries = {}
-    with torch.no_grad():
-        for name, kernel, plain, (b, by), tol in (
-                ("contrastive_loss_fwd", lambda: K.contrastive_loss_fwd(e, g),
-                 lambda: K.fused_contrastive_reference(e, g), fwd_b,
-                 "loss rtol 1e-5, correct exact, a rerun bit-identical"),
-                ("contrastive_loss_bwd",
-                 lambda: K.contrastive_loss_bwd(e, g, one),
-                 lambda: K.contrastive_loss_bwd_reference(e, g, one), bwd_b,
-                 "de, dg rtol 1e-4 atol 1e-6 (test_pallas.py:58-59) against "
-                 "autograd of the plain forward and the closed form; a "
-                 "rerun bit-identical")):
-            entries[name] = dict(
-                route="cuda", max_abs_err=max(errs[name].values()),
-                max_abs_err_parts=errs[name], tolerance=tol,
-                ms=time_ms(kernel, reps=200, warmup=5),
-                plain_ms=time_ms(plain, reps=200, warmup=5),
-                bound_ms=b, bound_by=by, library_ms=None,
-                library_note=no_library,
-                shape=f"N={N} T={T} d={d} (also checked at N=3)")
-    log(f"[kernels] contrastive_loss_fwd/bwd ok at N=8 and N=3: "
-        f"{json.dumps(errs)}; reruns bit-identical")
+    tols = {"contrastive_loss_fwd": "loss rtol 1e-5, correct exact; reruns "
+                                    "and each config alone bit-identical",
+            "contrastive_loss_bwd": "de, dg rtol 1e-4 atol 1e-6 "
+                                    "(test_pallas.py:58-59) against autograd "
+                                    "of the plain forward and the closed "
+                                    "form; reruns and each config alone "
+                                    "bit-identical"}
+    entries = {name: dict(route="cuda", max_abs_err=max(errs[name].values()),
+                          max_abs_err_parts=errs[name], tolerance=tols[name],
+                          library_ms=None, library_note=no_library,
+                          **step[name], sweep_shape=sweep[name])
+               for name in errs}
+    log(f"[kernels] K1 timings (ms; device per launch, empty-kernel floor, "
+        f"bound): {json.dumps({'step': step, 'sweep': sweep})}")
     return entries
 
 
@@ -1225,9 +1297,11 @@ def main() -> int:
         lat.append((time.perf_counter() - t0) * 1e3)
         step_p.append(int(p))
         step_v.append(int(v))
+    torch.cuda.synchronize()
+    step_counts = dict(K.launch_counts)
     _, preds, votes = single.steps(single.init_carry(), blocks, mask1)
     torch.cuda.synchronize()
-    single_counts = dict(K.launch_counts)
+    steps_counts = {k: v - step_counts[k] for k, v in K.launch_counts.items()}
     if (preds[:50].tolist() != step_p or votes[:50].tolist() != step_v):
         raise AssertionError("step loop and steps disagree")
     if not set(preds.tolist()) <= set(np.flatnonzero(mask1).tolist()):
@@ -1236,17 +1310,21 @@ def main() -> int:
     steps_ms = time_ms(lambda: single.steps(single.init_carry(), blocks,
                                             mask1), reps=5)
     trace = trace_steps(single, blocks, mask1, 20)
+    steps_trace_1 = trace_call(lambda: single.steps(single.init_carry(),
+                                                    blocks, mask1))
     single_res = dict(step_p50_ms=float(np.percentile(lat, 50)),
                       step_p99_ms=float(np.percentile(lat, 99)),
                       steps_200_ticks_ms=steps_ms, step_trace=trace,
+                      steps_200_ticks_trace=steps_trace_1,
                       preprocess_recording_ms=preprocess_ms,
                       calibrate_ms=calibrate_ms,
                       calibrate_session_ms=calibrate_session_ms)
     log(f"[single] step p50 {single_res['step_p50_ms']:.4f} ms, p99 "
         f"{single_res['step_p99_ms']:.4f} ms (49 ticks after the first); "
         f"steps over 200 ticks {steps_ms:.4f} ms; step loop == steps; "
-        f"launches {single_counts}")
-    log(f"[single] profiler trace of 20 steps: {json.dumps(trace)}")
+        f"launches: step {step_counts}, steps {steps_counts}")
+    log(f"[single] profiler trace of 20 steps: {json.dumps(trace)}; of one "
+        f"200-tick steps call: {json.dumps(steps_trace_1)}")
 
     # ------------------------------------------------------- 4. batched
     K.reset_launch_counts()
@@ -1255,9 +1333,11 @@ def main() -> int:
     torch.cuda.synchronize()
     batched_counts = dict(K.launch_counts)
     for name in SERVE_KERNELS:
-        if not single_counts[name] or not batched_counts[name]:
+        if not (step_counts[name] and steps_counts[name]
+                and batched_counts[name]):
             raise AssertionError(f"{name} never launched on the main path: "
-                                 f"{single_counts} {batched_counts}")
+                                 f"{step_counts} {steps_counts} "
+                                 f"{batched_counts}")
     shared, affines = batched.shared_chain, batched.session_affines()
     chain_args = (*batched.init_carries(), blocks_t, masks_t, sos, mu, sd,
                   shared, affines)
@@ -1289,7 +1369,8 @@ def main() -> int:
     live = batched.init_carries()
     live_ms = time_ms(lambda: batched.step(live, blocks_t[0], masks_t),
                       reps=10, warmup=2)
-    steps_trace = trace_batched(batched, blocks_t, masks_t)
+    steps_trace = trace_call(lambda: batched.steps(
+        batched.init_carries(), blocks_t, masks_t))
     batched_res = dict(sessions=S, ticks=T, steps_ms=batched_ms,
                        ms_per_tick=batched_ms / T,
                        steps_ms_numpy_input=host_ms,
@@ -1333,14 +1414,23 @@ def main() -> int:
             entry["device_ms_per_launch_traced"] = (
                 fam[name] / per[name] if per.get(name) else None)
         elif name in TRAIN_KERNELS:
-            by_path = {"train": train_counts[name]}
-            fam = train_res["step_trace"]["device_ms_by_family"]
-            per = train_res["step_trace"]["device_launches_per_step"]
-            entry["device_ms_per_launch_traced"] = (
-                fam[name] / per[name] if per.get(name) else None)
+            by_path = {"train": train_counts[name],
+                       "fused_train": fused_counts[name]}
+            traced = {}
+            for path, res in (("train", train_res), ("fused_train",
+                                                     fused_res)):
+                fam = res["step_trace"]["device_ms_by_family"]
+                per = res["step_trace"]["device_launches_per_step"]
+                traced[path] = fam[name] / per[name] if per.get(name) else None
+            entry["device_ms_per_launch_traced"] = traced
         else:
-            by_path = {"single": single_counts[name],
+            by_path = {"step": step_counts[name],
+                       "steps": steps_counts[name],
                        "batched": batched_counts[name]}
+            entry["device_ms_per_launch_by_path"] = {
+                "step": per_launch(single_res["step_trace"], name),
+                "steps": per_launch(steps_trace_1, name),
+                "batched": per_launch(steps_trace, name)}
         entry.update(name=name, source=SOURCES[name], replaces=REPLACES[name],
                      kernel_ms=entry["ms"], launches=sum(by_path.values()),
                      launches_by_path=by_path,

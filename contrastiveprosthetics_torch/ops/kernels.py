@@ -172,9 +172,9 @@ _SIGNATURES = {
     "dsp_frames": ("dsp_frames", "dsp_frames_launch", 9, 6, True),
     "vote_scan": ("vote_scan", "vote_scan_launch", 8, 4, False),
     "contrastive_loss_fwd": ("contrastive_loss", "contrastive_loss_fwd_launch",
-                             5, 3, False),
+                             3, 4, False),
     "contrastive_loss_bwd": ("contrastive_loss", "contrastive_loss_bwd_launch",
-                             5, 3, False),
+                             5, 4, False),
     "dense_block_fwd": ("train_fused", "dense_block_fwd_launch", 13, 7, True),
     "dense_block_bwd": ("train_fused", "dense_block_bwd_launch", 16, 7, False),
     "dropout_masks": ("train_fused", "dropout_masks_launch", 3, 3, False),
@@ -547,71 +547,82 @@ def fused_tick_chain_batched_reference(iir_state, tail, votes, n_seen,
 
 
 # ------------------------------------------------------ contrastive loss
-CONTRASTIVE_MAX_T = CONTRASTIVE_MAX_D = 64  # what one block holds (csrc)
+CONTRASTIVE_MAX_T = CONTRASTIVE_MAX_D = 64  # what one CTA stages (csrc)
+CONTRASTIVE_MAX_N = 8192  # items whose losses the forward's rank 0 holds
+CONTRASTIVE_MAX_C = 65535  # configs: the grid's second dimension
 
 
 def fused_contrastive_reference(e, g):
-    """Plain version of the K1 forward: ``e``, ``g`` (N, T, d) normalized
-    -> (mean over items of the symmetric CE, number of rows whose first
-    maximum is the diagonal, f32) (``pallas_ops.py:1019-1031``)."""
-    logits = torch.bmm(e, g.transpose(1, 2))
+    """Plain version of the K1 forward: ``e``, ``g`` (N, T, d) or (C, N, T,
+    d) normalized -> (mean over items of the symmetric CE, number of rows
+    whose first maximum is the diagonal, f32), 0-d or (C,)
+    (``pallas_ops.py:1019-1031``, vmapped over configs)."""
+    logits = e @ g.transpose(-1, -2)
     T = logits.shape[-1]
     diag_r = torch.log_softmax(logits, dim=-1).diagonal(dim1=-2, dim2=-1)
     diag_c = torch.log_softmax(logits, dim=-2).diagonal(dim1=-2, dim2=-1)
     loss = -(diag_r.sum(-1) + diag_c.sum(-1)) / (2.0 * T)
     labels = torch.arange(T, device=e.device)
-    correct = (logits.argmax(dim=-1) == labels).sum().to(torch.float32)
-    return loss.mean(), correct
+    correct = (logits.argmax(dim=-1) == labels).sum((-2, -1))
+    return loss.mean(-1), correct.to(torch.float32)
 
 
 def contrastive_loss_bwd_reference(e, g, dloss):
-    """Plain version of the K1 backward: the gradient of the mean loss,
-    times the upstream scalar ``dloss``, written out as the TPU kernel
-    computes it (``pallas_ops.py:169-182``): dlogits = (softmax_row - I +
-    softmax_col - I) / (2T N), de = dlogits g, dg = dlogits^T e."""
-    N, T, _ = e.shape
-    logits = torch.bmm(e, g.transpose(1, 2))
+    """Plain version of the K1 backward: the gradient of each config's mean
+    loss, times its upstream scalar ``dloss`` (0-d, (1,) or (C,)), written
+    out as the TPU kernel computes it (``pallas_ops.py:169-182``): dlogits
+    = (softmax_row - I + softmax_col - I) / (2T N), de = dlogits g, dg =
+    dlogits^T e."""
+    N, T, _ = e.shape[-3:]
+    logits = e @ g.transpose(-1, -2)
     eye = torch.eye(T, device=e.device)
     denom = logits.new_tensor(2.0 * T * N)  # a tensor: exact division
     dl = (torch.softmax(logits, -1) - eye + torch.softmax(logits, -2) - eye
           ) / denom
-    return (torch.bmm(dl, g) * dloss, torch.bmm(dl.transpose(1, 2), e) * dloss)
+    up = dloss.reshape(*e.shape[:-3], 1, 1, 1)
+    return (dl @ g) * up, (dl.transpose(-1, -2) @ e) * up
 
 
-def _check_contrastive(e, g) -> tuple[int, int, int]:
-    if e.dim() != 3:
-        raise ValueError(f"e: shape {tuple(e.shape)}, want (N, T, d)")
-    N, T, d = e.shape
-    if N < 1 or not 1 <= T <= CONTRASTIVE_MAX_T or not 1 <= d <= CONTRASTIVE_MAX_D:
-        raise ValueError(f"contrastive loss kernel takes N >= 1 and T, d in "
-                         f"[1, {CONTRASTIVE_MAX_T}]; got {(N, T, d)}")
-    _expect("e", e, (N, T, d), torch.float32, e.device)
-    _expect("g", g, (N, T, d), torch.float32, e.device)
-    return N, T, d
+def _check_contrastive(e, g) -> tuple[int, int, int, int]:
+    """(C, N, T, d) of a (N, T, d) call (C = 1) or a (C, N, T, d) one."""
+    if e.dim() not in (3, 4):
+        raise ValueError(f"e: shape {tuple(e.shape)}, want (N, T, d) or "
+                         "(C, N, T, d)")
+    C, N, T, d = (1, *e.shape) if e.dim() == 3 else e.shape
+    if (not 1 <= C <= CONTRASTIVE_MAX_C or not 1 <= N <= CONTRASTIVE_MAX_N
+            or not 1 <= T <= CONTRASTIVE_MAX_T
+            or not 1 <= d <= CONTRASTIVE_MAX_D):
+        raise ValueError(f"contrastive loss kernel takes C in [1, "
+                         f"{CONTRASTIVE_MAX_C}], N in [1, {CONTRASTIVE_MAX_N}] "
+                         f"and T, d in [1, {CONTRASTIVE_MAX_T}]; got "
+                         f"{(C, N, T, d)}")
+    _expect("e", e, e.shape, torch.float32, e.device)
+    _expect("g", g, e.shape, torch.float32, e.device)
+    return C, N, T, d
 
 
 def contrastive_loss_fwd(e, g):
     """The ``contrastive_loss_fwd`` kernel on CUDA tensors: (loss,
-    correct), both 0-d f32 on the card."""
-    N, T, d = _check_contrastive(e, g)
-    dev = e.device
-    items = torch.empty((2, N), dtype=torch.float32, device=dev)
-    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
-    out = torch.empty(2, dtype=torch.float32, device=dev)
+    correct), each (C,) f32 on the card, or 0-d for a (N, T, d) call."""
+    C, N, T, d = _check_contrastive(e, g)
+    out = torch.empty((2, C), dtype=torch.float32, device=e.device)
     _launch("contrastive_loss_fwd", "contrastive_loss_fwd", _ptr(e), _ptr(g),
-            _ptr(items), _ptr(ticket), _ptr(out), N, T, d, _stream(dev))
+            _ptr(out), C, N, T, d, _stream(e.device))
+    if e.dim() == 3:
+        return out[0, 0], out[1, 0]
     return out[0], out[1]
 
 
 def contrastive_loss_bwd(e, g, dloss):
-    """The ``contrastive_loss_bwd`` kernel on CUDA tensors: (de, dg) for
-    the upstream scalar ``dloss``, read on the card."""
-    N, T, d = _check_contrastive(e, g)
-    dloss = dloss.reshape(1)
-    _expect("dloss", dloss, (1,), torch.float32, e.device)
+    """The ``contrastive_loss_bwd`` kernel on CUDA tensors: (de, dg) for the
+    upstream scalar of each config, ``dloss`` (C,) (0-d or (1,) for a (N, T,
+    d) call), read on the card."""
+    C, N, T, d = _check_contrastive(e, g)
+    dloss = dloss.reshape(-1) if dloss.dim() == 0 else dloss
+    _expect("dloss", dloss, (C,), torch.float32, e.device)
     de, dg = torch.empty_like(e), torch.empty_like(g)
     _launch("contrastive_loss_bwd", "contrastive_loss_bwd", _ptr(e), _ptr(g),
-            _ptr(dloss), _ptr(de), _ptr(dg), N, T, d, _stream(e.device))
+            _ptr(dloss), _ptr(de), _ptr(dg), C, N, T, d, _stream(e.device))
     return de, dg
 
 
@@ -631,8 +642,9 @@ class _FusedContrastiveLoss(torch.autograd.Function):
 
 def fused_contrastive_loss(e, g):
     """Fused symmetric contrastive loss of normalized ``e``, ``g`` (N, T,
-    d): ``(mean loss, correct rows)``; divide ``correct`` by N*T for the
-    train accuracy. On CUDA the K1 kernels run forward and backward
+    d), or (C, N, T, d) for C configs at once: ``(mean loss, correct
+    rows)``, 0-d or (C,); divide ``correct`` by N*T for the train
+    accuracy. On CUDA the K1 kernels run forward and backward
     (``correct`` takes no gradient); on the CPU the plain version runs
     under autograd."""
     if e.device.type == "cpu":

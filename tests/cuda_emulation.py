@@ -2,10 +2,16 @@
 pipelines and epilogues where no card is present.
 
 A kernel source from ``contrastiveprosthetics_torch/csrc`` is compiled by
-the host's C++ compiler against a small emulation of what it uses: one CTA
-at a time, a ``std::thread`` per CUDA thread, ``__syncthreads`` as a block
+the host's C++ compiler against a small emulation of what it uses: one
+cluster at a time (a plain launch's CTAs are clusters of one), a
+``std::thread`` per CUDA thread, ``__syncthreads`` as a block
 barrier, ``mma.sync`` m16n8k8 as a warp-collective exchange of fragments
-(each output's eight products summed in float64), ``cp.async`` as a
+(each output's eight products summed in float64), ``__shfl_xor_sync`` and
+``__shfl_down_sync`` as warp-collective exchanges of 32-bit values (the
+whole warp takes part, as the full mask says), ``__syncwarp`` as a warp
+barrier, thread-block clusters as their CTAs run at once with a barrier
+across them and each other's shared memory mapped (``cooperative_groups``
+``this_cluster``, launched by ``cudaLaunchKernelEx``), ``cp.async`` as a
 synchronous 16-byte copy (zeros past the edges), atomics as host atomics.
 Shared memory starts as NaN, so a read of what no thread wrote shows. The
 launchers keep their C interface, so a test calls them through ctypes on
@@ -32,6 +38,8 @@ RUNTIME = r"""
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <climits>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -48,8 +56,8 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local dim3 threadIdx;
-inline dim3 blockIdx, gridDim, blockDim;
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 gridDim, blockDim;
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };
@@ -67,6 +75,7 @@ inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline float __frcp_rn(float a) { volatile float r = 1.0f / a; return r; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 inline unsigned __umulhi(unsigned a, unsigned b) {
@@ -90,11 +99,132 @@ inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaFuncSetAttribute(const void*, int, int) { return 0; }
 inline uint4 curand_Philox4x32_10(uint4 c, uint2) { return c; }
 
-inline std::barrier<>* g_block;
-struct Warp { std::barrier<>* bar; float a[32][4], b[32][2], c[32][4]; };
-inline std::vector<Warp>* g_warps;
-inline float* emu_smem;
+struct Warp {
+  std::barrier<>* bar;
+  float a[32][4], b[32][2], c[32][4];
+  uint32_t x[32];
+};
+// what each emulated thread knows of its CTA and cluster
+struct EmuCluster { std::barrier<>* bar; std::vector<float*> smem; };
+inline thread_local std::barrier<>* g_block;
+inline thread_local std::vector<Warp>* g_warps;
+inline thread_local float* emu_smem;
+inline thread_local EmuCluster* g_cluster;
+inline thread_local unsigned g_rank;
 inline void __syncthreads() { g_block->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  (*g_warps)[threadIdx.x >> 5].bar->arrive_and_wait();
+}
+
+// lane `lane` gets the value of lane src(lane); every lane of the warp calls
+template <class T, class Src>
+inline T emu_shfl(unsigned mask, T v, Src src) {
+  static_assert(sizeof(T) == 4, "32-bit values only");
+  if (mask != 0xffffffffu) std::abort();
+  const int lane = threadIdx.x & 31;
+  Warp& w = (*g_warps)[threadIdx.x >> 5];
+  std::memcpy(&w.x[lane], &v, 4);
+  w.bar->arrive_and_wait();
+  T out;
+  std::memcpy(&out, &w.x[src(lane)], 4);
+  w.bar->arrive_and_wait();
+  return out;
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned mask, T v, int x) {
+  return emu_shfl(mask, v, [x](int l) { return l ^ x; });
+}
+template <class T>
+inline T __shfl_down_sync(unsigned mask, T v, unsigned x) {
+  return emu_shfl(mask, v, [x](int l) { return l + (int)x < 32 ? l + (int)x : l; });
+}
+
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { g_cluster->bar->arrive_and_wait(); }
+  unsigned block_rank() const { return g_rank; }
+  unsigned num_blocks() const { return (unsigned)g_cluster->smem.size(); }
+  template <class T>
+  T* map_shared_rank(T* p, unsigned rank) const {  // the same offset there
+    return reinterpret_cast<T*>(g_cluster->smem[rank] + (
+        reinterpret_cast<float*>(p) - emu_smem));
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+
+// The grid cluster by cluster, in order; the CTAs of a cluster run at once,
+// each with its own shared memory (NaN at the start), block barrier and
+// warps, and one barrier across them.
+template <class Kernel, class... Args>
+void emu_run(Kernel kernel, dim3 grid, int threads, size_t smem,
+             unsigned cluster, Args... args) {
+  gridDim = grid;
+  blockDim = dim3(threads);
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx0 = 0; bx0 < grid.x; bx0 += cluster) {
+      std::barrier<> cluster_bar(threads * cluster);
+      EmuCluster cl{&cluster_bar, {}};
+      std::vector<std::vector<float>> mem(cluster,
+                                          std::vector<float>(smem / 4 + 4, NAN));
+      std::vector<std::unique_ptr<std::barrier<>>> blocks, bars;
+      std::vector<std::vector<Warp>> warps(cluster,
+                                           std::vector<Warp>((threads + 31) / 32));
+      for (unsigned r = 0; r < cluster; ++r) {
+        cl.smem.push_back(mem[r].data());
+        blocks.emplace_back(new std::barrier<>(threads));
+        for (auto& w : warps[r]) {
+          bars.emplace_back(new std::barrier<>(32));
+          w.bar = bars.back().get();
+        }
+      }
+      std::vector<std::thread> ts;
+      for (unsigned r = 0; r < cluster; ++r)
+        for (int t = 0; t < threads; ++t)
+          ts.emplace_back([&, r, t] {
+            threadIdx = dim3(t);
+            blockIdx = dim3(bx0 + r, by);
+            g_block = blocks[r].get();
+            g_warps = &warps[r];
+            emu_smem = mem[r].data();
+            g_cluster = &cl;
+            g_rank = r;
+            kernel(args...);
+          });
+      for (auto& th : ts) th.join();
+    }
+}
+
+template <class Kernel, class... Args>
+void emu_launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+                cudaStream_t, Args... args) {
+  emu_run(kernel, grid, threads, smem, 1, args...);
+}
+
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... Params, class... Args>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config,
+                               void (*kernel)(Params...), Args... args) {
+  unsigned cluster = 1;
+  for (unsigned i = 0; i < config->numAttrs; ++i)
+    if (config->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cluster = config->attrs[i].val.clusterDim.x;
+  if (config->gridDim.x % cluster != 0) return cudaErrorInvalidValue;
+  emu_run(kernel, config->gridDim, (int)config->blockDim.x,
+          config->dynamicSmemBytes, cluster, static_cast<Params>(args)...);
+  return cudaSuccess;
+}
 
 // mma.sync.m16n8k8 .row.col on the warp's fragments (PTX ISA layouts)
 inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -122,32 +252,6 @@ inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
   for (int q = 0; q < 4; ++q) d[q] = out[q];
 }
 
-template <class Kernel, class... Args>
-void emu_launch(Kernel kernel, dim3 grid, int threads, size_t smem,
-                cudaStream_t, Args... args) {
-  std::vector<float> mem(smem / 4 + 4);
-  emu_smem = mem.data();
-  gridDim = grid;
-  blockDim = dim3(threads);
-  std::barrier<> block(threads);
-  g_block = &block;
-  std::vector<Warp> warps((threads + 31) / 32);
-  std::vector<std::unique_ptr<std::barrier<>>> bars;
-  for (auto& w : warps) {
-    bars.emplace_back(new std::barrier<>(32));
-    w.bar = bars.back().get();
-  }
-  g_warps = &warps;
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      blockIdx = dim3(bx, by);
-      std::fill(mem.begin(), mem.end(), NAN);
-      std::vector<std::thread> ts;
-      for (int t = 0; t < threads; ++t)
-        ts.emplace_back([&, t] { threadIdx = dim3(t); kernel(args...); });
-      for (auto& th : ts) th.join();
-    }
-}
 """
 
 TF32_MMA = r"""
@@ -182,11 +286,13 @@ def _translate(src: str) -> str:
     call."""
     src = src.replace("#include <cuda_runtime.h>", '#include "emu_runtime.h"')
     src = src.replace("#include <curand_philox4x32_x.h>", "")
+    src = src.replace("#include <cooperative_groups.h>", "")
     src = src.replace('#include "tf32_mma.cuh"', '#include "emu_tf32_mma.h"')
     src = re.sub(r"extern __shared__ __align__\(16\) float (\w+)\[\];",
                  r"float* \1 = emu_smem;", src)
-    return re.sub(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\(",
-                  r"emu_launch(\1, \2, ", src, flags=re.S)
+    launch = r"(\w+(?:<[^<>;]*>)?)\s*<<<([^;]*?)>>>\s*\("
+    src = re.sub(launch + r"\s*\)", r"emu_launch(\1, \2)", src, flags=re.S)
+    return re.sub(launch, r"emu_launch(\1, \2, ", src, flags=re.S)
 
 
 def compiler() -> str | None:

@@ -218,6 +218,42 @@ def test_contrastive_loss_kernels_match_plain(cuda, N):
         assert torch.equal(de2, de) and torch.equal(dg2, dg)
 
 
+def test_contrastive_loss_config_axis(cuda):
+    """The sweep's shape, (C, N, T, d) = (150, 8, 41, 16): loss and count
+    (C,) against the plain version, gradients with one upstream scalar per
+    config; every config has the same bits alone (C = 1) as inside the
+    batch of 150, and a rerun has the same bits."""
+    rng = np.random.default_rng(150)
+    e = _normalized(rng, (150, 8, 41, 16), cuda).requires_grad_()
+    g = _normalized(rng, (150, 8, 41, 16), cuda).requires_grad_()
+    up = torch.from_numpy(rng.uniform(0.5, 2.0, 150).astype(np.float32)).to(cuda)
+    loss, correct = K.fused_contrastive_loss(e, g)
+    assert loss.shape == correct.shape == (150,)
+    de, dg = torch.autograd.grad((loss * up).sum(), (e, g))
+    loss_p, correct_p = K.fused_contrastive_reference(e, g)
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    assert torch.equal(correct, correct_p)
+    with torch.no_grad():
+        de_w, dg_w = K.contrastive_loss_bwd_reference(e, g, up)
+        torch.testing.assert_close(de, de_w, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(dg, dg_w, rtol=1e-4, atol=1e-6)
+        e, g = e.detach(), g.detach()
+        again = K.contrastive_loss_fwd(e, g) + K.contrastive_loss_bwd(e, g, up)
+        for a, b in zip((loss, correct, de, dg), again):
+            assert torch.equal(a, b)
+        for c in range(150):
+            l1, c1 = K.contrastive_loss_fwd(e[c:c + 1], g[c:c + 1])
+            de1, dg1 = K.contrastive_loss_bwd(e[c:c + 1], g[c:c + 1],
+                                              up[c:c + 1])
+            assert torch.equal(l1[0], loss[c]) and torch.equal(c1[0],
+                                                              correct[c])
+            assert torch.equal(de1[0], de[c]) and torch.equal(dg1[0], dg[c])
+        # the 3-d call is C = 1 with 0-d results
+        l3, c3 = K.contrastive_loss_fwd(e[7], g[7])
+        assert l3.shape == c3.shape == ()
+        assert torch.equal(l3, loss[7]) and torch.equal(c3, correct[7])
+
+
 def test_contrastive_loss_rejects_what_it_does_not_take(cuda):
     """The CUDA wrapper raises, never falls back to the plain version."""
     rng = np.random.default_rng(0)
@@ -230,10 +266,20 @@ def test_contrastive_loss_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         K.fused_contrastive_loss(e.transpose(0, 1).contiguous().transpose(0, 1),
                                  e)
-    before = K.launch_counts["contrastive_loss_fwd"]
+    before = dict(K.launch_counts)
     with pytest.raises(ValueError, match="on cpu"):
         K.fused_contrastive_loss(e, e.cpu())
-    assert K.launch_counts["contrastive_loss_fwd"] == before
+    with pytest.raises(ValueError, match="want"):
+        K.fused_contrastive_loss(e[None, None], e[None, None])
+    with pytest.raises(ValueError, match="shape"):
+        K.fused_contrastive_loss(e[None], e)
+    with pytest.raises(ValueError, match="N in"):
+        K.fused_contrastive_loss(e[:0][None], e[:0][None])
+    with pytest.raises(ValueError, match="dloss"):
+        K.contrastive_loss_bwd(e[None].expand(3, -1, -1, -1).contiguous(),
+                               e[None].expand(3, -1, -1, -1).contiguous(),
+                               torch.ones(2, device=cuda))
+    assert K.launch_counts == before
 
 
 # ------------------------------------------------- the fused training chain

@@ -143,6 +143,36 @@ def test_k1_plain_version_matches_jax_interpret_mode():
     np.testing.assert_allclose(dg_w.numpy(), np.asarray(dg_j), **GRAD_TOL)
 
 
+def test_k1_config_axis_matches_jax_vmap_interpret_mode():
+    """The 4-d plain K1 (C=3 configs of N=8 items, the sweep's layout)
+    against ``jax.vmap`` of the Pallas loss in interpret mode, as the JAX
+    sweep runs it (``train/engine.py:591``); each config has its own
+    upstream scalar, and rows 3 of config 1 tie at their maximum."""
+    rng = np.random.default_rng(77)
+    e, g = normalized(rng, (3, 8, 41, 16)), normalized(rng, (3, 8, 41, 16))
+    g[1, :, 3] = e[1, :, 3] = g[1, :, 1]  # first maximum at column 1
+    up = np.array([0.5, 1.5, 1.0], np.float32)
+    je, jg = jnp.asarray(e), jnp.asarray(g)
+    loss_j, correct_j = jax.vmap(
+        lambda a, b: pallas_ops.fused_contrastive_loss(a, b, True))(je, jg)
+    de_j, dg_j = jax.vmap(jax.grad(
+        lambda a, b, s: pallas_ops.fused_contrastive_loss(a, b, True)[0] * s,
+        argnums=(0, 1)))(je, jg, jnp.asarray(up))
+    te, tg = t(e).requires_grad_(), t(g).requires_grad_()
+    loss, correct = K.fused_contrastive_loss(te, tg)
+    assert loss.shape == correct.shape == (3,)
+    de, dg = torch.autograd.grad((loss * t(up)).sum(), (te, tg))
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(loss_j),
+                               rtol=1e-5)
+    np.testing.assert_array_equal(correct.numpy(), np.asarray(correct_j))
+    with torch.no_grad():
+        de_w, dg_w = K.contrastive_loss_bwd_reference(t(e), t(g), t(up))
+    for got in (de, de_w):
+        np.testing.assert_allclose(got.numpy(), np.asarray(de_j), **GRAD_TOL)
+    for got in (dg, dg_w):
+        np.testing.assert_allclose(got.numpy(), np.asarray(dg_j), **GRAD_TOL)
+
+
 def test_losses_and_train_accuracy_match_jax():
     rng = np.random.default_rng(2)
     logits = rng.standard_normal((5, 41, 41)).astype(np.float32)
