@@ -14,8 +14,13 @@ made with numpy from a seed:
 
 1. set-up: kernel build (seconds printed), the card's name and power limit;
 2. each kernel against its plain PyTorch version on the card, at the
-   path's shapes (``dsp_frames`` and ``vote_scan`` at 32,768 sessions x
-   25 ticks; ``encoder_chain`` at 1, 16, 200, its regime threshold -+ 1,
+   path's shapes (``dsp_frames`` and ``vote_scan`` bit for bit at every
+   serve path's shape: the per-tick ``step``, K=1 and S=1; the 200-tick
+   ``steps``; the batched 32,768 sessions x 25 ticks; a ragged S=37 with
+   n_seen mid-warm-up; ``vote_scan`` with its masked-score output on and
+   off; each path timed, wrapper and plain version by CUDA events, device
+   time per launch by profiler, beside its bound and each kernel's ptxas
+   stack frame; ``encoder_chain`` at 1, 16, 200, its regime threshold -+ 1,
    32,768 and 25 x 32,768 rows, with and without per-session affines,
    every call's first rows bit-identical to the smaller call's and to a
    rerun, and both f32 paths against float64), timed with CUDA events
@@ -656,6 +661,163 @@ def train_phase(K, dev) -> tuple[dict, dict, object]:
         train_windows_per_s=windows / epoch_ms * 1e3, step_trace=trace)
     return train_res, counts, trainer
 
+def ptxas_report(name: str) -> dict:
+    """Per CUDA function of kernel source ``name``: its stack frame and
+    spill bytes and registers, from the build's ``-Xptxas -v`` report."""
+    from contrastiveprosthetics_torch.ops import _build
+
+    report = _build.library_path(name).with_suffix(".log")
+    out, fn = {}, None
+    if not report.exists():
+        return out
+    for line in report.read_text().splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
+        elif fn and "stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[fn] = dict(stack_frame_bytes=nums[0],
+                           spill_store_bytes=nums[1],
+                           spill_load_bytes=nums[2])
+        elif fn and "Used" in line and "registers" in line:
+            out.setdefault(fn, {})["registers"] = int(
+                line.split("Used")[1].split()[0])
+    return out
+
+
+def serve_cases(dev, carries, blocks_t, masks_t, scores_t, sos, mu, sd):
+    """Each serve path's inputs of ``dsp_frames`` and ``vote_scan``: the
+    per-tick ``step`` (K=1, S=1), the 200-tick ``steps`` replay (K=200,
+    S=1) and a ragged S=37 (K=7) with live carries from a seed (n_seen
+    mid-warm-up, tied scores on a coarse grid, an all-class and a
+    one-class mask), and the batched replay's own blocks, encoder scores,
+    masks and carries (K=25, S=32,768)."""
+    from contrastiveprosthetics_torch.config import DEFAULT_CONFIG as cfg
+
+    C, D, W, F = cfg.max_tasks, cfg.emg_dim, cfg.prediction_window_size, \
+        cfg.factor
+    cases = {"batched": dict(
+        dsp=(carries.iir_state, carries.tail, blocks_t, sos, mu, sd),
+        vote=(scores_t, masks_t, carries.votes, carries.n_seen))}
+    for i, (path, Kt, S) in enumerate((("step", 1, 1), ("steps", 200, 1),
+                                       ("ragged", 7, 37))):
+        rng = np.random.default_rng(40 + i)
+
+        def t(a, dtype=np.float32):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+        masks = rng.random((S, C)) < 0.6
+        masks[0] = True
+        if S > 1:
+            masks[1] = False
+            masks[1, 17] = True
+        cases[path] = dict(
+            dsp=(t(rng.standard_normal((S, sos.shape[0], 2, D)) * 100),
+                 t(rng.standard_normal((S, cfg.rms_window - 1, D)) * 300),
+                 t(rng.standard_normal((Kt, S, F, D)) * 2), sos, mu, sd),
+            vote=(t(rng.integers(-8, 9, (Kt, S, C)) / 8),
+                  torch.from_numpy(masks).to(dev),
+                  t(rng.integers(0, C, (S, W)), np.int32),
+                  t(rng.integers(0, W + 1, S), np.int32)))
+    return cases
+
+
+def check_serve_kernels(K, cases, sm_clock_hz: float) -> dict:
+    """Phase 2, ``dsp_frames`` and ``vote_scan`` at every serve path's shape
+    (``serve_cases``): each held bit for bit against its plain version,
+    ``vote_scan`` with its masked-score output on and off; per path the
+    wrapper and the plain version timed with CUDA events, the device time
+    per launch from a profiler trace of bare calls, and the bound. For the
+    one-session paths, ``dsp_frames`` also gets the serial floor of its IIR:
+    4 sections x 9 dependent instructions per sample at the SM's top clock.
+    Returns the two ``kernels`` entries, at the batched shape on top."""
+    reps = {"step": 200, "steps": 10, "batched": 5, "ragged": 100}
+    out = {"dsp_frames": {}, "vote_scan": {}}
+    for path, case in cases.items():
+        args = case["dsp"]
+        got = K.dsp_frames(*args)
+        want = K.dsp_frames_reference(*args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("frames", "iir_state", "tail"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"dsp_frames {name} differs from its "
+                                     f"plain version on the {path} path: "
+                                     f"{max_abs(g, w)}")
+        iir, tail, blocks = args[:3]
+        Kt, S, F, D = blocks.shape
+        n_sec, R = iir.shape[1], tail.shape[1]
+        b, by = bound_ms(nbytes(blocks, got[0], *args[3:])
+                         + 2 * nbytes(iir, tail),
+                         S * D * Kt * (F * (1 + 9 * n_sec) + 2 * (R + 1) + 2))
+        entry = dict(
+            shape=f"K={Kt} S={S} factor={F} D={D}", max_abs_err=0.0,
+            ms=time_ms(lambda: K.dsp_frames(*args), reps[path], 2),
+            plain_ms=time_ms(lambda: K.dsp_frames_reference(*args), 1),
+            device_ms_per_call=device_ms_per_call(lambda: K.dsp_frames(*args),
+                                                  20),
+            bound_ms=b, bound_by=by)
+        if S == 1:
+            entry["serial_floor_ms"] = Kt * F * n_sec * 9 / sm_clock_hz * 1e3
+        out["dsp_frames"][path] = entry
+        del got, want
+
+        vargs = case["vote"]
+        scores, masks, votes, n_seen = vargs
+        Kt, S, C = scores.shape
+        W = votes.shape[1]
+        for masked in (False, True):
+            got = K.vote_scan(*vargs, masked=masked)
+            want = K.vote_scan_reference(*vargs, masked=masked)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                if not (g.dtype == w.dtype and torch.equal(g, w)):
+                    raise AssertionError(f"vote_scan differs from its plain "
+                                         f"version on the {path} path, "
+                                         f"masked={masked}")
+            if masked and not torch.equal(got[4].view(torch.int32),
+                                          want[4].view(torch.int32)):
+                raise AssertionError(f"vote_scan's masked scores differ in "
+                                     f"their bits on the {path} path")
+        for masked in (False, True):
+            b, by = bound_ms(
+                nbytes(scores, masks, got[0], got[1])
+                + 2 * nbytes(votes, n_seen) + masked * nbytes(scores),
+                Kt * S * (2 * C + 2 * W))
+            out["vote_scan"][path + ("_masked" if masked else "")] = dict(
+                shape=f"K={Kt} S={S} C={C} W={W}"
+                      + (", masked scores written" if masked else ""),
+                max_abs_err=0.0,
+                ms=time_ms(lambda: K.vote_scan(*vargs, masked=masked),
+                           reps[path], 2),
+                plain_ms=time_ms(
+                    lambda: K.vote_scan_reference(*vargs, masked=masked), 2),
+                device_ms_per_call=device_ms_per_call(
+                    lambda: K.vote_scan(*vargs, masked=masked), 20),
+                bound_ms=b, bound_by=by)
+        del got, want
+    log(f"[kernels] dsp_frames and vote_scan bit-identical to their plain "
+        f"versions at the step, steps, batched and ragged shapes (vote_scan "
+        f"with and without masked scores): {json.dumps(out)}")
+    entries = {}
+    for name, tol in (("dsp_frames", "exact (same operation order as the "
+                                     "plain version, each step rounded)"),
+                      ("vote_scan", "exact (integers; masked scores "
+                                    "bit for bit)")):
+        top = out[name]["batched"]
+        entries[name] = dict(
+            route="cuda", max_abs_err=0.0, tolerance=tol, ms=top["ms"],
+            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=None,
+            library_note="no single PyTorch call computes it: "
+            + ("an IIR cascade with a carried state and a trailing RMS"
+               if name == "dsp_frames" else
+               "a masked first max with a windowed majority vote"),
+            shape=top["shape"], by_path=out[name],
+            bound_ms_by_path={p: e["bound_ms"] for p, e in out[name].items()},
+            ptxas=ptxas_report(name))
+    return entries
+
+
 def check_encoder(K, rows, single, batched):
     """Phase 2, ``encoder_chain``: at every M of the ladder (1, 16, 200, the
     regime threshold -+ 1, one tick of 32,768 sessions, 25 ticks) on the
@@ -1233,55 +1395,21 @@ def main() -> int:
         "ms (mean of 4, affines re-derived once)")
 
     # --------------------- 2. each kernel against its plain version
-    entries = {}
     carries = batched.init_carries()
     sos, mu, sd = single._sos, single._mean, single._std
-    dsp_args = (carries.iir_state, carries.tail, blocks_t, sos, mu, sd)
-    frames, iir_k, tail_k = K.dsp_frames(*dsp_args)
-    frames_p, iir_p, tail_p = K.dsp_frames_reference(*dsp_args)
-    torch.cuda.synchronize()
-    parts = dict(frames=max_abs(frames, frames_p),
-                 iir_state=max_abs(iir_k, iir_p), tail=max_abs(tail_k, tail_p))
-    err = max(parts.values())
-    if err != 0:
-        raise AssertionError(f"dsp_frames disagrees with its plain version: "
-                             f"{parts}")
-    n_sec, R = sos.shape[0], tail_k.shape[1]
-    b, by = bound_ms(
-        nbytes(blocks_t, frames) + 2 * nbytes(iir_k, tail_k),
-        S * D * (T * (F * (1 + 9 * n_sec) + 2 * (R + 1) + 2)))
-    entries["dsp_frames"] = dict(
-        route="cuda", max_abs_err=err,
-        tolerance="exact (same operation order as the plain version, "
-                  "each step rounded)",
-        ms=time_ms(lambda: K.dsp_frames(*dsp_args), reps=5),
-        plain_ms=time_ms(lambda: K.dsp_frames_reference(*dsp_args), reps=1),
-        bound_ms=b, bound_by=by, library_ms=None, max_abs_err_parts=parts,
-        shape=f"K={T} S={S} factor={F} D={D}")
-    log(f"[kernels] dsp_frames ok: max abs err {parts}")
-
+    frames = K.dsp_frames(carries.iir_state, carries.tail, blocks_t, sos, mu,
+                          sd)[0]
     scores, enc = check_encoder(K, frames.reshape(T * S, D), single, batched)
+    del frames
+    sm_clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    entries = check_serve_kernels(
+        K, serve_cases(dev, carries, blocks_t, masks_t, scores.view(T, S, C),
+                       sos, mu, sd), sm_clock_hz)
     entries["encoder_chain"] = enc
-
-    scores = scores.view(T, S, C)
-    vote_args = (scores, masks_t, carries.votes, carries.n_seen)
-    got = K.vote_scan(*vote_args)
-    want = K.vote_scan_reference(*vote_args)
-    torch.cuda.synchronize()
-    err = max(max_abs(g, w) for g, w in zip(got, want))
-    if err != 0:
-        raise AssertionError(f"vote_scan disagrees with its plain version: {err}")
-    b, by = bound_ms(
-        nbytes(scores, masks_t, got[0], got[1]) + 2 * nbytes(
-            carries.votes, carries.n_seen), T * S * (2 * C + 2 * W))
-    entries["vote_scan"] = dict(
-        route="cuda", max_abs_err=err, tolerance="exact (integers)",
-        ms=time_ms(lambda: K.vote_scan(*vote_args), reps=5),
-        plain_ms=time_ms(lambda: K.vote_scan_reference(*vote_args), reps=1),
-        bound_ms=b, bound_by=by, library_ms=None,
-        shape=f"K={T} S={S} C={C} W={W}")
-    log("[kernels] vote_scan ok: exact")
-    del frames_p, want, got
+    del scores
 
     # ------------------------------------------------- 3. single session
     blocks = recording[: 200 * F].reshape(200, F, D)

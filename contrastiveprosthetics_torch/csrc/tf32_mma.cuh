@@ -1,5 +1,5 @@
-// tf32_mma.cuh: the 3xTF32 tensor-core arithmetic and the cp.async copies
-// that encoder_chain.cu and train_fused.cu share.
+// tf32_mma.cuh: the 3xTF32 tensor-core arithmetic that encoder_chain.cu and
+// train_fused.cu share, and the cp.async copies they and dsp_frames.cu use.
 //
 // Each operand splits as x = big + small, big = cvt.rna.tf32(x), small =
 // cvt.rna.tf32(x - big). A k8 chunk sums small*big, big*small and big*big,

@@ -10,12 +10,13 @@ as three phases over all its ticks, each a hand-written CUDA kernel for
 Hopper (``csrc/``):
 
 * ``dsp_frames``: prescale -> SOS band-pass -> trailing RMS -> normalize,
-  one thread per (session, channel) walking the samples in order;
+  one thread per (session, channel) running the IIR over input staged in
+  shared memory by ``cp.async``, the frames taken by the whole CTA;
 * ``encoder_chain`` (:func:`fused_encoder_logits`): the folded encoder
   chain in 3xTF32 on the tensor cores, one host call that issues 9 layer
   launches and 1 head launch;
-* ``vote_scan``: masked first-max prediction and the majority vote, one
-  thread per session walking the ticks in order.
+* ``vote_scan``: masked first-max prediction and the majority vote,
+  parallel over (tick, session), and the masked scores where asked.
 
 The fused training chain's K5 kernels (``ops/train_fused.py``) launch
 through the same table and count here too.
@@ -170,7 +171,7 @@ def _expect(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 # launcher -> (library, C symbol, pointers, ints, has a float argument)
 _SIGNATURES = {
     "dsp_frames": ("dsp_frames", "dsp_frames_launch", 9, 6, True),
-    "vote_scan": ("vote_scan", "vote_scan_launch", 8, 4, False),
+    "vote_scan": ("vote_scan", "vote_scan_launch", 9, 4, False),
     "contrastive_loss_fwd": ("contrastive_loss", "contrastive_loss_fwd_launch",
                              3, 4, False),
     "contrastive_loss_bwd": ("contrastive_loss", "contrastive_loss_bwd_launch",
@@ -245,21 +246,37 @@ def dsp_frames_reference(iir_state, tail, blocks, sos, mean, std):
         acc = win[:, 0] * win[:, 0]
         for i in range(1, W):
             acc = acc + win[:, i] * win[:, i]
-        frames[k] = (torch.sqrt(acc / n_win) - mean) / std
+        # the f32 square root correctly rounded, as the kernel's
+        # __fsqrt_rn: a CPU build's vectorised f32 sqrt can be an ulp off,
+        # and a float64 root rounded once to f32 is exact
+        rms = torch.sqrt((acc / n_win).double()).float()
+        frames[k] = (rms - mean) / std
         tail = buf[:, factor:]
     new_iir = torch.stack([torch.stack(zk, dim=1) for zk in z], dim=1)
     return frames, new_iir, tail.contiguous()
 
 
+# (n_sec, factor, rms_window, D) the dsp_frames kernel is compiled for: the
+# config's 4 SOS sections, 20 samples per tick, an 11-sample RMS window and
+# 12 channels (csrc/dsp_frames.cu instantiates its template for these only)
+DSP_FRAMES_SHAPE = (4, 20, 11, 12)
+
+
 def dsp_frames(iir_state, tail, blocks, sos, mean, std):
-    """The ``dsp_frames`` kernel (see :func:`dsp_frames_reference`)."""
+    """The ``dsp_frames`` kernel (see :func:`dsp_frames_reference`). On the
+    card it takes ``DSP_FRAMES_SHAPE`` only, and ``blocks`` 16-byte
+    aligned."""
     if blocks.device.type == "cpu":
         return dsp_frames_reference(iir_state, tail, blocks, sos, mean, std)
     K, S, factor, D = blocks.shape
     n_sec, R = sos.shape[0], tail.shape[1]
+    if (n_sec, factor, R + 1, D) != DSP_FRAMES_SHAPE:
+        raise ValueError(f"dsp_frames kernel: (n_sec, factor, rms_window, D) "
+                         f"= {(n_sec, factor, R + 1, D)}, compiled for "
+                         f"{DSP_FRAMES_SHAPE} only")
     dev, f32 = blocks.device, torch.float32
-    for name, t, shape in (("blocks", blocks, (K, S, factor, D)),
-                           ("iir_state", iir_state, (S, n_sec, 2, D)),
+    _expect_aligned("blocks", blocks, (K, S, factor, D), dev)
+    for name, t, shape in (("iir_state", iir_state, (S, n_sec, 2, D)),
                            ("tail", tail, (S, R, D)), ("sos", sos, (n_sec, 6)),
                            ("mean", mean, (D,)), ("std", std, (D,))):
         _expect(name, t, shape, f32, dev)
@@ -430,10 +447,14 @@ def fused_encoder_logits(frames, folded, affines=None):
 
 
 # --------------------------------------------------------------- vote_scan
-def vote_scan_reference(scores, masks, votes, n_seen):
+def vote_scan_reference(scores, masks, votes, n_seen, masked=False):
     """Plain version of ``vote_scan``. ``scores`` (K, S, C) f32, ``masks``
     (S, C) bool, ``votes`` (S, W) int32 oldest first, ``n_seen`` (S,) int32.
-    Returns preds (K, S), votes (K, S), new votes window, new n_seen."""
+    Returns preds (K, S), votes (K, S), new votes window, new n_seen, and
+    with ``masked`` the masked scores (K, S, C) after them."""
+    if masked:
+        return (*vote_scan_reference(scores, masks, votes, n_seen),
+                torch.where(masks, scores, NEG))
     K, S, C = scores.shape
     W = votes.shape[1]
     preds = torch.empty((K, S), dtype=torch.int32, device=scores.device)
@@ -452,10 +473,11 @@ def vote_scan_reference(scores, masks, votes, n_seen):
     return preds, vote_out, votes.contiguous(), n_seen.to(torch.int32)
 
 
-def vote_scan(scores, masks, votes, n_seen):
-    """The ``vote_scan`` kernel (see :func:`vote_scan_reference`)."""
+def vote_scan(scores, masks, votes, n_seen, masked=False):
+    """The ``vote_scan`` kernel (see :func:`vote_scan_reference`); with
+    ``masked`` the same launch writes the masked scores."""
     if scores.device.type == "cpu":
-        return vote_scan_reference(scores, masks, votes, n_seen)
+        return vote_scan_reference(scores, masks, votes, n_seen, masked)
     K, S, C = scores.shape
     W = votes.shape[1]
     dev = scores.device
@@ -467,33 +489,39 @@ def vote_scan(scores, masks, votes, n_seen):
     vote_out = torch.empty_like(preds)
     votes_out = torch.empty_like(votes)
     nseen_out = torch.empty_like(n_seen)
+    masked_out = (torch.empty((K, S, C), dtype=torch.float32, device=dev)
+                  if masked else None)
     _launch("vote_scan", "vote_scan", _ptr(scores), _ptr(masks), _ptr(votes),
             _ptr(n_seen), _ptr(preds), _ptr(vote_out), _ptr(votes_out),
-            _ptr(nseen_out), K, S, C, W, _stream(dev))
+            _ptr(nseen_out), _ptr(masked_out), K, S, C, W, _stream(dev))
+    if masked:
+        return preds, vote_out, votes_out, nseen_out, masked_out
     return preds, vote_out, votes_out, nseen_out
 
 
 # ------------------------------------------------------------- tick chains
 def _chain(dsp, enc, vote, iir_state, tail, votes, n_seen, blocks,
-           subset_masks, sos, mean, std, folded, affines=None):
+           subset_masks, sos, mean, std, folded, affines=None, masked=True):
     """K ticks of S sessions through the three phases ``dsp -> enc ->
-    vote`` (the kernels or their plain versions)."""
+    vote`` (the kernels or their plain versions); the masked scores only
+    with ``masked``, else None in their place."""
     K, S = blocks.shape[:2]
     frames, iir_state, tail = dsp(iir_state, tail, blocks, sos, mean, std)
     scores = enc(frames.reshape(K * S, -1), folded, affines).view(K, S, -1)
-    preds, vote_preds, votes, n_seen = vote(scores, subset_masks, votes, n_seen)
-    masked = torch.where(subset_masks, scores, NEG)
-    return (iir_state, tail, votes, n_seen), preds, vote_preds, masked
+    preds, vote_preds, votes, n_seen, *rest = vote(
+        scores, subset_masks, votes, n_seen, masked)
+    return ((iir_state, tail, votes, n_seen), preds, vote_preds,
+            rest[0] if masked else None)
 
 
 def tick_chain(*args, **kwargs):
     """K ticks of S sessions: dsp_frames -> encoder_chain -> vote_scan.
 
     Takes ``(iir_state, tail, votes, n_seen, blocks, subset_masks, sos,
-    mean, std, folded, affines=None)``; all carry tensors lead with the
-    session axis and ``blocks`` is (K, S, factor, D). Returns ((iir_state,
-    tail, votes, n_seen), preds (K, S), votes (K, S), masked scores (K, S,
-    C))."""
+    mean, std, folded, affines=None, masked=True)``; all carry tensors lead
+    with the session axis and ``blocks`` is (K, S, factor, D). Returns
+    ((iir_state, tail, votes, n_seen), preds (K, S), votes (K, S), masked
+    scores (K, S, C), or None without ``masked``)."""
     return _chain(dsp_frames, fused_encoder_logits, vote_scan, *args, **kwargs)
 
 
@@ -505,10 +533,12 @@ def tick_chain_reference(*args, **kwargs):
 
 def _single(chain, iir_state, tail, votes, n_seen, blocks, subset_mask, sos,
             mean, std, folded):
-    """One session through ``chain`` as a batch of one."""
+    """One session through ``chain`` as a batch of one, without the masked
+    scores."""
     carry, preds, vote_preds, _ = chain(
         iir_state[None], tail[None], votes[None], n_seen.reshape(1),
-        blocks[:, None], subset_mask[None], sos, mean, std, folded)
+        blocks[:, None], subset_mask[None], sos, mean, std, folded,
+        masked=False)
     iir, tl, vw, ns = carry
     return (iir[0], tl[0], vw[0], ns[0]), preds[:, 0], vote_preds[:, 0]
 
@@ -534,7 +564,7 @@ def fused_tick_chain_batched(iir_state, tail, votes, n_seen, blocks,
     ``session_block``). Returns ((iir_state, tail, votes, n_seen), preds
     (K, S), votes (K, S))."""
     return tick_chain(iir_state, tail, votes, n_seen, blocks, subset_masks,
-                      sos, mean, std, shared, affines)[:3]
+                      sos, mean, std, shared, affines, masked=False)[:3]
 
 
 def fused_tick_chain_batched_reference(iir_state, tail, votes, n_seen,
@@ -543,7 +573,7 @@ def fused_tick_chain_batched_reference(iir_state, tail, votes, n_seen,
     """Plain version of :func:`fused_tick_chain_batched`."""
     return tick_chain_reference(iir_state, tail, votes, n_seen, blocks,
                                 subset_masks, sos, mean, std, shared,
-                                affines)[:3]
+                                affines, masked=False)[:3]
 
 
 # ------------------------------------------------------ contrastive loss

@@ -12,7 +12,9 @@ whole warp takes part, as the full mask says), ``__syncwarp`` as a warp
 barrier, thread-block clusters as their CTAs run at once with a barrier
 across them and each other's shared memory mapped (``cooperative_groups``
 ``this_cluster``, launched by ``cudaLaunchKernelEx``), ``cp.async`` as a
-synchronous 16-byte copy (zeros past the edges), atomics as host atomics.
+synchronous 16-byte copy (zeros past the edges), atomics (on 32-bit ints,
+global or shared) as host atomics. A kernel's static ``__shared__`` arrays
+become function statics, which the CTAs share one after another.
 Shared memory starts as NaN, so a read of what no thread wrote shows. The
 launchers keep their C interface, so a test calls them through ctypes on
 CPU tensors. The emulation checks what the kernels compute and where, not
@@ -84,6 +86,9 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
 inline float4 __ldg(const float4* p) { return *p; }
 inline float __ldcg(const float* p) { return *(volatile const float*)p; }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }

@@ -45,23 +45,54 @@ def _carry(rng, S, device):
     return [torch.from_numpy(p).to(device) for p in parts]
 
 
-def test_dsp_frames_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(7)
-    S, n_ticks = 37, 5
-    iir, tail, _, _ = _carry(rng, S, cuda)
+# (K, S) of each serve path: the per-tick step, the 200-tick steps replay,
+# the batched replay, and ragged session counts
+SERVE_SHAPES = [(1, 1), (200, 1), (25, 32768), (5, 37), (7, 3)]
+
+
+def _dsp_inputs(rng, n_ticks, S, device):
+    iir, tail, _, _ = _carry(rng, S, device)
     blocks = torch.from_numpy((rng.standard_normal(
-        (n_ticks, S, FACTOR, D)) * 2).astype(np.float32)).to(cuda)
-    sos = torch.from_numpy(butter_bandpass_sos(20, 450, 2000)).float().to(cuda)
-    mean, std = torch.zeros(D, device=cuda), torch.ones(D, device=cuda)
+        (n_ticks, S, FACTOR, D)) * 2).astype(np.float32)).to(device)
+    sos = torch.from_numpy(butter_bandpass_sos(20, 450, 2000)).float().to(
+        device)
+    mean = torch.from_numpy(rng.normal(0, 0.5, D).astype(np.float32))
+    std = torch.from_numpy(rng.uniform(0.5, 2.0, D).astype(np.float32))
+    return iir, tail, blocks, sos, mean.to(device), std.to(device)
+
+
+@pytest.mark.parametrize("n_ticks,S", SERVE_SHAPES)
+def test_dsp_frames_kernel_matches_plain(cuda, n_ticks, S):
+    rng = np.random.default_rng(7 + S)
+    args = _dsp_inputs(rng, n_ticks, S, cuda)
     before = K.launch_counts["dsp_frames"]
-    got = K.dsp_frames(iir, tail, blocks, sos, mean, std)
-    want = K.dsp_frames_reference(iir, tail, blocks, sos, mean, std)
+    got = K.dsp_frames(*args)
+    want = K.dsp_frames_reference(*args)
     torch.cuda.synchronize()
     assert K.launch_counts["dsp_frames"] == before + 1
     # the kernel repeats the plain version's operation order, each step
     # rounded, so the two agree bit for bit
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_dsp_frames_refuses_other_shapes_before_launch(cuda):
+    """The kernel is compiled for (n_sec, factor, rms_window, D) = (4, 20,
+    11, 12) and takes 16-byte aligned blocks: anything else raises before a
+    launch, never falls back to the plain version."""
+    rng = np.random.default_rng(3)
+    iir, tail, blocks, sos, mean, std = _dsp_inputs(rng, 2, 3, cuda)
+    before = K.launch_counts["dsp_frames"]
+    for bad in ((iir[:, :3].contiguous(), tail, blocks, sos[:3], mean, std),
+                (iir, tail, blocks[:, :, :10].contiguous(), sos, mean, std),
+                (iir, tail[:, :8].contiguous(), blocks, sos, mean, std)):
+        with pytest.raises(ValueError, match="compiled for"):
+            K.dsp_frames(*bad)
+    misaligned = torch.zeros(blocks.numel() + 1, device=cuda)[1:].view(
+        blocks.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.dsp_frames(iir, tail, misaligned, sos, mean, std)
+    assert K.launch_counts["dsp_frames"] == before
 
 
 def _encoder_chains(device, width, S):
@@ -153,18 +184,32 @@ def test_encoder_chain_rejects_bad_inputs(cuda):
     assert K.launch_counts["encoder_chain"] == before
 
 
-def test_vote_scan_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(8)
-    S, n_ticks = 300, 30
+@pytest.mark.parametrize("n_ticks,S", SERVE_SHAPES + [(30, 300)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_vote_scan_kernel_matches_plain(cuda, n_ticks, S, masked):
+    """Tied scores (a coarse grid), mid-warm-up carries, an all-class and a
+    one-class mask: preds, votes, window and n_seen exact, one launch, and
+    the masked scores bit for bit where asked."""
+    rng = np.random.default_rng(8 + S)
     _, _, votes, n_seen = _carry(rng, S, cuda)
-    scores = torch.from_numpy(rng.standard_normal(
-        (n_ticks, S, C)).astype(np.float32)).to(cuda)
-    masks = torch.from_numpy(rng.random((S, C)) < 0.6).to(cuda)
-    got = K.vote_scan(scores, masks, votes, n_seen)
-    want = K.vote_scan_reference(scores, masks, votes, n_seen)
+    scores = torch.from_numpy((rng.integers(-8, 9, (n_ticks, S, C)) / 8
+                               ).astype(np.float32)).to(cuda)
+    masks = rng.random((S, C)) < 0.6
+    masks[0] = True
+    if S > 1:
+        masks[1] = False
+        masks[1, 17] = True
+    masks = torch.from_numpy(masks).to(cuda)
+    before = K.launch_counts["vote_scan"]
+    got = K.vote_scan(scores, masks, votes, n_seen, masked=masked)
+    want = K.vote_scan_reference(scores, masks, votes, n_seen, masked=masked)
     torch.cuda.synchronize()
+    assert K.launch_counts["vote_scan"] == before + 1
+    assert len(got) == len(want) == 4 + masked
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if masked:
+        assert torch.equal(got[4].view(torch.int32), want[4].view(torch.int32))
 
 
 def test_wrappers_reject_bad_inputs(cuda):
