@@ -52,25 +52,31 @@ made with numpy from a seed:
    family; ``cptorch-train --synthetic`` on cuda, its checkpoint loaded
    back strictly;
 8. the fused training chain: K5f, K5b (``dense_block_fwd``/``_bwd``, 3xTF32
-   on the tensor cores) and K5m (``dropout_masks``) against their plain
-   versions at N=328 and a ragged 123 rows, 768 and 512 inputs, with
-   reruns that must give the same bits, the drawn masks against the
-   replayed ones, and the kernels' Philox against cuRAND's; K5f and K5b
-   and their plain versions against float64 on an inner block; device
+   on the tensor cores), the chain's tail pair (``chain_tail_fwd``/``_bwd``,
+   the top block's affine and dropout with the mask drawn in registers)
+   and K5m (``dropout_masks``, the replay, at F=512 and ragged widths)
+   against their plain versions at N=328 and a ragged 123 rows, 768 and
+   512 inputs, with reruns that must give the same bits, the drawn masks
+   against the replayed ones, and the kernels' Philox against cuRAND's
+   (the tail: h and dz bit for bit, its sums within one f32 ulp); K5f and
+   K5b and their plain versions against float64 on an inner block; device
    time per launch from a profiler trace of 50 bare calls, for both
    tilings of each kernel in the chain's three block forms, beside the
-   cuBLAS GEMMs of the same shapes; one ``Trainer(use_fused_train=True)``
-   step at dropout 0 against the eager one; ``train_loop`` on the fused
-   chain for 2 annealed epochs (test accuracy above 0.5, 7 K5f and 7 K5b
-   launches per step); eager and fused epochs timed in turns with CUDA
-   events; a profiler trace of 20 fused steps; ``cptorch-train
-   --fused_train on``.
+   cuBLAS GEMMs of the same shapes, and of the tail pair beside the tail
+   the chain ran before it (``dropout_masks`` and PyTorch's elementwise
+   ops) in turns; one ``Trainer(use_fused_train=True)`` step at dropout 0
+   against the eager one; ``train_loop`` on the fused chain for 2
+   annealed epochs (test accuracy above 0.5, 7 K5f, 7 K5b, one of each
+   tail kernel and no ``dropout_masks`` launch per step); eager and fused
+   epochs timed in turns with CUDA events; a profiler trace of 20 fused
+   steps (launches, the tail's device time, device time and idle share
+   per step); ``cptorch-train --fused_train on``.
 
 Launch counts are reset just before phases 3, 4, 7's and 8's
 ``train_loop`` and read just after each (phase 3's after its ``step``
 loop and after its ``steps`` call); every serve kernel must have
 launched on each of the three serve paths, each K1 kernel once per train
-step in 7 and 8, and the K5 kernels as the chain's depth says in 8. TF32
+step in 7 and 8, and the chain's kernels as its depth says in 8. TF32
 is off throughout
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set False), so the plain versions run
@@ -116,13 +122,21 @@ REPLACES = {
                        "(_fwd_block_call; body _fwd_block_kernel :183)",
     "dense_block_bwd": "contrastiveprosthetics_tpu/ops/train_fused.py:412 "
                        "(_bwd_block_call; body _bwd_block_kernel :239)",
+    "chain_tail_fwd": "contrastiveprosthetics_tpu/ops/train_fused.py:777 "
+                      "(K5m, extract_prng_masks: the last block's mask) and "
+                      ":760-762 (the XLA tail: _chain_fwd :593-600)",
+    "chain_tail_bwd": "contrastiveprosthetics_tpu/ops/train_fused.py:777 "
+                      "(K5m, the last block's mask redrawn) and :760-762 "
+                      "(the XLA tail: _chain_bwd :624-633)",
     "dropout_masks": "contrastiveprosthetics_tpu/ops/train_fused.py:777 "
                      "(extract_prng_masks; body _mask_kernel :771, "
                      "_draw_mask :146)",
 }
 SERVE_KERNELS = ("dsp_frames", "encoder_chain", "vote_scan")
 TRAIN_KERNELS = ("contrastive_loss_fwd", "contrastive_loss_bwd")
-FUSED_KERNELS = ("dense_block_fwd", "dense_block_bwd", "dropout_masks")
+FUSED_KERNELS = ("dense_block_fwd", "dense_block_bwd", "chain_tail_fwd",
+                 "chain_tail_bwd", "dropout_masks")
+TAIL_KERNELS = ("chain_tail_fwd", "chain_tail_bwd")
 SOURCES = {name: "contrastiveprosthetics_torch/csrc/" + (
     "contrastive_loss" if name in TRAIN_KERNELS else
     "train_fused" if name in FUSED_KERNELS else name) + ".cu"
@@ -137,12 +151,16 @@ DEVICE_FUNCTIONS = {"dsp_frames_kernel": "dsp_frames",
                     "contrastive_loss_bwd_kernel": "contrastive_loss_bwd",
                     "dense_block_fwd_kernel": "dense_block_fwd",
                     "dense_block_bwd_kernel": "dense_block_bwd",
+                    "chain_tail_fwd_kernel": "chain_tail_fwd",
+                    "chain_tail_bwd_kernel": "chain_tail_bwd",
                     "dropout_masks_kernel": "dropout_masks"}
 # kernel families of a train step, by (lower-case) name fragment, in the
 # order they are tried
 TRAIN_FAMILIES = (
     ("dense_block_fwd", ("dense_block_fwd",)),
     ("dense_block_bwd", ("dense_block_bwd",)),
+    ("chain_tail_fwd", ("chain_tail_fwd",)),
+    ("chain_tail_bwd", ("chain_tail_bwd",)),
     ("dropout_masks", ("dropout_masks",)),
     ("contrastive_loss_fwd", ("contrastive_loss_fwd",)),
     ("contrastive_loss_bwd", ("contrastive_loss_bwd",)),
@@ -180,10 +198,11 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms_per_call(fn, n: int = 50) -> float:
-    """Device milliseconds per call of ``fn`` from a profiler trace of
-    ``n`` bare calls (the sum of the CUDA kernels' intervals over ``n``):
-    the kernel's own time, without the wrapper's host work."""
+def device_per_call(fn, n: int = 50) -> tuple[float, float]:
+    """Device milliseconds and CUDA kernel launches per call of ``fn`` from
+    a profiler trace of ``n`` bare calls (the sum of the CUDA kernels'
+    intervals over ``n``): the kernels' own time, without the wrapper's
+    host work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -197,11 +216,15 @@ def device_ms_per_call(fn, n: int = 50) -> float:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / n
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if sum(spans) > 0:
+            return sum(spans) / 1e3 / n, len(spans) / n
     raise RuntimeError("the profiler recorded no device time in 3 traces")
+
+
+def device_ms_per_call(fn, n: int = 50) -> float:
+    return device_per_call(fn, n)[0]
 
 
 def bound_ms(n_bytes: float, flops: float,
@@ -950,21 +973,145 @@ def close(got, want, rtol: float, scale_atol: float) -> float:
     return max_abs(got, want)
 
 
+def within_one_ulp(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Raises unless each element of ``got`` lies within one f32 ulp of
+    ``want``; returns how many are not bit-equal."""
+    spacing = torch.nextafter(want.abs(), torch.full_like(
+        want, float("inf"))) - want.abs()
+    if not bool(((got - want).abs() <= spacing).all()):
+        raise AssertionError(f"more than one ulp off: max abs error "
+                             f"{max_abs(got, want)}")
+    return int((got != want).sum())
+
+
+def check_tail(TF, dev) -> dict:
+    """Phase 8, the chain's tail pair: ``chain_tail_fwd``/``_bwd`` against
+    their plain versions at N=328 and a ragged 123 rows (F=512, dropout
+    0.5 of block 6, the bits drawn or the replayed mask given): h and dz
+    bit for bit, the sums within one f32 ulp, reruns and the replayed
+    mask bit-identical. Device time per call from profiler traces, in
+    turns, of the pair and of the tail the chain ran before it (the
+    ``dropout_masks`` kernel, then the plain tail fed its mask). Returns
+    the two ``kernels`` entries, timed at N=328."""
+    F, block = 512, 6
+    keep = torch.full((1,), 0.5, device=dev)
+    errs = {name: {} for name in TAIL_KERNELS}
+    not_bit_equal = {}
+    for N in (328, 123):
+        x, _, _, stats, dh, seed = k5_case(N, F, F, N + 7, dev)
+        fed = dict(keep=keep, mask=TF.dropout_masks(seed, keep, N, F, block))
+        drawn = dict(seed=seed, keep=keep, drop_block=block)
+        outs = {}
+        for form, drop in (("drawn", drawn), ("mask", fed)):
+            got = (TF.chain_tail_fwd(x, stats, **drop),
+                   *TF.chain_tail_bwd(dh, x, stats, **drop))
+            again = (TF.chain_tail_fwd(x, stats, **drop),
+                     *TF.chain_tail_bwd(dh, x, stats, **drop))
+            want = (TF.chain_tail_fwd_reference(x, stats, **drop),
+                    *TF.chain_tail_bwd_reference(dh, x, stats, **drop))
+            torch.cuda.synchronize()
+            case = f"N={N} {form}"
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"h or dz not bit-equal to the plain "
+                                     f"version at {case}")
+            not_bit_equal[case] = within_one_ulp(got[2], want[2])
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"tail not bit-identical on a rerun at "
+                                     f"{case}")
+            errs["chain_tail_fwd"][case] = max_abs(got[0], want[0])
+            errs["chain_tail_bwd"][case] = max(max_abs(got[1], want[1]),
+                                               max_abs(got[2], want[2]))
+            outs[form] = got
+        if not all(torch.equal(a, b) for a, b in zip(*outs.values())):
+            raise AssertionError(f"drawn and replayed tail masks disagree at "
+                                 f"N={N}")
+    log(f"[kernels] chain tail ok at N=328 and 123, drawn and replayed "
+        f"masks: {json.dumps(errs)}; h and dz bit-equal, sums within one "
+        f"f32 ulp, columns not bit-equal {json.dumps(not_bit_equal)}; "
+        "reruns and replayed masks bit-identical")
+
+    N = 328
+    x, _, _, stats, dh, seed = k5_case(N, F, F, 1, dev)
+    drawn = dict(seed=seed, keep=keep, drop_block=block)
+    kernels = {
+        "chain_tail_fwd": lambda: TF.chain_tail_fwd(x, stats, **drawn),
+        "chain_tail_bwd": lambda: TF.chain_tail_bwd(dh, x, stats, **drawn)}
+    plain = {
+        "chain_tail_fwd": lambda: TF.chain_tail_fwd_reference(x, stats,
+                                                              **drawn),
+        "chain_tail_bwd": lambda: TF.chain_tail_bwd_reference(dh, x, stats,
+                                                              **drawn)}
+
+    def pair():
+        return kernels["chain_tail_fwd"](), kernels["chain_tail_bwd"]()
+
+    def before():  # the tail up to this slice: K5m's mask, then PyTorch ops
+        fed = dict(keep=keep, mask=TF.dropout_masks(seed, keep, N, F, block))
+        return (TF.chain_tail_fwd_reference(x, stats, **fed),
+                TF.chain_tail_bwd_reference(dh, x, stats, **fed))
+
+    turns = {"before": [], "pair": []}
+    launches = {}
+    for name in ("before", "pair", "pair", "before"):
+        ms, n = device_per_call(before if name == "before" else pair)
+        turns[name].append(ms)
+        launches[name] = n
+    h = kernels["chain_tail_fwd"]()
+    dz, sums = kernels["chain_tail_bwd"]()
+    small = nbytes(seed, keep)
+    # f32 work per element: the affine and the division; the division,
+    # xhat and its product (the f64 adds and Philox's integer work are
+    # below the byte time)
+    bounds = {"chain_tail_fwd": bound_ms(nbytes(x, h, stats[3:5]) + small,
+                                         3.0 * N * F),
+              "chain_tail_bwd": bound_ms(nbytes(dh, x, dz, sums, stats[0],
+                                                stats[2]) + small,
+                                         4.0 * N * F)}
+    comparison = dict(
+        pair_device_ms_in_turns=turns["pair"],
+        before_device_ms_in_turns=turns["before"],
+        launches_per_call=launches,
+        before_note=("the tail the chain ran before: the dropout_masks "
+                     "kernel, then the plain tail fed its mask"))
+    log(f"[kernels] chain tail device ms per call in turns (before, pair, "
+        f"pair, before): {json.dumps(comparison)}")
+    entries = {}
+    for name in TAIL_KERNELS:
+        bd, by = bounds[name]
+        entries[name] = dict(
+            route="cuda", max_abs_err=max(errs[name].values()),
+            max_abs_err_parts=errs[name],
+            tolerance=("h and dz bit for bit; sums within one f32 ulp (f64 "
+                       "sums in another order, each rounded once)"),
+            ms=time_ms(kernels[name], reps=200, warmup=5),
+            plain_ms=time_ms(plain[name], reps=20, warmup=2),
+            device_ms=device_ms_per_call(kernels[name]),
+            bound_ms=bd, bound_by=by, library_ms=None,
+            library_note=("no PyTorch call draws Philox bits at (seed, "
+                          "block, row, column)"),
+            shape=f"N={N} F={F}, dropout 0.5 of block {block}",
+            tail_comparison=comparison)
+    entries["chain_tail_bwd"]["sums_not_bit_equal"] = not_bit_equal
+    return entries
+
+
 def check_k5(TF, K, dev) -> dict:
     """Phase 8, kernels: K5f and K5b against their plain versions at N=328
     (bs 8 x 41 tasks) and a ragged N=123, block 0's form (768 inputs, no
     affine, no dropout) and an inner dropped block's (512 inputs, affine,
     drawn dropout at rate 0.5); reruns bit-identical; the drawn masks equal
     to ``dropout_masks``' replay fed back as input masks; K5m exact against
-    its plain version; the Philox against cuRAND's; K5f, K5b and their
-    plain versions against float64 on the inner block; both tilings timed
-    by device time in the chain's three block forms beside cuBLAS. Returns
-    the three ``kernels`` entries, timed at N=328 on the inner block, with
+    its plain version, ragged widths included; the Philox against cuRAND's;
+    K5f, K5b and their plain versions against float64 on the inner block;
+    both tilings timed by device time in the chain's three block forms
+    beside cuBLAS; then the tail pair (:func:`check_tail`). Returns the five
+    ``kernels`` entries, K5f and K5b timed at N=328 on the inner block, with
     ``bound_ms`` at three TF32 products per multiply-add and the f32 SIMT
     bound beside it."""
     F = 512
     keep = torch.full((1,), 0.5, device=dev)
-    errs = {name: {} for name in FUSED_KERNELS}
+    errs = {name: {} for name in FUSED_KERNELS if name not in TAIL_KERNELS}
     for N in (328, 123):
         for K_in, inner in ((768, False), (512, True)):
             x, w, (b, gamma, beta), in_stats, dz, seed = k5_case(
@@ -1011,6 +1158,12 @@ def check_k5(TF, K, dev) -> dict:
                                                            6)):
             raise AssertionError(f"dropout_masks disagrees at N={N}")
         errs["dropout_masks"][f"N={N}"] = 0.0
+    for width in (130, 37):  # a ragged quad; scalar stores
+        if not torch.equal(TF.dropout_masks(seed, keep, 123, width, 6),
+                           TF.dropout_masks_reference(seed, keep, 123, width,
+                                                      6)):
+            raise AssertionError(f"dropout_masks disagrees at F={width}")
+        errs["dropout_masks"][f"N=123 F={width}"] = 0.0
     rng = np.random.default_rng(9)
     ctr = torch.from_numpy(rng.integers(-2**31, 2**31, (4096, 4)).astype(
         np.int32)).to(dev)
@@ -1021,7 +1174,8 @@ def check_k5(TF, K, dev) -> dict:
         raise AssertionError("the kernels' Philox disagrees with cuRAND's")
     log(f"[kernels] K5f/K5b ok at N=328 and 123, K=768 and 512: "
         f"{json.dumps(errs)}; reruns and replayed masks bit-identical; "
-        "dropout_masks exact; Philox equals curand_Philox4x32_10 on 4096 "
+        "dropout_masks exact (F=512, 130, 37); Philox equals "
+        "curand_Philox4x32_10 on 4096 "
         "counters")
 
     N, K_in = 328, 512
@@ -1134,7 +1288,9 @@ def check_k5(TF, K, dev) -> dict:
                 ("dropout_masks",
                  lambda: TF.dropout_masks(seed, keep, N, F, 6),
                  lambda: TF.dropout_masks_reference(seed, keep, N, F, 6),
-                 mask_b, {}, "exact")):
+                 mask_b, dict(device_ms=device_ms_per_call(
+                     lambda: TF.dropout_masks(seed, keep, N, F, 6))),
+                 "exact")):
             if name in simt:
                 extra.update(
                     device_ms=device_ms_per_call(kernel),
@@ -1158,6 +1314,7 @@ def check_k5(TF, K, dev) -> dict:
                 shape=(f"N={N} K={K_in} F={F}, affine + dropout 0.5 on the "
                        "input" if name != "dropout_masks" else
                        f"N={N} F={F}"), **extra)
+    entries.update(check_tail(TF, dev))
     return entries
 
 
@@ -1245,7 +1402,8 @@ def fused_train_phase(K, eager) -> tuple[dict, dict]:
     n_steps = TRAIN_EPOCHS * steps_per_epoch
     want = {"dense_block_fwd": n_linear * n_steps,
             "dense_block_bwd": n_linear * n_steps,
-            "dropout_masks": n_steps, "contrastive_loss_fwd": n_steps,
+            "chain_tail_fwd": n_steps, "chain_tail_bwd": n_steps,
+            "dropout_masks": 0, "contrastive_loss_fwd": n_steps,
             "contrastive_loss_bwd": n_steps}
     if counts != want:
         raise AssertionError(f"fused launches {counts}, want {want}")
@@ -1284,9 +1442,26 @@ def fused_train_phase(K, eager) -> tuple[dict, dict]:
                          train_windows_per_s=[windows / m * 1e3 for m in ms])
               for name, ms in epoch_ms.items()}
     trace = trace_train_steps(fused, state, hyper, 20)
+    fam = trace["device_ms_by_family"]
+    per = trace["device_launches_per_step"]
+    step = dict(launches_per_step=sum(per.values()),
+                tail_device_ms_per_step=sum(fam.get(k, 0.0)
+                                            for k in TAIL_KERNELS),
+                tail_launches_per_step={k: per.get(k, 0.0)
+                                        for k in (*TAIL_KERNELS,
+                                                  "dropout_masks")},
+                device_ms_per_step=trace["device_ms_per_step"],
+                device_idle_share=trace["device_idle_share"])
+    tail_want = {"chain_tail_fwd": 1.0, "chain_tail_bwd": 1.0,
+                 "dropout_masks": 0.0}
+    if trace["device_ms_per_step"] and \
+            step["tail_launches_per_step"] != tail_want:
+        raise AssertionError(f"the traced fused step's tail launches "
+                             f"{step['tail_launches_per_step']}")
     log(f"[fused] epochs in turns (eager, fused, fused, eager): "
         f"{json.dumps(timing)}; profiler trace of 20 fused steps: "
         f"{json.dumps(trace)}")
+    log(f"[fused] per traced step: {json.dumps(step)}")
 
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--synthetic", "--crossval_size", "0", "--final_epochs", "1",
@@ -1308,7 +1483,7 @@ def fused_train_phase(K, eager) -> tuple[dict, dict]:
         val_acc=res.val_acc, test_loss=float(test.loss),
         test_acc=float(test.accuracy), launches=counts, steps=n_steps,
         launches_per_step={k: c / n_steps for k, c in counts.items()},
-        epochs_in_turns=timing, step_trace=trace)
+        epochs_in_turns=timing, step_trace=trace, traced_step=step)
     return fused_res, counts
 
 

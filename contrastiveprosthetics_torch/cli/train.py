@@ -76,7 +76,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.prediction or args.glove:
         raise SystemExit(NOT_PORTED.format(
-            what="--prediction/--glove training", item=3,
+            what="--prediction/--glove training", item=7,
             hint="only contrastive training with the one-hot class encoder "
                  "runs"))
     cache = os.path.join(args.data_dir,
@@ -84,7 +84,7 @@ def main(argv=None) -> int:
     if args.crossval_size >= 1 and not (args.crossval_load
                                         and os.path.exists(cache)):
         raise SystemExit(NOT_PORTED.format(
-            what="the crossval sweep", item=8,
+            what="the crossval sweep", item=1,
             hint="pass --crossval_size 0 (canonical hyperparameters) or "
                  "--crossval_load with a cached sweep"))
     device = select_device(args.platform)

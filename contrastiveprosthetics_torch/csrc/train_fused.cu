@@ -6,7 +6,8 @@
 //   train_fused.py:362; body _fwd_block_kernel :183), ::_bwd_block_call
 //   (K5b, :412; body _bwd_block_kernel :239) and ::extract_prng_masks (K5m,
 //   :777; body _mask_kernel :771 over _draw_mask :146), tied together by the
-//   custom VJP _chain (:526-666).
+//   custom VJP _chain (:526-666), whose last block's affine and dropout XLA
+//   ran (:593-600, backward :624-633; the oracle's :760-762).
 //
 // What they compute, for block i with input x (N, K), weights W (K, F):
 //   K5f: h = dropout(a_in x + c_in) (the previous block's BatchNorm affine
@@ -18,7 +19,12 @@
 //        and (S1, S2) = (sum dz, sum dz xhat); h recomputed as in K5f;
 //        dx = dropout^T(dy W^T); dW = h^T dy; db = sum dy; and, for the
 //        block below, the same two sums of dx against its own xhat.
-//   K5m: the {0,1} f32 dropout mask of one block.
+//   chain_tail_fwd: h_L = dropout(a r + c) of the top block (K5m's draw on
+//        the chain's path, applied where it is drawn);
+//   chain_tail_bwd: dz = dropout^T(dh) and the top BatchNorm's two sums
+//        (sum dz, sum dz xhat);
+//   K5m: the {0,1} f32 dropout mask of one block, a replay for explicit
+//        masks, tests and checks; no kernel of the chain stores a mask.
 //
 // What bounds them on an H100: at the train step's N = 328 rows and K = F
 // = 512, K5f does 2 x 328 x 512 x 512 = 0.17 GFLOP on 2.4 MB; in 3xTF32
@@ -85,6 +91,19 @@
 // so nothing is contracted into an fma: h and dy are exactly the plain
 // version's.
 //
+// The tail pair is bound by bytes: at N = 328, F = 512 the forward moves
+// x and h (1.34 MB, 0.40 us at 3.35 TB/s), the backward dh, r and dz (2.02
+// MB, 0.60 us), each below an empty launch (~0.83 us on an H100). So each
+// is one launch of 16-byte loads and stores with the mask drawn in
+// registers (one Philox call per 4 columns, drop4's bits and rounding);
+// the backward's column sums run one CTA per 8-column strip, rows split
+// over its threads, in f64, combined in a fixed order in shared memory: no
+// ticket, scratch or memset, where one CTA per row tile would need them.
+// What is left is latency (PERF.md): so the forward issues its loads
+// before it reads the seed words and keep, the backward's sums take two
+// stages of 512 threads rather than a tree of barriers, and the one-row
+// kernels take a flat grid rather than a loop over rows.
+//
 // Layouts: x, r, dz, dx (N, K or F) f32 row-major; W and dW (K, F) either
 // row-major or the transpose of a row-major (F, K) Linear weight, dW laid
 // out as W; K and F multiples of 4 and every array 16-byte aligned (the
@@ -93,6 +112,7 @@
 // scratch; tickets one uint32 per column strip, 0 at launch.
 #include <cuda_runtime.h>
 #include <curand_philox4x32_x.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "tf32_mma.cuh"
@@ -218,6 +238,14 @@ __device__ __forceinline__ float4 drop4(float4 v, const Drop& d, int n, int k,
 }
 
 // ------------------------------------------------ elementwise operands
+// a v + c, rounded as the plain version's mul then add
+__device__ __forceinline__ float4 affine4(float4 v, float4 a, float4 c) {
+  return make_float4(__fadd_rn(__fmul_rn(v.x, a.x), c.x),
+                     __fadd_rn(__fmul_rn(v.y, a.y), c.y),
+                     __fadd_rn(__fmul_rn(v.z, a.z), c.z),
+                     __fadd_rn(__fmul_rn(v.w, a.w), c.w));
+}
+
 // h = dropout(a x + c) at x[n, k .. k+3], 0 past the edges; a and c hold
 // the affine of columns k_base.., or a is null (no affine)
 __device__ __forceinline__ float4 block_input4(float4 v, int n, int k, int N,
@@ -225,14 +253,9 @@ __device__ __forceinline__ float4 block_input4(float4 v, int n, int k, int N,
                                                const float* c, int k_base,
                                                const Drop& d) {
   if (n >= N || k >= K) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (a) {
-    const float4 av = *reinterpret_cast<const float4*>(a + k - k_base);
-    const float4 cv = *reinterpret_cast<const float4*>(c + k - k_base);
-    v.x = __fadd_rn(__fmul_rn(v.x, av.x), cv.x);
-    v.y = __fadd_rn(__fmul_rn(v.y, av.y), cv.y);
-    v.z = __fadd_rn(__fmul_rn(v.z, av.z), cv.z);
-    v.w = __fadd_rn(__fmul_rn(v.w, av.w), cv.w);
-  }
+  if (a)
+    v = affine4(v, *reinterpret_cast<const float4*>(a + k - k_base),
+                *reinterpret_cast<const float4*>(c + k - k_base));
   return drop4(v, d, n, k, K);
 }
 
@@ -929,22 +952,131 @@ __global__ void __launch_bounds__(GD::kThreads)
     wgrad_tile<GW, WROW>(p, blockIdx.x - p.n_dgrad);
 }
 
-// ---------------------------------------------------------------- K5m
-__global__ void dropout_masks_kernel(const int* __restrict__ seed,
-                                     const float* __restrict__ keep,
-                                     float* __restrict__ out, int N, int F,
-                                     int block) {
-  const int groups = (F + 3) / 4;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)N * groups) return;
-  const int n = (int)(i / groups), g = (int)(i % groups);
-  const unsigned thr = keep_threshold(*keep);
-  const uint4 bits =
-      mask_bits(make_uint2((unsigned)seed[0], (unsigned)seed[1]), block, n, g);
+// ------------------------------------------------ the chain's tail, K5m
+// One thread per (row, 4-column group), kRowThreads groups per CTA; the
+// CTAs of a row are consecutive in a 1-D grid.
+constexpr int kRowThreads = 128;
+
+__device__ __forceinline__ int row_ctas(int F) {
+  return ((F + 3) / 4 + kRowThreads - 1) / kRowThreads;
+}
+
+// h = dropout(a x + c) of the top block's output (a, c its stats rows 3
+// and 4), the mask drawn in registers: one 16-byte load and store and one
+// Philox call per 4 columns, F % 4 == 0. The row's loads are issued before
+// the seed words and keep are read, so that one round trip to memory
+// serves both (read_drop's first use of keep would otherwise hold them).
+__global__ void __launch_bounds__(kRowThreads)
+    chain_tail_fwd_kernel(const float* __restrict__ x,
+                          const float* __restrict__ stats, const Dropout d,
+                          float* __restrict__ h, int F) {
+  const int per_row = row_ctas(F);
+  const int n = blockIdx.x / per_row;
+  const int k = ((blockIdx.x % per_row) * kRowThreads + threadIdx.x) * 4;
+  if (k >= F) return;
+  const int e = n * F + k;
+  const float4 v = __ldg(reinterpret_cast<const float4*>(x + e));
+  const float4 a = __ldg(reinterpret_cast<const float4*>(stats + 3 * F + k));
+  const float4 c = __ldg(reinterpret_cast<const float4*>(stats + 4 * F + k));
+  const Drop drop = read_drop(d);
+  *reinterpret_cast<float4*>(h + e) = drop4(affine4(v, a, c), drop, n, k, F);
+}
+
+// dz = dropout^T(dh) with the same bits, and the top BatchNorm's two
+// backward sums (sum dz, sum dz xhat), xhat = (r - mean) rstd. One CTA per
+// strip of 8 columns (2 quads); thread (slot, quad) walks rows slot, slot
+// + 256, ... in f64. The CTA's 256 partials per sum are then added in a
+// fixed order in two stages (32 of 8 slots each, then those 32) and
+// rounded to f32 once. No atomics: a rerun gives the same bits.
+constexpr int kTailThreads = 512, kTailCols = 8;
+constexpr int kTailQuads = kTailCols / 4;
+constexpr int kTailSlots = kTailThreads / kTailQuads;  // row slots
+constexpr int kTailGroups = kTailThreads / (8 * kTailQuads);  // stage one
+static_assert(kTailSlots % kTailGroups == 0,
+              "stage one adds kTailSlots / kTailGroups slots a thread");
+
+__global__ void __launch_bounds__(kTailThreads)
+    chain_tail_bwd_kernel(const float* __restrict__ dh,
+                          const float* __restrict__ r,
+                          const float* __restrict__ stats, const Dropout d,
+                          float* __restrict__ dz, float* __restrict__ sums,
+                          int N, int F) {
+  // [sum][slot * kTailQuads + quad], then [group][sum * kTailQuads + quad]
+  __shared__ double part[8][kTailThreads];
+  __shared__ double group_part[kTailGroups][8 * kTailQuads];
+  const int tid = threadIdx.x;
+  const int quad = tid % kTailQuads, slot = tid / kTailQuads;
+  const int k0 = blockIdx.x * kTailCols, k = k0 + quad * 4;
+  double acc[8] = {};  // sum dz, then sum dz xhat, of columns k .. k+3
+  if (k < F) {
+    const float4 mean = __ldg(reinterpret_cast<const float4*>(stats + k));
+    const float4 rstd =
+        __ldg(reinterpret_cast<const float4*>(stats + 2 * F + k));
+    const Drop drop = read_drop(d);  // once: it holds the first use of keep
+    const float ms[4] = {mean.x, mean.y, mean.z, mean.w};
+    const float ds[4] = {rstd.x, rstd.y, rstd.z, rstd.w};
+    for (int n = slot; n < N; n += kTailSlots) {
+      const int e = n * F + k;
+      const float4 g = drop4(__ldg(reinterpret_cast<const float4*>(dh + e)),
+                             drop, n, k, F);
+      const float4 rv = __ldg(reinterpret_cast<const float4*>(r + e));
+      *reinterpret_cast<float4*>(dz + e) = g;
+      const float gs[4] = {g.x, g.y, g.z, g.w};
+      const float rs[4] = {rv.x, rv.y, rv.z, rv.w};
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int f = g * 4 + j;
-    if (f < F) out[(size_t)n * F + f] = word(bits, j) <= thr ? 1.0f : 0.0f;
+      for (int j = 0; j < 4; ++j) {
+        const float xn = __fmul_rn(__fsub_rn(rs[j], ms[j]), ds[j]);
+        acc[j] += (double)gs[j];
+        acc[4 + j] += (double)__fmul_rn(gs[j], xn);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) part[j][tid] = acc[j];
+  __syncthreads();
+  {  // stage one: thread (sum j, lane) adds slots g, g + kTailGroups, ...
+    constexpr int kLanes = kTailGroups * kTailQuads;
+    const int j = tid / kLanes, lane = tid % kLanes;
+    double s = 0.0;
+#pragma unroll
+    for (int m = 0; m < kTailSlots / kTailGroups; ++m)
+      s += part[j][lane + m * kLanes];
+    group_part[lane / kTailQuads][j * kTailQuads + lane % kTailQuads] = s;
+  }
+  __syncthreads();
+  if (tid < 8 * kTailQuads) {  // stage two: the groups in order
+    const int j = tid / kTailQuads, col = k0 + (tid % kTailQuads) * 4 + j % 4;
+    double s = 0.0;
+#pragma unroll
+    for (int g = 0; g < kTailGroups; ++g) s += group_part[g][tid];
+    if (col < F) sums[(j / 4) * F + col] = (float)s;
+  }
+}
+
+// K5m: block `block`'s {0,1} mask, for replay (mask_mode "input", tests and
+// checks); VEC: F % 4 == 0 and 16-byte stores, else scalar stores
+template <bool VEC>
+__global__ void __launch_bounds__(kRowThreads)
+    dropout_masks_kernel(const int* __restrict__ seed,
+                         const float* __restrict__ keep,
+                         float* __restrict__ out, int F, int block) {
+  const int per_row = row_ctas(F);
+  const int n = blockIdx.x / per_row;
+  const int g = (blockIdx.x % per_row) * kRowThreads + threadIdx.x;
+  if (g * 4 >= F) return;
+  const unsigned thr = keep_threshold(*keep);
+  const uint4 bits = mask_bits(
+      make_uint2((unsigned)seed[0], (unsigned)seed[1]), block, n, g);
+  float m[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) m[j] = word(bits, j) <= thr ? 1.0f : 0.0f;
+  float* at = out + n * F + g * 4;
+  if constexpr (VEC) {
+    *reinterpret_cast<float4*>(at) = make_float4(m[0], m[1], m[2], m[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (g * 4 + j < F) at[j] = m[j];
   }
 }
 
@@ -1033,6 +1165,12 @@ int launch_bwd(BwdArgs a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Rows of an (N, F) array the kernels index in 32 bits: N * F < 2^31.
+bool too_large(int N, int F) { return (long long)N * F > INT_MAX; }
+
+// One thread per (row, 4-column group): the CTAs of the N rows.
+int row_grid(int N, int F) { return N * cdiv(cdiv(F, 4), kRowThreads); }
+
 }  // namespace
 
 // `tiling` 0 or 1 picks FwdTile0 or FwdTile1.
@@ -1089,15 +1227,50 @@ extern "C" int dense_block_bwd_launch(
   }
 }
 
+// h = dropout(a x + c) of the top block: x (N, F), stats (5, F), the
+// dropout of block `drop_block`'s output (seed and keep, or mask and keep).
+extern "C" int chain_tail_fwd_launch(const float* x, const float* stats,
+                                     const int* seed, const float* keep,
+                                     const float* mask, float* h, int N,
+                                     int F, int drop_block, void* stream) {
+  if (N < 1 || F < 1 || F % 4 || too_large(N, F) ||
+      bad_dropout(seed, keep, mask) || misaligned(x) || misaligned(stats) ||
+      misaligned(mask) || misaligned(h))
+    return (int)cudaErrorInvalidValue;
+  chain_tail_fwd_kernel<<<row_grid(N, F), kRowThreads, 0,
+                          (cudaStream_t)stream>>>(
+      x, stats, Dropout{seed, keep, mask, drop_block}, h, F);
+  return (int)cudaGetLastError();
+}
+
+// dz (N, F) and sums (2, F) from dh (N, F), the top block's r (N, F) and
+// stats (5, F), with the forward's dropout.
+extern "C" int chain_tail_bwd_launch(const float* dh, const float* r,
+                                     const float* stats, const int* seed,
+                                     const float* keep, const float* mask,
+                                     float* dz, float* sums, int N, int F,
+                                     int drop_block, void* stream) {
+  if (N < 1 || F < 1 || F % 4 || too_large(N, F) ||
+      bad_dropout(seed, keep, mask) || misaligned(dh) || misaligned(r) ||
+      misaligned(stats) || misaligned(mask) || misaligned(dz))
+    return (int)cudaErrorInvalidValue;
+  chain_tail_bwd_kernel<<<cdiv(F, kTailCols), kTailThreads, 0,
+                          (cudaStream_t)stream>>>(
+      dh, r, stats, Dropout{seed, keep, mask, drop_block}, dz, sums, N, F);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int dropout_masks_launch(const int* seed, const float* keep,
                                     float* out, int N, int F, int block,
                                     void* stream) {
-  if (N < 1 || F < 1) return (int)cudaErrorInvalidValue;
-  const long long threads = (long long)N * ((F + 3) / 4);
-  const int per_block = 256;
-  dropout_masks_kernel<<<(unsigned)((threads + per_block - 1) / per_block),
-                         per_block, 0, (cudaStream_t)stream>>>(seed, keep, out,
-                                                               N, F, block);
+  if (N < 1 || F < 1 || too_large(N, F)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (F % 4 == 0 && !misaligned(out))
+    dropout_masks_kernel<true><<<row_grid(N, F), kRowThreads, 0, s>>>(
+        seed, keep, out, F, block);
+  else
+    dropout_masks_kernel<false><<<row_grid(N, F), kRowThreads, 0, s>>>(
+        seed, keep, out, F, block);
   return (int)cudaGetLastError();
 }
 

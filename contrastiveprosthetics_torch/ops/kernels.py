@@ -18,8 +18,9 @@ Hopper (``csrc/``):
 * ``vote_scan``: masked first-max prediction and the majority vote,
   parallel over (tick, session), and the masked scores where asked.
 
-The fused training chain's K5 kernels (``ops/train_fused.py``) launch
-through the same table and count here too.
+The fused training chain's kernels (``ops/train_fused.py``: K5f, K5b,
+the chain's tail pair and K5m) launch through the same table and count
+here too.
 
 The train step's K1 pair (``pallas_ops.py:185,213``) is
 :func:`fused_contrastive_loss`, a ``torch.autograd.Function`` whose forward
@@ -53,6 +54,7 @@ NEG = torch.finfo(torch.float32).min  # the mask value of stream.py:268
 launch_counts = {"dsp_frames": 0, "encoder_chain": 0, "vote_scan": 0,
                  "contrastive_loss_fwd": 0, "contrastive_loss_bwd": 0,
                  "dense_block_fwd": 0, "dense_block_bwd": 0,
+                 "chain_tail_fwd": 0, "chain_tail_bwd": 0,
                  "dropout_masks": 0}
 
 
@@ -178,6 +180,8 @@ _SIGNATURES = {
                              5, 4, False),
     "dense_block_fwd": ("train_fused", "dense_block_fwd_launch", 13, 7, True),
     "dense_block_bwd": ("train_fused", "dense_block_bwd_launch", 16, 7, False),
+    "chain_tail_fwd": ("train_fused", "chain_tail_fwd_launch", 6, 3, False),
+    "chain_tail_bwd": ("train_fused", "chain_tail_bwd_launch", 8, 3, False),
     "dropout_masks": ("train_fused", "dropout_masks_launch", 3, 3, False),
     "philox_check": ("train_fused", "philox_check_launch", 4, 1, False),
 }

@@ -15,9 +15,13 @@ input. On CUDA each block is one kernel forward and one backward
   BatchNorm statistics of the output finished in the same launch;
 * ``dense_block_bwd`` (K5b): the BatchNorm backward, dgrad, wgrad, db and
   the lower block's two BatchNorm-backward sums, one launch;
-* ``dropout_masks`` (K5m): one block's {0,1} dropout mask. The chain draws
-  the last block's mask with it (its consumer, the head GEMM, is outside
-  the kernels); K5f and K5b draw every other mask where they apply it.
+* ``chain_tail_fwd`` and ``chain_tail_bwd``: the top block's BatchNorm
+  affine and dropout, h_L = dropout(a r + c), one launch; and in the
+  backward dz = dropout^T(dh) with the top BatchNorm's two backward sums,
+  one launch. Their consumer, the head GEMM, is outside the kernels;
+* ``dropout_masks`` (K5m): one block's {0,1} dropout mask, a replay for
+  ``mask_mode="input"``, the tests and the card checks. No kernel of the
+  chain stores a mask: each draws its bits where it applies them.
 
 The kernels' GEMMs run in 3xTF32 on the tensor cores with their own
 rounding instructions, whatever ``torch.backends.cuda.matmul.allow_tf32``
@@ -64,7 +68,7 @@ DGRAD_TILES = ((32, 64), (32, 32))
 FWD_TILING, BWD_TILING = 0, 0
 MOMENTUM = 0.9  # flax's BatchNorm momentum (layers.update_running)
 F32_ONLY = ("the fused training chain runs in float32 only; a bf16 compute "
-            "dtype is ROADMAP.md queue 1 item 15")
+            "dtype is ROADMAP.md queue 1 item 9")
 
 
 def keep_threshold(keep) -> torch.Tensor:
@@ -128,8 +132,10 @@ def dropout_masks_reference(seed, keep, n_rows: int, width: int,
 
 def dropout_masks(seed, keep, n_rows: int, width: int,
                   block: int) -> torch.Tensor:
-    """The ``dropout_masks`` kernel (K5m): ``seed`` (2,) int32 and ``keep``
-    (1,) f32, both read on the device."""
+    """The ``dropout_masks`` kernel (K5m): block ``block``'s mask replayed,
+    one Philox call and one 16-byte store per 4 columns (scalar stores
+    where the width is not a multiple of 4). ``seed`` (2,) int32 and
+    ``keep`` (1,) f32, both read on the device. Off the chain's path."""
     if seed.device.type == "cpu":
         return dropout_masks_reference(seed, keep, n_rows, width, block)
     dev = seed.device
@@ -168,16 +174,24 @@ def _col_sum(t: torch.Tensor) -> torch.Tensor:
     return t.sum(0, dtype=torch.float64).to(torch.float32)
 
 
+def _kept(shape, seed, keep, mask, drop_block):
+    """The kept elements of block ``drop_block``'s dropout: ``mask > 0``,
+    or the bits drawn from ``seed``; None without dropout."""
+    if keep is None:
+        return None
+    if mask is None:
+        mask = dropout_masks_reference(seed, keep, *shape, drop_block)
+    return mask > 0
+
+
 def _block_input(x, in_stats, seed, keep, mask, drop_block):
     """h = dropout(a x + c): the previous block's BatchNorm affine
     (``in_stats`` rows 3, 4) and dropout, as the kernels apply them on
     load. Returns h and the kept elements (None without dropout)."""
     z = x if in_stats is None else x * in_stats[3] + in_stats[4]
-    if keep is None:
+    kept = _kept(x.shape, seed, keep, mask, drop_block)
+    if kept is None:
         return z, None
-    if mask is None:
-        mask = dropout_masks_reference(seed, keep, *x.shape, drop_block)
-    kept = mask > 0
     return torch.where(kept, z / keep, 0.0), kept
 
 
@@ -364,6 +378,83 @@ def dense_block_bwd(dz, r, x, w, stats, sums, in_stats=None, *, seed=None,
     return dx, dw, db, out_sums
 
 
+# ------------------------------------------------------- the chain's tail
+def chain_tail_fwd_reference(x, stats, *, seed=None, keep=None, mask=None,
+                             drop_block: int = -1):
+    """Plain version of ``chain_tail_fwd`` (the JAX chain's XLA tail,
+    ``train_fused.py:593-600``): the top block's ReLU output ``x`` (N, F)
+    through its BatchNorm affine (``stats`` rows 3, 4) and the dropout of
+    block ``drop_block``'s output, ``h = where(kept, (a x + c) / keep,
+    0)``."""
+    return _block_input(x, stats, seed, keep, mask, drop_block)[0]
+
+
+def chain_tail_bwd_reference(dh, r, stats, *, seed=None, keep=None,
+                             mask=None, drop_block: int = -1):
+    """Plain version of ``chain_tail_bwd`` (``train_fused.py:624-633``):
+    ``dz = where(kept, dh / keep, 0)`` with the forward's dropout, and the
+    top BatchNorm's two backward sums ``(sum dz, sum dz xhat)``, xhat =
+    (r - mean) rstd from ``stats`` rows 0 and 2. Returns dz (N, F) and
+    sums (2, F)."""
+    kept = _kept(dh.shape, seed, keep, mask, drop_block)
+    dz = dh if kept is None else torch.where(kept, dh / keep, 0.0)
+    xn = (r - stats[0]) * stats[2]
+    return dz, torch.stack([_col_sum(dz), _col_sum(dz * xn)])
+
+
+def _check_tail(stats, seed, keep, mask, **arrays):
+    """What the tail kernels take: ``arrays`` (N, F) f32 with F % 4 == 0,
+    (5, F) statistics, 16-byte aligned arrays. Returns (N, F)."""
+    name, t = next(iter(arrays.items()))
+    if t.dim() != 2:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want (N, F)")
+    N, F = t.shape
+    dev = t.device
+    for name, a in arrays.items():
+        K._expect(name, a, (N, F), torch.float32, dev)
+    K._expect("stats", stats, (5, F), torch.float32, dev)
+    _check_dropout(seed, keep, mask, (N, F), dev)
+    if F % 4:
+        raise ValueError(f"width {F}: the tail kernels take multiples of 4")
+    for a in (*arrays.values(), stats, mask):
+        if a is not None and a.data_ptr() % 16:
+            raise ValueError("an input is not 16-byte aligned")
+    return N, F
+
+
+def chain_tail_fwd(x, stats, *, seed=None, keep=None, mask=None,
+                   drop_block: int = -1):
+    """The ``chain_tail_fwd`` kernel: h in one pass, the mask drawn in
+    registers and never stored; see :func:`chain_tail_fwd_reference`."""
+    if x.device.type == "cpu":
+        return chain_tail_fwd_reference(x, stats, seed=seed, keep=keep,
+                                        mask=mask, drop_block=drop_block)
+    N, F = _check_tail(stats, seed, keep, mask, x=x)
+    h = torch.empty_like(x)
+    K._launch("chain_tail_fwd", "chain_tail_fwd", K._ptr(x), K._ptr(stats),
+              K._ptr(seed), K._ptr(keep), K._ptr(mask), K._ptr(h), N, F,
+              drop_block, K._stream(x.device))
+    return h
+
+
+def chain_tail_bwd(dh, r, stats, *, seed=None, keep=None, mask=None,
+                   drop_block: int = -1):
+    """The ``chain_tail_bwd`` kernel: dz and the two sums in one launch, the
+    forward's bits redrawn, the sums taken in f64 in a fixed order and
+    rounded once; see :func:`chain_tail_bwd_reference`."""
+    if dh.device.type == "cpu":
+        return chain_tail_bwd_reference(dh, r, stats, seed=seed, keep=keep,
+                                        mask=mask, drop_block=drop_block)
+    N, F = _check_tail(stats, seed, keep, mask, dh=dh, r=r)
+    dz = torch.empty_like(dh)
+    sums = torch.empty((2, F), dtype=torch.float32, device=dh.device)
+    K._launch("chain_tail_bwd", "chain_tail_bwd", K._ptr(dh), K._ptr(r),
+              K._ptr(stats), K._ptr(seed), K._ptr(keep), K._ptr(mask),
+              K._ptr(dz), K._ptr(sums), N, F, drop_block,
+              K._stream(dh.device))
+    return dz, sums
+
+
 # --------------------------------------------------------------- the chain
 @dataclasses.dataclass(frozen=True)
 class _Chain:
@@ -374,7 +465,7 @@ class _Chain:
 
     def dropout(self, block: int, seed, keep, masks) -> dict:
         """Keyword arguments of dropout on block ``block``'s input (the
-        output of block - 1), or none."""
+        output of block - 1; block L's is the tail's), or none."""
         if block < 1 or block - 1 < self.dropout_from:
             return {}
         if self.mask_mode == "input":
@@ -396,17 +487,11 @@ class _FusedDenseChain(torch.autograd.Function):
             rs.append(r)
             stats.append(st)
             x, in_stats = r, st
-        h = x * in_stats[3] + in_stats[4]
-        last_mask = None
-        if L - 1 >= chain.dropout_from:
-            last_mask = (masks[-1] if chain.mask_mode == "input" else
-                         dropout_masks(seed, keep, *x.shape, L - 1))
-            h = torch.where(last_mask > 0, h / keep, 0.0)
+        h = chain_tail_fwd(x, in_stats, **chain.dropout(L, seed, keep, masks))
         means = torch.stack([s[0] for s in stats])
         variances = torch.stack([s[1] for s in stats])
         ctx.chain = chain
-        ctx.save_for_backward(x0, seed, keep, last_mask, *ws, *rs, *stats,
-                              *masks)
+        ctx.save_for_backward(x0, seed, keep, *ws, *rs, *stats, *masks)
         ctx.mark_non_differentiable(means, variances)
         return h, means, variances
 
@@ -414,15 +499,12 @@ class _FusedDenseChain(torch.autograd.Function):
     def backward(ctx, dh, _dmeans, _dvariances):
         chain = ctx.chain
         L = chain.n_linear
-        x0, seed, keep, last_mask, *rest = ctx.saved_tensors
+        x0, seed, keep, *rest = ctx.saved_tensors
         ws, rs, stats = rest[:L], rest[L:2 * L], rest[2 * L:3 * L]
         masks = tuple(rest[3 * L:])
         # the last dropout and the top BatchNorm's two backward sums
-        dz = dh.contiguous()
-        if last_mask is not None:
-            dz = torch.where(last_mask > 0, dz / keep, 0.0)
-        xn = (rs[-1] - stats[-1][0]) * stats[-1][2]
-        sums = torch.stack([_col_sum(dz), _col_sum(dz * xn)])
+        dz, sums = chain_tail_bwd(dh.contiguous(), rs[-1], stats[-1],
+                                  **chain.dropout(L, seed, keep, masks))
         dws, dbs, dgammas, dbetas = ([None] * L for _ in range(4))
         for i in range(L - 1, -1, -1):
             dbetas[i], dgammas[i] = sums[0], sums[1]

@@ -604,3 +604,122 @@ def test_train_fused_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="tiling"):
         TF.dense_block_bwd(dz, r, x, w, stats, sums, tiling=9)
     assert K.launch_counts == before
+
+
+# ------------------------------------------------------- the chain's tail
+def _within_one_ulp(got, want):
+    spacing = torch.nextafter(want.abs(), torch.full_like(
+        want, float("inf"))) - want.abs()
+    assert bool(((got - want).abs() <= spacing).all())
+
+
+@pytest.mark.parametrize("form", ["drawn", "mask"])
+@pytest.mark.parametrize("N", [328, 123, 5])
+def test_chain_tail_kernels_match_plain(cuda, N, form):
+    """``chain_tail_fwd``/``_bwd`` against their plain versions at the
+    chain's width, the step's 328 rows and ragged 123 and 5, dropout 0.5 of
+    block 6 drawn or given as the replayed mask: h and dz bit for bit, the
+    sums (f64 in another order, rounded once) within one f32 ulp; one
+    launch each; a rerun and the replayed mask give the same bits."""
+    r, _, _, stats, dh, seed = _block_case(N, 512, seed=N)
+    keep = torch.full((1,), 0.5, device=cuda)
+    drawn = dict(seed=seed, keep=keep, drop_block=6)
+    fed = dict(keep=keep, mask=TF.dropout_masks(seed, keep, N, 512, 6))
+    drop = drawn if form == "drawn" else fed
+    before = dict(K.launch_counts)
+    h = TF.chain_tail_fwd(r, stats, **drop)
+    dz, sums = TF.chain_tail_bwd(dh, r, stats, **drop)
+    torch.cuda.synchronize()
+    assert K.launch_counts["chain_tail_fwd"] == before["chain_tail_fwd"] + 1
+    assert K.launch_counts["chain_tail_bwd"] == before["chain_tail_bwd"] + 1
+    assert torch.equal(h, TF.chain_tail_fwd_reference(r, stats, **drop))
+    dz_p, sums_p = TF.chain_tail_bwd_reference(dh, r, stats, **drop)
+    assert torch.equal(dz, dz_p)
+    _within_one_ulp(sums, sums_p)
+    for other in (drop, fed if form == "drawn" else drawn):
+        assert torch.equal(TF.chain_tail_fwd(r, stats, **other), h)
+        dz2, sums2 = TF.chain_tail_bwd(dh, r, stats, **other)
+        assert torch.equal(dz2, dz) and torch.equal(sums2, sums)
+
+
+def test_fused_chain_tail_kernels_give_the_plain_tails_gradients(
+        cuda, monkeypatch):
+    """The chain at full width and depth with the tail kernels, and with
+    the plain tail fed the same seeds: the same forward bits, and the same
+    gradients up to the one f32 ulp the tail's sums may differ by."""
+    rng = np.random.default_rng(8)
+    L, N, F = 7, 328, 512
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    x0 = t(rng.standard_normal((N, 768))).requires_grad_()
+    params = ([t(rng.uniform(-1, 1, (768 if i == 0 else F, F))
+                 / np.sqrt(768 if i == 0 else F)) for i in range(L)]
+              + [t(rng.normal(0, 0.1, F)) for _ in range(L)]
+              + [t(rng.uniform(0.8, 1.2, F)) for _ in range(L)]
+              + [t(rng.normal(0, 0.1, F)) for _ in range(L)])
+    for p in params:
+        p.requires_grad_()
+    seed = torch.tensor([5, -9], dtype=torch.int32, device=cuda)
+    outs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(TF, "chain_tail_fwd",
+                                TF.chain_tail_fwd_reference)
+            monkeypatch.setattr(TF, "chain_tail_bwd",
+                                TF.chain_tail_bwd_reference)
+        before = dict(K.launch_counts)
+        h, m, v = TF.fused_dense_chain(x0, params[:L], params[L:2 * L],
+                                       params[2 * L:3 * L], params[3 * L:],
+                                       seed, 0.5)
+        grads = torch.autograd.grad((h * h).sum(), [x0, *params])
+        torch.cuda.synchronize()
+        tail = [K.launch_counts[k] - before[k]
+                for k in ("chain_tail_fwd", "chain_tail_bwd")]
+        assert tail == ([0, 0] if plain else [1, 1])
+        assert K.launch_counts["dropout_masks"] == before["dropout_masks"]
+        outs.append(((h, m, v), grads))
+    for a, b in zip(outs[0][0], outs[1][0]):
+        assert torch.equal(a, b)
+    for a, b in zip(outs[0][1], outs[1][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("F", [512, 130, 37, 6])
+def test_dropout_masks_kernel_at_the_chain_and_ragged_widths(cuda, F):
+    """The replay kernel's 16-byte stores (F % 4 == 0) and scalar stores
+    (otherwise) give its plain version's bits."""
+    seed = torch.tensor([2024, -31], dtype=torch.int32, device=cuda)
+    for N in (328, 123):
+        kt = torch.full((1,), 0.7, device=cuda)
+        assert torch.equal(TF.dropout_masks(seed, kt, N, F, 5),
+                           TF.dropout_masks_reference(seed, kt, N, F, 5))
+
+
+def test_chain_tail_wrappers_reject_bad_inputs(cuda):
+    """The tail wrappers raise on a width that is not a multiple of 4, a
+    wrong dtype, device or layout, and dropout with neither seed nor mask,
+    and launch nothing."""
+    r, _, _, stats, dh, seed = _block_case(40, 512)
+    keep = torch.full((1,), 0.5, device=cuda)
+    kw = dict(seed=seed, keep=keep, drop_block=6)
+    before = dict(K.launch_counts)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        TF.chain_tail_fwd(r[:, :510].contiguous(), stats[:, :510]
+                          .contiguous(), **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        TF.chain_tail_fwd(r.double(), stats, **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        TF.chain_tail_fwd(r, stats.cpu(), **kw)
+    with pytest.raises(ValueError, match="seed or a mask"):
+        TF.chain_tail_fwd(r, stats, keep=keep)
+    with pytest.raises(ValueError, match="contiguous"):
+        TF.chain_tail_bwd(dh.T.contiguous().T, r, stats, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        TF.chain_tail_bwd(dh, r[:20].contiguous(), stats, **kw)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TF.chain_tail_bwd(dh, torch.empty(r.numel() + 1, device=cuda)[1:]
+                          .view(r.shape), stats, **kw)
+    assert K.launch_counts == before
