@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: the streaming serve path,
-contrastive training, and training on the fused chain.
+contrastive training, training on the fused chain, and the crossval
+sweep.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
@@ -70,20 +71,37 @@ made with numpy from a seed:
    tail kernel and no ``dropout_masks`` launch per step); eager and fused
    epochs timed in turns with CUDA events; a profiler trace of 20 fused
    steps (launches, the tail's device time, device time and idle share
-   per step); ``cptorch-train --fused_train on``.
+   per step); ``cptorch-train --fused_train on``;
+9. the crossval sweep on phase 7's store (bs 8, plain BatchNorm, full
+   width): one stacked step of 3 configs at dropout 0 with the K1 kernels
+   against the same step with the plain loss, in float64 against 3
+   single-config eager steps in float64 from the unstacked weights, in
+   f32 against the f32 single steps' losses, then 5 steps in a row both
+   ways, in f32 and in float64;
+   ``cross_validate`` of ``scripts/go.sh``'s 150 configs for 1 epoch,
+   timed by CUDA events and the host clock (configs/s, windows/s), best
+   val accuracy above 0.1, its ``.npy`` files read back; profiler traces
+   of 10 stacked steps (the last a tail step) at C=2 and C=150: device
+   time by family, idle share, launches per stacked step, which must not
+   differ between the two by a launch per step, and one K1f and one K1b
+   per stacked step; the
+   chunk-width scan (20 stacked steps at 1, 2, 10, 50 and 150 configs);
+   ``cptorch-train --crossval_size 3``.
 
 Launch counts are reset just before phases 3, 4, 7's and 8's
-``train_loop`` and read just after each (phase 3's after its ``step``
-loop and after its ``steps`` call); every serve kernel must have
-launched on each of the three serve paths, each K1 kernel once per train
-step in 7 and 8, and the chain's kernels as its depth says in 8. TF32
+``train_loop`` and 9's ``cross_validate`` and read just after each (phase
+3's after its ``step`` loop and after its ``steps`` call); every serve
+kernel must have launched on each of the three serve paths, each K1
+kernel once per train step in 7 and 8 and once per stacked step in 9,
+and the chain's kernels as its depth says in 8. TF32
 is off throughout
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set False), so the plain versions run
 in full f32 (``encoder_chain``, K5f and K5b run 3xTF32 by their own
 instructions, whatever the flags). Any failure raises and the exit code
-is not 0. The last lines are ``{"single", "batched"}``, ``{"train"}`` and
-``{"fused_train"}`` JSON lines, the card line from nvidia-smi, one
+is not 0. The last lines are ``{"single", "batched"}``, ``{"train"}``,
+``{"fused_train"}`` and ``{"sweep"}`` JSON lines, the card line from
+nvidia-smi, one
 ``{"kernels": [...]}`` JSON line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -173,10 +191,34 @@ TRAIN_FAMILIES = (
                                              "batch_norm")),
     ("copies and fills", ("memcpy", "memset", "copy", "fill")),
 )
+# the host calls that put work on the card: kernels, copies and fills
+LAUNCH_CALLS = frozenset((
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+    "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemcpy",
+    "cudaMemcpy2DAsync", "cudaMemsetAsync", "cudaMemset"))
 SESSIONS = 32768  # the session count the JAX README gives one chip
 TICKS = 25        # one full vote window
 TRAIN_EPOCHS = 2
 CANONICAL = (1e-3, 1e-6, 0.5, 1e-3, 1e-6, 0.3)  # cli/train.py:189-190
+SWEEP_CONFIGS = 150  # scripts/go.sh's --crossval_size
+SWEEP_EPOCHS = 1     # cptorch-train's --crossval_epochs default
+SCAN_WIDTHS = (1, 2, 10, 50, 150)
+SCAN_STEPS = 20
+SWEEP_TRACE_STEPS = 10
+SWEEP_TRACE_REPEATS = 3
+SWEEP_CHECK_STEPS = 5
+# the step check's 3 configs at dropout 0, each its own lr and reg
+SWEEP_STEP_HYPERS = ((1e-3, 1e-6, 0.0, 1e-3, 1e-6, 0.0),
+                     (3e-4, 1e-3, 0.0, 3e-3, 1e-2, 0.0),
+                     (3e-3, 1e-2, 0.0, 1e-4, 1e-4, 0.0))
+# 5 f32 steps in a row, stacked against single: the two round in other
+# orders, which flips a few ReLUs whose pre-activations lie within rounding
+# of 0, and Adam carries that on; held as two f32 orders of training steps
+# are held elsewhere (test_one_epoch_matches_jax_step_by_step)
+SWEEP_STEPS_RTOL = 1e-3
+# the float64 stacked step against the float64 single steps: the same
+# arithmetic in another order, where no ReLU decision is that close
+SWEEP_F64_RTOL = 1e-9
 
 
 def log(msg: str) -> None:
@@ -209,8 +251,8 @@ def device_per_call(fn, n: int = 50) -> tuple[float, float]:
     for _ in range(5):
         fn()
     # a profiler session now and then records no device events: try again,
-    # and fail rather than report 0
-    for _ in range(3):
+    # and fail rather than report 0 (``warm_profiler`` runs first)
+    for _ in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -220,7 +262,25 @@ def device_per_call(fn, n: int = 50) -> tuple[float, float]:
                  if e.device_type == DeviceType.CUDA]
         if sum(spans) > 0:
             return sum(spans) / 1e3 / n, len(spans) / n
-    raise RuntimeError("the profiler recorded no device time in 3 traces")
+    raise RuntimeError("the profiler recorded no device time in 5 traces")
+
+
+def warm_profiler() -> None:
+    """Trace one small operation until a session records a device event:
+    in one run on an H100 a process's first CUDA-only sessions recorded
+    none, and the first measurement failed all its tries."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(1024, device="cuda")
+    for _ in range(20):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            x.add_(1.0)
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            return
+    raise RuntimeError("the profiler recorded no device event in 20 sessions")
 
 
 def device_ms_per_call(fn, n: int = 50) -> float:
@@ -485,42 +545,42 @@ def check_k1(K, dev) -> dict:
     return entries
 
 
-def trace_train_steps(trainer, state, hyper, n: int) -> dict:
-    """Profiler trace of ``n`` train steps (one ``train_epoch_from_indices``
-    call, synchronised once at the end, as an epoch runs): device time per
-    step by kernel family against the wall time per step."""
+def trace_families(warm, run, n: int) -> dict:
+    """Profiler trace of ``run()``, ``n`` train steps synchronised once at
+    the end (as an epoch runs), after ``warm()``: device time per step by
+    kernel family and of the 12 longest CUDA functions against the wall
+    time per step, and the host's busiest operators. Launches are counted
+    twice: as the host's launch calls (CUDA runtime records) and as the
+    device's records, of which a trace now and then drops a few (58 of
+    6,680 at one C=150 sweep trace on an H100); the difference is
+    reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from contrastiveprosthetics_torch.data.sampler import (
-        epoch_batches,
-        task_permutations,
-    )
-
-    v, dev = trainer.view_train, trainer.device
-    gen = trainer.generator(13)
-    emg_rand = task_permutations(gen, v.n_tasks, v.D)
-    batches, _ = epoch_batches(gen, v.D, trainer.batch_size)
-    none = batches.new_empty(0)
-    trainer.train_epoch_from_indices(state, emg_rand, batches[:2], none,
-                                     hyper, 1.0, 1.0, gen)  # warm
+    warm()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_epoch_from_indices(state, emg_rand, batches[2:2 + n],
-                                         none, hyper, 1.0, 1.0, gen)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     device_ms: dict = {}
     launches: dict = {}
+    kernels: dict = {}
+    host_launches = host_ops = 0
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
+            host_launches += ev.name in LAUNCH_CALLS
+            host_ops += ev.name.startswith("aten::")
             continue
         family = family_of(ev.name)
-        device_ms[family] = device_ms.get(family, 0.0) + (
-            ev.time_range.end - ev.time_range.start) / 1e3 / n
+        ms = (ev.time_range.end - ev.time_range.start) / 1e3 / n
+        device_ms[family] = device_ms.get(family, 0.0) + ms
         launches[family] = launches.get(family, 0) + 1
+        ms_, count = kernels.get(ev.name[:100], (0.0, 0))
+        kernels[ev.name[:100]] = (ms_ + ms, count + 1)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     busy = sum(device_ms.values())
     k1 = sum(device_ms.get(k, 0.0) for k in TRAIN_KERNELS)
     # the host side: self CPU time per step of the busiest operators
@@ -537,9 +597,36 @@ def trace_train_steps(trainer, state, hyper, n: int) -> dict:
                 device_ms_by_family=device_ms,
                 device_launches_per_step={k: c / n for k, c in
                                           launches.items()},
+                host_launch_calls_per_step=host_launches / n,
+                host_op_calls_per_step=host_ops / n,
+                device_records_missing_per_step=(
+                    host_launches - sum(launches.values())) / n,
+                device_top12_kernels_ms_and_launches_per_step={
+                    name: [ms, count / n] for name, (ms, count) in top},
                 device_idle_share=1 - busy / wall_ms if busy > 0 else None,
                 k1_share_of_device_time=k1 / busy if busy > 0 else None,
                 k1_share_of_wall=k1 / wall_ms)
+
+
+def trace_train_steps(trainer, state, hyper, n: int) -> dict:
+    """:func:`trace_families` of ``n`` train steps (one
+    ``train_epoch_from_indices`` call)."""
+    from contrastiveprosthetics_torch.data.sampler import (
+        epoch_batches,
+        task_permutations,
+    )
+
+    v = trainer.view_train
+    gen = trainer.generator(13)
+    emg_rand = task_permutations(gen, v.n_tasks, v.D)
+    batches, _ = epoch_batches(gen, v.D, trainer.batch_size)
+    none = batches.new_empty(0)
+    return trace_families(
+        lambda: trainer.train_epoch_from_indices(
+            state, emg_rand, batches[:2], none, hyper, 1.0, 1.0, gen),
+        lambda: trainer.train_epoch_from_indices(
+            state, emg_rand, batches[2:2 + n], none, hyper, 1.0, 1.0, gen),
+        n)
 
 
 def train_phase(K, dev) -> tuple[dict, dict, object]:
@@ -1441,7 +1528,11 @@ def fused_train_phase(K, eager) -> tuple[dict, dict]:
                                                    for m in ms],
                          train_windows_per_s=[windows / m * 1e3 for m in ms])
               for name, ms in epoch_ms.items()}
+    K.reset_launch_counts()
     trace = trace_train_steps(fused, state, hyper, 20)
+    # by the wrappers' counts over the trace's 2 warm and 20 traced steps
+    tail_counts = {k: K.launch_counts[k] / 22 for k in (*TAIL_KERNELS,
+                                                        "dropout_masks")}
     fam = trace["device_ms_by_family"]
     per = trace["device_launches_per_step"]
     step = dict(launches_per_step=sum(per.values()),
@@ -1454,10 +1545,9 @@ def fused_train_phase(K, eager) -> tuple[dict, dict]:
                 device_idle_share=trace["device_idle_share"])
     tail_want = {"chain_tail_fwd": 1.0, "chain_tail_bwd": 1.0,
                  "dropout_masks": 0.0}
-    if trace["device_ms_per_step"] and \
-            step["tail_launches_per_step"] != tail_want:
+    if tail_counts != tail_want:
         raise AssertionError(f"the traced fused step's tail launches "
-                             f"{step['tail_launches_per_step']}")
+                             f"{tail_counts}")
     log(f"[fused] epochs in turns (eager, fused, fused, eager): "
         f"{json.dumps(timing)}; profiler trace of 20 fused steps: "
         f"{json.dumps(trace)}")
@@ -1485,6 +1575,360 @@ def fused_train_phase(K, eager) -> tuple[dict, dict]:
         launches_per_step={k: c / n_steps for k, c in counts.items()},
         epochs_in_turns=timing, step_trace=trace, traced_step=step)
     return fused_res, counts
+
+
+def sweep_inputs(trainer, hyper, seed: int):
+    """A fresh stacked state of ``hyper``'s configs (numpy (C,) arrays),
+    the same hyperparameters as (C,) tensors on the card, one epoch's
+    index matrices from each config's generator and a chunk generator for
+    the dropout masks, as ``Trainer.sweep_chunk`` makes them."""
+    from contrastiveprosthetics_torch.data.sampler import (
+        stacked_epoch_batches,
+        stacked_task_permutations,
+    )
+    from contrastiveprosthetics_torch.train import engine
+    from contrastiveprosthetics_torch.train.crossval import config_seed
+
+    C = len(hyper.lr_emg)
+    gens = [trainer.generator(config_seed(seed, i)) for i in range(C)]
+    state = trainer.init_sweep_state(gens)
+    h = engine.Hyper(*[torch.as_tensor(np.asarray(x, np.float32),
+                                       device=trainer.device) for x in hyper])
+    v = trainer.view_train
+    emg_rand = stacked_task_permutations(gens, v.n_tasks, v.D)
+    batches, _ = stacked_epoch_batches(gens, v.D, trainer.batch_size)
+    return (state, h, emg_rand, batches,
+            trainer.generator(config_seed(seed, 0, stream=1)))
+
+
+def run_sweep_steps(trainer, inputs, start: int, n: int, tail: int = 0):
+    """Stacked steps over batches ``start`` to ``start + n`` of
+    :func:`sweep_inputs`; with ``tail``, the last of them trains only its
+    first ``tail`` items, as an epoch's tail does."""
+    state, h, emg_rand, batches, gen = inputs
+    part = batches[:, start:start + n]
+    last = part[:, :0, 0]
+    if tail:
+        part, last = part[:, :-1], part[:, -1, :tail]
+    return trainer.sweep_epoch_from_indices(state, emg_rand, part, last, h,
+                                            1.0, 1.0, gen)
+
+
+def sweep_step_check(K, trainer) -> dict:
+    """Phase 9, part 1: one stacked step of 3 configs at dropout 0, (a)
+    with the K1 kernels against the same step with the plain loss; (b) in
+    float64 against 3 single-config eager steps in float64 from the same
+    unstacked weights and batch (the plain loss: K1 takes f32); (c) in f32
+    against the single steps' losses; then 5 steps in a row, stacked and
+    single, in f32 (K1) and in float64 (plain loss)."""
+    import copy
+
+    from contrastiveprosthetics_torch.data.sampler import (
+        stacked_gather_train_batch,
+    )
+    from contrastiveprosthetics_torch.train import engine
+
+    table = np.array(SWEEP_STEP_HYPERS, np.float32)
+    inputs = sweep_inputs(trainer, engine.Hyper(*table.T), seed=3)
+    state, h, emg_rand, batches, _ = inputs
+    base = copy.deepcopy(state.model)
+    v = trainer.view_train
+    emg_b = stacked_gather_train_batch(v.emg_flat, emg_rand, batches[:, 0])
+    hypers = [engine.Hyper.single(*row) for row in table]
+    dev = trainer.device
+
+    def step(model, batch, hyper, loss_fn, f64=False):
+        """loss_and_grads of a fresh state of a copy of ``model``."""
+        model = copy.deepcopy(model)
+        if f64:
+            model, batch = model.double(), batch.double()
+            hyper = engine.Hyper(*[torch.as_tensor(x, dtype=torch.float64,
+                                                   device=dev)
+                                   for x in hyper])
+        engine.fused_contrastive_loss = loss_fn
+        try:
+            return trainer.loss_and_grads(engine.TrainState.fresh(model),
+                                          batch, hyper, None)
+        finally:
+            engine.fused_contrastive_loss = K.fused_contrastive_loss
+
+    def flat(grads, c=None):
+        return [g if c is None else g[c] for tower in ("emg_net", "glove_net")
+                for g in grads[tower]]
+
+    def rel_l2(a, b):
+        a, b = a.detach().double(), b.detach().double()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    plain = K.fused_contrastive_reference
+    loss_k, acc_k, grads_k = step(base, emg_b, h, K.fused_contrastive_loss)
+    loss_p, acc_p, grads_p = step(base, emg_b, h, plain)
+    loss_64, _, grads_64 = step(base, emg_b, table.T, plain, f64=True)
+    torch.cuda.synchronize()
+    # (a) the forward is the same launches either way, so no ReLU mask
+    # moves and K1's own tolerances hold elementwise
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+    if not torch.equal(acc_k, acc_p):
+        raise AssertionError(f"stacked accuracies {acc_k.tolist()} against "
+                             f"{acc_p.tolist()} with the plain loss")
+    k1_err = 0.0
+    for a, b in zip(flat(grads_k), flat(grads_p)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+        k1_err = max(k1_err, max_abs(a, b))
+
+    # (b) float64: the stacked step computes each config's single step;
+    # (c) f32: the losses, and each f32 step's distance to float64
+    single_loss, worst64 = [], 0.0
+    to_f64 = {"stacked_f32": 0.0, "single_f32": 0.0}
+    for c in range(len(table)):
+        single = step(base.unstack(c), emg_b[c], hypers[c],
+                      K.fused_contrastive_loss)
+        single64 = step(base.unstack(c), emg_b[c], table[c], plain, f64=True)
+        single_loss.append(float(single[0]))
+        np.testing.assert_allclose(float(loss_64[c]), float(single64[0]),
+                                   rtol=1e-12)
+        for s64, o64, s32, o32 in zip(flat(grads_64, c), flat(single64[2]),
+                                      flat(grads_k, c), flat(single[2])):
+            worst64 = max(worst64, rel_l2(s64, o64))
+            to_f64["stacked_f32"] = max(to_f64["stacked_f32"],
+                                        rel_l2(s32, o64))
+            to_f64["single_f32"] = max(to_f64["single_f32"], rel_l2(o32, o64))
+    if worst64 > SWEEP_F64_RTOL:
+        raise AssertionError(f"float64 stacked step against the single "
+                             f"steps: relative 2-norm {worst64:.3g}")
+    np.testing.assert_allclose(loss_k.cpu().numpy(), single_loss, rtol=1e-5)
+
+    # 5 steps in a row from the same weights, stacked and single: in f32
+    # with the K1 kernels, and in float64 with the plain loss
+    runs = {}
+    for name, loss_fn, f64 in (("f32", K.fused_contrastive_loss, False),
+                               ("float64", plain, True)):
+        cast = (lambda t: t.double()) if f64 else (lambda t: t)
+        state = engine.TrainState.fresh(cast(copy.deepcopy(base)))
+        singles = [engine.TrainState.fresh(cast(base.unstack(c)))
+                   for c in range(len(table))]
+        hh = engine.Hyper(*[cast(x) for x in h])
+        losses = {"stacked": [], "single": []}
+        engine.fused_contrastive_loss = loss_fn
+        try:
+            for i in range(SWEEP_CHECK_STEPS):
+                emg_b = cast(stacked_gather_train_batch(
+                    v.emg_flat, emg_rand, batches[:, i]))
+                loss, _ = trainer._sgd_step(state, emg_b, hh, hh.lr_emg,
+                                            hh.lr_glove, None)
+                losses["stacked"].append(loss.tolist())
+                losses["single"].append([float(trainer._sgd_step(
+                    s, emg_b[c], hypers[c], hypers[c].lr_emg,
+                    hypers[c].lr_glove, None)[0])
+                    for c, s in enumerate(singles)])
+        finally:
+            engine.fused_contrastive_loss = K.fused_contrastive_loss
+        params = max(
+            rel_l2(a[c], b) for c, s in enumerate(singles)
+            for a, b in zip(state.model.state_dict().values(),
+                            s.model.state_dict().values())
+            if a.is_floating_point())
+        runs[name] = dict(
+            losses, max_loss_rel_diff=float(np.max(np.abs(np.subtract(
+                losses["stacked"], losses["single"]))
+                / np.abs(losses["single"]))),
+            max_state_rel_l2=params)
+    np.testing.assert_allclose(runs["f32"]["stacked"], runs["f32"]["single"],
+                               rtol=SWEEP_STEPS_RTOL)
+    np.testing.assert_allclose(runs["float64"]["stacked"],
+                               runs["float64"]["single"], rtol=SWEEP_F64_RTOL)
+    if runs["float64"]["max_state_rel_l2"] > SWEEP_F64_RTOL:
+        raise AssertionError(f"float64 stacked state after "
+                             f"{SWEEP_CHECK_STEPS} steps against the single "
+                             f"ones: {runs['float64']['max_state_rel_l2']}")
+    res = dict(
+        configs=len(table), k1_vs_plain=dict(
+            loss_kernel=loss_k.tolist(), loss_plain=loss_p.tolist(),
+            max_grad_abs_err=k1_err,
+            tolerance="loss rtol 1e-5, accuracy equal, grads rtol 1e-4 atol "
+                      "1e-6 (phase 7's)"),
+        float64_vs_single_steps=dict(
+            loss=loss_64.tolist(), max_grad_rel_l2=worst64,
+            tolerance=f"loss rtol 1e-12, each gradient tensor's relative "
+                      f"2-norm {SWEEP_F64_RTOL}"),
+        f32_vs_single_steps=dict(
+            loss_stacked=loss_k.tolist(), loss_single=single_loss,
+            tolerance="loss rtol 1e-5",
+            max_grad_rel_l2_to_float64=to_f64,
+            note="f32 gradients against float64, reported, not bounded: "
+                 "a pre-activation within rounding of 0 takes another ReLU "
+                 "branch in f32 than in float64 and the BatchNorm below "
+                 "spreads that over the whole tensor, on whichever path "
+                 "rounds it so"),
+        steps_in_a_row=dict(
+            runs, tolerance=f"f32 losses rtol {SWEEP_STEPS_RTOL}; float64 "
+                            f"losses rtol {SWEEP_F64_RTOL} and every "
+                            f"parameter and statistic at a relative 2-norm "
+                            f"of {SWEEP_F64_RTOL}"))
+    log(f"[sweep] one stacked step of 3 configs at dropout 0: "
+        f"{json.dumps(res)}")
+    return res
+
+
+def sweep_trace(K, trainer, hypers, C: int) -> dict:
+    """Phase 9, part 3: profiler traces of 10 stacked steps of C configs
+    (the last a 5-item tail step) with dropout, taken SWEEP_TRACE_REPEATS
+    times on one state. K1f and K1b must launch once per stacked step, by
+    their wrappers' counts. The breakdown is the first trace's; the
+    launches per step are the most any trace counted, since a trace only
+    ever misses records."""
+    from contrastiveprosthetics_torch.train import engine
+
+    inputs = sweep_inputs(trainer, engine.Hyper(*[np.asarray(x)[:C]
+                                                  for x in hypers]), seed=5)
+    n = SWEEP_TRACE_STEPS
+    traces, k1 = [], []
+
+    def run():
+        K.reset_launch_counts()
+        run_sweep_steps(trainer, inputs, 2, n, tail=5)
+        k1.append({k: K.launch_counts[k] / n for k in TRAIN_KERNELS})
+
+    for _ in range(SWEEP_TRACE_REPEATS):
+        traces.append(trace_families(
+            lambda: run_sweep_steps(trainer, inputs, 0, 2), run, n))
+    if any(per[k] != 1.0 for per in k1 for k in TRAIN_KERNELS):
+        raise AssertionError(f"K1 launches per stacked step at C={C}: {k1}")
+    trace = traces[0]
+    trace["configs"] = C
+    trace["k1_wrapper_launches_per_step"] = k1[0]
+    for key in ("host_launch_calls_per_step", "host_op_calls_per_step",
+                "device_records_missing_per_step"):
+        trace[key + "_by_trace"] = [tr[key] for tr in traces]
+    trace["launches_per_step"] = max(tr["host_launch_calls_per_step"]
+                                     for tr in traces)
+    trace["host_ops_per_step"] = max(tr["host_op_calls_per_step"]
+                                     for tr in traces)
+    return trace
+
+
+def sweep_phase(K, trainer) -> tuple[dict, dict, dict]:
+    """Phase 9, the crossval sweep on phase 7's store and trainer (bs 8,
+    plain BatchNorm, full width). Returns the ``sweep`` results, the K1
+    launch counts of the 150-config ``cross_validate`` and the trace of
+    its stacked step at C=150."""
+    from contrastiveprosthetics_torch.cli import train as cli_train
+    from contrastiveprosthetics_torch.models.convert import (
+        load_reference_checkpoint,
+        model_from_state_dict,
+    )
+    from contrastiveprosthetics_torch.train import crossval, engine
+
+    t_phase = time.perf_counter()
+    v = trainer.view_train
+    steps = -(-v.D // trainer.batch_size)
+    windows_per_step = trainer.batch_size * v.n_tasks
+    step_check = sweep_step_check(K, trainer)
+
+    # 2. the full sweep through cross_validate, as go.sh runs it
+    n = SWEEP_CONFIGS
+    hypers = crossval.sample_hyperparams(n, seed=42)
+    chunk = crossval.resolve_chunk(n)
+    n_chunks = -(-n // chunk)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        start.record()
+        values = crossval.cross_validate(trainer, hypers, SWEEP_EPOCHS,
+                                         seed=42, save_dir=tmp)
+        end.record()
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        counts = {name: K.launch_counts[name] for name in TRAIN_KERNELS}
+        back_values, back_keys = crossval.load_crossval(tmp)
+    sweep_ms = start.elapsed_time(end)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = n_chunks * steps * SWEEP_EPOCHS
+    if any(c != want for c in counts.values()):
+        raise AssertionError(f"K1 launches in the sweep {counts}, want "
+                             f"{want} each")
+    if not (values.shape == (n, 2) and np.isfinite(values).any()):
+        raise AssertionError(f"sweep values {values.shape}, none finite")
+    best_acc = float(np.nanmax(values[:, 1]))
+    if best_acc <= 0.1:
+        raise AssertionError(f"best val accuracy {best_acc}: not above 0.1")
+    if not (np.array_equal(back_values, values, equal_nan=True)
+            and np.array_equal(back_keys, crossval.keys_array(hypers, 16))):
+        raise AssertionError("the sweep's .npy files do not read back")
+    config_steps = n * steps * SWEEP_EPOCHS
+    full = dict(
+        configs=n, epochs=SWEEP_EPOCHS, chunk=chunk, chunks=n_chunks,
+        sweep_ms=sweep_ms, sweep_wall_s=sweep_s,
+        configs_per_s=n / (sweep_ms / 1e3),
+        windows_per_s=config_steps * windows_per_step / (sweep_ms / 1e3),
+        ms_per_stacked_step_all_in=sweep_ms / (n_chunks * steps
+                                               * SWEEP_EPOCHS),
+        peak_device_memory_gb=peak_gb, k1_launches=counts,
+        best_val_acc=best_acc, finite=int(np.isfinite(values).all(1).sum()),
+        val_acc_quantiles=np.nanquantile(values[:, 1],
+                                         [0, 0.25, 0.5, 0.75, 1]).tolist())
+    log(f"[sweep] cross_validate of {n} configs x {SWEEP_EPOCHS} epoch "
+        f"(chunk {chunk}): {json.dumps(full)}")
+
+    # 3. profiler traces of 10 stacked steps at C=2 and C=150
+    traces = {C: sweep_trace(K, trainer, hypers, C) for C in (2, n)}
+    launches = {C: tr["launches_per_step"] for C, tr in traces.items()}
+    host_ops = {C: tr["host_ops_per_step"] for C, tr in traces.items()}
+    log(f"[sweep] profiler traces of {SWEEP_TRACE_STEPS} stacked steps: "
+        f"{json.dumps({str(C): tr for C, tr in traces.items()})}")
+    # the host's launch calls and operator calls, not the device's
+    # records: a trace drops some of those now and then
+    if launches[2] != launches[n] or host_ops[2] != host_ops[n]:
+        raise AssertionError(f"launches per stacked step {launches} and "
+                             f"operator calls {host_ops} differ with C")
+
+    # 4. the chunk-width scan
+    scan = {}
+    for C in SCAN_WIDTHS:
+        inputs = sweep_inputs(trainer, engine.Hyper(
+            *[np.asarray(x)[:C] for x in hypers]), seed=7)
+        run_sweep_steps(trainer, inputs, 0, 2)
+        torch.cuda.synchronize()
+        start.record()
+        run_sweep_steps(trainer, inputs, 2, SCAN_STEPS)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / SCAN_STEPS
+        scan[C] = dict(ms_per_stacked_step=ms, config_steps_per_s=C / ms * 1e3,
+                       windows_per_s=C * windows_per_step / ms * 1e3)
+        del inputs
+    best = max(scan, key=lambda C: scan[C]["config_steps_per_s"])
+    log(f"[sweep] chunk-width scan, {SCAN_STEPS} stacked steps each: "
+        f"{json.dumps(scan)}; best width {best}, resolve_chunk's default "
+        f"{crossval.DEFAULT_SWEEP_CHUNK}")
+
+    # 5. the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--crossval_size", "3", "--crossval_epochs",
+                "1", "--final_epochs", "1", "--batch_size", "8", "--test",
+                "--no_adabn", "--data_dir", tmp, "--checkpoint_dir", tmp]
+        if cli_train.main(argv) != 0:
+            raise AssertionError("cptorch-train with a sweep failed")
+        if np.load(f"{tmp}/cross_val_values.npy").shape != (3, 2):
+            raise AssertionError("cptorch-train wrote no sweep values")
+        model_from_state_dict(load_reference_checkpoint(
+            f"{tmp}/contrastive.pt"))
+    log("[cli] cptorch-train --synthetic --crossval_size 3 "
+        "--crossval_epochs 1 --final_epochs 1 --batch_size 8 --test "
+        "--no_adabn ok on cuda; sweep files written, contrastive.pt loads "
+        "strictly")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[sweep] phase 9 took {phase_s:.1f} s")
+    res = dict(step_check=step_check, sweep=full,
+               traces={str(C): tr for C, tr in traces.items()},
+               launches_per_stacked_step=launches, chunk_scan=scan,
+               best_scan_width=best,
+               default_chunk=crossval.DEFAULT_SWEEP_CHUNK, phase_s=phase_s)
+    return res, counts, traces[n]
 
 
 def main() -> int:
@@ -1526,6 +1970,7 @@ def main() -> int:
                     log(f"[ptxas {name}] {line.strip()}")
     log(f"[setup] card: {card}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    warm_profiler()
 
     rng = np.random.default_rng(0)
     model = ContrastiveModel(generator=torch.Generator().manual_seed(0)).to(dev)
@@ -1709,6 +2154,9 @@ def main() -> int:
     entries.update(check_k5(TF, K, dev))
     fused_res, fused_counts = fused_train_phase(K, trainer)
 
+    # ------------------------------------------------ 9. the crossval sweep
+    sweep_res, sweep_counts, sweep_trace_150 = sweep_phase(K, trainer)
+
     for name, entry in entries.items():
         if name in FUSED_KERNELS:
             by_path = {"fused_train": fused_counts[name]}
@@ -1718,12 +2166,14 @@ def main() -> int:
                 fam[name] / per[name] if per.get(name) else None)
         elif name in TRAIN_KERNELS:
             by_path = {"train": train_counts[name],
-                       "fused_train": fused_counts[name]}
+                       "fused_train": fused_counts[name],
+                       "sweep": sweep_counts[name]}
             traced = {}
-            for path, res in (("train", train_res), ("fused_train",
-                                                     fused_res)):
-                fam = res["step_trace"]["device_ms_by_family"]
-                per = res["step_trace"]["device_launches_per_step"]
+            for path, trace in (("train", train_res["step_trace"]),
+                                ("fused_train", fused_res["step_trace"]),
+                                ("sweep", sweep_trace_150)):
+                fam = trace["device_ms_by_family"]
+                per = trace["device_launches_per_step"]
                 traced[path] = fam[name] / per[name] if per.get(name) else None
             entry["device_ms_per_launch_traced"] = traced
         else:
@@ -1743,6 +2193,7 @@ def main() -> int:
     print(json.dumps({"single": single_res, "batched": batched_res}))
     print(json.dumps({"train": train_res}))
     print(json.dumps({"fused_train": fused_res}))
+    print(json.dumps({"sweep": sweep_res}))
     print(card)
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,26 @@
 """Training CLI (``cptorch-train``), the port of ``cptpu-train``.
 
 Keeps the reference's flags (``train.py:251-268``; the ``--no_*`` flags
-are ``store_false``: passing one switches the feature off), less
-``--crossval_epochs``, which only the unported sweep reads, and adds
+are ``store_false``: passing one switches the feature off) and adds
 ``--data_dir``, ``--checkpoint_dir``, ``--synthetic`` (fabricated,
-class-separable data), ``--seed``, ``--crossval_id``, ``--compat``,
-``--fused_train`` (the JAX CLI's flag) and ``--platform`` (cuda by
+class-separable data), ``--crossval_chunk`` (configs trained at once),
+``--seed``, ``--crossval_id``, ``--compat``, ``--fused_train`` and
+``--spmd_crossval`` (the JAX CLI's flags) and ``--platform`` (cuda by
 default).
 
 Flow (``train.py:168-249``): load the store -> hyperparameters
-(``--crossval_size 0``: the canonical ones; ``--crossval_load``: the
-cached sweep) -> final annealed train, checkpointing on val loss -> reload
-the best checkpoint -> ``--test``. The sweep itself, ``--prediction`` and
-``--glove`` are not ported yet and raise.
+(``--crossval_load``: the cached sweep, or the sweep when there is no
+cache; ``--crossval_size 0``: the canonical ones; else the random-search
+sweep, ``train/crossval.py``) -> the nanargmax-val-acc config -> final
+annealed train, checkpointing on val loss -> reload the best checkpoint
+-> ``--test``. ``--prediction``, ``--glove``, ``--spmd_crossval`` and the
+sweep on the fused chain are not ported yet and raise.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 
@@ -30,6 +33,7 @@ NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Training on ninapro dataset")
     p.add_argument("--crossval_size", type=int, default=10)
+    p.add_argument("--crossval_epochs", type=int, default=1)
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--final_epochs", type=int, default=10)
     p.add_argument("--glove", action="store_true")
@@ -45,6 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
     p.add_argument("--synthetic", action="store_true",
                    help="train on fabricated class-separable data")
+    p.add_argument("--crossval_chunk", type=int, default=None,
+                   help="configs trained at once as one stacked model "
+                        "(default: train/crossval.py::DEFAULT_SWEEP_CHUNK)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--crossval_id", type=str, default="",
                    help="suffix of cross_val_{keys,values}<id>.npy")
@@ -56,6 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(ops/train_fused.py: BatchNorm statistics ride the "
                         "GEMM kernels, dropout masks drawn in the kernels). "
                         "auto = the Trainer's default (off)")
+    p.add_argument("--spmd_crossval", action="store_true",
+                   help="shard the sweep's configs over several devices")
     add_platform_flag(p)
     return p
 
@@ -79,23 +88,36 @@ def main(argv=None) -> int:
             what="--prediction/--glove training", item=7,
             hint="only contrastive training with the one-hot class encoder "
                  "runs"))
-    cache = os.path.join(args.data_dir,
-                         f"cross_val_values{args.crossval_id}.npy")
-    if args.crossval_size >= 1 and not (args.crossval_load
-                                        and os.path.exists(cache)):
+    if args.spmd_crossval:
         raise SystemExit(NOT_PORTED.format(
-            what="the crossval sweep", item=1,
-            hint="pass --crossval_size 0 (canonical hyperparameters) or "
-                 "--crossval_load with a cached sweep"))
+            what="--spmd_crossval (the sweep's configs sharded over several "
+                 "devices)", item=8,
+            hint="drop the flag: the sweep trains its configs as one stacked "
+                 "model on one device"))
+    crossval_load = args.crossval_load
+    if crossval_load and not os.path.exists(os.path.join(
+            args.data_dir, f"cross_val_values{args.crossval_id}.npy")):
+        # go.sh passes --crossval_load unconditionally: on a clean machine
+        # the sweep runs instead (the reference would crash here)
+        print("no cached crossval found — running the sweep")
+        crossval_load = False
+    sweep = not crossval_load and args.crossval_size >= 1
+    if sweep and args.fused_train == "on":
+        raise SystemExit(NOT_PORTED.format(
+            what="the crossval sweep on the fused training chain", item=11,
+            hint="the fused chain's kernels take no config axis yet; pass "
+                 "--fused_train auto or off for the sweep"))
     device = select_device(args.platform)
 
     from contrastiveprosthetics_torch.config import DEFAULT_CONFIG, compat_config
     from contrastiveprosthetics_torch.train.checkpoint import load_checkpoint
     from contrastiveprosthetics_torch.train.crossval import (
         best_config,
+        cross_validate,
         hyper_from_key,
         keys_array,
         load_crossval,
+        sample_hyperparams,
     )
     from contrastiveprosthetics_torch.train.engine import Hyper, Trainer
     from contrastiveprosthetics_torch.train.loop import run_test, train_loop
@@ -109,14 +131,23 @@ def main(argv=None) -> int:
                                        "off": False}[args.fused_train])
     print("Dataset loaded")
 
-    if args.crossval_size >= 1:
+    if crossval_load:
         values, keys = load_crossval(args.data_dir, id_=args.crossval_id)
-    else:
+    elif not sweep:
         print("crossval skipped (--crossval_size 0): canonical "
               "hyperparameters")
         canonical = Hyper(*[[v] for v in (1e-3, 1e-6, 0.5, 1e-3, 1e-6, 0.3)])
         keys = keys_array(canonical, trainer.d_e)
         values = np.zeros((1, 2))
+    else:
+        hypers = sample_hyperparams(args.crossval_size, seed=args.seed)
+        t0 = time.time()
+        values = cross_validate(trainer, hypers, epochs=args.crossval_epochs,
+                                seed=args.seed, chunk=args.crossval_chunk,
+                                save_dir=args.data_dir, id_=args.crossval_id)
+        print(f"crossval: {args.crossval_size} configs in "
+              f"{time.time() - t0:.1f}s")
+        keys = keys_array(hypers, trainer.d_e)
     best_key = best_config(values, keys)
     print(f"Best combination: {best_key}")
     _, hyper = hyper_from_key(best_key)

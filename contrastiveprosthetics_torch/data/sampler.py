@@ -76,3 +76,47 @@ def gather_eval_batch(emg_groups, emg_rand, items) -> torch.Tensor:
     """(bs, n_tasks, output_dim, emg_dim): one vote group per task per
     item (``load.py:264-266``)."""
     return emg_groups[emg_rand[:, items].T]
+
+
+# ---------------------------------------------------------- config axis
+# The crossval sweep trains C configs at once; each config draws its own
+# index matrices from its own generator, so a config's draws do not depend
+# on which configs share its chunk. Row c of every result is config c's.
+def stacked_task_permutations(generators, n_tasks: int,
+                              D: int) -> torch.Tensor:
+    """(C, n_tasks, D): :func:`task_permutations` of each generator."""
+    return torch.stack([task_permutations(g, n_tasks, D) for g in generators])
+
+
+def stacked_epoch_batches(generators, D: int, batch_size: int):
+    """``(batches, tail)``, (C, n_batches, bs) and (C, D % bs):
+    :func:`epoch_batches` of each generator."""
+    batches, tails = zip(*[epoch_batches(g, D, batch_size)
+                           for g in generators])
+    return torch.stack(batches), torch.stack(tails)
+
+
+def stacked_epoch_batches_padded(generators, D: int, batch_size: int):
+    """``(batches, weights, inverse)``, (C, n_batches, bs) twice and (C,
+    D): :func:`epoch_batches_padded` of each generator."""
+    return tuple(torch.stack(parts) for parts in zip(
+        *[epoch_batches_padded(g, D, batch_size) for g in generators]))
+
+
+def _stacked_rows(emg_rand, items) -> torch.Tensor:
+    """(C, bs, n_tasks) rows: ``emg_rand[c][:, items[c]].T`` per config."""
+    n_tasks = emg_rand.shape[1]
+    return emg_rand.gather(2, items[:, None, :].expand(-1, n_tasks, -1)
+                           ).transpose(1, 2)
+
+
+def stacked_gather_train_batch(emg_flat, emg_rand, items) -> torch.Tensor:
+    """(C, bs, n_tasks, emg_dim) from ``emg_rand`` (C, n_tasks, D) and
+    ``items`` (C, bs): :func:`gather_train_batch` per config."""
+    return emg_flat[_stacked_rows(emg_rand, items)]
+
+
+def stacked_gather_eval_batch(emg_groups, emg_rand, items) -> torch.Tensor:
+    """(C, bs, n_tasks, output_dim, emg_dim): :func:`gather_eval_batch`
+    per config."""
+    return emg_groups[_stacked_rows(emg_rand, items)]

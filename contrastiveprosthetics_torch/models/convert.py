@@ -110,12 +110,12 @@ def load_reference_checkpoint(path: str) -> dict[str, torch.Tensor]:
     return dict(sd)
 
 
-def model_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ContrastiveModel:
-    """A ``ContrastiveModel`` with the architecture the keys imply, loaded
-    from ``sd`` with ``strict=True``."""
+def architecture(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The ``ContrastiveModel`` keyword arguments that a reference-layout
+    state_dict's keys and shapes imply."""
     lin = [k for k in sd if re.match(r"emg_net\.linear\.\d+\.weight$", k)
            and sd[k].dim() == 2]
-    model = ContrastiveModel(
+    return dict(
         d_e=sd["emg_net.last.0.weight"].shape[0],
         emg_dim=sd["emg_net.linear.0.weight"].shape[1]
         // sd["emg_net.conv_emg.0.weight"].shape[0],
@@ -125,5 +125,11 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ContrastiveModel:
         hidden=sd["emg_net.linear.0.weight"].shape[0],
         conv_features=sd["emg_net.conv_emg.0.weight"].shape[0],
     )
+
+
+def model_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ContrastiveModel:
+    """A ``ContrastiveModel`` with the architecture the keys imply, loaded
+    from ``sd`` with ``strict=True``."""
+    model = ContrastiveModel(**architecture(sd))
     model.load_state_dict(sd, strict=True)
     return model

@@ -1,10 +1,15 @@
-"""Random-search cross-validation: the host-side helpers (the JAX
-package's ``train/crossval.py:38-72,256-265``; reference
-``train.py:140-198``).
+"""Random-search cross-validation (the JAX package's
+``train/crossval.py``; reference ``train.py:140-198``).
+
+The reference trains its 150 random configs one after another. Here a
+chunk of configs trains as one stacked model (``models/stacked.py``,
+``Trainer.sweep_chunk``): every step is one stacked step for all the
+chunk's configs, so the host's kernel launches are paid once per chunk,
+not once per config. ``chunk`` bounds the card's memory.
 
 The sampler draws from numpy (seed 42 by default), so both packages get
 the same configs. The keys and values ``.npy`` files keep the reference's
-layout. The sweep itself (``cross_validate``) is not ported yet.
+layout.
 """
 from __future__ import annotations
 
@@ -12,7 +17,12 @@ import os
 
 import numpy as np
 
-from contrastiveprosthetics_torch.train.engine import Hyper
+from contrastiveprosthetics_torch.train.engine import Hyper, Trainer
+from contrastiveprosthetics_torch.train.schedules import schedule_factors
+
+# Configs trained at once by default: the best width of the chunk-width
+# scan of chip_smoke.py (phase 9) on an H100, written down in PERF.md.
+DEFAULT_SWEEP_CHUNK = 150
 
 
 def sample_hyperparams(n: int, seed: int = 42) -> Hyper:
@@ -54,3 +64,63 @@ def load_crossval(save_dir: str, id_: str = "") -> tuple[np.ndarray, np.ndarray]
 def best_config(values: np.ndarray, keys: np.ndarray) -> np.ndarray:
     """nanargmax of the val accuracy (train.py:196-198)."""
     return keys[int(np.nanargmax(values[:, 1]))]
+
+
+def resolve_chunk(n: int) -> int:
+    """The default sweep-chunk width: ``DEFAULT_SWEEP_CHUNK`` configs,
+    capped at the number of configs."""
+    return min(n, DEFAULT_SWEEP_CHUNK)
+
+
+def config_seed(seed: int, index: int, stream: int = 0) -> int:
+    """A 32-bit seed for stream ``stream`` of config (or chunk start)
+    ``index`` of the sweep seeded ``seed``."""
+    return int(np.random.SeedSequence([seed, index, stream]).generate_state(
+        1)[0])
+
+
+def cross_validate(trainer: Trainer, hypers: Hyper, epochs: int, seed: int,
+                   chunk: int | None = None, save_dir: str | None = None,
+                   verbose: bool = True, id_: str = "") -> np.ndarray:
+    """Train every config of ``hypers`` (the sampler's (n,) arrays) for
+    ``epochs`` epochs without annealing, in chunks of ``chunk`` configs,
+    and return the (n, 2) f64 values (val loss, voted val accuracy) per
+    config. A last chunk with fewer configs runs as a smaller stacked
+    model. Config i's init and index matrices come from a generator seeded
+    from (``seed``, i), so they do not depend on the chunk width; each
+    chunk's dropout masks come from a generator seeded from (``seed``, its
+    first config). ``save_dir``: write ``cross_val_values{id_}.npy`` and
+    ``cross_val_keys{id_}.npy`` there (train.py:157-166)."""
+    n = len(np.asarray(hypers.lr_emg))
+    if n < 1:
+        raise ValueError(
+            "cross_validate needs at least one config (the CLI maps "
+            "--crossval_size 0 to the canonical hyperparameters instead)")
+    chunk = resolve_chunk(n) if chunk is None else chunk
+    if chunk < 1:
+        raise ValueError(f"the sweep's chunk must be at least 1 config, "
+                         f"got {chunk}")
+    emg_f, glove_f = schedule_factors(
+        epochs, annealing=False,
+        compat_shared_steplr=trainer.cfg.compat_shared_steplr)
+    pending = []  # the host reads the values once, after every chunk
+    for start in range(0, n, chunk):
+        rows = slice(start, min(start + chunk, n))
+        h = Hyper(*[np.asarray(x)[rows] for x in hypers])
+        generators = [trainer.generator(config_seed(seed, i))
+                      for i in range(rows.start, rows.stop)]
+        pending.append((rows, trainer.sweep_chunk(
+            h, generators, emg_f, glove_f,
+            trainer.generator(config_seed(seed, start, stream=1)))))
+    values = np.empty((n, 2), dtype=np.float64)
+    for rows, (loss, acc) in pending:
+        values[rows, 0] = loss.cpu().numpy()
+        values[rows, 1] = acc.cpu().numpy()
+    if verbose:
+        print(f"crossval [{n}/{n}]: best acc {np.nanmax(values[:, 1]):.4f}")
+    if save_dir is not None:
+        os.makedirs(save_dir, exist_ok=True)
+        np.save(os.path.join(save_dir, f"cross_val_values{id_}.npy"), values)
+        np.save(os.path.join(save_dir, f"cross_val_keys{id_}.npy"),
+                keys_array(hypers, trainer.d_e))
+    return values

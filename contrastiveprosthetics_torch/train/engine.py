@@ -22,6 +22,19 @@ comes from the ``torch.Generator`` the caller passes, on the store's
 device. The ``*_from_indices`` entries take the index matrices instead, so
 tests can feed the JAX package's.
 
+The crossval sweep (``sweep_chunk`` and the ``sweep_*_from_indices``
+entries; the JAX package's ``_sweep_run``/``_sweep_chunk_at``,
+``engine.py:537-596``) trains a chunk of C configs as one stacked model
+(``models/stacked.py``): ``loss_and_grads`` and ``_sgd_step`` take its
+state as they take one config's, with (C,) hyperparameter tensors, and
+launch the same kernels per step whatever C is; K1 runs once per step at
+its config axis, (C, N, T, d). Config c's init and index
+matrices come from its own generator, so they do not depend on the chunk
+width; each dropout layer draws the whole chunk's masks at once from a
+chunk generator, so, as in JAX, a config's masks depend on its chunk.
+The sweep runs the eager tower only (the fused chain takes no config
+axis yet).
+
 Precision: the forward and backward run in f32 with cuDNN's TF32
 convolutions off (``device.f32_convolutions``, as calibration does);
 matmuls keep PyTorch's f32 default.
@@ -40,6 +53,11 @@ from contrastiveprosthetics_torch.data.sampler import (
     epoch_batches_padded,
     gather_eval_batch,
     gather_train_batch,
+    stacked_epoch_batches,
+    stacked_epoch_batches_padded,
+    stacked_gather_eval_batch,
+    stacked_gather_train_batch,
+    stacked_task_permutations,
     task_permutations,
 )
 from contrastiveprosthetics_torch.data.store import DeviceStore, SplitView
@@ -49,6 +67,10 @@ from contrastiveprosthetics_torch.models.clip import (
     ContrastiveModel,
     l2_normalize,
     l2_penalty,
+)
+from contrastiveprosthetics_torch.models.stacked import (
+    StackedContrastiveModel,
+    stacked_l2_penalty,
 )
 from contrastiveprosthetics_torch.ops.kernels import fused_contrastive_loss
 from contrastiveprosthetics_torch.ops.train_fused import fused_emg_embed
@@ -76,11 +98,15 @@ class Hyper(NamedTuple):
 
 @dataclasses.dataclass
 class AdamState:
-    """``optax.scale_by_adam``'s state: the step count and both moments."""
+    """``optax.scale_by_adam``'s state: the step count and both moments,
+    one tensor per parameter. For stacked parameters
+    (:func:`stacked_adam_init`) ``mu`` and ``nu`` are views of two flat
+    (C, N) buffers, ``flat``, that the update runs over."""
 
     count: int
     mu: list
     nu: list
+    flat: tuple | None = None
 
 
 def adam_init(params) -> AdamState:
@@ -89,24 +115,56 @@ def adam_init(params) -> AdamState:
                      [torch.zeros_like(p) for p in params])
 
 
+def stacked_adam_init(params) -> AdamState:
+    """Zeroed moments of stacked parameters (C configs on the leading
+    axis): each a (C, N) buffer, config c's moments of every parameter in
+    row c, and a view of it per parameter."""
+    params = list(params)
+    sizes = [p[0].numel() for p in params]
+    flat = tuple(params[0].new_zeros(params[0].shape[0], sum(sizes))
+                 for _ in range(2))
+    mu, nu = ([part.view(p.shape) for part, p in zip(f.split(sizes, 1),
+                                                      params)]
+              for f in flat)
+    return AdamState(0, mu, nu, flat)
+
+
 def _f32_product(a: float, b: float) -> float:
     return float(np.float32(a) * np.float32(b))
 
 
 @torch.no_grad()
-def adam_step_(params, grads, state: AdamState, lr: float,
+def adam_step_(params, grads, state: AdamState, lr: float | torch.Tensor,
                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
     """One ``optax.scale_by_adam`` update (eps_root 0) followed by
     ``p -= lr * u``, in place over ``params`` and the moments, in optax's
     order of operations: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu,
     u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps), with the bias
     corrections taken in f32. (``torch.optim.Adam`` orders the bias
-    correction differently.)"""
+    correction differently.)
+
+    Stacked parameters (a state of :func:`stacked_adam_init`) take a (C,)
+    ``lr``, one per config; the count and the bias corrections are shared,
+    since all configs step together. Their update runs as plain tensor
+    operations over the flat (C, N) gradients and moments: a foreach
+    operation splits its work into launches by size, so its launches
+    would grow with C."""
     params, grads = list(params), list(grads)
     state.count += 1
     t = np.float32(state.count)
     bc1 = float(np.float32(1) - np.float32(b1) ** t)
     bc2 = float(np.float32(1) - np.float32(b2) ** t)
+    if state.flat is not None:
+        mu, nu = state.flat
+        g = torch.cat([x.reshape(mu.shape[0], -1) for x in grads], 1)
+        mu.mul_(b1).add_(g * (1 - b1))
+        nu.mul_(b2).add_(g * g * (1 - b2))
+        update = (mu / bc1).div_((nu / bc2).sqrt_().add_(eps)).mul_(
+            lr.view(-1, 1))
+        for p, u in zip(params, update.split([p[0].numel() for p in params],
+                                             1)):
+            p.sub_(u.view(p.shape))
+        return
     torch._foreach_mul_(state.mu, b1)
     torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1 - b1))
     torch._foreach_mul_(state.nu, b2)
@@ -133,8 +191,10 @@ class TrainState:
     @classmethod
     def fresh(cls, model: ContrastiveModel) -> "TrainState":
         towers = model.towers()
-        return cls(model, adam_init(towers["emg_net"].parameters()),
-                   adam_init(towers["glove_net"].parameters()))
+        init = (stacked_adam_init
+                if isinstance(model, StackedContrastiveModel) else adam_init)
+        return cls(model, init(towers["emg_net"].parameters()),
+                   init(towers["glove_net"].parameters()))
 
 
 class EvalResult(NamedTuple):
@@ -176,15 +236,23 @@ class Trainer:
         return torch.Generator(self.device).manual_seed(seed)
 
     # ------------------------------------------------------------------ init
-    def init_state(self, generator: torch.Generator) -> TrainState:
-        """A fresh model (torch's default init from ``generator``) with
-        zeroed Adam chains."""
-        model = ContrastiveModel(
+    def _model(self, generator: torch.Generator) -> ContrastiveModel:
+        return ContrastiveModel(
             d_e=self.d_e, emg_dim=self.cfg.emg_dim,
             n_classes=self.cfg.max_tasks, adabn=self.adabn,
             n_linear=self.n_linear, hidden=self.hidden, generator=generator,
             device=self.device)
-        return TrainState.fresh(model)
+
+    def init_state(self, generator: torch.Generator) -> TrainState:
+        """A fresh model (torch's default init from ``generator``) with
+        zeroed Adam chains."""
+        return TrainState.fresh(self._model(generator))
+
+    def init_sweep_state(self, generators) -> TrainState:
+        """C fresh models, config c's drawn from ``generators[c]``, as one
+        stacked model with zeroed stacked Adam chains."""
+        return TrainState.fresh(StackedContrastiveModel.from_models(
+            [self._model(g) for g in generators]))
 
     # ------------------------------------------------------------- train step
     def _embed_fused(self, model: ContrastiveModel, emg_b, dp_emg: float,
@@ -224,11 +292,25 @@ class Trainer:
         running ones), the fused loss plus ``reg * l2`` of each tower, and
         the gradients of that total. Returns (loss, accuracy, grads by
         tower), the first two 0-d tensors on the device. ``ext_masks``
-        (fused chain only) replaces the drawn dropout masks."""
+        (fused chain only) replaces the drawn dropout masks.
+
+        A stacked state (C configs) takes ``emg_b`` (C, B, T, emg_dim) and
+        a ``hyper`` of (C,) f32 tensors on the device; its loss and
+        accuracy are (C,), and the gradients are those of the sum over
+        configs of each config's total, so each config gets its own and
+        K1's backward one upstream 1 per config. With no ``generator`` the
+        stacked model drops nothing (every rate must be 0)."""
         model = state.model.train()
+        stacked = isinstance(model, StackedContrastiveModel)
+        if stacked and self.use_fused_train:
+            raise ValueError(
+                "the crossval sweep runs on the eager tower only: the fused "
+                "training chain takes no config axis yet (ROADMAP.md, queue "
+                "1 item 11)")
+        l2 = stacked_l2_penalty if stacked else l2_penalty
         towers = model.towers()
         params = {k: list(t.parameters()) for k, t in towers.items()}
-        B, T = emg_b.shape[:2]
+        B, T = emg_b.shape[-3:-1]
         with f32_convolutions():
             if self.use_fused_train:
                 e, g = self._embed_fused(model, emg_b, hyper.dp_emg,
@@ -238,19 +320,21 @@ class Trainer:
             loss, correct = fused_contrastive_loss(e.contiguous(),
                                                    g.contiguous())
             total = (loss
-                     + hyper.reg_emg * l2_penalty(towers["emg_net"])
-                     + hyper.reg_glove * l2_penalty(towers["glove_net"]))
+                     + hyper.reg_emg * l2(towers["emg_net"])
+                     + hyper.reg_glove * l2(towers["glove_net"]))
             flat = torch.autograd.grad(
-                total, params["emg_net"] + params["glove_net"])
+                total.sum(), params["emg_net"] + params["glove_net"])
         n = len(params["emg_net"])
         grads = {"emg_net": list(flat[:n]), "glove_net": list(flat[n:])}
         return loss.detach(), correct / (B * T), grads
 
     def _sgd_step(self, state: TrainState, emg_b, hyper: Hyper,
-                  lr_emg: float, lr_glove: float,
+                  lr_emg: float | torch.Tensor, lr_glove: float | torch.Tensor,
                   generator: torch.Generator | None, ext_masks=None):
         """One optimization step: forward, loss + L2, backward, then the
-        two Adam updates. Returns (loss, accuracy) on the device."""
+        two Adam updates. Returns (loss, accuracy) on the device. On a
+        stacked state (see :meth:`loss_and_grads`) it is one step of every
+        config, with (C,) lr tensors."""
         loss, acc, grads = self.loss_and_grads(state, emg_b, hyper, generator,
                                                ext_masks)
         towers = state.model.towers()
@@ -363,3 +447,85 @@ class Trainer:
             y_pred=torch.cat(y_preds)[inverse],
             y_true=torch.cat(y_trues)[inverse],
             logits=torch.cat(logits_all)[inverse].reshape(-1, T, T))
+
+    # ----------------------------------------------------------------- sweep
+    def sweep_epoch_from_indices(self, state: TrainState, emg_rand, batches,
+                                 tail, hyper: Hyper, lr_emg_factor: float,
+                                 lr_glove_factor: float,
+                                 generator: torch.Generator | None):
+        """One epoch of every config of a stacked state over given index
+        matrices, one stacked step per batch: ``emg_rand`` (C, n_tasks, D),
+        ``batches`` (C, n_batches, bs) and the (C, D % bs) ``tail``, which
+        trains as a smaller batch. ``hyper`` holds (C,) f32 tensors on the
+        device; config c's lr is its lr times the factor, in f32.
+        ``generator`` draws the dropout masks (None: no dropout, every rate
+        0). Returns the (C, steps) losses and accuracies on the device."""
+        v = self.view_train
+        lr_e = hyper.lr_emg * float(np.float32(lr_emg_factor))
+        lr_g = hyper.lr_glove * float(np.float32(lr_glove_factor))
+        steps = list(batches.unbind(1)) + ([tail] if tail.shape[1] else [])
+        losses, accs = [], []
+        for items in steps:
+            emg_b = stacked_gather_train_batch(v.emg_flat, emg_rand, items)
+            loss, acc = self._sgd_step(state, emg_b, hyper, lr_e, lr_g,
+                                       generator)
+            losses.append(loss)
+            accs.append(acc)
+        return torch.stack(losses, 1), torch.stack(accs, 1)
+
+    @torch.no_grad()
+    def sweep_evaluate_from_indices(self, state: TrainState,
+                                    view: SplitView, emg_rand, batches,
+                                    weights, inverse):
+        """The voted evaluation of every config of a stacked state, the
+        metrics only (the JAX ``_evaluate_scalars``): ``emg_rand`` (C,
+        n_tasks, D), padded ``batches`` and ``weights`` (C, n_batches,
+        bs), ``inverse`` (C, D), each config's as
+        :meth:`evaluate_from_indices` takes them. Returns (C,) mean losses
+        and (C,) voted accuracies on the device."""
+        model = state.model.eval()
+        W = self.cfg.prediction_window_size
+        T = view.n_tasks
+        C, _, bs = batches.shape
+        loss_sums, voted = [], []
+        with f32_convolutions():
+            for items, w in zip(batches.unbind(1), weights.unbind(1)):
+                emg_b = stacked_gather_eval_batch(view.emg_groups, emg_rand,
+                                                  items)
+                logits = model(emg_b)                   # (C, bs*W, T, T)
+                item_loss = symmetric_contrastive_loss_per_item(
+                    logits).reshape(C, bs, W).mean(dim=-1)
+                res = vote_from_logits(logits.reshape(-1, T, T), window=W,
+                                       n_prefix=self.cfg.n_voting_cols)
+                loss_sums.append((item_loss * w).sum(1))
+                voted.append(res.curve[:, -1].reshape(C, bs))
+        accuracy = torch.cat(voted, 1).gather(1, inverse).mean(1)
+        return torch.stack(loss_sums, 1).sum(1) / view.D, accuracy
+
+    def sweep_chunk(self, hyper: Hyper, generators, emg_factors,
+                    glove_factors, generator: torch.Generator | None):
+        """One sweep chunk, the JAX ``_sweep_run`` of each of its C configs
+        (``engine.py:537-596``): init, one epoch per schedule factor, then
+        the voted validation. ``hyper`` holds (C,) f32 numpy arrays (the
+        sampler's), ``generators`` one torch generator per config on the
+        store's device (init, epochs and val draw from it in turn), and
+        ``generator`` the chunk's dropout masks. Returns (C,) val losses and
+        accuracies on the device."""
+        if generator is None and np.any(np.asarray(hyper.dp_emg)):
+            raise ValueError("dropout at a nonzero rate needs an explicit "
+                             "torch.Generator for its masks")
+        state = self.init_sweep_state(generators)
+        h = Hyper(*[torch.as_tensor(np.asarray(x, np.float32),
+                                    device=self.device) for x in hyper])
+        v = self.view_train
+        for f_e, f_g in zip(emg_factors, glove_factors):
+            emg_rand = stacked_task_permutations(generators, v.n_tasks, v.D)
+            batches, tail = stacked_epoch_batches(generators, v.D,
+                                                  self.batch_size)
+            self.sweep_epoch_from_indices(state, emg_rand, batches, tail, h,
+                                          float(f_e), float(f_g), generator)
+        v = self.view_val
+        emg_rand = stacked_task_permutations(generators, v.n_tasks, v.D)
+        return self.sweep_evaluate_from_indices(
+            state, v, emg_rand,
+            *stacked_epoch_batches_padded(generators, v.D, self.batch_size))

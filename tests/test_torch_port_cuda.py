@@ -299,6 +299,67 @@ def test_contrastive_loss_config_axis(cuda):
         assert torch.equal(l3, loss[7]) and torch.equal(c3, correct[7])
 
 
+@pytest.fixture(scope="module")
+def one_person_store():
+    from contrastiveprosthetics_torch.config import DEFAULT_CONFIG
+    from contrastiveprosthetics_torch.data.synthetic import (
+        make_processed_dataset,
+    )
+
+    return make_processed_dataset(DEFAULT_CONFIG, people_positions=[40],
+                                  seed=3)
+
+
+@pytest.mark.parametrize("C", [3, 150])
+def test_stacked_step_with_k1_matches_the_plain_loss(cuda, one_person_store,
+                                                     monkeypatch, C):
+    """One stacked step of C configs at full width (the crossval sweep's
+    step, K1 once at (C, 8, 41, 16)) against the same step with the plain
+    loss, from the same weights and batch: losses, accuracies and every
+    gradient at the K1 tolerances (the forward is the same launches in
+    both, so no ReLU mask moves)."""
+    import copy
+
+    from contrastiveprosthetics_torch.config import DEFAULT_CONFIG
+    from contrastiveprosthetics_torch.data import sampler
+    from contrastiveprosthetics_torch.data.store import DeviceStore
+    from contrastiveprosthetics_torch.train import engine
+
+    trainer = engine.Trainer(DEFAULT_CONFIG, DeviceStore(
+        DEFAULT_CONFIG, *one_person_store, device=cuda), adabn=False)
+    gens = [trainer.generator(i) for i in range(C)]
+    state = trainer.init_sweep_state(gens)
+    v = trainer.view_train
+    emg_rand = sampler.stacked_task_permutations(gens, v.n_tasks, v.D)
+    batches, _ = sampler.stacked_epoch_batches(gens, v.D, 8)
+    emg_b = sampler.stacked_gather_train_batch(v.emg_flat, emg_rand,
+                                               batches[:, 0])
+    rng = np.random.default_rng(C)
+    h = engine.Hyper(*[torch.from_numpy(np.float32(10) ** rng.uniform(
+        lo, hi, C).astype(np.float32)).to(cuda) for lo, hi in
+        ((-4, -2), (-6, -2), (-9, -8), (-4, -2), (-6, -2), (-9, -8))])
+    h = h._replace(dp_emg=torch.zeros(C, device=cuda))
+    out = {}
+    for name, fn in (("kernel", K.fused_contrastive_loss),
+                     ("plain", K.fused_contrastive_reference)):
+        monkeypatch.setattr(engine, "fused_contrastive_loss", fn)
+        before = dict(K.launch_counts)
+        out[name] = trainer.loss_and_grads(
+            engine.TrainState.fresh(copy.deepcopy(state.model)), emg_b, h,
+            None)
+        torch.cuda.synchronize()
+        launched = {k: K.launch_counts[k] - before[k] for k in
+                    ("contrastive_loss_fwd", "contrastive_loss_bwd")}
+        assert set(launched.values()) == {1 if name == "kernel" else 0}
+    (loss, acc, grads), (loss_p, acc_p, grads_p) = out["kernel"], out["plain"]
+    assert loss.shape == acc.shape == (C,)
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    assert torch.equal(acc, acc_p)
+    for tower in grads:
+        for a, b in zip(grads[tower], grads_p[tower]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
 def test_contrastive_loss_rejects_what_it_does_not_take(cuda):
     """The CUDA wrapper raises, never falls back to the plain version."""
     rng = np.random.default_rng(0)

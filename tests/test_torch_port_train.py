@@ -589,12 +589,46 @@ def test_cli_train_on_cpu_writes_a_reference_checkpoint(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("argv", [
-    ["--prediction"], ["--glove"], ["--crossval_size", "3"],
-    ["--crossval_load"]])
+    ["--prediction"], ["--glove"],
+    ["--crossval_size", "3", "--fused_train", "on"],
+    ["--crossval_size", "3", "--spmd_crossval"]])
 def test_cli_unported_requests_name_the_roadmap(tmp_path, argv):
     with pytest.raises(SystemExit, match="ROADMAP.md, queue 1 item"):
         cli_train.main([*argv, "--platform", "cpu", "--data_dir",
                         str(tmp_path)])
+
+
+@pytest.mark.parametrize("hyper_args", [
+    ["--crossval_size", "3", "--crossval_epochs", "1"],
+    ["--crossval_load", "--crossval_size", "3"]])
+def test_cli_train_on_cpu_runs_the_sweep(tmp_path, monkeypatch, capsys,
+                                         hyper_args):
+    """``cptorch-train --platform cpu`` with a 3-config sweep (and, given
+    ``--crossval_load`` with no cache, falling back to it) at full width on
+    a one-person store: both ``.npy`` files in the reference layout, the
+    best combination's keys row, then the final train."""
+    def one_person(args, cfg, device):
+        emg, pos, glove = make_processed_dataset(cfg, people_positions=[40])
+        return DeviceStore(cfg, emg, pos, glove, device=device)
+
+    monkeypatch.setattr(cli_train, "build_store", one_person)
+    rc = cli_train.main([
+        "--synthetic", *hyper_args, "--final_epochs", "1",
+        "--batch_size", "150", "--no_adabn", "--platform", "cpu",
+        "--data_dir", str(tmp_path), "--checkpoint_dir", str(tmp_path)])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert ("no cached crossval found" in out) == ("--crossval_load"
+                                                  in hyper_args)
+    assert "crossval [3/3]: best acc" in out and "crossval: 3 configs" in out
+    values = np.load(tmp_path / "cross_val_values.npy")
+    keys = np.load(tmp_path / "cross_val_keys.npy")
+    assert values.shape == (3, 2) and values.dtype == np.float64
+    np.testing.assert_array_equal(keys, port_crossval.keys_array(
+        port_crossval.sample_hyperparams(3, seed=42), 16))
+    best = port_crossval.best_config(values, keys)
+    assert f"Best combination: {best}" in out
+    assert "Epoch 0." in out
 
 
 def test_cli_default_platform_needs_a_gpu(monkeypatch):
