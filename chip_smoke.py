@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: the streaming serve path,
-contrastive training, training on the fused chain, and the crossval
-sweep.
+contrastive training, training on the fused chain, the crossval sweep,
+and the evaluation and results path.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
@@ -86,10 +86,30 @@ made with numpy from a seed:
    differ between the two by a launch per step, and one K1f and one K1b
    per stacked step; the
    chunk-width scan (20 stacked steps at 1, 2, 10, 50 and 150 configs);
-   ``cptorch-train --crossval_size 3``.
+   ``cptorch-train --crossval_size 3``;
+10. evaluation and results on phase 7's trained state (plain BatchNorm,
+   bs 8; the DB3 test split's 48 items are one batch of 49,200 encoder
+   rows, the val split's 24 three batches of 8,200): the test pass from
+   one index draw without and with ``use_fused_encoder`` (logits within
+   rtol 2e-4, atol 2e-5, y_true equal, curve and y_pred equal away from
+   near-tie items, ``encoder_chain`` launched 10 times a batch in the
+   fused pass and never in the other), each timed by CUDA events and
+   traced; the fused val pass; ``encoder_chain`` at both batches' rows and
+   at a full 64-item test batch (65,600 rows) against its plain version
+   and the ``addmm`` chain; ``subset_size_sweep`` on the test logits and
+   on 922,500 seeded score rows, timed with peak memory, each bit-equal to
+   its run on a CPU copy; ``export_results`` and ``export_per_subject``
+   (every artifact with its shape, every sheet read back as its
+   ``.npy``); ``evaluate_per_subject`` (finite per-subject accuracies
+   whose mean is the pooled one); ``cptorch-train --crossval_load
+   --fused_encoder --per_subject_eval --results_dir A`` on phase 9's sweep
+   files, ``cptorch-results`` from its checkpoint with the fused encoder
+   into B (``logs.npy`` as A's) and without it into C, and
+   ``cptorch-parity C --ref A``.
 
 Launch counts are reset just before phases 3, 4, 7's and 8's
-``train_loop`` and 9's ``cross_validate`` and read just after each (phase
+``train_loop``, 9's ``cross_validate`` and 10's test and val passes and
+read just after each (phase
 3's after its ``step`` loop and after its ``steps`` call); every serve
 kernel must have launched on each of the three serve paths, each K1
 kernel once per train step in 7 and 8 and once per stacked step in 9,
@@ -100,14 +120,16 @@ is off throughout
 in full f32 (``encoder_chain``, K5f and K5b run 3xTF32 by their own
 instructions, whatever the flags). Any failure raises and the exit code
 is not 0. The last lines are ``{"single", "batched"}``, ``{"train"}``,
-``{"fused_train"}`` and ``{"sweep"}`` JSON lines, the card line from
-nvidia-smi, one
+``{"fused_train"}``, ``{"sweep"}`` and ``{"eval"}`` JSON lines, the card
+line from nvidia-smi, one
 ``{"kernels": [...]}`` JSON line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -629,9 +651,10 @@ def trace_train_steps(trainer, state, hyper, n: int) -> dict:
         n)
 
 
-def train_phase(K, dev) -> tuple[dict, dict, object]:
+def train_phase(K, dev) -> tuple[dict, dict, object, object]:
     """Phase 7: training at full width and the canonical geometry. Returns
-    the ``train`` results and the K1 launch counts of ``train_loop``."""
+    the ``train`` results, the K1 launch counts of ``train_loop``, the
+    trainer and its trained state."""
     from contrastiveprosthetics_torch.cli import train as cli_train
     from contrastiveprosthetics_torch.config import DEFAULT_CONFIG as cfg
     from contrastiveprosthetics_torch.data.sampler import (
@@ -769,7 +792,8 @@ def train_phase(K, dev) -> tuple[dict, dict, object]:
         epoch_ms=epoch_ms, epoch_wall_ms=epoch_wall_ms,
         ms_per_step=epoch_ms / steps_per_epoch,
         train_windows_per_s=windows / epoch_ms * 1e3, step_trace=trace)
-    return train_res, counts, trainer
+    return train_res, counts, trainer, state
+
 
 def ptxas_report(name: str) -> dict:
     """Per CUDA function of kernel source ``name``: its stack frame and
@@ -928,6 +952,22 @@ def check_serve_kernels(K, cases, sm_clock_hz: float) -> dict:
     return entries
 
 
+def chain_macs(chain) -> int:
+    """Multiply-adds per row of a folded chain: its weights and the head."""
+    return sum(w.numel() for w in chain[0:-1:2]) + chain[-1].numel()
+
+
+def encoder_bounds(chain, M: int, tensors) -> dict:
+    """``encoder_chain``'s bound at ``M`` rows of ``chain``: the bytes of
+    ``tensors`` against the 3xTF32 products (three per multiply-add) at the
+    TF32 peak, and the f32 SIMT bound beside it."""
+    macs = chain_macs(chain)
+    b, by = bound_ms(nbytes(*tensors), 3 * 2.0 * macs * M, PEAK_TF32_FLOPS)
+    return dict(bound_ms=b, bound_by=by,
+                bound_ms_f32_simt=bound_ms(nbytes(*tensors),
+                                           2.0 * macs * M)[0])
+
+
 def check_encoder(K, rows, single, batched):
     """Phase 2, ``encoder_chain``: at every M of the ladder (1, 16, 200, the
     regime threshold -+ 1, one tick of 32,768 sessions, 25 ticks) on the
@@ -978,15 +1018,8 @@ def check_encoder(K, rows, single, batched):
         "first rows bit-identical across M and the regime switch; reruns "
         f"bit-identical; against float64 at M={S}: {json.dumps(vs_f64)}")
 
-    macs = sum(w.numel() for w in shared[0:-1:2]) + shared[-1].numel()
-
-    def bounds(M, tensors):
-        b, by = bound_ms(nbytes(*tensors), 3 * 2.0 * macs * M,
-                         PEAK_TF32_FLOPS)
-        return dict(bound_ms=b, bound_by=by,
-                    bound_ms_f32_simt=bound_ms(nbytes(*tensors),
-                                               2.0 * macs * M)[0])
-
+    macs = chain_macs(shared)
+    bounds = functools.partial(encoder_bounds, shared)  # same shapes as folded
     enc = dict(
         route="cuda", max_abs_err=max(errs.values()), max_abs_err_parts=errs,
         tolerance="rtol 2e-4 atol 2e-5 against the plain f32 version (3xTF32 "
@@ -1807,11 +1840,12 @@ def sweep_trace(K, trainer, hypers, C: int) -> dict:
     return trace
 
 
-def sweep_phase(K, trainer) -> tuple[dict, dict, dict]:
+def sweep_phase(K, trainer, sweep_dir: str) -> tuple[dict, dict, dict]:
     """Phase 9, the crossval sweep on phase 7's store and trainer (bs 8,
-    plain BatchNorm, full width). Returns the ``sweep`` results, the K1
-    launch counts of the 150-config ``cross_validate`` and the trace of
-    its stacked step at C=150."""
+    plain BatchNorm, full width); ``cross_validate`` writes its files into
+    ``sweep_dir``, where phase 10 loads them. Returns the ``sweep``
+    results, the K1 launch counts of the 150-config ``cross_validate`` and
+    the trace of its stacked step at C=150."""
     from contrastiveprosthetics_torch.cli import train as cli_train
     from contrastiveprosthetics_torch.models.convert import (
         load_reference_checkpoint,
@@ -1835,16 +1869,15 @@ def sweep_phase(K, trainer) -> tuple[dict, dict, dict]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        start.record()
-        values = crossval.cross_validate(trainer, hypers, SWEEP_EPOCHS,
-                                         seed=42, save_dir=tmp)
-        end.record()
-        torch.cuda.synchronize()
-        sweep_s = time.perf_counter() - t0
-        counts = {name: K.launch_counts[name] for name in TRAIN_KERNELS}
-        back_values, back_keys = crossval.load_crossval(tmp)
+    t0 = time.perf_counter()
+    start.record()
+    values = crossval.cross_validate(trainer, hypers, SWEEP_EPOCHS, seed=42,
+                                     save_dir=sweep_dir)
+    end.record()
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    counts = {name: K.launch_counts[name] for name in TRAIN_KERNELS}
+    back_values, back_keys = crossval.load_crossval(sweep_dir)
     sweep_ms = start.elapsed_time(end)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = n_chunks * steps * SWEEP_EPOCHS
@@ -1929,6 +1962,325 @@ def sweep_phase(K, trainer) -> tuple[dict, dict, dict]:
                best_scan_width=best,
                default_chunk=crossval.DEFAULT_SWEEP_CHUNK, phase_s=phase_s)
     return res, counts, traces[n]
+
+
+def eval_tied_items(a: torch.Tensor, b: torch.Tensor, D: int,
+                    err: float) -> torch.Tensor:
+    """(D,) items with a score row whose top two scores lie within
+    ``2 * err`` in either of two evaluations that differ by at most ``err``
+    per score: only there can a frame's first-max class, and so the item's
+    votes, differ."""
+    gap = lambda x: x.topk(2, dim=-1).values.diff(dim=-1).abs()[..., 0]  # noqa: E731
+    close = (gap(a) <= 2 * err) | (gap(b) <= 2 * err)
+    return close.reshape(D, -1).any(dim=1)
+
+
+def encoder_timing(K, frames, folded) -> dict:
+    """``encoder_chain`` on ``frames`` (one evaluation batch's rows of a
+    folded chain, no affines) against its plain version and the ``addmm``
+    chain: CUDA-event ms per call, device time per launch, its TF32
+    bound and the largest difference from the plain version."""
+    got = K.fused_encoder_logits(frames, folded)
+    want = K.fused_encoder_logits_reference(frames, folded)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    device_ms, per_call = device_per_call(
+        lambda: K.fused_encoder_logits(frames, folded), 10)
+    return dict(
+        rows=frames.shape[0], max_abs_err=max_abs(got, want),
+        ms=time_ms(lambda: K.fused_encoder_logits(frames, folded), 10, 2),
+        plain_ms=time_ms(
+            lambda: K.fused_encoder_logits_reference(frames, folded), 5, 1),
+        library_ms=time_ms(lambda: matmul_chain(frames, folded, None), 10, 2),
+        device_ms_per_launch=device_ms / per_call,
+        device_launches_per_call=per_call,
+        **encoder_bounds(folded, frames.shape[0], (frames, got, *folded)))
+
+
+def encoder_eval_entry(K, frames, folded, launches: int, path: str) -> dict:
+    """A ``kernels`` entry for ``encoder_chain`` at the rows of one batch of
+    evaluation path ``path``, with its launches on that path."""
+    return dict(
+        name="encoder_chain", route="cuda", source=SOURCES["encoder_chain"],
+        replaces=REPLACES["encoder_chain"], path=path,
+        shape=f"rows={frames.shape[0]} (one {path} batch, folded chain, "
+              "no affines)",
+        launches=launches, launches_by_path={path: launches},
+        tolerance="rtol 2e-4 atol 2e-5 against the plain f32 version",
+        **encoder_timing(K, frames, folded),
+        peaks={"f32_flops": PEAK_F32_FLOPS, "tf32_flops": PEAK_TF32_FLOPS,
+               "bytes_per_s": PEAK_BYTES_PER_S})
+
+
+def timed_sweep(logits) -> tuple[object, dict]:
+    """``subset_size_sweep`` of ``logits`` on the card (CUDA events, the
+    host clock, peak memory above what was allocated before), then on a
+    CPU copy, which must give the same bits."""
+    from contrastiveprosthetics_torch.eval.subset_sweep import (
+        subset_size_sweep,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    sweep = subset_size_sweep(logits)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    t0 = time.perf_counter()
+    on_cpu = subset_size_sweep(logits.cpu())
+    cpu_s = time.perf_counter() - t0
+    for name in sweep._fields:
+        a, b = getattr(sweep, name), getattr(on_cpu, name)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"sweep {name} on the card differs from the "
+                                 "CPU run")
+    return sweep, dict(rows=logits.shape[0] * logits.shape[1],
+                       masks=int(sweep.raw.size), ms=start.elapsed_time(end),
+                       wall_ms=wall_ms, peak_gb_above_inputs=peak_gb,
+                       cpu_s=cpu_s, bit_equal_to_cpu=True,
+                       mean_size_1=float(sweep.mean[1]),
+                       mean_size_40=float(sweep.mean[-1]))
+
+
+def eval_phase(K, trainer, state, sweep_dir: str) -> tuple[dict, list]:
+    """Phase 10, the evaluation and results path on phase 7's trained
+    plain-BN state and store (bs 8): the test pass without and with the
+    fused encoder from one index draw, the fused val pass, ``encoder_chain``
+    at both batches' rows, ``subset_size_sweep`` at full size against its
+    CPU run, ``export_results``, ``evaluate_per_subject`` and the three
+    CLIs. Returns the ``eval`` results and the two ``kernels`` entries."""
+    from contrastiveprosthetics_torch.cli import parity as cli_parity
+    from contrastiveprosthetics_torch.cli import results as cli_results
+    from contrastiveprosthetics_torch.cli import train as cli_train
+    from contrastiveprosthetics_torch.data.sampler import (
+        epoch_batches_padded,
+        gather_eval_batch,
+        task_permutations,
+    )
+    from contrastiveprosthetics_torch.eval.subset_sweep import _subset_masks
+    from contrastiveprosthetics_torch.ops.kernels import fold_encoder_params
+    from contrastiveprosthetics_torch.results.export import (
+        export_per_subject,
+        export_results,
+    )
+    from contrastiveprosthetics_torch.train import engine
+    from contrastiveprosthetics_torch.utils.xlsx import read_xlsx
+
+    t_phase = time.perf_counter()
+    cfg, bs = trainer.cfg, trainer.batch_size
+    plain = engine.Trainer(cfg, trainer.store, adabn=False, batch_size=bs)
+    fused = engine.Trainer(cfg, trainer.store, adabn=False, batch_size=bs,
+                           use_fused_encoder=True)
+    n_layers = fused.n_linear + 3  # two convs, the dense layers, the head
+    v = plain.view_test
+    T, W = v.n_tasks, cfg.prediction_window_size
+    gen = plain.generator(21)
+    emg_rand = task_permutations(gen, T, v.D)
+    indices = (emg_rand, *epoch_batches_padded(gen, v.D, 8 * bs))
+    n_batches = indices[1].shape[0]
+
+    # 1. the test pass, unfused then fused, from one index draw: launches
+    # counted from 0 around each, CUDA events, then a trace of each
+    passes, counts, ms = {}, {}, {}
+    for name, tr in (("unfused", plain), ("fused", fused)):
+        K.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        passes[name] = tr.evaluate_from_indices(state, v, *indices)
+        end.record()
+        torch.cuda.synchronize()
+        counts[name] = K.launch_counts["encoder_chain"]
+        ms[name] = start.elapsed_time(end)
+    if counts != {"unfused": 0, "fused": n_layers * n_batches}:
+        raise AssertionError(f"encoder_chain launches {counts}, want 0 and "
+                             f"{n_layers} x {n_batches} batches")
+    timed = {name: time_ms(lambda tr=tr: tr.evaluate_from_indices(
+        state, v, *indices), 3, 0) for name, tr in (("unfused", plain),
+                                                   ("fused", fused))}
+    traces = {name: trace_call(lambda tr=tr: tr.evaluate_from_indices(
+        state, v, *indices)) for name, tr in (("unfused", plain),
+                                             ("fused", fused))}
+    got, want = passes["fused"], passes["unfused"]
+    if got.logits.shape != (v.D * W, T, T) or not bool(
+            torch.isfinite(got.logits).all()):
+        raise AssertionError(f"fused logits {tuple(got.logits.shape)}, or "
+                             "not finite")
+    torch.testing.assert_close(got.logits, want.logits, rtol=2e-4, atol=2e-5)
+    err = max_abs(got.logits, want.logits)
+    tied = eval_tied_items(got.logits, want.logits, v.D, err)
+    n_tied = int(tied.sum())
+    if not torch.equal(got.y_true, want.y_true):
+        raise AssertionError("fused and unfused y_true differ")
+    for name in ("curve", "y_pred"):
+        if not torch.equal(getattr(got, name)[~tied],
+                           getattr(want, name)[~tied]):
+            raise AssertionError(f"fused and unfused {name} differ away from "
+                                 "near-tie items")
+    acc_diff = abs(float(got.accuracy) - float(want.accuracy))
+    if acc_diff > n_tied / v.D + 1e-7:
+        raise AssertionError(f"accuracy differs by {acc_diff} with {n_tied} "
+                             "near-tie items")
+    test_pass = dict(
+        items=v.D, batches=n_batches, batch_items=8 * bs,
+        rows_per_batch=indices[1].shape[1] * T * W, launches=counts,
+        first_call_ms=ms, ms=timed, traces=traces,
+        loss=dict(unfused=float(want.loss), fused=float(got.loss)),
+        accuracy=dict(unfused=float(want.accuracy),
+                      fused=float(got.accuracy)),
+        max_abs_logit_err=err, near_tie_items=n_tied,
+        accuracy_diff=acc_diff,
+        tolerance="logits rtol 2e-4 atol 2e-5 (encoder_chain's against its "
+                  "plain version); curve and y_pred equal except on items "
+                  "with a score row whose top two lie within twice the "
+                  "largest logit difference")
+    log(f"[eval] test pass of {v.D} items in {n_batches} batches: "
+        f"{json.dumps({k: v_ for k, v_ in test_pass.items() if k != 'traces'})}")
+    log(f"[eval] traces of one test pass: {json.dumps(traces)}")
+
+    # 2. the fused val pass (its own launches) and encoder_chain at both
+    # batches' rows, beside its plain version and the addmm chain
+    vv = fused.view_val
+    K.reset_launch_counts()
+    val = fused.evaluate(state, fused.generator(22), None, "val")
+    torch.cuda.synchronize()
+    val_launches = K.launch_counts["encoder_chain"]
+    n_val = -(-vv.D // bs)
+    if val_launches != n_layers * n_val:
+        raise AssertionError(f"fused val pass: {val_launches} encoder_chain "
+                             f"launches, want {n_layers} x {n_val}")
+    model = state.model.eval()
+    with torch.no_grad():
+        folded = fold_encoder_params(model.emg_net, model.encode_classes())
+    test_rows = gather_eval_batch(v.emg_groups, emg_rand,
+                                  indices[1][0]).reshape(-1, cfg.emg_dim)
+    val_rows = gather_eval_batch(vv.emg_groups, task_permutations(
+        gen, T, vv.D), torch.arange(bs, device=gen.device)).reshape(
+            -1, cfg.emg_dim)
+    entries = [encoder_eval_entry(K, test_rows, folded, counts["fused"],
+                                  "eval_test"),
+               encoder_eval_entry(K, val_rows, folded, val_launches,
+                                  "eval_val")]
+    # a full test batch of 8 x bs items (a split of 64 items or more)
+    full = gather_eval_batch(v.emg_groups, emg_rand, torch.arange(
+        8 * bs, device=gen.device) % v.D).reshape(-1, cfg.emg_dim)
+    entries[0]["rows_full_test_batch"] = encoder_timing(K, full, folded)
+    del full
+    log(f"[eval] fused val pass of {vv.D} items: acc "
+        f"{float(val.accuracy):.4f}, {val_launches} launches; encoder_chain "
+        f"at the eval rows: {json.dumps(entries)}")
+    del test_rows, val_rows
+
+    # 3. the set-size sweep on the test pass's logits, on the card and on
+    # the CPU, its masks' draw timed alone (numpy, on the host); then on
+    # 922,500 seeded score rows (22,500 x 41 x 41, true class favoured),
+    # whose rows are nearly all distinct
+    t0 = time.perf_counter()
+    _subset_masks(np.random.default_rng(0), T, 144)
+    masks_ms = (time.perf_counter() - t0) * 1e3
+    sweep, sweep_path = timed_sweep(got.logits)
+    rng = np.random.default_rng(10)
+    big = rng.standard_normal((22500, T, T), dtype=np.float32)
+    big[:, np.arange(T), np.arange(T)] += 1.0
+    _, sweep_big = timed_sweep(torch.from_numpy(big).to(got.logits.device))
+    del big
+    sweep_res = dict(path=sweep_path, seeded_922500_rows=sweep_big,
+                     mask_draw_ms=masks_ms)
+    log(f"[eval] subset_size_sweep: {json.dumps(sweep_res)}")
+
+    # 4. per-subject evaluation, then the artifacts of both
+    t0 = time.perf_counter()
+    per = plain.evaluate_per_subject(state, None, "test")
+    torch.cuda.synchronize()
+    per_s = time.perf_counter() - t0
+    people = plain.store.people_ids()
+    acc = per.curve[:, -1].cpu().numpy().reshape(len(people), -1).mean(1)
+    if not (len(acc) == v.n_people and np.isfinite(acc).all()
+            and abs(acc.mean() - float(per.curve[:, -1].mean())) < 1e-6):
+        raise AssertionError(f"per-subject accuracies {acc}")
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        export_results(got, out, n_classes=T)
+        export_per_subject(per, out, people)
+        export_s = time.perf_counter() - t0
+        shapes = {"logs": (v.D * W, T, T), "y_pred": (v.D * T,),
+                  "y_true": (v.D * T,), "voting": (v.D, cfg.n_voting_cols),
+                  "confusion_matrix": (T, T),
+                  "per_subject_acc": (v.n_people,),
+                  **{f"{s}_grasp": (T,) for s in ("mean", "min", "max",
+                                                  "std")}}
+        for stem, shape in shapes.items():
+            arr = np.load(f"{out}/{stem}.npy")
+            if arr.shape != shape:
+                raise AssertionError(f"{stem}.npy {arr.shape}, want {shape}")
+            if stem in ("logs", "y_pred", "y_true"):  # .npy only
+                continue
+            sheet = read_xlsx(f"{out}/{stem}.xlsx")
+            sheet = sheet[:, -1] if arr.ndim == 1 else sheet
+            if not np.array_equal(sheet, arr.astype(np.float64)):
+                raise AssertionError(f"{stem}.xlsx does not read back as "
+                                     f"{stem}.npy")
+        curve = np.load(f"{out}/voting.npy").astype(np.float64)
+        for stem, want_ in (("voting_avg", curve.mean(0)),
+                            ("voting_std", curve.std(0))):
+            if not np.allclose(read_xlsx(f"{out}/{stem}.xlsx")[:, 0], want_,
+                               rtol=1e-6, atol=1e-7):
+                raise AssertionError(f"{stem}.xlsx")
+        if not np.array_equal(np.load(f"{out}/mean_grasp.npy"), sweep.mean):
+            raise AssertionError("exported mean_grasp is not the sweep's")
+    log(f"[eval] evaluate_per_subject in {per_s:.2f} s: {acc.tolist()}; "
+        f"export_results and export_per_subject in {export_s:.2f} s, every "
+        "artifact present with its shape, every sheet reads back as its .npy")
+
+    # 5. the CLIs on cuda: train with the fused encoder into A, results
+    # from its checkpoint with it into B and without it into C
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--synthetic", "--crossval_load", "--data_dir", sweep_dir,
+                  "--checkpoint_dir", tmp, "--batch_size", "8", "--no_adabn",
+                  "--per_subject_eval"]
+        a, b, c = (f"{tmp}/{x}" for x in "ABC")
+        t0 = time.perf_counter()
+        if cli_train.main([*common, "--final_epochs", "1", "--test",
+                           "--fused_encoder", "--results_dir", a]) != 0:
+            raise AssertionError("cptorch-train --fused_encoder failed")
+        t1 = time.perf_counter()
+        for argv in ([*common, "--fused_encoder", "--results_dir", b],
+                     [*common, "--results_dir", c]):
+            if cli_results.main(argv) != 0:
+                raise AssertionError(f"cptorch-results {argv} failed")
+        t2 = time.perf_counter()
+        la, lb = np.load(f"{a}/logs.npy"), np.load(f"{b}/logs.npy")
+        logs_equal = bool(np.array_equal(la, lb))
+        np.testing.assert_allclose(lb, la, rtol=2e-4, atol=2e-5)
+        logs_diff = float(np.abs(la - lb).max())
+        if cli_parity.main([c, "--ref", a]) != 0:
+            raise AssertionError("cptorch-parity C --ref A failed")
+        if not all(os.path.exists(f"{d}/per_subject_acc.npy")
+                   for d in (a, b, c)):
+            raise AssertionError("a CLI wrote no per-subject accuracies")
+    clis = dict(train_s=t1 - t0, results_s_each=(t2 - t1) / 2,
+                logs_bit_equal_train_vs_results=logs_equal,
+                logs_max_abs_diff=logs_diff, parity_c_vs_a="PASS")
+    log(f"[cli] cptorch-train --crossval_load --fused_encoder "
+        f"--per_subject_eval --results_dir A, cptorch-results into B "
+        f"(fused) and C (unfused), cptorch-parity C --ref A ok on cuda: "
+        f"{json.dumps(clis)}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[eval] phase 10 took {phase_s:.1f} s")
+    res = dict(test_pass=test_pass,
+               val_pass=dict(items=vv.D, batches=n_val,
+                             launches=val_launches,
+                             accuracy=float(val.accuracy)),
+               sweep=sweep_res,
+               per_subject=dict(accuracies=acc.tolist(), s=per_s),
+               export_s=export_s, clis=clis, phase_s=phase_s)
+    return res, entries
 
 
 def main() -> int:
@@ -2146,7 +2498,7 @@ def main() -> int:
     entries.update(check_k1(K, dev))
 
     # ---------------------------------------------------------- 7. train
-    train_res, train_counts, trainer = train_phase(K, dev)
+    train_res, train_counts, trainer, state = train_phase(K, dev)
 
     # ------------------------------------------- 8. the fused train chain
     from contrastiveprosthetics_torch.ops import train_fused as TF
@@ -2154,8 +2506,12 @@ def main() -> int:
     entries.update(check_k5(TF, K, dev))
     fused_res, fused_counts = fused_train_phase(K, trainer)
 
-    # ------------------------------------------------ 9. the crossval sweep
-    sweep_res, sweep_counts, sweep_trace_150 = sweep_phase(K, trainer)
+    with tempfile.TemporaryDirectory() as sweep_dir:
+        # -------------------------------------------- 9. the crossval sweep
+        sweep_res, sweep_counts, sweep_trace_150 = sweep_phase(K, trainer,
+                                                               sweep_dir)
+        # ---------------------------------- 10. evaluation and the results
+        eval_res, eval_entries = eval_phase(K, trainer, state, sweep_dir)
 
     for name, entry in entries.items():
         if name in FUSED_KERNELS:
@@ -2194,8 +2550,9 @@ def main() -> int:
     print(json.dumps({"train": train_res}))
     print(json.dumps({"fused_train": fused_res}))
     print(json.dumps({"sweep": sweep_res}))
+    print(json.dumps({"eval": eval_res}))
     print(card)
-    print(json.dumps({"kernels": list(entries.values())}))
+    print(json.dumps({"kernels": list(entries.values()) + eval_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

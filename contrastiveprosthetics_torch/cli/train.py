@@ -2,19 +2,22 @@
 
 Keeps the reference's flags (``train.py:251-268``; the ``--no_*`` flags
 are ``store_false``: passing one switches the feature off) and adds
-``--data_dir``, ``--checkpoint_dir``, ``--synthetic`` (fabricated,
-class-separable data), ``--crossval_chunk`` (configs trained at once),
-``--seed``, ``--crossval_id``, ``--compat``, ``--fused_train`` and
-``--spmd_crossval`` (the JAX CLI's flags) and ``--platform`` (cuda by
-default).
+``--data_dir``, ``--checkpoint_dir``, ``--results_dir`` (the artifact
+set, ``results/export.py``), ``--synthetic`` (fabricated, class-separable
+data), ``--crossval_chunk`` (configs trained at once), ``--seed``,
+``--crossval_id``, ``--compat``, ``--fused_encoder``, ``--fused_train``,
+``--spmd_crossval`` and ``--per_subject_eval`` (the JAX CLI's flags) and
+``--platform`` (cuda by default).
 
 Flow (``train.py:168-249``): load the store -> hyperparameters
 (``--crossval_load``: the cached sweep, or the sweep when there is no
 cache; ``--crossval_size 0``: the canonical ones; else the random-search
 sweep, ``train/crossval.py``) -> the nanargmax-val-acc config -> final
 annealed train, checkpointing on val loss -> reload the best checkpoint
--> ``--test``. ``--prediction``, ``--glove``, ``--spmd_crossval`` and the
-sweep on the fused chain are not ported yet and raise.
+-> ``--test`` (then ``--results_dir``'s artifacts and
+``--per_subject_eval``). ``--prediction``, ``--glove``,
+``--spmd_crossval``, and the sweep on the fused chain or with the fused
+encoder's validation, are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -47,6 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test", action="store_true")
     p.add_argument("--data_dir", type=str, default="data")
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
+    p.add_argument("--results_dir", type=str, default=None,
+                   help="export the full artifact set after --test")
     p.add_argument("--synthetic", action="store_true",
                    help="train on fabricated class-separable data")
     p.add_argument("--crossval_chunk", type=int, default=None,
@@ -57,6 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="suffix of cross_val_{keys,values}<id>.npy")
     p.add_argument("--compat", action="store_true",
                    help="reproduce every reference quirk (config.py)")
+    p.add_argument("--fused_encoder", action="store_true",
+                   help="plain-BN contrastive evaluation runs the whole "
+                        "encoder and the class head as one encoder_chain "
+                        "call per batch (ops/kernels.py), folded once per "
+                        "evaluation")
     p.add_argument("--fused_train", type=str, default="auto",
                    choices=("auto", "on", "off"),
                    help="the fused training chain for the EMG dense stack "
@@ -65,6 +75,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "auto = the Trainer's default (off)")
     p.add_argument("--spmd_crossval", action="store_true",
                    help="shard the sweep's configs over several devices")
+    p.add_argument("--per_subject_eval", action="store_true",
+                   help="after --test, also evaluate each subject in its own "
+                        "batch (per-subject AdaBN statistics, the "
+                        "reference's stated intent, models.py:245) and "
+                        "report and export per-subject accuracy")
     add_platform_flag(p)
     return p
 
@@ -81,13 +96,36 @@ def build_store(args, cfg, device):
     return DeviceStore.load(cfg, args.data_dir, device=device)
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+def reject_unported_modes(args) -> None:
     if args.prediction or args.glove:
         raise SystemExit(NOT_PORTED.format(
             what="--prediction/--glove training", item=7,
             hint="only contrastive training with the one-hot class encoder "
                  "runs"))
+
+
+def report_per_subject(trainer, state, hyper, out_dir=None, pooled=None):
+    """``--per_subject_eval``: each subject's test items as one batch;
+    prints the accuracies and, given ``out_dir``, exports them. Returns
+    the (n_people,) accuracies."""
+    from contrastiveprosthetics_torch.results.export import export_per_subject
+
+    ps = trainer.evaluate_per_subject(state, hyper, split="test")
+    people = trainer.store.people_ids(db2=trainer.db2)
+    acc = ps.curve[:, -1].cpu().numpy().reshape(len(people), -1).mean(axis=1)
+    print("per-subject test accuracy (own-batch AdaBN statistics):")
+    for pid, a in zip(people, acc):
+        print(f"  subject {int(pid)}: {a:.4f}")
+    print(f"  mean: {acc.mean():.4f}"
+          + ("" if pooled is None else f"  (pooled: {pooled:.4f})"))
+    if out_dir:
+        export_per_subject(ps, out_dir, people)
+    return acc
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    reject_unported_modes(args)
     if args.spmd_crossval:
         raise SystemExit(NOT_PORTED.format(
             what="--spmd_crossval (the sweep's configs sharded over several "
@@ -107,6 +145,13 @@ def main(argv=None) -> int:
             what="the crossval sweep on the fused training chain", item=11,
             hint="the fused chain's kernels take no config axis yet; pass "
                  "--fused_train auto or off for the sweep"))
+    if sweep and args.fused_encoder and not args.no_adabn:
+        raise SystemExit(NOT_PORTED.format(
+            what="the crossval sweep's validation on the fused encoder "
+                 "(--fused_encoder)", item=12,
+            hint="encoder_chain takes no config axis yet; drop "
+                 "--fused_encoder for the sweep, or pass --crossval_load "
+                 "with a cached sweep or --crossval_size 0"))
     device = select_device(args.platform)
 
     from contrastiveprosthetics_torch.config import DEFAULT_CONFIG, compat_config
@@ -128,7 +173,8 @@ def main(argv=None) -> int:
     trainer = Trainer(cfg, store, db2=args.db2, adabn=args.no_adabn,
                       batch_size=args.batch_size,
                       use_fused_train={"auto": None, "on": True,
-                                       "off": False}[args.fused_train])
+                                       "off": False}[args.fused_train],
+                      use_fused_encoder=True if args.fused_encoder else None)
     print("Dataset loaded")
 
     if crossval_load:
@@ -175,6 +221,16 @@ def main(argv=None) -> int:
         t = run_test(trainer, state, hyper, trainer.generator(args.seed + 5))
         print("loss,\t\t\tcorrect")
         print((float(t.loss), float(t.accuracy)))
+        if args.results_dir:
+            from contrastiveprosthetics_torch.results.export import (
+                export_results,
+            )
+
+            export_results(t, args.results_dir, n_classes=cfg.max_tasks)
+            print(f"artifacts exported to {args.results_dir}")
+        if args.per_subject_eval:
+            report_per_subject(trainer, state, hyper, args.results_dir,
+                               pooled=float(t.accuracy))
     return 0
 
 

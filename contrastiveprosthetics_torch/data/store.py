@@ -100,6 +100,12 @@ class DeviceStore:
                 f"{self.people_positions.tolist()})")
         return np.asarray(rows, dtype=np.int64)
 
+    def people_ids(self, db2: bool = False) -> np.ndarray:
+        """The person-axis positions of a view's people, in the order of
+        its items: ``Config.people_mask`` less the people this store
+        lacks."""
+        return self.people_positions[self._people_rows(db2)]
+
     def view(self, split: str, db2: bool = False) -> SplitView:
         """A split view: one gather over (task, person, rep)."""
         cfg = self.cfg

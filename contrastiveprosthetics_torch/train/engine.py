@@ -35,6 +35,17 @@ chunk generator, so, as in JAX, a config's masks depend on its chunk.
 The sweep runs the eager tower only (the fused chain takes no config
 axis yet).
 
+``Trainer(use_fused_encoder=True)`` runs the voted evaluation's encoder
+through the ``encoder_chain`` kernels (``ops/kernels.py``), as the JAX
+package's flag of that name runs ``fused_encoder_logits``
+(``engine.py:643-685``): the EMG tower and the class head folded once per
+evaluation into one chain of GEMMs, with the running statistics absorbed,
+and one chain call per batch. Only plain BatchNorm with all the classes
+in the split folds so; an explicit request on another config warns and
+runs the unfused path, as in JAX. The sweep's validation would need the
+chain once per config, which the kernels cannot take yet, so a sweep on a
+trainer that asks for it raises.
+
 Precision: the forward and backward run in f32 with cuDNN's TF32
 convolutions off (``device.f32_convolutions``, as calibration does);
 matmuls keep PyTorch's f32 default.
@@ -42,6 +53,7 @@ matmuls keep PyTorch's f32 default.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -53,6 +65,7 @@ from contrastiveprosthetics_torch.data.sampler import (
     epoch_batches_padded,
     gather_eval_batch,
     gather_train_batch,
+    identity_permutations,
     stacked_epoch_batches,
     stacked_epoch_batches_padded,
     stacked_gather_eval_batch,
@@ -72,9 +85,14 @@ from contrastiveprosthetics_torch.models.stacked import (
     StackedContrastiveModel,
     stacked_l2_penalty,
 )
-from contrastiveprosthetics_torch.ops.kernels import fused_contrastive_loss
+from contrastiveprosthetics_torch.ops.kernels import (
+    fold_encoder_params,
+    fused_contrastive_loss,
+    fused_encoder_logits,
+)
 from contrastiveprosthetics_torch.ops.train_fused import fused_emg_embed
 from contrastiveprosthetics_torch.train.loss import (
+    symmetric_contrastive_loss,
     symmetric_contrastive_loss_per_item,
 )
 
@@ -223,9 +241,14 @@ class Trainer:
     # off, as in the JAX package, until a benchmark's A/B on the card says
     # otherwise (PERF.md)
     use_fused_train: bool | None = None
+    # the voted evaluation's encoder on the encoder_chain kernels; None is
+    # off, as in the JAX package, until a benchmark's A/B on the card says
+    # otherwise
+    use_fused_encoder: bool | None = None
 
     def __post_init__(self):
         self.use_fused_train = bool(self.use_fused_train)
+        self.use_fused_encoder = bool(self.use_fused_encoder)
         self.device = self.store.device
         self.view_train = self.store.view("train", db2=self.db2)
         self.view_val = self.store.view("val", db2=self.db2)
@@ -414,23 +437,51 @@ class Trainer:
         return self.evaluate_from_indices(state, v, emg_rand, batches,
                                           weights, inverse)
 
+    def _fused_encoder_on(self, n_tasks: int) -> bool:
+        """Whether a voted evaluation of ``n_tasks`` tasks runs the
+        ``encoder_chain`` kernels: on request, with plain BatchNorm and
+        every class (``engine.py:643-657``). A request on another config
+        warns and runs the unfused path."""
+        if not self.use_fused_encoder:
+            return False
+        if not self.adabn and n_tasks == self.cfg.max_tasks:
+            return True
+        warnings.warn(
+            "use_fused_encoder requested but this eval config is ineligible "
+            "(needs plain-BN contrastive one-hot and n_tasks == "
+            f"{self.cfg.max_tasks}); falling back to the unfused path",
+            stacklevel=3)
+        return False
+
     @torch.no_grad()
     def evaluate_from_indices(self, state: TrainState, view: SplitView,
                               emg_rand, batches, weights,
                               inverse) -> EvalResult:
         """Every item once: padded batches (``weights`` 0 on the pad
         duplicates, which the loss leaves out), per-item outputs back in
-        item order through ``inverse`` (engine.py:624-749)."""
+        item order through ``inverse`` (engine.py:624-749). With the fused
+        encoder, each batch's frames go through one ``encoder_chain`` call
+        in (item, task, frame) row order, and its scores are put in the
+        model's (item, frame) vote order (``engine.py:671-673``)."""
         model = state.model.eval()
         W = self.cfg.prediction_window_size
         n_prefix = self.cfg.n_voting_cols
         T = view.n_tasks
+        folded = None
+        if self._fused_encoder_on(T):
+            folded = fold_encoder_params(model.emg_net, model.encode_classes())
         loss_sums, curves, y_preds, y_trues, logits_all = [], [], [], [], []
         with f32_convolutions():
             for items, w in zip(batches, weights):
                 bs = items.shape[0]
                 emg_b = gather_eval_batch(view.emg_groups, emg_rand, items)
-                logits = model(emg_b)                     # (bs*W, T, T)
+                if folded is None:
+                    logits = model(emg_b)                 # (bs*W, T, T)
+                else:
+                    scores = fused_encoder_logits(
+                        emg_b.reshape(-1, emg_b.shape[-1]), folded)
+                    logits = scores.reshape(bs, T, W, T).transpose(1, 2) \
+                        .reshape(bs * W, T, T)
                 item_loss = symmetric_contrastive_loss_per_item(
                     logits).reshape(bs, W).mean(dim=-1)
                 res = vote_from_logits(logits, window=W, n_prefix=n_prefix)
@@ -448,7 +499,51 @@ class Trainer:
             y_true=torch.cat(y_trues)[inverse],
             logits=torch.cat(logits_all)[inverse].reshape(-1, T, T))
 
+    @torch.no_grad()
+    def evaluate_per_subject(self, state: TrainState,
+                             hyper: Hyper | None = None,
+                             split: str = "test") -> EvalResult:
+        """Each subject's items as one batch (``--per_subject_eval``; the
+        JAX package's ``engine.py:758-818``), so that under AdaBN the batch
+        statistics come from that subject alone, the reference's stated
+        intent (models.py:245). The eval items are (person, rep, group)
+        row-major, so a subject's items are one contiguous block, gathered
+        through identity task permutations; the outputs stay in item order.
+        The loss is the mean of the subjects' mean losses. Deterministic,
+        so it takes no generator."""
+        v = {"val": self.view_val, "test": self.view_test}[split]
+        model = state.model.eval()
+        W = self.cfg.prediction_window_size
+        n_prefix = self.cfg.n_voting_cols
+        T = v.n_tasks
+        subjects = torch.arange(v.D, device=self.device).reshape(
+            v.n_people, v.D // v.n_people)
+        emg_rand = identity_permutations(T, v.D, device=self.device)
+        losses, curves, y_preds, y_trues, logits_all = [], [], [], [], []
+        with f32_convolutions():
+            for items in subjects:
+                logits = model(gather_eval_batch(v.emg_groups, emg_rand,
+                                                 items))
+                res = vote_from_logits(logits, window=W, n_prefix=n_prefix)
+                losses.append(symmetric_contrastive_loss(logits))
+                curves.append(res.curve)
+                y_preds.append(res.y_pred)
+                y_trues.append(res.y_true)
+                logits_all.append(logits)
+        curve = torch.cat(curves)
+        return EvalResult(
+            loss=torch.stack(losses).mean(), accuracy=curve[:, -1].mean(),
+            curve=curve, y_pred=torch.cat(y_preds), y_true=torch.cat(y_trues),
+            logits=torch.cat(logits_all))
+
     # ----------------------------------------------------------------- sweep
+    def _check_sweep_encoder(self) -> None:
+        if self._fused_encoder_on(self.view_val.n_tasks):
+            raise NotImplementedError(
+                "the sweep's validation on the fused encoder: encoder_chain "
+                "takes no config axis yet (ROADMAP.md, queue 1 item 12); "
+                "use a Trainer without use_fused_encoder for the sweep")
+
     def sweep_epoch_from_indices(self, state: TrainState, emg_rand, batches,
                                  tail, hyper: Hyper, lr_emg_factor: float,
                                  lr_glove_factor: float,
@@ -483,6 +578,7 @@ class Trainer:
         bs), ``inverse`` (C, D), each config's as
         :meth:`evaluate_from_indices` takes them. Returns (C,) mean losses
         and (C,) voted accuracies on the device."""
+        self._check_sweep_encoder()
         model = state.model.eval()
         W = self.cfg.prediction_window_size
         T = view.n_tasks
@@ -511,6 +607,7 @@ class Trainer:
         store's device (init, epochs and val draw from it in turn), and
         ``generator`` the chunk's dropout masks. Returns (C,) val losses and
         accuracies on the device."""
+        self._check_sweep_encoder()
         if generator is None and np.any(np.asarray(hyper.dp_emg)):
             raise ValueError("dropout at a nonzero rate needs an explicit "
                              "torch.Generator for its masks")
