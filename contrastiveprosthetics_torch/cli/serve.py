@@ -19,6 +19,11 @@ Inputs:
   --replay       the whole recording in one call instead of tick by tick.
   --demo         fabricate recording, stats and weights (no files needed).
   --platform     cuda (default) or cpu.
+
+The JAX CLI's ``--fused_encoder`` is taken as a no-op (on CUDA every tick
+already runs ``encoder_chain``); ``--no_fused_encoder`` exits, since no
+other encoder path serves on the card; ``--spmd`` and ``--bf16`` are not
+ported yet and exit.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from contrastiveprosthetics_torch.cli.train import NOT_PORTED
 from contrastiveprosthetics_torch.config import DEFAULT_CONFIG as cfg
 from contrastiveprosthetics_torch.device import add_platform_flag, select_device
 
@@ -54,9 +60,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--replay", action="store_true",
                    help="process the whole recording in one call instead "
                         "of simulating real-time ticks (identical outputs)")
+    p.add_argument("--spmd", action="store_true",
+                   help="shard the session axis over several devices")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 tick compute")
+    p.add_argument("--fused_encoder", action="store_true",
+                   help="a no-op: every tick runs the encoder_chain kernel")
+    p.add_argument("--no_fused_encoder", action="store_true",
+                   help="refused: encoder_chain is the only encoder path "
+                        "of the tick")
     p.add_argument("--quiet", action="store_true")
     add_platform_flag(p)
     return p
+
+
+def reject_unported_modes(args) -> None:
+    if args.spmd:
+        raise SystemExit(NOT_PORTED.format(
+            what="--spmd (the session axis over several devices)", item=8,
+            hint="drop the flag: the batched engine serves every session on "
+                 "one device"))
+    if args.bf16:
+        raise SystemExit(NOT_PORTED.format(
+            what="--bf16 (bfloat16 tick compute and folds)", item=9,
+            hint="drop the flag: the tick runs in float32"))
+    if args.no_fused_encoder:
+        raise SystemExit(
+            "--no_fused_encoder: the port's tick has one encoder path, the "
+            "encoder_chain kernel on the folded weights (ops/kernels.py), "
+            "and no unfused one to switch to; drop the flag")
 
 
 def _load_recording(path: str) -> np.ndarray:
@@ -73,6 +105,7 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    reject_unported_modes(args)
     device = select_device(args.platform)
 
     from contrastiveprosthetics_torch.models.clip import ContrastiveModel

@@ -6,8 +6,10 @@ are ``store_false``: passing one switches the feature off) and adds
 set, ``results/export.py``), ``--synthetic`` (fabricated, class-separable
 data), ``--crossval_chunk`` (configs trained at once), ``--seed``,
 ``--crossval_id``, ``--compat``, ``--fused_encoder``, ``--fused_train``,
-``--spmd_crossval`` and ``--per_subject_eval`` (the JAX CLI's flags) and
-``--platform`` (cuda by default).
+``--spmd_crossval``, ``--per_subject_eval``, ``--pallas_loss``,
+``--prng_impl``, ``--bf16``, ``--profile`` and ``--glove_encoding`` (the
+JAX CLI's flags) and ``--platform`` (cuda by default). ``--pallas_loss``
+is a no-op: on CUDA the K1 kernels are the loss's only path.
 
 Flow (``train.py:168-249``): load the store -> hyperparameters
 (``--crossval_load``: the cached sweep, or the sweep when there is no
@@ -16,8 +18,9 @@ sweep, ``train/crossval.py``) -> the nanargmax-val-acc config -> final
 annealed train, checkpointing on val loss -> reload the best checkpoint
 -> ``--test`` (then ``--results_dir``'s artifacts and
 ``--per_subject_eval``). ``--prediction``, ``--glove``,
-``--spmd_crossval``, and the sweep on the fused chain or with the fused
-encoder's validation, are not ported yet and raise.
+``--glove_encoding``, ``--bf16``, ``--profile``, ``--spmd_crossval``, and
+the sweep on the fused chain or with the fused encoder's validation, are
+not ported yet and raise; so does a ``--prng_impl`` other than ``auto``.
 """
 from __future__ import annotations
 
@@ -80,6 +83,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "batch (per-subject AdaBN statistics, the "
                         "reference's stated intent, models.py:245) and "
                         "report and export per-subject accuracy")
+    p.add_argument("--glove_encoding", action="store_true",
+                   help="encode real glove angles as class embeddings")
+    p.add_argument("--pallas_loss", action="store_true",
+                   help="the fused contrastive loss kernels: a no-op here, "
+                        "since on CUDA they are the loss's only path")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 encoder compute (mixed precision)")
+    p.add_argument("--profile", action="store_true",
+                   help="trace the training run")
+    p.add_argument("--prng_impl", type=str, default="auto",
+                   choices=("auto", "threefry2x32", "rbg", "unsafe_rbg"),
+                   help="the JAX CLI's PRNG choice; only auto runs here "
+                        "(torch's Philox)")
     add_platform_flag(p)
     return p
 
@@ -97,11 +113,26 @@ def build_store(args, cfg, device):
 
 
 def reject_unported_modes(args) -> None:
-    if args.prediction or args.glove:
+    if args.prediction or args.glove or args.glove_encoding:
         raise SystemExit(NOT_PORTED.format(
-            what="--prediction/--glove training", item=7,
+            what="--prediction/--glove/--glove_encoding training", item=7,
             hint="only contrastive training with the one-hot class encoder "
                  "runs"))
+    if args.bf16:
+        raise SystemExit(NOT_PORTED.format(
+            what="--bf16 (bfloat16 encoder compute)", item=9,
+            hint="drop the flag: the port trains in float32"))
+    if args.profile:
+        raise SystemExit(NOT_PORTED.format(
+            what="--profile (a trace of the training run)", item=10,
+            hint="drop the flag, or trace with torch.profiler around "
+                 "train_loop"))
+    if args.prng_impl != "auto":
+        raise SystemExit(
+            f"--prng_impl {args.prng_impl} names a JAX random-number "
+            "generator; the port draws every random stream (init, "
+            "shuffles, dropout) from torch's Philox generators, so no JAX "
+            "stream can be reproduced: drop the flag or pass auto")
 
 
 def report_per_subject(trainer, state, hyper, out_dir=None, pooled=None):

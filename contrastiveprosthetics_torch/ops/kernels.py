@@ -18,6 +18,11 @@ Hopper (``csrc/``):
 * ``vote_scan``: masked first-max prediction and the majority vote,
   parallel over (tick, session), and the masked scores where asked.
 
+The ingest's and the calibration's band-pass and RMS run as one more
+kernel, ``iir_rms_frames`` (``csrc/iir_rms.cu``): from zero state, the
+leading-window RMS at every stride-th sample (``ops/signal.py``'s
+``preprocess_segments`` and ``StreamingEngine.preprocess_recording``).
+
 The fused training chain's kernels (``ops/train_fused.py``: K5f, K5b,
 the chain's tail pair and K5m) launch through the same table and count
 here too.
@@ -52,6 +57,7 @@ from contrastiveprosthetics_torch.ops import _build
 NEG = torch.finfo(torch.float32).min  # the mask value of stream.py:268
 
 launch_counts = {"dsp_frames": 0, "encoder_chain": 0, "vote_scan": 0,
+                 "iir_rms_frames": 0,
                  "contrastive_loss_fwd": 0, "contrastive_loss_bwd": 0,
                  "dense_block_fwd": 0, "dense_block_bwd": 0,
                  "chain_tail_fwd": 0, "chain_tail_bwd": 0,
@@ -174,6 +180,7 @@ def _expect(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 _SIGNATURES = {
     "dsp_frames": ("dsp_frames", "dsp_frames_launch", 9, 6, True),
     "vote_scan": ("vote_scan", "vote_scan_launch", 9, 4, False),
+    "iir_rms_frames": ("iir_rms", "iir_rms_frames_launch", 3, 7, True),
     "contrastive_loss_fwd": ("contrastive_loss", "contrastive_loss_fwd_launch",
                              3, 4, False),
     "contrastive_loss_bwd": ("contrastive_loss", "contrastive_loss_bwd_launch",
@@ -292,6 +299,81 @@ def dsp_frames(iir_state, tail, blocks, sos, mean, std):
             _ptr(std), _ptr(frames), _ptr(iir_out), _ptr(tail_out),
             K, S, factor, D, n_sec, R + 1, INGEST_PRESCALE, _stream(dev))
     return frames, iir_out, tail_out
+
+
+# ---------------------------------------------------------- iir_rms_frames
+# (n_sec, rms_window, D) the iir_rms_frames kernel is compiled for: the
+# config's 4 SOS sections, 11-sample RMS window and 12 channels
+IIR_RMS_SHAPE = (4, 11, 12)
+
+
+def iir_rms_n_frames(T: int, stride: int, rms_window: int,
+                     n_frames: int | None = None) -> int:
+    """Frames of ``iir_rms_frames`` on T samples: all whole windows that
+    start at a multiple of ``stride``, or ``n_frames`` of them (checked)."""
+    if stride < 1:
+        raise ValueError(f"stride {stride}: want 1 or more")
+    n_max = (T - rms_window) // stride + 1 if T >= rms_window else 0
+    if n_frames is None:
+        return n_max
+    if not 0 <= n_frames <= n_max:
+        raise ValueError(f"{n_frames} frames at stride {stride}: T={T} "
+                         f"samples hold {n_max} whole windows of "
+                         f"{rms_window}")
+    return n_frames
+
+
+def iir_rms_frames_reference(x, sos, stride, n_frames=None):
+    """Plain version of ``iir_rms_frames``. ``x`` (B, T, D) raw, ``sos``
+    (n_sec, 6) f32. From zero state, ``y = sosfilt(sos, INGEST_PRESCALE *
+    x)`` along T, then ``frames[b, f] = sqrt(sum_{k<W} y[b, f*stride +
+    k]^2 / W)`` (W = 11) for the first ``n_frames`` (default: every whole
+    window) -> (B, n_frames, D). The window's squares are summed oldest
+    first, each add rounded: closer to float64 than a cumulative-sum
+    difference, and the kernel's order."""
+    from contrastiveprosthetics_torch.ops.signal import sosfilt
+
+    B, T, D = x.shape
+    W = IIR_RMS_SHAPE[1]
+    n = iir_rms_n_frames(T, stride, W, n_frames)
+    if n == 0:
+        return x.new_empty((B, 0, D))
+    span = (n - 1) * stride + 1
+    y = sosfilt(sos, (x[:, :span + W - 1] * INGEST_PRESCALE).transpose(0, 1))
+    sq = (y * y).transpose(0, 1)  # (B, span + W - 1, D)
+    acc = sq[:, 0:span:stride]
+    for k in range(1, W):
+        acc = acc + sq[:, k:k + span:stride]
+    # a tensor divisor and a float64 root rounded once: exact division and
+    # the correctly rounded f32 root, as the kernel's __fdiv_rn and
+    # __fsqrt_rn (see dsp_frames_reference)
+    return torch.sqrt((acc / x.new_tensor(float(W))).double()).float()
+
+
+def iir_rms_frames(x, sos, stride, n_frames=None):
+    """The ``iir_rms_frames`` kernel (see :func:`iir_rms_frames_reference`):
+    one launch for all B x D chains. On the card it takes
+    ``IIR_RMS_SHAPE`` only."""
+    if x.device.type == "cpu":
+        return iir_rms_frames_reference(x, sos, stride, n_frames)
+    if x.dim() != 3:
+        raise ValueError(f"x: shape {tuple(x.shape)}, want (B, T, D)")
+    B, T, D = x.shape
+    n_sec, W = sos.shape[0], IIR_RMS_SHAPE[1]
+    if (n_sec, D) != (IIR_RMS_SHAPE[0], IIR_RMS_SHAPE[2]):
+        raise ValueError(f"iir_rms_frames kernel: (n_sec, rms_window, D) = "
+                         f"{(n_sec, W, D)}, compiled for {IIR_RMS_SHAPE} "
+                         "only")
+    n = iir_rms_n_frames(T, stride, W, n_frames)
+    dev, f32 = x.device, torch.float32
+    _expect("x", x, (B, T, D), f32, dev)
+    _expect("sos", sos, (n_sec, 6), f32, dev)
+    frames = torch.empty((B, n, D), dtype=f32, device=dev)
+    if B and n:
+        _launch("iir_rms_frames", "iir_rms_frames", _ptr(x), _ptr(sos),
+                _ptr(frames), B, T, D, n_sec, W, stride, n, INGEST_PRESCALE,
+                _stream(dev))
+    return frames
 
 
 # ----------------------------------------------------------- encoder_chain

@@ -1,16 +1,34 @@
-"""Signal-processing primitives for calibration and serving.
+"""Signal-processing primitives for ingest, calibration and serving.
 
-Counterpart of the JAX package's ``ops/signal.py:48-146``: the order-4
-Butterworth band-pass in second-order sections (designed by scipy, the
-reference's own oracle, ``utils.py:134-147``), its causal application in
-transposed direct form II, and the valid-mode window-11 moving RMS
-(``utils.py:151-156``).
+Counterpart of the JAX package's ``ops/signal.py``: the order-4 Butterworth
+band-pass (designed by scipy, the reference's own oracle,
+``utils.py:134-147``) in (b, a) form and in second-order sections, its
+causal application in transposed direct form II (``sosfilt``; ``lfilter``
+for the (b, a) form, kept for API parity and on no path), and the
+ingest's per-segment pipeline, batched: :func:`preprocess_segments`
+(prescale -> band-pass -> window-11 RMS, ``utils.py:151-156`` -> downsample),
+which runs the ``iir_rms_frames`` kernel on CUDA tensors
+(``ops/kernels.py``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from scipy import signal as _scipy_signal
+
+from contrastiveprosthetics_torch.ops import kernels
+
+
+def butter_bandpass(
+    low_hz: float, high_hz: float, fs: float, order: int = 4
+) -> tuple[np.ndarray, np.ndarray]:
+    """Butterworth band-pass as float64 (b, a), a0 normalized to 1
+    (reference ``utils.py:134-147``: order 4, 20-450 Hz at 2 kHz)."""
+    nyq = fs / 2.0
+    b, a = _scipy_signal.butter(
+        order, [low_hz / nyq, high_hz / nyq], btype="bandpass"
+    )
+    return np.asarray(b, dtype=np.float64), np.asarray(a, dtype=np.float64)
 
 
 def butter_bandpass_sos(
@@ -47,11 +65,58 @@ def sosfilt(sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def moving_rms(x: torch.Tensor, window: int = 11) -> torch.Tensor:
-    """Window-``window`` moving RMS along axis 0, valid mode:
-    (T, ...) -> (T - window + 1, ...). A cumulative-sum difference, clamped
-    at 0 because f32 cancellation can leave tiny negatives."""
-    csum = torch.cumsum(x * x, dim=0)
-    csum = torch.cat([torch.zeros_like(csum[:1]), csum], dim=0)
-    sums = torch.clamp(csum[window:] - csum[:-window], min=0.0)
-    return torch.sqrt(sums / window)
+def lfilter(b, a, x: torch.Tensor) -> torch.Tensor:
+    """Causal IIR in (b, a) form along axis 0 of ``x``, transposed direct
+    form II from zero state, in ``x``'s dtype (the JAX ``lfilter``'s
+    operation order): y[n] = b0 x[n] + z0; z_i = b_(i+1) x[n] - a_(i+1) y[n]
+    + z_(i+1). A Python loop over the T samples, vectorised over the
+    trailing axes; on no path (the ingest filters in sections)."""
+    b = torch.as_tensor(b, dtype=x.dtype, device=x.device)
+    a = torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    b, a = b / a[0], a / a[0]
+    order = b.shape[0] - 1
+    taps = (order,) + (1,) * (x.dim() - 1)
+    b_taps, a_taps = b[1:].reshape(taps), a[1:].reshape(taps)
+    z = x.new_zeros((order,) + tuple(x.shape[1:]))
+    out = torch.empty_like(x)
+    for t in range(x.shape[0]):
+        y = b[0] * x[t] + z[0]
+        z_new = b_taps * x[t] - a_taps * y
+        z_new[:-1] += z[1:]
+        z = z_new
+        out[t] = y
+    return out
+
+
+def time_mask_stride(time_mask) -> int | None:
+    """The stride ``s`` when ``time_mask`` is ``0, s, 2s, ...`` (the default
+    ``Config.time_mask()``), else None (the compat uint8 mask wraps and
+    repeats)."""
+    idx = np.asarray(time_mask, dtype=np.int64)
+    if idx.size == 0 or idx[0] != 0:
+        return None
+    if idx.size == 1:
+        return 1
+    step = int(idx[1])
+    ok = step > 0 and np.array_equal(idx, np.arange(idx.size) * step)
+    return step if ok else None
+
+
+def preprocess_segments(x: torch.Tensor, sos: torch.Tensor,
+                        time_mask) -> torch.Tensor:
+    """The JAX ``preprocess_segment`` batched over segments (what the JAX
+    ingest vmaps): raw ``x`` (B, T, D) f32 -> x ``INGEST_PRESCALE`` -> SOS
+    band-pass from zero state -> window-11 RMS (trimmed to full windows)
+    -> the frames at ``time_mask`` -> (B, len(time_mask), D).
+
+    One ``iir_rms_frames`` call computes the frames that start at multiples
+    of a stride: for a plain-stride mask (the default) at that stride and
+    no more frames than the mask takes; for any other mask (the compat
+    uint8 one) at stride 1 up to its largest index, then a gather. On CPU
+    tensors the kernel's plain version runs."""
+    idx = np.asarray(time_mask, dtype=np.int64)
+    stride = time_mask_stride(idx)
+    if stride is not None:
+        return kernels.iir_rms_frames(x, sos, stride, idx.size)
+    frames = kernels.iir_rms_frames(x, sos, 1, int(idx.max()) + 1)
+    return frames.index_select(1, torch.as_tensor(idx, device=x.device))

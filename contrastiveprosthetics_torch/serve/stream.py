@@ -8,7 +8,9 @@ tick: raw 2 kHz block (20 samples x 12 channels) -> stateful SOS band-pass
 
 On CUDA every tick, single (:meth:`StreamingEngine.step`) or many
 (:meth:`StreamingEngine.steps`, :meth:`BatchedStreamingEngine.steps`), runs
-the three kernels of ``ops/kernels.py``; on the CPU their plain versions.
+the three kernels of ``ops/kernels.py``, and calibration
+(:meth:`StreamingEngine.preprocess_recording`) the ``iir_rms_frames``
+kernel; on the CPU their plain versions.
 The single-session engine folds its (calibrated) BatchNorm statistics into
 the weight chain; the batched engine keeps per-session statistics over one
 shared BN-free chain and applies them as per-session affines.
@@ -24,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from contrastiveprosthetics_torch.config import INGEST_PRESCALE, Config
+from contrastiveprosthetics_torch.config import Config
 from contrastiveprosthetics_torch.device import f32_convolutions
 from contrastiveprosthetics_torch.models.clip import ContrastiveModel
 from contrastiveprosthetics_torch.models.layers import update_running
@@ -33,14 +35,11 @@ from contrastiveprosthetics_torch.ops.kernels import (
     fold_encoder_params_shared,
     fused_tick_chain,
     fused_tick_chain_batched,
+    iir_rms_frames,
     session_bn_affines,
     tick_chain,
 )
-from contrastiveprosthetics_torch.ops.signal import (
-    butter_bandpass_sos,
-    moving_rms,
-    sosfilt,
-)
+from contrastiveprosthetics_torch.ops.signal import butter_bandpass_sos
 
 
 @torch.no_grad()
@@ -173,13 +172,11 @@ class StreamingEngine:
     def preprocess_recording(self, raw_recording) -> torch.Tensor:
         """A raw 2 kHz recording (T, emg_dim) -> normalized frames on the
         engine's device, by the ingest pipeline (filter -> valid-mode RMS ->
-        every ``factor``-th frame -> normalize). The IIR recursion, T
-        sequential steps of 12-wide arithmetic, runs on the host; the RMS
-        and normalisation run on the engine's device."""
-        raw = torch.as_tensor(np.asarray(raw_recording, np.float32))
-        filtered = sosfilt(self._sos.cpu(), raw * INGEST_PRESCALE)
-        frames = moving_rms(filtered.to(self.device),
-                            window=self.cfg.rms_window)[::self.cfg.factor]
+        every ``factor``-th frame -> normalize): the band-pass and the RMS
+        are one ``iir_rms_frames`` call on a batch of one at stride
+        ``factor``."""
+        raw = self._tensor(raw_recording)
+        frames = iir_rms_frames(raw[None], self._sos, self.cfg.factor)[0]
         return (frames - self._mean) / self._std
 
     def calibrate(self, raw_recording) -> None:

@@ -115,3 +115,51 @@ def test_cli_default_platform_needs_a_gpu(monkeypatch):
         port_serve.main(["--demo", "--seconds", "0.1"])
     monkeypatch.setenv("CPTORCH_PLATFORM", "cpu")
     assert port_serve.main(["--demo", "--seconds", "0.1", "--quiet"]) == 0
+
+
+@pytest.mark.parametrize("flag,match", [
+    ("--spmd", r"queue 1 item 8\)"), ("--bf16", r"queue 1 item 9\)"),
+    ("--no_fused_encoder", "one encoder path")])
+def test_cli_serve_jax_flags_exit_with_their_reason(flag, match):
+    """The JAX serve CLI's flags that the port does not run exit, naming
+    the ROADMAP item or the reason, before a device is chosen."""
+    with pytest.raises(SystemExit, match=match):
+        port_serve.main(["--demo", "--platform", "cpu", "--quiet", flag])
+
+
+def test_cli_serve_fused_encoder_is_a_no_op(tmp_path):
+    """``--fused_encoder`` parses and serves the same ticks: every tick
+    already runs the encoder chain (its plain version on the CPU)."""
+    outs = []
+    for extra in ([], ["--fused_encoder"]):
+        out = tmp_path / f"o{len(extra)}.npz"
+        assert port_serve.main(["--demo", "--platform", "cpu", "--seconds",
+                                "0.25", "--quiet", "--replay", "--out",
+                                str(out), *extra]) == 0
+        with np.load(out) as z:
+            outs.append((z["preds"], z["votes"]))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_port_has_the_ingest_modules():
+    """The ingest slice's modules and entry point exist (the import check
+    above walks them) and the kernel table builds ``iir_rms``."""
+    for name in ("ops/stats.py", "ops/signal.py", "data/ingest.py",
+                 "data/synthetic.py", "cli/load.py", "csrc/iir_rms.cu"):
+        assert (PKG / name).exists(), name
+    assert "iir_rms" in _build.KERNELS
+    text = (REPO / "pyproject.toml").read_text()
+    assert ('cptorch-load = "contrastiveprosthetics_torch.cli.load:main"'
+            in text)
+    code = ("import sys\n"
+            "import contrastiveprosthetics_torch.cli.load\n"
+            "import contrastiveprosthetics_torch.data.ingest\n"
+            "import contrastiveprosthetics_torch.ops.stats\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'flax', 'contrastiveprosthetics_tpu',\n"
+            "        'matplotlib')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

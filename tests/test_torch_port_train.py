@@ -598,6 +598,45 @@ def test_cli_unported_requests_name_the_roadmap(tmp_path, argv):
                         str(tmp_path)])
 
 
+@pytest.mark.parametrize("flag,item", [
+    ("--glove_encoding", 7), ("--bf16", 9), ("--profile", 10)])
+def test_cli_jax_flags_name_their_item(tmp_path, flag, item):
+    """The JAX CLI's flags that the port does not run yet exit NOT_PORTED
+    with their own ROADMAP item, before any store is built."""
+    with pytest.raises(SystemExit, match=f"queue 1 item {item}\\)"):
+        cli_train.main([flag, "--platform", "cpu", "--data_dir",
+                        str(tmp_path)])
+
+
+@pytest.mark.parametrize("impl", ["threefry2x32", "rbg", "unsafe_rbg"])
+def test_cli_prng_impl_other_than_auto_exits_with_its_reason(tmp_path, impl):
+    with pytest.raises(SystemExit, match="torch's Philox"):
+        cli_train.main(["--prng_impl", impl, "--platform", "cpu",
+                        "--data_dir", str(tmp_path)])
+
+
+class _StoreReached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv", [
+    ["--pallas_loss"], ["--prng_impl", "auto"],
+    ["--pallas_loss", "--prng_impl", "auto"]])
+def test_cli_pallas_loss_and_auto_prng_are_no_ops(tmp_path, monkeypatch,
+                                                  argv):
+    """``--pallas_loss`` and ``--prng_impl auto`` parse and change nothing:
+    the run goes on to build its store, as it does without them."""
+    def reached(args, cfg, device):
+        assert args.fused_train == "auto" and not args.bf16
+        raise _StoreReached
+
+    monkeypatch.setattr(cli_train, "build_store", reached)
+    with pytest.raises(_StoreReached):
+        cli_train.main([*argv, "--synthetic", "--platform", "cpu",
+                        "--data_dir", str(tmp_path), "--checkpoint_dir",
+                        str(tmp_path)])
+
+
 @pytest.mark.parametrize("hyper_args", [
     ["--crossval_size", "3", "--crossval_epochs", "1"],
     ["--crossval_load", "--crossval_size", "3"]])
