@@ -32,11 +32,16 @@ made with numpy from a seed:
    rerun, and both f32 paths against float64), timed with CUDA events
    beside its bound and, for the encoder, the ``torch.addmm`` chain at 1,
    32,768 and 819,200 rows, and both of its tilings from 16 to 1,024 rows;
-   ``iir_rms_frames`` bit for bit and on a rerun at one subject (246 x
-   2,010 samples, stride 20), the corpus in one call (11,316 segments,
-   1.09 GB), a calibration recording (4,000 samples), the compat mask's
-   stride 1 and ragged shapes (37 segments; T = W; T = W + stride - 1),
-   against float64 scipy, each timed beside its bound and serial floor;
+   a dependent f32 add's latency in SM cycles (one thread's chain of
+   ``__fadd_rn``), which sets the recurrence floors of ``dsp_frames`` and
+   ``iir_rms_frames``; ``iir_rms_frames`` bit for bit and on a rerun at
+   one subject read through its row table from its two recordings (246 x
+   2,010 samples, stride 20), the corpus through tables into 46 subjects'
+   recordings in one call (11,316 segments, 1.09 GB), the same two as
+   contiguous segments, a calibration recording (4,000 samples), the
+   compat mask's stride 1 and ragged shapes (37 segments; T = W; T = W +
+   stride - 1), against float64 scipy, each timed beside its byte bound,
+   its recurrence floor and the earlier one-thread-a-chain design's time;
 3. single session: 50 per-tick ``step`` calls (p50/p99 tick latency) and a 200-tick ``steps``
    replay, which must agree, then profiler traces of 20 ``step`` calls
    and of one ``steps`` call: device time by CUDA function against the
@@ -118,13 +123,17 @@ made with numpy from a seed:
 11. ingest from raw ``.mat`` files at the full per-subject geometry (41
    stimuli x 6 reps x 2,020 samples x 12 channels) for two DB2 and two
    DB3 subjects and glove subjects 28-29, written to a temporary
-   directory (about 190 MB): ``cptorch-load --synthetic_fixture --load
-   --info`` on cuda (one ``iir_rms_frames`` launch per subject), the same
-   ingest with ``--backend scipy`` (float64) holding the artifacts to
-   rtol 1e-3, atol 1e-4, per-subject times (``.mat`` read, extraction,
-   preprocessing, statistics), ``emg.npz`` through ``DeviceStore.load`` on
-   the card, and ``cptorch-train --crossval_size 3 --final_epochs 1
-   --batch_size 8 --test`` on it.
+   directory (about 210 MB): ``cptorch-load --synthetic_fixture --load
+   --info`` on cuda (one ``iir_rms_frames`` launch per subject, reading
+   its recordings through the row table; the host's segment extraction
+   fenced off), the same ingest with ``--backend scipy`` (float64) holding
+   the artifacts to rtol 1e-3, atol 1e-4, a second device run and a run on
+   the CPU whose ``emg`` and statistics must be the card's bits, per-subject
+   times (``.mat`` read, row table, copies and kernel, statistics), one
+   subject's recordings to the card cast on the host and on the card,
+   ``emg.npz`` through ``DeviceStore.load`` on the card, and
+   ``cptorch-train --crossval_size 3 --final_epochs 1 --batch_size 8
+   --test`` on it.
 
 Launch counts are reset just before the calibration, phases 3, 4, 7's and
 8's ``train_loop``, 9's ``cross_validate``, 10's test and val passes and
@@ -273,17 +282,24 @@ SWEEP_STEPS_RTOL = 1e-3
 # arithmetic in another order, where no ReLU decision is that close
 SWEEP_F64_RTOL = 1e-9
 # (path, B, T, stride, n_frames) of iir_rms_frames in phase 2: one
-# subject's ingest call; all 46 subjects' 11,316 segments in one call; a
-# 2 s calibration recording; the compat uint8 mask (stride 1 up to index
-# 252); 37 segments (444 chains: a ragged last CTA of 128); T = W and
-# T = W + stride - 1 (one frame each)
-IIR_RMS_SHAPES = (("subject", 246, 2010, 20, None),
+# subject's ingest call through its row table into its two recordings, and
+# all 46 subjects' in one call (each subject's table on its own rows); the
+# same two as contiguous segments; a 2 s calibration recording; the compat
+# uint8 mask (stride 1 up to index 252); 37 segments (an odd count: a CTA
+# of one segment); T = W and T = W + stride - 1 (one frame each)
+IIR_RMS_SHAPES = (("subject_rows", 246, 2010, 20, None),
+                  ("corpus_rows", 46 * 246, 2010, 20, None),
+                  ("subject", 246, 2010, 20, None),
                   ("corpus", 46 * 246, 2010, 20, None),
                   ("calibration", 1, 4000, 20, None),
                   ("compat", 246, 2010, 1, 253),
                   ("ragged", 37, 2010, 20, None),
                   ("one_window", 11, 11, 20, None),
                   ("one_stride", 11, 30, 20, None))
+# the earlier iir_rms_frames (one thread a chain), device ms per launch on
+# an H100 80GB HBM3 at 700 W (PERF.md section 6), printed beside this run's
+ONE_THREAD_IIR_DEVICE_MS = {"subject": 0.13284, "corpus": 0.78483,
+                            "calibration": 0.25767, "compat": 0.03962}
 # iir_rms_frames against float64 scipy (sosfilt with the float64 sections,
 # the window sum in float64): the f32 cascade rounds within 2e-5 of it on
 # the CPU (tests/test_torch_port_ingest.py)
@@ -316,11 +332,12 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_per_call(fn, n: int = 50) -> tuple[float, float]:
+def device_per_call(fn, n: int = 50,
+                    only: str | None = None) -> tuple[float, float]:
     """Device milliseconds and CUDA kernel launches per call of ``fn`` from
     a profiler trace of ``n`` bare calls (the sum of the CUDA kernels'
     intervals over ``n``): the kernels' own time, without the wrapper's
-    host work."""
+    host work; with ``only``, of the kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -335,7 +352,8 @@ def device_per_call(fn, n: int = 50) -> tuple[float, float]:
                 fn()
             torch.cuda.synchronize()
         spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
+                 if e.device_type == DeviceType.CUDA
+                 and (only is None or only in e.name)]
         if sum(spans) > 0:
             return sum(spans) / 1e3 / n, len(spans) / n
     raise RuntimeError("the profiler recorded no device time in 5 traces")
@@ -910,15 +928,18 @@ def serve_cases(dev, carries, blocks_t, masks_t, scores_t, sos, mu, sd):
     return cases
 
 
-def check_serve_kernels(K, cases, sm_clock_hz: float) -> dict:
+def check_serve_kernels(K, cases, sm_clock_hz: float,
+                        fadd_cycles: float) -> dict:
     """Phase 2, ``dsp_frames`` and ``vote_scan`` at every serve path's shape
     (``serve_cases``): each held bit for bit against its plain version,
     ``vote_scan`` with its masked-score output on and off; per path the
     wrapper and the plain version timed with CUDA events, the device time
     per launch from a profiler trace of bare calls, and the bound. For the
-    one-session paths, ``dsp_frames`` also gets the serial floor of its IIR:
-    4 sections x 9 dependent instructions per sample at the SM's top clock.
-    Returns the two ``kernels`` entries, at the batched shape on top."""
+    one-session paths, ``dsp_frames`` also gets the recurrence floor of its
+    IIR, as ``iir_rms_frames`` does: per sample, one section's 4 dependent
+    f32 operations at ``fadd_cycles`` each (measured), at the SM's top
+    clock. Returns the two ``kernels`` entries, at the batched shape on
+    top."""
     reps = {"step": 200, "steps": 10, "batched": 5, "ragged": 100}
     out = {"dsp_frames": {}, "vote_scan": {}}
     for path, case in cases.items():
@@ -945,7 +966,8 @@ def check_serve_kernels(K, cases, sm_clock_hz: float) -> dict:
                                                   20),
             bound_ms=b, bound_by=by)
         if S == 1:
-            entry["serial_floor_ms"] = Kt * F * n_sec * 9 / sm_clock_hz * 1e3
+            entry["recurrence_floor_ms"] = recurrence_floor_ms(
+                Kt * F, fadd_cycles, sm_clock_hz)
         out["dsp_frames"][path] = entry
         del got, want
 
@@ -1021,31 +1043,78 @@ def iir_rms_oracle(x: torch.Tensor, sos64: np.ndarray, stride: int,
     return np.sqrt(sum(sq[:, k:k + span:stride] for k in range(W)) / W)
 
 
-def check_iir_rms(K, dev, sos, sm_clock_hz: float) -> dict:
+def recurrence_floor_ms(samples: int, fadd_cycles: float,
+                        sm_clock_hz: float) -> float:
+    """The least time of a band-pass over ``samples`` samples in order:
+    per sample, one section's loop-carried line of 4 dependent f32
+    operations (z0 -> yk -> a1*yk -> - -> + z1), each taking
+    ``fadd_cycles`` (the card's dependent f32 add latency, measured), at
+    the SM's top clock."""
+    return samples * 4 * fadd_cycles / sm_clock_hz * 1e3
+
+
+def subject_recordings(cfg, root: str):
+    """One subject's two exercise files at the full geometry (DB2 subject
+    position 0, as ``--synthetic_fixture`` writes them), read back as the
+    ingest reads them: returns ``Es`` and the row table of its 246
+    segments (``_segment_rows``)."""
+    from contrastiveprosthetics_torch.data import ingest, synthetic
+
+    synthetic.write_emg_mat_files(root, cfg, [0])
+    dbnum, p_dir = ingest._person_location(cfg, int(cfg.people()[0]))
+    Es = tuple(ingest._load_emg_mat(root, dbnum, p_dir, ex)
+               for ex in ("1", "2"))
+    return Es, ingest._segment_rows(cfg, Es)
+
+
+def check_iir_rms(K, dev, sos, sm_clock_hz: float,
+                  fadd_cycles: float) -> dict:
     """Phase 2, ``iir_rms_frames`` at each of ``IIR_RMS_SHAPES`` on seeded
-    EMG-scale input made on the card: bit for bit against its plain
-    version, the same bits on a rerun, and (all but the corpus) against
-    float64 scipy; the wrapper timed by CUDA events, the device time per
-    launch from a profiler trace of bare calls, the plain version once,
-    beside the bound (bytes of the samples the frames use and of the
-    frames, or f32 operations) and the recurrence's serial floor (n_sec x
-    9 dependent instructions a sample at the SM's top clock). Returns the
-    ``kernels`` entry, at one subject's shape on top."""
+    EMG-scale input made on the card, and through row tables: one
+    subject's two recordings (the ingest's call) and the corpus's 46
+    subjects' recordings in one call. Each bit for bit against its plain
+    version (on ``x[rows]`` for a table), the same bits on a rerun, and
+    (all but the corpus) against float64 scipy; the wrapper timed by CUDA
+    events (with a table: its range check included), the kernel's device
+    time per launch from a profiler trace of bare calls, the plain version
+    once, beside the bound (bytes of the samples the frames use, of the
+    table's entries they use and of the frames, or f32 operations), the
+    recurrence floor (``recurrence_floor_ms`` of the samples the frames
+    use) and the earlier design's device time. Returns the ``kernels``
+    entry, at one subject's shape on top."""
     from contrastiveprosthetics_torch.config import DEFAULT_CONFIG as cfg
     from contrastiveprosthetics_torch.ops.signal import butter_bandpass_sos
 
     sos64 = butter_bandpass_sos(20, 450, cfg.hz)
     n_sec, W, D = sos.shape[0], cfg.rms_window, cfg.emg_dim
     gen = torch.Generator(device=dev).manual_seed(11)
-    reps = {"subject": 50, "corpus": 5, "calibration": 50}
+    reps = {"subject": 50, "corpus": 5, "calibration": 50,
+            "subject_rows": 50, "corpus_rows": 5}
+    with tempfile.TemporaryDirectory() as root:
+        Es, rows = subject_recordings(cfg, root)
+    per_subject = sum(E[0].shape[0] for E in Es)
+    subject_x = np.empty((per_subject, D), np.float32)
+    np.concatenate([E[0] for E in Es], out=subject_x)
+    subject_rows = torch.from_numpy(rows).to(dev)
+    del Es
     by_shape = {}
     for path, B, T, stride, n_frames in IIR_RMS_SHAPES:
-        gain = torch.rand((B, 1, D), generator=gen, device=dev) * 2.8 + 0.2
-        x = (torch.randn((B, T, D), generator=gen, device=dev) * gain
-             * 1e-4).contiguous()
-        got = K.iir_rms_frames(x, sos, stride, n_frames)
-        want = K.iir_rms_frames_reference(x, sos, stride, n_frames)
-        again = K.iir_rms_frames(x, sos, stride, n_frames)
+        table = None
+        if path == "subject_rows":
+            x, table = torch.from_numpy(subject_x).to(dev), subject_rows
+        elif path == "corpus_rows":  # each subject's table on its rows
+            x = torch.randn((B // len(rows) * per_subject, D), generator=gen,
+                            device=dev) * 1e-4
+            table = (subject_rows + per_subject * torch.arange(
+                B // len(rows), dtype=torch.int32, device=dev)[:, None, None]
+            ).reshape(B, T)
+        else:
+            gain = torch.rand((B, 1, D), generator=gen, device=dev) * 2.8 + 0.2
+            x = (torch.randn((B, T, D), generator=gen, device=dev) * gain
+                 * 1e-4).contiguous()
+        got = K.iir_rms_frames(x, sos, stride, n_frames, rows=table)
+        want = K.iir_rms_frames_reference(x, sos, stride, n_frames, table)
+        again = K.iir_rms_frames(x, sos, stride, n_frames, rows=table)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"iir_rms_frames differs from its plain "
@@ -1055,8 +1124,9 @@ def check_iir_rms(K, dev, sos, sm_clock_hz: float) -> dict:
         n = got.shape[1]
         t_used = (n - 1) * stride + W
         f64 = None
-        if path != "corpus":
-            ref = iir_rms_oracle(x, sos64, stride, n, W)
+        if not path.startswith("corpus"):
+            xs = x if table is None else x[table.long()]
+            ref = iir_rms_oracle(xs, sos64, stride, n, W)
             err = np.abs(got.double().cpu().numpy() - ref)
             scale = float(np.abs(ref).max())
             bad = err > IIR_F64_RTOL * np.abs(ref) + IIR_F64_ATOL * scale
@@ -1066,33 +1136,44 @@ def check_iir_rms(K, dev, sos, sm_clock_hz: float) -> dict:
                                      f"{err.max()}")
             f64 = dict(max_abs=float(err.max()), max_rel=float(
                 (err / np.maximum(np.abs(ref), 1e-30)).max()), scale=scale)
-        call = functools.partial(K.iir_rms_frames, x, sos, stride, n_frames)
-        dev_ms, dev_launches = device_per_call(call, 20)
-        b, by = bound_ms(B * t_used * D * 4 + nbytes(got, sos),
+            del xs
+        call = functools.partial(K.iir_rms_frames, x, sos, stride, n_frames,
+                                 rows=table)
+        dev_ms, dev_launches = device_per_call(call, 20,
+                                               only="iir_rms_frames_kernel")
+        b, by = bound_ms(B * t_used * D * 4 + nbytes(got, sos)
+                         + (B * t_used * 4 if table is not None else 0),
                          B * D * (t_used * (2 + 9 * n_sec) + n * (W + 1)))
         by_shape[path] = dict(
-            shape=f"B={B} T={T} D={D} stride={stride} frames={n}",
+            shape=f"B={B} T={T} D={D} stride={stride} frames={n}"
+                  + (f", rows of {x.shape[0]}" if table is not None else ""),
             max_abs_err=0.0, float64=f64,
             ms=time_ms(call, reps.get(path, 20), 2),
             plain_ms=time_ms(lambda: K.iir_rms_frames_reference(
-                x, sos, stride, n_frames), 1, 0),
-            device_ms_per_call=dev_ms, device_launches_per_call=dev_launches,
+                x, sos, stride, n_frames, table), 1, 0),
             device_ms_per_launch=dev_ms / dev_launches,
+            device_launches_per_call=dev_launches,
             bound_ms=b, bound_by=by,
-            serial_floor_ms=t_used * n_sec * 9 / sm_clock_hz * 1e3)
-        del x, got, want, again
+            recurrence_floor_ms=recurrence_floor_ms(t_used, fadd_cycles,
+                                                    sm_clock_hz))
+        del x, got, want, again, table
     log(f"[kernels] iir_rms_frames bit-identical to its plain version and "
         f"on rerun at {', '.join(by_shape)}, within rtol {IIR_F64_RTOL}, "
-        f"atol {IIR_F64_ATOL} x max of float64 scipy: "
-        f"{json.dumps(by_shape)}")
-    top = by_shape["subject"]
+        f"atol {IIR_F64_ATOL} x max of float64 scipy; dependent f32 add "
+        f"{fadd_cycles:.4f} cycles at {sm_clock_hz / 1e6:.0f} MHz; the "
+        f"earlier one-thread-a-chain design, device ms per launch "
+        f"(PERF.md): "
+        f"{json.dumps(ONE_THREAD_IIR_DEVICE_MS)}: {json.dumps(by_shape)}")
+    top = by_shape["subject_rows"]
     return dict(
         route="cuda", max_abs_err=0.0,
         tolerance=("exact (same operation order as the plain version, each "
                    f"step rounded); against float64 scipy rtol "
                    f"{IIR_F64_RTOL} + atol {IIR_F64_ATOL} x max"),
         ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-        bound_by=top["bound_by"], serial_floor_ms=top["serial_floor_ms"],
+        bound_by=top["bound_by"],
+        recurrence_floor_ms=top["recurrence_floor_ms"],
+        fadd_latency_cycles=fadd_cycles,
         device_ms_per_launch=top["device_ms_per_launch"], library_ms=None,
         library_note="no single PyTorch call computes it: an IIR cascade "
                      "along time, then a windowed RMS at a stride",
@@ -2432,6 +2513,39 @@ def eval_phase(K, trainer, state, sweep_dir: str) -> tuple[dict, list]:
     return res, entries
 
 
+def recording_copy_ms(cfg, root: str, dev) -> dict:
+    """One subject's two recordings (position 0's ``.mat`` files under
+    ``root``) to the card as one (N, 12) f32 tensor, two ways, timed in
+    turns by the host clock (synchronised), 3 times each: cast and laid
+    end to end on the host, then one copy; or copied as float64, laid end
+    to end and cast on the card (the ingest's way). Both give the same
+    bits."""
+    from contrastiveprosthetics_torch.data import ingest
+
+    dbnum, p_dir = ingest._person_location(cfg, int(cfg.people()[0]))
+    Es = [ingest._load_emg_mat(root, dbnum, p_dir, ex)[0] for ex in "12"]
+
+    def on_host():
+        x = np.empty((sum(e.shape[0] for e in Es), cfg.emg_dim), np.float32)
+        np.concatenate(Es, out=x)
+        return torch.from_numpy(x).to(dev)
+
+    def on_card():
+        return torch.cat([torch.from_numpy(e).to(dev) for e in Es]).float()
+
+    out = {"host_cast": [], "card_cast": []}
+    for _ in range(3):
+        for name, fn in (("host_cast", on_host), ("card_cast", on_card)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[name].append((time.perf_counter() - t0) * 1e3)
+    if not torch.equal(on_host(), on_card()):
+        raise AssertionError("the two casts of the recordings differ")
+    return out
+
+
 def ingest_phase(K, dev) -> tuple[dict, dict]:
     """Phase 11, ingest from raw ``.mat`` files at the full per-subject
     geometry (41 stimuli x 6 reps x 2,020 samples x 12 channels) for
@@ -2453,18 +2567,29 @@ def ingest_phase(K, dev) -> tuple[dict, dict]:
         model_from_state_dict,
     )
 
+    from contrastiveprosthetics_torch.data import ingest
+
     t_phase = time.perf_counter()
     people = [str(p) for p in INGEST_POSITIONS]
     n_people = len(people)
     with tempfile.TemporaryDirectory() as root:
         data, data_f64 = os.path.join(root, "data"), os.path.join(root, "f64")
+
+        def host_masks(*args, **kwargs):
+            raise AssertionError("the device ingest extracted a segment on "
+                                 "the host")
+
         K.reset_launch_counts()
-        t0 = time.perf_counter()
-        rc = cli_load.main(["--synthetic_fixture", "--root", root,
-                            "--people", *people, "--load", "--data_dir",
-                            data, "--info"])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
+        extract, ingest._extract_segment = ingest._extract_segment, host_masks
+        try:
+            t0 = time.perf_counter()
+            rc = cli_load.main(["--synthetic_fixture", "--root", root,
+                                "--people", *people, "--load", "--data_dir",
+                                data, "--info"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+        finally:
+            ingest._extract_segment = extract
         counts = dict(K.launch_counts)
         if rc != 0:
             raise AssertionError("cptorch-load on cuda failed")
@@ -2509,11 +2634,27 @@ def ingest_phase(K, dev) -> tuple[dict, dict]:
                                      f"{stats_err[name]}")
 
         # per-subject times, a second run (the first paid the load of the
-        # kernel's library); its bits equal the CLI's run
+        # kernel's library); its bits equal the CLI's run and a run of the
+        # plain version on the CPU, statistics included
         res = ingest_emg(cfg, root, os.path.join(root, "again"),
                          list(INGEST_POSITIONS), device=dev, verbose=False)
         if not np.array_equal(res["emg"], emg):
             raise AssertionError("a second device ingest gave other bits")
+        t0 = time.perf_counter()
+        on_cpu = ingest_emg(cfg, root, os.path.join(root, "cpu"),
+                            list(INGEST_POSITIONS), device="cpu",
+                            verbose=False)
+        cpu_s = time.perf_counter() - t0
+        for name in ("emg", "mean", "std"):
+            if not np.array_equal(on_cpu[name], res[name]):
+                raise AssertionError(f"the card's {name} differs from the "
+                                     "CPU run's")
+        for name in ("emg_mean.npy", "emg_std.npy"):
+            if not np.array_equal(np.load(os.path.join(data, name)),
+                                  np.load(os.path.join(root, "cpu", name))):
+                raise AssertionError(f"{name}: the card's and the CPU's "
+                                     "differ")
+        copies = recording_copy_ms(cfg, root, dev)
 
         store = DeviceStore.load(cfg, data, device=dev)
         want = torch.from_numpy(np.ascontiguousarray(
@@ -2549,15 +2690,20 @@ def ingest_phase(K, dev) -> tuple[dict, dict]:
                    for k in ("read_s", "extract_s", "preprocess_s", "stats_s")}
     log(f"[ingest] cptorch-load of {n_people} subjects on cuda "
         f"({mat_bytes / 1e6:.1f} MB of .mat) in {cli_s:.2f} s, "
-        f"iir_rms_frames launched {counts['iir_rms_frames']} times; the "
-        f"scipy backend {scipy_s:.2f} s; max |device - scipy| "
-        f"{float(err.max()):.3g} (rtol {INGEST_RTOL}, atol {INGEST_ATOL}); "
-        f"per subject (mean of {n_people}, second run): "
-        f"{json.dumps(per_subject)}; cptorch-train --crossval_size 3 "
+        f"iir_rms_frames launched {counts['iir_rms_frames']} times, no "
+        f"segment extracted on the host; the scipy backend {scipy_s:.2f} s; "
+        f"max |device - scipy| {float(err.max()):.3g} (rtol {INGEST_RTOL}, "
+        f"atol {INGEST_ATOL}); emg.npz and statistics bit-equal to a CPU "
+        f"run ({cpu_s:.2f} s); per subject (mean of {n_people}, second "
+        f"run; extract_s is the row table, preprocess_s the copies and the "
+        f"kernel): {json.dumps(per_subject)}; one subject's recordings to "
+        f"the card, cast on the host or on the card (ms, in turns): "
+        f"{json.dumps(copies)}; cptorch-train --crossval_size 3 "
         f"--final_epochs 1 --batch_size 8 --test on the store {train_s:.2f} "
         f"s; phase 11 took {phase_s:.1f} s")
     return dict(positions=list(INGEST_POSITIONS), mat_bytes=mat_bytes,
-                cli_s=cli_s, scipy_backend_s=scipy_s,
+                cli_s=cli_s, scipy_backend_s=scipy_s, cpu_run_s=cpu_s,
+                recording_copy_ms=copies,
                 max_abs_vs_scipy=float(err.max()),
                 tolerance=f"rtol {INGEST_RTOL}, atol {INGEST_ATOL}",
                 stats_rel_err=stats_err, per_subject_mean=per_subject,
@@ -2694,12 +2840,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0]) * 1e6
+    fadd_cycles = min(K.fadd_latency_cycles(dev) for _ in range(3))
+    log(f"[kernels] a dependent f32 add takes {fadd_cycles:.4f} SM cycles "
+        f"(the recurrence floors' latency)")
     entries = check_serve_kernels(
         K, serve_cases(dev, carries, blocks_t, masks_t, scores.view(T, S, C),
-                       sos, mu, sd), sm_clock_hz)
+                       sos, mu, sd), sm_clock_hz, fadd_cycles)
     entries["encoder_chain"] = enc
     del scores
-    entries["iir_rms_frames"] = check_iir_rms(K, dev, sos, sm_clock_hz)
+    entries["iir_rms_frames"] = check_iir_rms(K, dev, sos, sm_clock_hz,
+                                              fadd_cycles)
 
     # ------------------------------------------------- 3. single session
     blocks = recording[: 200 * F].reshape(200, F, D)

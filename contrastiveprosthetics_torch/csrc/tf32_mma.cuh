@@ -1,5 +1,6 @@
 // tf32_mma.cuh: the 3xTF32 tensor-core arithmetic that encoder_chain.cu and
-// train_fused.cu share, and the cp.async copies they and dsp_frames.cu use.
+// train_fused.cu share, the cp.async copies they, dsp_frames.cu and
+// iir_rms.cu use, and two register helpers of iir_rms.cu.
 //
 // Each operand splits as x = big + small, big = cvt.rna.tf32(x), small =
 // cvt.rna.tf32(x - big). A k8 chunk sums small*big, big*small and big*big,
@@ -67,6 +68,25 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------------ registers
+// p ? a : b as one selp into a register of its own. Written as ?:, the
+// compiler may instead overwrite b's register under a predicate, and that
+// write then waits for whatever wrote b (a warp shuffle, in iir_rms.cu).
+__device__ __forceinline__ float select_f32(bool p, float a, float b) {
+  float r;
+  asm("{\n .reg .pred q;\n setp.ne.b32 q, %3, 0;\n selp.f32 %0, %1, %2, q;\n}"
+      : "=f"(r)
+      : "f"(a), "f"(b), "r"((int)p));
+  return r;
+}
+
+// v in a register the compiler cannot re-derive: a kernel parameter used
+// in an unrolled loop is otherwise reloaded from the constant bank.
+__device__ __forceinline__ float in_register(float v) {
+  asm("" : "+f"(v));
+  return v;
 }
 
 }  // namespace

@@ -2,11 +2,14 @@
 
 Counterpart of the JAX package's ``data/ingest.py`` (the reference's
 ``load.py:103-155``, a person x rep x stim loop of 11,316 scipy calls).
-Each subject's 246 (stim, rep) segments are stacked into one (246, 2010,
-12) batch and preprocessed in one call on the chosen device
-(:class:`_TorchPreprocessor`: one ``iir_rms_frames`` kernel launch on
-CUDA, its plain version on the CPU), or by the float64 scipy oracle
-(:class:`_ScipyPreprocessor`, the reference's own pipeline).
+Each subject's 246 (stim, rep) segments are preprocessed in one call on
+the chosen device (:class:`_TorchPreprocessor`): one pass over each
+exercise file's labels gives a (246, 2010) table of the segments' sample
+rows (:func:`_segment_rows`), and one ``iir_rms_frames`` kernel launch on
+CUDA (its plain version on the CPU) reads the subject's two recordings
+through it. The float64 scipy oracle (:class:`_ScipyPreprocessor`, the
+reference's own pipeline) takes the segments the JAX package's way, a
+boolean mask each (:func:`_extract_segment`).
 
 Artifacts, with the JAX package's names, keys, dtypes and shapes, so both
 packages' ``DeviceStore.load`` read them:
@@ -73,10 +76,80 @@ def _extract_segment(cfg: Config, Es, stim: int, rep: int) -> np.ndarray:
     return seg.astype(np.float64)
 
 
+def _label_groups(stim_arr, rep_arr, stims, reps):
+    """One pass over an exercise file's (restimulus, rerepetition) labels.
+    Returns ``order``, the file's sample indices grouped by (stim, rep)
+    and in time order within a group, and for each queried ``(stims[i],
+    reps[i])`` its group's first position in ``order`` and its sample
+    count (0 where it has none): the samples of that (stim, rep) are
+    ``order[first[i]:first[i] + count[i]]``. The labels are integers, as
+    Ninapro's."""
+    s = np.asarray(stim_arr).reshape(-1).astype(np.int64)
+    r = np.asarray(rep_arr).reshape(-1).astype(np.int64)
+
+    def key(a, b):  # (stim, rep) as one sortable int64
+        return (np.asarray(a, np.int64) << 32) + (np.asarray(b, np.int64)
+                                                  & 0xFFFFFFFF)
+
+    n = s.size
+    starts = np.zeros(0, np.int64)
+    if n:  # where a run of equal labels starts
+        starts = np.flatnonzero(np.r_[True, (s[1:] != s[:-1])
+                                      | (r[1:] != r[:-1])])
+    lengths = np.diff(np.r_[starts, n])
+    run_keys = key(s[starts], r[starts])
+    by = np.argsort(run_keys, kind="stable")  # runs by key, in time order
+    run_keys, starts, lengths = run_keys[by], starts[by], lengths[by]
+    ends = np.cumsum(lengths)  # each run's end position in ``order``
+    order = np.arange(n) + np.repeat(starts - (ends - lengths), lengths)
+    q = key(stims, reps)
+    lo = np.searchsorted(run_keys, q, "left")
+    hi = np.searchsorted(run_keys, q, "right")
+    ends = np.r_[0, ends]
+    return order, ends[lo], ends[hi] - ends[lo]
+
+
+def _segment_rows(cfg: Config, Es) -> np.ndarray:
+    """The rows of every segment that :func:`ingest_emg` visits, (stim,
+    rep) in its order (stim-major, reps 1..max_reps), as a (max_tasks *
+    max_reps, ingest_segment_len) int32 table into the concatenation of
+    ``Es``' recordings (the second file's rows offset by the first's
+    length): row for row the samples of :func:`_extract_segment`, the last
+    index repeated where a segment is short, and its ``ValueError`` for
+    the first (stim, rep) with no samples. One label pass per file."""
+    L = cfg.ingest_segment_len
+    stims = np.repeat(np.arange(cfg.max_tasks), cfg.max_reps)
+    reps = np.tile(np.arange(1, cfg.max_reps + 1), cfg.max_tasks)
+    ex = np.searchsorted(cfg.task_dist.cumsum(), stims)
+    first = np.zeros(stims.size, np.int64)
+    count = np.zeros(stims.size, np.int64)
+    orders, offset = [], 0
+    for e, (emg, stim_arr, rep_arr) in enumerate(Es):
+        sel = ex == e
+        order, first[sel], count[sel] = _label_groups(
+            stim_arr, rep_arr, stims[sel], reps[sel])
+        orders.append(order + offset)
+        offset += emg.shape[0]
+    empty = np.flatnonzero(count == 0)
+    if empty.size:
+        k = empty[0]
+        raise ValueError(f"no samples for stim={stims[k]} rep={reps[k]}")
+    if offset >= 2**31:
+        raise ValueError(f"{offset} samples: the table is int32")
+    # each segment's k-th sample, k past its count -> its last sample
+    pos = first[:, None] + np.minimum(np.arange(L), count[:, None] - 1)
+    rows = np.empty((stims.size, L), np.int32)
+    for e, order in enumerate(orders):
+        rows[ex == e] = order[pos[ex == e]]
+    return rows
+
+
 class _TorchPreprocessor:
-    """A subject's segments in one call on ``device``: f32 on the card,
-    :func:`preprocess_segments` (one ``iir_rms_frames`` launch), back as
-    float64 numpy."""
+    """A subject's segments in one call on ``device``: its recordings
+    copied to the card once and cast to f32 there, the
+    :func:`_segment_rows` table beside them, :func:`preprocess_segments`
+    (one ``iir_rms_frames`` launch reading the recordings through the
+    table), back as float64 numpy."""
 
     def __init__(self, cfg: Config, device):
         self.device = torch.device(device)
@@ -84,10 +157,15 @@ class _TorchPreprocessor:
                                     dtype=torch.float32, device=self.device)
         self._time_mask = cfg.time_mask()
 
-    def __call__(self, segments: np.ndarray) -> np.ndarray:
-        x = torch.as_tensor(np.asarray(segments, np.float32),
-                            device=self.device)
-        frames = preprocess_segments(x, self._sos, self._time_mask)
+    def __call__(self, Es, rows: np.ndarray) -> np.ndarray:
+        # copied as they are (loadmat's Fortran-order f64), laid end to end
+        # and cast on the device: on an H100 about half the time of a cast
+        # on the host (chip_smoke.py phase 11); both round alike
+        x = torch.cat([torch.from_numpy(E[0]).to(self.device)
+                       for E in Es]).float()
+        frames = preprocess_segments(
+            x, self._sos, self._time_mask,
+            rows=torch.from_numpy(rows).to(self.device))
         return frames.cpu().numpy().astype(np.float64)
 
 
@@ -135,7 +213,8 @@ def ingest_emg(
     device backend) runs on ``device`` (default: ``select_device()``,
     cuda); ``"scipy"`` is the float64 oracle on the host. Returns the
     arrays and, per subject, the seconds of its ``.mat`` read, segment
-    extraction, preprocessing (copies and kernel) and statistics
+    extraction (the row table on a device backend, the segments' copies
+    on the scipy one), preprocessing (copies and kernel) and statistics
     (``timings``)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -166,15 +245,21 @@ def ingest_emg(
             _load_emg_mat(root, dbnum, p_dir, "2"),
         )
         t1 = time.perf_counter()
-        segments = np.stack(
-            [
-                _extract_segment(cfg, Es, stim, rep + 1)
-                for stim in range(cfg.max_tasks)
-                for rep in range(cfg.max_reps)
-            ]
-        )  # (41*6, 2010, 12)
-        t2 = time.perf_counter()
-        windows = pre(segments).reshape(
+        if backend in DEVICE_BACKENDS:
+            rows = _segment_rows(cfg, Es)  # (41*6, 2010)
+            t2 = time.perf_counter()
+            windows = pre(Es, rows)
+        else:
+            segments = np.stack(
+                [
+                    _extract_segment(cfg, Es, stim, rep + 1)
+                    for stim in range(cfg.max_tasks)
+                    for rep in range(cfg.max_reps)
+                ]
+            )  # (41*6, 2010, 12)
+            t2 = time.perf_counter()
+            windows = pre(segments)
+        windows = windows.reshape(
             cfg.max_tasks, cfg.max_reps, cfg.final_window_size, cfg.emg_dim
         )
         t3 = time.perf_counter()
@@ -233,6 +318,8 @@ def ingest_glove(
     stats = RunningStats()
     train_tasks = cfg.tasks()
 
+    all_stims = np.arange(cfg.max_tasks)
+    ex = np.searchsorted(task_cumsum, all_stims)
     dats = []
     for person in people:
         p_dir = str(person + 1)
@@ -240,18 +327,22 @@ def ingest_glove(
             _load_glove_mat(root, p_dir, "1", angle_idxs),
             _load_glove_mat(root, p_dir, "2", angle_idxs),
         )
-        all_tasks = []
-        for stim in range(cfg.max_tasks):
-            ex = int(np.searchsorted(task_cumsum, stim))
-            angles, stim_arr, rep_arr = Es[ex]
-            mask = stim_arr == stim
+        # each stim's first glove_window_size rows of reps 1..max_rep (its
+        # file's largest rep), reps in order, from one label pass per file
+        idx, per_stim, offset = [], np.zeros(cfg.max_tasks, np.int64), 0
+        for e, (angles, stim_arr, rep_arr) in enumerate(Es):
+            stims = all_stims[ex == e]
             max_rep = int(rep_arr.max())
-            reps_angles = [
-                angles[(mask & (rep_arr == rep)).flatten()][
-                    : cfg.glove_window_size]
-                for rep in range(1, max_rep + 1)
-            ]
-            all_tasks.append(np.concatenate(reps_angles, axis=0))
+            qs = np.repeat(stims, max_rep)
+            qr = np.tile(np.arange(1, max_rep + 1), stims.size)
+            order, first, count = _label_groups(stim_arr, rep_arr, qs, qr)
+            take = np.minimum(count, cfg.glove_window_size)
+            pos = np.repeat(first - (np.cumsum(take) - take), take)
+            idx.append(order[pos + np.arange(pos.size)] + offset)
+            np.add.at(per_stim, qs, take)
+            offset += angles.shape[0]
+        rows = np.concatenate([E[0] for E in Es])[np.concatenate(idx)]
+        all_tasks = np.split(rows, np.cumsum(per_stim)[:-1])
         lens = {a.shape[0] for a in all_tasks}
         if len(lens) != 1:
             # ragged per-task rep counts: truncate to the shortest so the

@@ -21,7 +21,9 @@ Hopper (``csrc/``):
 The ingest's and the calibration's band-pass and RMS run as one more
 kernel, ``iir_rms_frames`` (``csrc/iir_rms.cu``): from zero state, the
 leading-window RMS at every stride-th sample (``ops/signal.py``'s
-``preprocess_segments`` and ``StreamingEngine.preprocess_recording``).
+``preprocess_segments`` and ``StreamingEngine.preprocess_recording``),
+reading each segment's samples from a recording through a row table
+where the ingest gives one.
 
 The fused training chain's kernels (``ops/train_fused.py``: K5f, K5b,
 the chain's tail pair and K5m) launch through the same table and count
@@ -180,7 +182,8 @@ def _expect(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 _SIGNATURES = {
     "dsp_frames": ("dsp_frames", "dsp_frames_launch", 9, 6, True),
     "vote_scan": ("vote_scan", "vote_scan_launch", 9, 4, False),
-    "iir_rms_frames": ("iir_rms", "iir_rms_frames_launch", 3, 7, True),
+    "iir_rms_frames": ("iir_rms", "iir_rms_frames_launch", 4, 8, True),
+    "fadd_latency": ("iir_rms", "fadd_latency_launch", 2, 1, False),
     "contrastive_loss_fwd": ("contrastive_loss", "contrastive_loss_fwd_launch",
                              3, 4, False),
     "contrastive_loss_bwd": ("contrastive_loss", "contrastive_loss_bwd_launch",
@@ -323,16 +326,19 @@ def iir_rms_n_frames(T: int, stride: int, rms_window: int,
     return n_frames
 
 
-def iir_rms_frames_reference(x, sos, stride, n_frames=None):
-    """Plain version of ``iir_rms_frames``. ``x`` (B, T, D) raw, ``sos``
-    (n_sec, 6) f32. From zero state, ``y = sosfilt(sos, INGEST_PRESCALE *
-    x)`` along T, then ``frames[b, f] = sqrt(sum_{k<W} y[b, f*stride +
-    k]^2 / W)`` (W = 11) for the first ``n_frames`` (default: every whole
-    window) -> (B, n_frames, D). The window's squares are summed oldest
-    first, each add rounded: closer to float64 than a cumulative-sum
-    difference, and the kernel's order."""
+def iir_rms_frames_reference(x, sos, stride, n_frames=None, rows=None):
+    """Plain version of ``iir_rms_frames``. ``x`` (B, T, D) raw, or with
+    ``rows`` (B, T) int32 a recording (N, D) whose row ``rows[b, t]`` is
+    sample t of segment b; ``sos`` (n_sec, 6) f32. From zero state, ``y =
+    sosfilt(sos, INGEST_PRESCALE * x)`` along T, then ``frames[b, f] =
+    sqrt(sum_{k<W} y[b, f*stride + k]^2 / W)`` (W = 11) for the first
+    ``n_frames`` (default: every whole window) -> (B, n_frames, D). The
+    window's squares are summed oldest first, each add rounded: closer to
+    float64 than a cumulative-sum difference, and the kernel's order."""
     from contrastiveprosthetics_torch.ops.signal import sosfilt
 
+    if rows is not None:
+        x = x[rows.long()]
     B, T, D = x.shape
     W = IIR_RMS_SHAPE[1]
     n = iir_rms_n_frames(T, stride, W, n_frames)
@@ -350,15 +356,39 @@ def iir_rms_frames_reference(x, sos, stride, n_frames=None):
     return torch.sqrt((acc / x.new_tensor(float(W))).double()).float()
 
 
-def iir_rms_frames(x, sos, stride, n_frames=None):
+def _check_rows(x, rows) -> None:
+    """Raise ``ValueError`` unless ``rows`` is a (B, T) int32 table on the
+    device of the recording ``x`` (N, D), every row in [0, N)."""
+    if x.dim() != 2:
+        raise ValueError(f"x: shape {tuple(x.shape)}, want (N, D) with rows")
+    if rows.dim() != 2 or rows.dtype != torch.int32:
+        raise ValueError(f"rows: {tuple(rows.shape)} {rows.dtype}, want "
+                         "(B, T) int32")
+    if rows.device != x.device:
+        raise ValueError(f"rows: on {rows.device}, want {x.device}")
+    if rows.numel():
+        lo, hi = (int(v) for v in torch.aminmax(rows))
+        if lo < 0 or hi >= x.shape[0]:
+            raise ValueError(f"rows: indices in [{lo}, {hi}], x has "
+                             f"{x.shape[0]} rows")
+
+
+def iir_rms_frames(x, sos, stride, n_frames=None, rows=None):
     """The ``iir_rms_frames`` kernel (see :func:`iir_rms_frames_reference`):
-    one launch for all B x D chains. On the card it takes
+    one launch for all B x D chains, reading ``x`` (B, T, D), or with
+    ``rows`` (B, T) int32 the rows of a recording ``x`` (N, D) through
+    that table (checked before any launch). On the card it takes
     ``IIR_RMS_SHAPE`` only."""
+    if rows is not None:
+        _check_rows(x, rows)
     if x.device.type == "cpu":
-        return iir_rms_frames_reference(x, sos, stride, n_frames)
-    if x.dim() != 3:
-        raise ValueError(f"x: shape {tuple(x.shape)}, want (B, T, D)")
-    B, T, D = x.shape
+        return iir_rms_frames_reference(x, sos, stride, n_frames, rows)
+    if rows is None:
+        if x.dim() != 3:
+            raise ValueError(f"x: shape {tuple(x.shape)}, want (B, T, D)")
+        B, T, D = x.shape
+    else:
+        (B, T), D = rows.shape, x.shape[1]
     n_sec, W = sos.shape[0], IIR_RMS_SHAPE[1]
     if (n_sec, D) != (IIR_RMS_SHAPE[0], IIR_RMS_SHAPE[2]):
         raise ValueError(f"iir_rms_frames kernel: (n_sec, rms_window, D) = "
@@ -366,14 +396,31 @@ def iir_rms_frames(x, sos, stride, n_frames=None):
                          "only")
     n = iir_rms_n_frames(T, stride, W, n_frames)
     dev, f32 = x.device, torch.float32
-    _expect("x", x, (B, T, D), f32, dev)
+    _expect_aligned("x", x, x.shape, dev)
+    if rows is not None:
+        _expect("rows", rows, (B, T), torch.int32, dev)
     _expect("sos", sos, (n_sec, 6), f32, dev)
     frames = torch.empty((B, n, D), dtype=f32, device=dev)
     if B and n:
-        _launch("iir_rms_frames", "iir_rms_frames", _ptr(x), _ptr(sos),
-                _ptr(frames), B, T, D, n_sec, W, stride, n, INGEST_PRESCALE,
-                _stream(dev))
+        N = B * T if rows is None else x.shape[0]
+        _launch("iir_rms_frames", "iir_rms_frames", _ptr(x), _ptr(rows),
+                _ptr(sos), _ptr(frames), N, B, T, D, n_sec, W, stride, n,
+                INGEST_PRESCALE, _stream(dev))
     return frames
+
+
+def fadd_latency_cycles(device, n: int = 1 << 16) -> float:
+    """SM cycles of one f32 add that waits on the one before (a chain of
+    ``n`` dependent ``__fadd_rn`` in one thread, ``n`` a multiple of 16):
+    the latency that bounds ``iir_rms_frames``' recurrence. A measurement
+    only; it is on no path and counts no launch."""
+    v = torch.tensor([1.0, 1e-30], dtype=torch.float32, device=device)
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+    rc = _fn("fadd_latency")(_ptr(v), _ptr(cycles), n, _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"fadd_latency kernel launch failed: cudaError "
+                           f"{rc}")
+    return int(cycles.item()) / n
 
 
 # ----------------------------------------------------------- encoder_chain

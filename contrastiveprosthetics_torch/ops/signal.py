@@ -102,12 +102,13 @@ def time_mask_stride(time_mask) -> int | None:
     return step if ok else None
 
 
-def preprocess_segments(x: torch.Tensor, sos: torch.Tensor,
-                        time_mask) -> torch.Tensor:
+def preprocess_segments(x: torch.Tensor, sos: torch.Tensor, time_mask,
+                        rows: torch.Tensor | None = None) -> torch.Tensor:
     """The JAX ``preprocess_segment`` batched over segments (what the JAX
-    ingest vmaps): raw ``x`` (B, T, D) f32 -> x ``INGEST_PRESCALE`` -> SOS
-    band-pass from zero state -> window-11 RMS (trimmed to full windows)
-    -> the frames at ``time_mask`` -> (B, len(time_mask), D).
+    ingest vmaps): raw ``x`` (B, T, D) f32, or with ``rows`` (B, T) int32
+    the segments' rows of a recording ``x`` (N, D) -> x ``INGEST_PRESCALE``
+    -> SOS band-pass from zero state -> window-11 RMS (trimmed to full
+    windows) -> the frames at ``time_mask`` -> (B, len(time_mask), D).
 
     One ``iir_rms_frames`` call computes the frames that start at multiples
     of a stride: for a plain-stride mask (the default) at that stride and
@@ -117,6 +118,6 @@ def preprocess_segments(x: torch.Tensor, sos: torch.Tensor,
     idx = np.asarray(time_mask, dtype=np.int64)
     stride = time_mask_stride(idx)
     if stride is not None:
-        return kernels.iir_rms_frames(x, sos, stride, idx.size)
-    frames = kernels.iir_rms_frames(x, sos, 1, int(idx.max()) + 1)
+        return kernels.iir_rms_frames(x, sos, stride, idx.size, rows=rows)
+    frames = kernels.iir_rms_frames(x, sos, 1, int(idx.max()) + 1, rows=rows)
     return frames.index_select(1, torch.as_tensor(idx, device=x.device))

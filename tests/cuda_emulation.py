@@ -6,9 +6,10 @@ the host's C++ compiler against a small emulation of what it uses: one
 cluster at a time (a plain launch's CTAs are clusters of one), a
 ``std::thread`` per CUDA thread, ``__syncthreads`` as a block
 barrier, ``mma.sync`` m16n8k8 as a warp-collective exchange of fragments
-(each output's eight products summed in float64), ``__shfl_xor_sync`` and
-``__shfl_down_sync`` as warp-collective exchanges of 32-bit values (the
-whole warp takes part, as the full mask says), ``__syncwarp`` as a warp
+(each output's eight products summed in float64), ``__shfl_xor_sync``,
+``__shfl_down_sync`` and ``__shfl_up_sync`` (with its width) as
+warp-collective exchanges of 32-bit values (the whole warp takes part, as
+the full mask says), ``__syncwarp`` as a warp
 barrier, thread-block clusters as their CTAs run at once with a barrier
 across them and each other's shared memory mapped (``cooperative_groups``
 ``this_cluster``, launched by ``cudaLaunchKernelEx``), ``cp.async`` as a
@@ -52,7 +53,7 @@ RUNTIME = r"""
 #define __forceinline__ inline
 #define __shared__ static
 #define __restrict__
-#define __align__(n)
+#define __align__(n) __attribute__((aligned(n)))
 #define __launch_bounds__(...)
 struct dim3 {
   unsigned x, y, z;
@@ -91,6 +92,7 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline long long clock64() { return 0; }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 using std::fmaxf;
 using std::fminf;
@@ -142,6 +144,12 @@ inline T __shfl_xor_sync(unsigned mask, T v, int x) {
 template <class T>
 inline T __shfl_down_sync(unsigned mask, T v, unsigned x) {
   return emu_shfl(mask, v, [x](int l) { return l + (int)x < 32 ? l + (int)x : l; });
+}
+template <class T>
+inline T __shfl_up_sync(unsigned mask, T v, unsigned x, int width = 32) {
+  return emu_shfl(mask, v, [x, width](int l) {
+    return l % width >= (int)x ? l - (int)x : l;
+  });
 }
 
 namespace cooperative_groups {
@@ -281,6 +289,8 @@ inline void cp_async16(void* smem, const void* gmem, bool valid) {
 }
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
+inline float select_f32(bool p, float a, float b) { return p ? a : b; }
+inline float in_register(float v) { return v; }
 }  // namespace
 """
 

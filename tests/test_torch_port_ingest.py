@@ -197,6 +197,122 @@ def test_glove_ingest_bit_equal_to_jax(mat_root, tmp_path):
         assert z["glove"].dtype == np.float32
 
 
+def _labelled_files(seed, missing=None):
+    """Two exercise files in the reference's layout, harder than the
+    writer's: rest (stim 0, rep 0) between runs, some (stim, rep)s split
+    into two runs apart, some shorter than ``ingest_segment_len``, runs in
+    no (stim, rep) order, int32 labels of shape (T, 1). Channel 0 of
+    ``emg`` is the sample's row in the two files laid end to end, so a
+    segment's values name its rows. ``missing``: a (stim, rep) relabelled
+    as rest."""
+    rng = np.random.default_rng(seed)
+    L = CFG.ingest_segment_len
+    Es, offset = [], 0
+    for stims in (range(0, 18), range(18, 41)):
+        runs = []
+        for stim in stims:
+            for rep in range(1, CFG.max_reps + 1):
+                n = int(rng.choice([L + 10, L - 700, L + 300, 40]))
+                cut = int(rng.integers(1, n)) if rng.random() < 0.3 else n
+                runs += [(stim, rep, cut), (stim, rep, n - cut)]
+        rng.shuffle(runs)
+        stim_col, rep_col = [], []
+        for stim, rep, n in runs:
+            if (stim, rep) == missing:
+                stim, rep = 0, 0
+            gap = int(rng.integers(0, 30))
+            stim_col += [np.zeros(gap, np.int32), np.full(n, stim, np.int32)]
+            rep_col += [np.zeros(gap, np.int32), np.full(n, rep, np.int32)]
+        stim_arr = np.concatenate(stim_col)[:, None]
+        rep_arr = np.concatenate(rep_col)[:, None]
+        T = stim_arr.shape[0]
+        emg = rng.standard_normal((T, 12))
+        emg[:, 0] = offset + np.arange(T)
+        Es.append((np.asfortranarray(emg), stim_arr, rep_arr))
+        offset += T
+    return tuple(Es)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segment_rows_are_jax_extract_segment(seed):
+    """``_segment_rows``' one label pass per file gives, for every (stim,
+    rep) the ingest visits, exactly the rows of the JAX package's boolean
+    mask and its edge padding (``_extract_segment``), as a table into the
+    two files laid end to end."""
+    Es = _labelled_files(seed)
+    rows = port_ingest._segment_rows(CFG, Es)
+    assert rows.dtype == np.int32
+    assert rows.shape == (CFG.max_tasks * CFG.max_reps, CFG.ingest_segment_len)
+    emg = np.concatenate([E[0] for E in Es])
+    k = 0
+    for stim in range(CFG.max_tasks):
+        for rep in range(1, CFG.max_reps + 1):
+            want = jax_ingest._extract_segment(JAX_CFG, Es, stim, rep)
+            np.testing.assert_array_equal(rows[k], want[:, 0])
+            np.testing.assert_array_equal(emg[rows[k]], want)
+            k += 1
+
+
+def test_segment_rows_raise_as_jax_for_a_missing_segment():
+    Es = _labelled_files(2, missing=(23, 4))
+    for fn, cfg in ((port_ingest._segment_rows, CFG),
+                    (lambda c, E: [jax_ingest._extract_segment(c, E, s, r)
+                                   for s in range(41) for r in range(1, 7)],
+                     JAX_CFG)):
+        with pytest.raises(ValueError, match="no samples for stim=23 rep=4"):
+            fn(cfg, Es)
+
+
+def test_device_backend_builds_no_segment_masks(mat_root, tmp_path,
+                                                monkeypatch):
+    """The torch backend reads the recordings through the row table: it
+    never extracts a segment on the host, and its artifacts equal those of
+    a run on the host's extracted segments, bit for bit."""
+    def no_masks(*args, **kwargs):
+        raise AssertionError("a segment extracted on the host")
+
+    want = port_ingest.ingest_emg(CFG, mat_root, str(tmp_path / "a"), [0],
+                                  verbose=False, device="cpu")
+    monkeypatch.setattr(port_ingest, "_extract_segment", no_masks)
+    got = port_ingest.ingest_emg(CFG, mat_root, str(tmp_path / "b"), [0],
+                                 verbose=False, device="cpu")
+    np.testing.assert_array_equal(got["emg"], want["emg"])
+    with pytest.raises(AssertionError, match="extracted on the host"):
+        port_ingest.ingest_emg(CFG, mat_root, str(tmp_path / "c"), [0],
+                               backend="scipy", verbose=False)
+
+
+def test_glove_ingest_with_split_runs_bit_equal_to_jax(tmp_path):
+    """Glove files whose (stim, rep) runs are split, out of order, between
+    rest, some reps missing (ragged tasks, cut to the shortest): both
+    packages give the same corpus and statistics, bit for bit."""
+    rng = np.random.default_rng(5)
+    for person in (28, 29):
+        d = tmp_path / f"s_{person + 1}_angles"
+        d.mkdir()
+        for ex, stims in (("1", range(0, 18)), ("2", range(18, 41))):
+            runs = [(stim, rep, n) for stim in stims
+                    for rep in range(1, CFG.max_reps + 1)
+                    if (stim * 7 + rep + person) % 23
+                    for n in (int(rng.integers(3, 20)),
+                              int(rng.integers(0, 25)))]
+            rng.shuffle(runs)
+            cols = [(np.full(n, s), np.full(n, r), rng.normal(s, 1, (n, 22)))
+                    for s, r, n in runs]
+            sio.savemat(str(d / f"S{person + 1}_E{ex}_A1.mat"), {
+                "angles": np.concatenate([c[2] for c in cols]),
+                "restimulus": np.concatenate([c[0] for c in cols])[:, None],
+                "rerepetition": np.concatenate([c[1] for c in cols])[:, None]})
+    ours = port_ingest.ingest_glove(CFG, str(tmp_path), str(tmp_path / "p"),
+                                    people=[28, 29], verbose=False)
+    theirs = jax_ingest.ingest_glove(JAX_CFG, str(tmp_path),
+                                     str(tmp_path / "j"), people=[28, 29],
+                                     verbose=False)
+    for key in ("glove", "mean", "std"):
+        assert np.shape(ours[key]) == np.shape(theirs[key])
+        np.testing.assert_array_equal(ours[key], theirs[key])
+
+
 def _segments(B, seed):
     rng = np.random.default_rng(seed)
     gain = rng.uniform(0.3, 2.0, (B, 1, 12))
