@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port: the streaming serve path and
 its calibration, contrastive training, training on the fused chain, the
-crossval sweep, the evaluation and results path, and ingest from raw
-``.mat`` files.
+crossval sweep, the evaluation and results path, ingest from raw ``.mat``
+files, and the softmax baseline and glove modes.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
@@ -133,25 +133,47 @@ made with numpy from a seed:
    subject's recordings to the card cast on the host and on the card,
    ``emg.npz`` through ``DeviceStore.load`` on the card, and
    ``cptorch-train --crossval_size 3 --final_epochs 1 --batch_size 8
-   --test`` on it.
+   --test`` on it;
+12. the softmax baseline and the glove modes on phase 7's store (bs 8,
+   plain BatchNorm, full width, the synthetic glove corpus): one step
+   per mode at dropout 0 against a reference step (glove encoding: the
+   K1 kernels against the plain loss at phase 7's tolerance; the baseline,
+   which runs no kernel: the loss against float64 on the CPU);
+   ``train_loop`` for 2 annealed epochs and ``run_test`` in prediction
+   (asking for the fused chain and the fused encoder, which warn),
+   glove prediction, glove encoding (asking for the fused encoder, which
+   warns) and glove encoding on the fused chain, each test accuracy above
+   0.1; one epoch of each timed by CUDA events beside phase 7's; a
+   stacked step of 3 configs in each mode against 3 single steps in
+   float64 at 1e-9; ``cross_validate`` of go.sh's 150 configs x 1 epoch
+   in glove encoding (configs/s, best val accuracy above 0.1) and traces
+   of 10 stacked steps at C=2 and C=150 with equal host launch calls;
+   ``cptorch-train --synthetic --crossval_size 3 --final_epochs 1 --test
+   --results_dir A`` with ``--prediction`` and with ``--glove_encoding``,
+   each checkpoint loaded back strictly in its mode, and
+   ``cptorch-results`` with the same flag writing the same ``logs.npy``.
 
 Launch counts are reset just before the calibration, phases 3, 4, 7's and
-8's ``train_loop``, 9's ``cross_validate``, 10's test and val passes and
-11's ``cptorch-load`` and read just after each (phase
+8's ``train_loop``, 9's ``cross_validate``, 10's test and val passes,
+11's ``cptorch-load`` and 12's ``train_loop`` runs (read again after each
+run's test pass) and ``cross_validate``, and read just after each (phase
 3's after its ``step`` loop and after its ``steps`` call); every serve
 kernel must have launched on each of the three serve paths,
 ``iir_rms_frames`` once per calibration recording and once per ingested
 subject, each K1
 kernel once per train step in 7 and 8 and once per stacked step in 9,
-and the chain's kernels as its depth says in 8. TF32
+and the chain's kernels as its depth says in 8; in 12 K1 once per step
+of both glove-encoding runs and per stacked step of their sweep and never
+in the baseline, the chain's kernels as its depth says in the fused run,
+and ``encoder_chain`` never. TF32
 is off throughout
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set False), so the plain versions run
 in full f32 (``encoder_chain``, K5f and K5b run 3xTF32 by their own
 instructions, whatever the flags). Any failure raises and the exit code
 is not 0. The last lines are ``{"single", "batched"}``, ``{"train"}``,
-``{"fused_train"}``, ``{"sweep"}``, ``{"eval"}`` and ``{"ingest"}`` JSON
-lines, the card
+``{"fused_train"}``, ``{"sweep"}``, ``{"eval"}``, ``{"ingest"}`` and
+``{"modes"}`` JSON lines, the card
 line from nvidia-smi, one
 ``{"kernels": [...]}`` JSON line, and
 ``{"ok": true, "device": {...}}``.
@@ -1843,11 +1865,11 @@ def fused_train_phase(K, eager) -> tuple[dict, dict]:
 def sweep_inputs(trainer, hyper, seed: int):
     """A fresh stacked state of ``hyper``'s configs (numpy (C,) arrays),
     the same hyperparameters as (C,) tensors on the card, one epoch's
-    index matrices from each config's generator and a chunk generator for
-    the dropout masks, as ``Trainer.sweep_chunk`` makes them."""
+    index matrices from each config's generator (the glove task
+    permutations too, None in the one-hot modes) and a chunk generator
+    for the dropout masks, as ``Trainer.sweep_chunk`` makes them."""
     from contrastiveprosthetics_torch.data.sampler import (
         stacked_epoch_batches,
-        stacked_task_permutations,
     )
     from contrastiveprosthetics_torch.train import engine
     from contrastiveprosthetics_torch.train.crossval import config_seed
@@ -1858,23 +1880,23 @@ def sweep_inputs(trainer, hyper, seed: int):
     h = engine.Hyper(*[torch.as_tensor(np.asarray(x, np.float32),
                                        device=trainer.device) for x in hyper])
     v = trainer.view_train
-    emg_rand = stacked_task_permutations(gens, v.n_tasks, v.D)
+    emg_rand, glove_rand = trainer._stacked_permutations(gens, v)
     batches, _ = stacked_epoch_batches(gens, v.D, trainer.batch_size)
     return (state, h, emg_rand, batches,
-            trainer.generator(config_seed(seed, 0, stream=1)))
+            trainer.generator(config_seed(seed, 0, stream=1)), glove_rand)
 
 
 def run_sweep_steps(trainer, inputs, start: int, n: int, tail: int = 0):
     """Stacked steps over batches ``start`` to ``start + n`` of
     :func:`sweep_inputs`; with ``tail``, the last of them trains only its
     first ``tail`` items, as an epoch's tail does."""
-    state, h, emg_rand, batches, gen = inputs
+    state, h, emg_rand, batches, gen, glove_rand = inputs
     part = batches[:, start:start + n]
     last = part[:, :0, 0]
     if tail:
         part, last = part[:, :-1], part[:, -1, :tail]
     return trainer.sweep_epoch_from_indices(state, emg_rand, part, last, h,
-                                            1.0, 1.0, gen)
+                                            1.0, 1.0, gen, glove_rand)
 
 
 def sweep_step_check(K, trainer) -> dict:
@@ -1893,7 +1915,7 @@ def sweep_step_check(K, trainer) -> dict:
 
     table = np.array(SWEEP_STEP_HYPERS, np.float32)
     inputs = sweep_inputs(trainer, engine.Hyper(*table.T), seed=3)
-    state, h, emg_rand, batches, _ = inputs
+    state, h, emg_rand, batches, _, _ = inputs
     base = copy.deepcopy(state.model)
     v = trainer.view_train
     emg_b = stacked_gather_train_batch(v.emg_flat, emg_rand, batches[:, 0])
@@ -2033,10 +2055,11 @@ def sweep_step_check(K, trainer) -> dict:
     return res
 
 
-def sweep_trace(K, trainer, hypers, C: int) -> dict:
+def sweep_trace(K, trainer, hypers, C: int,
+                repeats: int = SWEEP_TRACE_REPEATS) -> dict:
     """Phase 9, part 3: profiler traces of 10 stacked steps of C configs
-    (the last a 5-item tail step) with dropout, taken SWEEP_TRACE_REPEATS
-    times on one state. K1f and K1b must launch once per stacked step, by
+    (the last a 5-item tail step) with dropout, taken ``repeats`` times
+    on one state. K1f and K1b must launch once per stacked step, by
     their wrappers' counts. The breakdown is the first trace's; the
     launches per step are the most any trace counted, since a trace only
     ever misses records."""
@@ -2052,7 +2075,7 @@ def sweep_trace(K, trainer, hypers, C: int) -> dict:
         run_sweep_steps(trainer, inputs, 2, n, tail=5)
         k1.append({k: K.launch_counts[k] / n for k in TRAIN_KERNELS})
 
-    for _ in range(SWEEP_TRACE_REPEATS):
+    for _ in range(repeats):
         traces.append(trace_families(
             lambda: run_sweep_steps(trainer, inputs, 0, 2), run, n))
     if any(per[k] != 1.0 for per in k1 for k in TRAIN_KERNELS):
@@ -2712,6 +2735,411 @@ def ingest_phase(K, dev) -> tuple[dict, dict]:
                 phase_s=phase_s), counts
 
 
+# ------------------------------------------------------------ 12. the modes
+MODES = {"prediction": dict(prediction=True),
+         "glove_prediction": dict(prediction=True, glove=True),
+         "glove_encoding": dict(glove_encoding=True),
+         "glove_encoding_fused": dict(glove_encoding=True,
+                                      use_fused_train=True)}
+# a forward on the CPU in float64 against the card's in f32: the loss of a
+# step in the baseline (no kernel runs there), as phase 7 holds its K1 pair
+MODES_F64_LOSS_RTOL = 1e-5
+
+
+def mode_batch(trainer, seed: int, bs: int = 8):
+    """One train batch of ``trainer``'s mode from a seeded generator: (B,
+    T, emg_dim) EMG windows and, where the mode reads them, (B, T,
+    glove_dim) glove rows (else None)."""
+    from contrastiveprosthetics_torch.data.sampler import (
+        gather_glove_batch,
+        gather_train_batch,
+    )
+
+    v = trainer.view_train
+    gen = trainer.generator(seed)
+    emg_rand, glove_rand = trainer._permutations(gen, v)
+    items = torch.randperm(v.D, generator=gen, device=trainer.device)[:bs]
+    glove_b = None
+    if trainer.reads_glove:
+        glove_b = gather_glove_batch(v.glove_flat, glove_rand, items,
+                                     v.D_glove)
+    return gather_train_batch(v.emg_flat, emg_rand, items), glove_b
+
+
+def modes_step_check(K, trainers) -> dict:
+    """Phase 12, part 1: one step per mode at dropout 0 against a
+    reference step: in glove encoding the step with the K1 kernels against
+    the step with the plain loss (phase 7's tolerance); in the baseline,
+    which runs no kernel, the card's f32 step against the same step in
+    float64 on the CPU (the loss; the gradients' distance is reported)."""
+    from contrastiveprosthetics_torch.train import engine
+
+    hyper0 = engine.Hyper.single(1e-3, 1e-6, 0.0, 1e-3, 1e-6, 0.0)
+    out = {}
+    for mode in ("prediction", "glove_prediction", "glove_encoding"):
+        trainer = trainers[mode]
+        emg_b, glove_b = mode_batch(trainer, 7)
+        if mode == "glove_encoding":
+            steps = {}
+            for name, loss_fn in (("kernel", K.fused_contrastive_loss),
+                                  ("plain", K.fused_contrastive_reference)):
+                engine.fused_contrastive_loss = loss_fn
+                try:
+                    state = trainer.init_state(trainer.generator(0))
+                    steps[name] = trainer.loss_and_grads(
+                        state, emg_b, hyper0, None, glove_b=glove_b)
+                finally:
+                    engine.fused_contrastive_loss = K.fused_contrastive_loss
+            torch.cuda.synchronize()
+            (loss_k, acc_k, grads_k), (loss_p, acc_p, grads_p) = (
+                steps["kernel"], steps["plain"])
+            torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+            err = 0.0
+            for tower in grads_k:
+                if not grads_k[tower]:
+                    raise AssertionError(f"glove encoding trains no "
+                                         f"{tower} parameters")
+                for a, b in zip(grads_k[tower], grads_p[tower]):
+                    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+                    err = max(err, max_abs(a, b))
+            out[mode] = dict(loss_kernel=float(loss_k),
+                             loss_plain=float(loss_p),
+                             max_grad_abs_err=err, tolerance="loss rtol "
+                             "1e-5, grads rtol 1e-4 atol 1e-6 (phase 7's)")
+            continue
+        state = trainer.init_state(trainer.generator(0))
+        ref = engine.TrainState.fresh(copy.deepcopy(state.model).cpu()
+                                      .double())
+        loss, acc, grads = trainer.loss_and_grads(state, emg_b, hyper0, None,
+                                                  glove_b=glove_b)
+        loss64, acc64, grads64 = trainer.loss_and_grads(
+            ref, emg_b.cpu().double(), hyper0, None,
+            glove_b=None if glove_b is None else glove_b.cpu().double())
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(float(loss), float(loss64),
+                                   rtol=MODES_F64_LOSS_RTOL)
+        rel = [float((a.cpu().double() - b).norm()
+                     / b.norm().clamp_min(1e-30))
+               for tower in grads for a, b in zip(grads[tower],
+                                                  grads64[tower])]
+        trained = {t: len(g) for t, g in grads.items()}
+        want_idle = "emg_net" if mode == "glove_prediction" else "glove_net"
+        if trained[want_idle] or not all(
+                n for t, n in trained.items() if t != want_idle):
+            raise AssertionError(f"{mode} trains {trained} parameter "
+                                 f"tensors by tower")
+        out[mode] = dict(loss=float(loss), loss_float64_cpu=float(loss64),
+                         acc=float(acc), acc_float64_cpu=float(acc64),
+                         max_grad_rel_l2_to_float64=max(rel),
+                         tensors_by_tower=trained,
+                         tolerance=f"loss rtol {MODES_F64_LOSS_RTOL} "
+                                   "against float64; gradients reported")
+    log(f"[modes] one step per mode at dropout 0: {json.dumps(out)}")
+    return out
+
+
+def modes_stacked_check(K, trainers) -> dict:
+    """Phase 12, part 4: a stacked step of 3 configs at dropout 0 in each
+    mode (each config its own lr, reg, EMG and glove batch) against the 3
+    single steps, in float64 on the card (the plain loss: K1 takes f32):
+    the losses, every gradient and every parameter and statistic after
+    both Adam chains, within SWEEP_F64_RTOL."""
+    from contrastiveprosthetics_torch.data.sampler import (
+        stacked_gather_glove_batch,
+        stacked_gather_train_batch,
+    )
+    from contrastiveprosthetics_torch.train import engine
+
+    table = np.array(SWEEP_STEP_HYPERS, np.float64)
+    dev = trainers["prediction"].device
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+    out = {}
+    engine.fused_contrastive_loss = K.fused_contrastive_reference
+    try:
+        for mode in ("prediction", "glove_prediction", "glove_encoding"):
+            trainer = trainers[mode]
+            state, _, emg_rand, batches, _, glove_rand = sweep_inputs(
+                trainer, engine.Hyper(*table.T.astype(np.float32)), seed=3)
+            base = copy.deepcopy(state.model).double()
+            v = trainer.view_train
+            emg_b = stacked_gather_train_batch(v.emg_flat, emg_rand,
+                                               batches[:, 0]).double()
+            glove_b = None
+            if trainer.reads_glove:
+                glove_b = stacked_gather_glove_batch(
+                    v.glove_flat, glove_rand, batches[:, 0],
+                    v.D_glove).double()
+            h = engine.Hyper(*[torch.as_tensor(x, device=dev)
+                               for x in table.T])
+            loss, _, grads = trainer.loss_and_grads(
+                engine.TrainState.fresh(copy.deepcopy(base)), emg_b, h, None,
+                glove_b=glove_b)
+            stepped = engine.TrainState.fresh(copy.deepcopy(base))
+            trainer._sgd_step(stepped, emg_b, h, h.lr_emg, h.lr_glove, None,
+                              glove_b=glove_b)
+            worst = dict(loss=0.0, grads=0.0, state=0.0)
+            for c in range(len(table)):
+                hc = engine.Hyper(*[float(x) for x in table[c]])
+                gb = None if glove_b is None else glove_b[c]
+                single = engine.TrainState.fresh(base.unstack(c).double())
+                loss_c, _, grads_c = trainer.loss_and_grads(
+                    single, emg_b[c], hc, None, glove_b=gb)
+                worst["loss"] = max(worst["loss"], abs(
+                    float(loss[c]) / float(loss_c) - 1))
+                for tower in grads_c:
+                    for a, b in zip(grads[tower], grads_c[tower]):
+                        worst["grads"] = max(worst["grads"], rel_l2(a[c], b))
+                single = engine.TrainState.fresh(base.unstack(c).double())
+                trainer._sgd_step(single, emg_b[c], hc, hc.lr_emg,
+                                  hc.lr_glove, None, glove_b=gb)
+                for a, b in zip(stepped.model.state_dict().values(),
+                                single.model.state_dict().values()):
+                    if a.is_floating_point():
+                        worst["state"] = max(worst["state"], rel_l2(a[c], b))
+            if max(worst.values()) > SWEEP_F64_RTOL:
+                raise AssertionError(f"{mode}: float64 stacked step against "
+                                     f"the single steps {worst}")
+            out[mode] = dict(worst_rel=worst, losses=loss.tolist())
+    finally:
+        engine.fused_contrastive_loss = K.fused_contrastive_loss
+    out["tolerance"] = (f"loss, each gradient tensor and each parameter or "
+                        f"statistic after Adam at a relative 2-norm of "
+                        f"{SWEEP_F64_RTOL}")
+    log(f"[modes] stacked step of 3 configs against 3 single steps in "
+        f"float64: {json.dumps(out)}")
+    return out
+
+
+def modes_phase(K, eager, train_res) -> tuple[dict, dict]:
+    """Phase 12, the softmax baseline and the glove modes on phase 7's
+    store (bs 8, plain BatchNorm, full width). Returns the ``modes``
+    results and the kernels' launch counts over the modes' ``train_loop``
+    runs and the glove-encoding sweep."""
+    import warnings
+
+    from contrastiveprosthetics_torch.cli import results as cli_results
+    from contrastiveprosthetics_torch.cli import train as cli_train
+    from contrastiveprosthetics_torch.models.convert import (
+        load_reference_checkpoint,
+        model_from_state_dict,
+    )
+    from contrastiveprosthetics_torch.train import crossval, engine
+    from contrastiveprosthetics_torch.train.loop import run_test, train_loop
+
+    t_phase = time.perf_counter()
+    widths = dict(n_linear=eager.n_linear, hidden=eager.hidden,
+                  conv_features=eager.conv_features)
+    trainers = {mode: engine.Trainer(eager.cfg, eager.store, adabn=False,
+                                     batch_size=8, **widths, **kw)
+                for mode, kw in MODES.items()}
+    v = eager.view_train
+    steps_per_epoch = -(-v.D // eager.batch_size)
+    n_steps = TRAIN_EPOCHS * steps_per_epoch
+    windows = eager.batch_size * v.n_tasks * steps_per_epoch
+    parts_s = {}
+    t0 = time.perf_counter()
+    step_check = modes_step_check(K, trainers)
+    parts_s["step_check"] = time.perf_counter() - t0
+
+    # 2. train_loop and run_test per mode; the baseline asks for the fused
+    # chain and the eager glove encoding for the fused encoder: both warn
+    # and run unfused
+    hyper = engine.Hyper.single(*CANONICAL)
+    runs, counts_by_mode, epochs, warned = {}, {}, {}, {}
+    n_linear = eager.n_linear
+    t_runs = time.perf_counter()
+    for mode, trainer in trainers.items():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if mode == "prediction":
+                trainer = engine.Trainer(eager.cfg, eager.store, adabn=False,
+                                         batch_size=8, use_fused_train=True,
+                                         use_fused_encoder=True, **widths,
+                                         **MODES[mode])
+            elif mode == "glove_encoding":
+                trainer.use_fused_encoder = True
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = train_loop(trainer, hyper, TRAIN_EPOCHS, seed=0,
+                             annealing=True, verbose=False)
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t0
+            counts = dict(K.launch_counts)
+            test = run_test(trainer, res.state, hyper, trainer.generator(5))
+            torch.cuda.synchronize()
+            test_chain = K.launch_counts["encoder_chain"]
+            trainer.use_fused_encoder = False
+        warned[mode] = sorted({str(w.message).split(";")[0] for w in caught
+                               if "requested but" in str(w.message)})
+        fused = mode == "glove_encoding_fused"
+        k1 = n_steps if mode.startswith("glove_encoding") else 0
+        want = {"contrastive_loss_fwd": k1, "contrastive_loss_bwd": k1,
+                "dense_block_fwd": n_linear * n_steps if fused else 0,
+                "dense_block_bwd": n_linear * n_steps if fused else 0,
+                "chain_tail_fwd": n_steps if fused else 0,
+                "chain_tail_bwd": n_steps if fused else 0,
+                "dropout_masks": 0, "encoder_chain": 0}
+        got = {k: counts[k] for k in want}
+        if got != want or test_chain:
+            raise AssertionError(f"{mode} launches {got} (encoder_chain "
+                                 f"{test_chain} by the test too), want {want}")
+        if mode in ("prediction", "glove_encoding") and not warned[mode]:
+            raise AssertionError(f"{mode}: the ineligible fused request "
+                                 "did not warn")
+        D_test = trainer.view_test.D
+        if not (np.isfinite(res.train_losses).all()
+                and res.train_losses[-1] < res.train_losses[0]):
+            raise AssertionError(f"{mode} train losses {res.train_losses}")
+        if float(test.accuracy) <= 0.1:
+            raise AssertionError(f"{mode} test acc {float(test.accuracy)}: "
+                                 "not above 0.1")
+        if not (test.curve.shape == (D_test, eager.cfg.n_voting_cols)
+                and test.y_pred.shape == (D_test, eager.cfg.max_tasks)
+                and test.logits.shape == (D_test * 25, 41, 41)
+                and bool(torch.isfinite(test.logits).all())
+                and bool(test.logits.any()) == mode.startswith("glove_enc")):
+            raise AssertionError(f"{mode} test outputs have the wrong shape "
+                                 "or values")
+        counts_by_mode[mode] = got
+        # 3. one epoch from the trained state, by CUDA events
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        gen = trainer.generator(11)
+        torch.cuda.synchronize()
+        start.record()
+        trainer.train_epoch(res.state, gen, hyper)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        epochs[mode] = dict(epoch_ms=ms, ms_per_step=ms / steps_per_epoch,
+                            train_windows_per_s=windows / ms * 1e3)
+        runs[mode] = dict(train_loop_s=loop_s, train_losses=res.train_losses,
+                          train_accs=res.train_accs, val_loss=res.val_loss,
+                          val_acc=res.val_acc, test_loss=float(test.loss),
+                          test_acc=float(test.accuracy), launches=got,
+                          launches_per_step={k: c / n_steps
+                                             for k, c in got.items()},
+                          warnings=warned[mode])
+        log(f"[modes] {mode}: train_loop {TRAIN_EPOCHS} epochs ({n_steps} "
+            f"steps) in {loop_s:.2f} s: {json.dumps(runs[mode])}; one epoch "
+            f"{json.dumps(epochs[mode])}")
+    epochs["onehot_contrastive_phase_7"] = dict(
+        epoch_ms=train_res["epoch_ms"], ms_per_step=train_res["ms_per_step"],
+        train_windows_per_s=train_res["train_windows_per_s"])
+    parts_s["runs_and_epochs"] = time.perf_counter() - t_runs
+
+    # 4. the stacked step in every mode
+    t0 = time.perf_counter()
+    stacked = modes_stacked_check(K, trainers)
+    parts_s["stacked_check"] = time.perf_counter() - t0
+
+    # 5. go.sh's sweep in glove encoding; traces of 10 stacked steps at
+    # C=2 and C=150, whose host launch calls must be equal
+    ge = trainers["glove_encoding"]
+    n = SWEEP_CONFIGS
+    hypers = crossval.sample_hyperparams(n, seed=42)
+    chunks = -(-n // crossval.resolve_chunk(n))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        start.record()
+        values = crossval.cross_validate(ge, hypers, SWEEP_EPOCHS, seed=42,
+                                         save_dir=tmp, verbose=False)
+        end.record()
+        torch.cuda.synchronize()
+    sweep_counts = {k: K.launch_counts[k] for k in TRAIN_KERNELS}
+    want = chunks * steps_per_epoch * SWEEP_EPOCHS
+    if any(c != want for c in sweep_counts.values()):
+        raise AssertionError(f"K1 launches in the glove-encoding sweep "
+                             f"{sweep_counts}, want {want} each")
+    best_acc = float(np.nanmax(values[:, 1]))
+    if best_acc <= 0.1:
+        raise AssertionError(f"glove-encoding sweep: best val accuracy "
+                             f"{best_acc}, not above 0.1")
+    sweep_ms = start.elapsed_time(end)
+    parts_s["sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # one trace at each width: the host's launch and operator calls, which
+    # the check compares, read the same in all of phase 9's repeats
+    traces = {C: sweep_trace(K, ge, hypers, C, repeats=1) for C in (2, n)}
+    parts_s["sweep_traces"] = time.perf_counter() - t0
+    launches = {C: tr["launches_per_step"] for C, tr in traces.items()}
+    host_ops = {C: tr["host_ops_per_step"] for C, tr in traces.items()}
+    if launches[2] != launches[n] or host_ops[2] != host_ops[n]:
+        raise AssertionError(f"glove encoding: launches per stacked step "
+                             f"{launches} and operator calls {host_ops} "
+                             f"differ with C")
+    sweep = dict(configs=n, epochs=SWEEP_EPOCHS, chunks=chunks,
+                 sweep_ms=sweep_ms, configs_per_s=n / (sweep_ms / 1e3),
+                 windows_per_s=n * steps_per_epoch * eager.batch_size
+                 * v.n_tasks / (sweep_ms / 1e3),
+                 best_val_acc=best_acc, k1_launches=sweep_counts,
+                 finite=int(np.isfinite(values).all(1).sum()),
+                 launches_per_stacked_step=launches,
+                 host_ops_per_stacked_step=host_ops,
+                 device_ms_per_stacked_step={
+                     C: tr["device_ms_per_step"] for C, tr in traces.items()},
+                 device_idle_share={C: tr["device_idle_share"]
+                                    for C, tr in traces.items()})
+    log(f"[modes] glove-encoding cross_validate of {n} configs x "
+        f"{SWEEP_EPOCHS} epoch: {json.dumps(sweep)}")
+
+    # 6. the CLIs in the baseline and in glove encoding
+    clis = {}
+    t_clis = time.perf_counter()
+    for flag in ("--prediction", "--glove_encoding"):
+        with tempfile.TemporaryDirectory() as tmp:
+            common = ["--synthetic", "--data_dir", tmp, "--checkpoint_dir",
+                      tmp, "--no_verbose", flag]
+            t0 = time.perf_counter()
+            if cli_train.main([*common, "--crossval_size", "3",
+                               "--final_epochs", "1", "--test",
+                               "--results_dir", f"{tmp}/A"]) != 0:
+                raise AssertionError(f"cptorch-train {flag} failed")
+            train_s = time.perf_counter() - t0
+            model = model_from_state_dict(load_reference_checkpoint(
+                f"{tmp}/contrastive.pt"))
+            if (model.prediction, model.glove_encoding) != (
+                    flag == "--prediction", flag == "--glove_encoding"):
+                raise AssertionError(f"cptorch-train {flag} wrote a model "
+                                     "of another mode")
+            t0 = time.perf_counter()
+            if cli_results.main([*common, "--results_dir", f"{tmp}/B"]) != 0:
+                raise AssertionError(f"cptorch-results {flag} failed")
+            results_s = time.perf_counter() - t0
+            logs = np.load(f"{tmp}/A/logs.npy")
+            if not np.array_equal(logs, np.load(f"{tmp}/B/logs.npy")):
+                raise AssertionError(f"cptorch-results {flag} wrote other "
+                                     "logs.npy than cptorch-train")
+            clis[flag] = dict(train_s=train_s, results_s=results_s,
+                              logs_shape=list(logs.shape),
+                              logs_all_zero=not logs.any())
+    log(f"[cli] cptorch-train --synthetic --crossval_size 3 --final_epochs 1 "
+        f"--test --results_dir A and cptorch-results --results_dir B, with "
+        f"--prediction and with --glove_encoding, ok on cuda; checkpoints "
+        f"load strictly in their mode, logs.npy equal: {json.dumps(clis)}")
+    parts_s["clis"] = time.perf_counter() - t_clis
+    phase_s = time.perf_counter() - t_phase
+    log(f"[modes] phase 12 took {phase_s:.1f} s: {json.dumps(parts_s)}")
+    totals = {k: sum(c.get(k, 0) for c in counts_by_mode.values())
+              for k in (*TRAIN_KERNELS, *FUSED_KERNELS)}
+    for k in TRAIN_KERNELS:
+        totals[k] += sweep_counts[k]
+    res = dict(geometry=dict(batch_size=8, D=v.D, n_tasks=v.n_tasks,
+                             steps_per_epoch=steps_per_epoch,
+                             D_glove=v.D_glove),
+               step_check=step_check, runs=runs, epochs=epochs,
+               stacked_check=stacked, sweep=sweep, clis=clis,
+               phase_s=phase_s, parts_s=parts_s)
+    return res, totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2987,9 +3415,13 @@ def main() -> int:
     # ---------------------------------------------- 11. ingest from .mat
     ingest_res, ingest_counts = ingest_phase(K, dev)
 
+    # ------------------------------ 12. the softmax baseline and glove modes
+    modes_res, modes_counts = modes_phase(K, trainer, train_res)
+
     for name, entry in entries.items():
         if name in FUSED_KERNELS:
-            by_path = {"fused_train": fused_counts[name]}
+            by_path = {"fused_train": fused_counts[name],
+                       "modes": modes_counts[name]}
             fam = fused_res["step_trace"]["device_ms_by_family"]
             per = fused_res["step_trace"]["device_launches_per_step"]
             entry["device_ms_per_launch_traced"] = (
@@ -3000,7 +3432,8 @@ def main() -> int:
         elif name in TRAIN_KERNELS:
             by_path = {"train": train_counts[name],
                        "fused_train": fused_counts[name],
-                       "sweep": sweep_counts[name]}
+                       "sweep": sweep_counts[name],
+                       "modes": modes_counts[name]}
             traced = {}
             for path, trace in (("train", train_res["step_trace"]),
                                 ("fused_train", fused_res["step_trace"]),
@@ -3029,6 +3462,7 @@ def main() -> int:
     print(json.dumps({"sweep": sweep_res}))
     print(json.dumps({"eval": eval_res}))
     print(json.dumps({"ingest": ingest_res}))
+    print(json.dumps({"modes": modes_res}))
     print(card)
     print(json.dumps({"kernels": list(entries.values()) + eval_entries}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ rebuild the best config of the cached crossval, load the checkpoint, run
 the test pass from the same generator seed ``cptorch-train --test`` uses,
 and export the full artifact set, the set-size sweep and ``results.png``
 included (``results/export.py``). ``--per_subject_eval`` adds the
-per-subject accuracies.
+per-subject accuracies. ``--prediction``, ``--glove`` and
+``--glove_encoding`` name the checkpoint's mode, as for ``cptorch-train``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import os
 from contrastiveprosthetics_torch.cli.train import (
     build_parser,
     build_store,
+    load_state,
+    make_trainer,
     reject_unported_modes,
     report_per_subject,
 )
@@ -26,27 +29,25 @@ def main(argv=None) -> int:
 
     from contrastiveprosthetics_torch.config import DEFAULT_CONFIG, compat_config
     from contrastiveprosthetics_torch.results.export import export_results
-    from contrastiveprosthetics_torch.train.checkpoint import load_checkpoint
     from contrastiveprosthetics_torch.train.crossval import (
         best_config,
         hyper_from_key,
         load_crossval,
     )
-    from contrastiveprosthetics_torch.train.engine import Trainer
     from contrastiveprosthetics_torch.train.loop import run_test
 
     cfg = compat_config(DEFAULT_CONFIG) if args.compat else DEFAULT_CONFIG
     print("Loading dataset")
     store = build_store(args, cfg, device)
-    trainer = Trainer(cfg, store, db2=args.db2, adabn=args.no_adabn,
-                      batch_size=args.batch_size,
-                      use_fused_encoder=True if args.fused_encoder else None)
+    trainer = make_trainer(
+        args, cfg, store,
+        use_fused_encoder=True if args.fused_encoder else None)
     print("Dataset loaded")
 
     values, keys = load_crossval(args.data_dir, id_=args.crossval_id)
     _, hyper = hyper_from_key(best_config(values, keys))
-    state = load_checkpoint(
-        os.path.join(args.checkpoint_dir, "contrastive.pt"), device)
+    state = load_state(
+        trainer, os.path.join(args.checkpoint_dir, "contrastive.pt"), device)
 
     t = run_test(trainer, state, hyper, trainer.generator(args.seed + 5))
     out_dir = args.results_dir or args.data_dir

@@ -120,6 +120,11 @@ def main(argv=None) -> int:
 
     if args.checkpoint:
         model = model_from_state_dict(load_reference_checkpoint(args.checkpoint))
+        if model.prediction or model.glove_encoding:
+            raise SystemExit(f"{args.checkpoint}: the serve path scores "
+                             "EMG against one-hot class embeddings; a "
+                             "--prediction or --glove_encoding model has "
+                             "none (as in the JAX serve path)")
     else:
         if not args.demo:
             print("warning: no --checkpoint given — using fresh-init weights")

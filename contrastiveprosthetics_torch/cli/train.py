@@ -11,16 +11,24 @@ data), ``--crossval_chunk`` (configs trained at once), ``--seed``,
 JAX CLI's flags) and ``--platform`` (cuda by default). ``--pallas_loss``
 is a no-op: on CUDA the K1 kernels are the loss's only path.
 
+Modes (``train/engine.py``): ``--prediction`` trains the softmax
+baseline, with ``--glove`` from the glove angles; ``--glove_encoding``
+trains the contrastive model with class embeddings from the glove
+angles; ``--glove`` alone changes nothing, as in the JAX CLI. The
+baseline runs on neither fused path: ``--fused_train on`` and
+``--fused_encoder`` warn there and run unfused, as ``--fused_encoder``
+does under glove encoding.
+
 Flow (``train.py:168-249``): load the store -> hyperparameters
 (``--crossval_load``: the cached sweep, or the sweep when there is no
 cache; ``--crossval_size 0``: the canonical ones; else the random-search
 sweep, ``train/crossval.py``) -> the nanargmax-val-acc config -> final
 annealed train, checkpointing on val loss -> reload the best checkpoint
 -> ``--test`` (then ``--results_dir``'s artifacts and
-``--per_subject_eval``). ``--prediction``, ``--glove``,
-``--glove_encoding``, ``--bf16``, ``--profile``, ``--spmd_crossval``, and
-the sweep on the fused chain or with the fused encoder's validation, are
-not ported yet and raise; so does a ``--prng_impl`` other than ``auto``.
+``--per_subject_eval``, contrastive modes only). ``--bf16``,
+``--profile``, ``--spmd_crossval``, and the sweep on the fused chain or
+with the fused encoder's validation, are not ported yet and raise; so
+does a ``--prng_impl`` other than ``auto``.
 """
 from __future__ import annotations
 
@@ -113,11 +121,10 @@ def build_store(args, cfg, device):
 
 
 def reject_unported_modes(args) -> None:
-    if args.prediction or args.glove or args.glove_encoding:
-        raise SystemExit(NOT_PORTED.format(
-            what="--prediction/--glove/--glove_encoding training", item=7,
-            hint="only contrastive training with the one-hot class encoder "
-                 "runs"))
+    if args.per_subject_eval and args.prediction:
+        raise SystemExit("--per_subject_eval scores contrastive logits, "
+                         "which --prediction does not make (as in the JAX "
+                         "CLI): drop one of the two")
     if args.bf16:
         raise SystemExit(NOT_PORTED.format(
             what="--bf16 (bfloat16 encoder compute)", item=9,
@@ -133,6 +140,35 @@ def reject_unported_modes(args) -> None:
             "generator; the port draws every random stream (init, "
             "shuffles, dropout) from torch's Philox generators, so no JAX "
             "stream can be reproduced: drop the flag or pass auto")
+
+
+def make_trainer(args, cfg, store, **fused):
+    """The ``Trainer`` of the flags: the store, db2, AdaBN, batch size and
+    mode, and the fused paths ``fused`` asks for."""
+    from contrastiveprosthetics_torch.train.engine import Trainer
+
+    return Trainer(cfg, store, db2=args.db2, adabn=args.no_adabn,
+                   prediction=args.prediction, glove=args.glove,
+                   glove_encoding=args.glove_encoding,
+                   batch_size=args.batch_size, **fused)
+
+
+def load_state(trainer, path: str, device):
+    """The checkpoint at ``path`` on ``device``, which must be of the
+    trainer's mode."""
+    from contrastiveprosthetics_torch.train.checkpoint import load_checkpoint
+
+    state = load_checkpoint(path, device)
+    model = state.model
+    want = (trainer.prediction, trainer.prediction and trainer.glove,
+            trainer.glove_encoding and not trainer.prediction)
+    have = (model.prediction, model.glove, model.glove_encoding)
+    if have != want:
+        names = ("--prediction", "--glove", "--glove_encoding")
+        flags = " ".join(n for n, on in zip(names, have) if on) or "none"
+        raise SystemExit(f"{path} holds a model of the flags {flags}; pass "
+                         "the flags it was trained with")
+    return state
 
 
 def report_per_subject(trainer, state, hyper, out_dir=None, pooled=None):
@@ -171,12 +207,13 @@ def main(argv=None) -> int:
         print("no cached crossval found — running the sweep")
         crossval_load = False
     sweep = not crossval_load and args.crossval_size >= 1
-    if sweep and args.fused_train == "on":
+    if sweep and args.fused_train == "on" and not args.prediction:
         raise SystemExit(NOT_PORTED.format(
             what="the crossval sweep on the fused training chain", item=11,
             hint="the fused chain's kernels take no config axis yet; pass "
                  "--fused_train auto or off for the sweep"))
-    if sweep and args.fused_encoder and not args.no_adabn:
+    if (sweep and args.fused_encoder and not args.no_adabn
+            and not args.prediction and not args.glove_encoding):
         raise SystemExit(NOT_PORTED.format(
             what="the crossval sweep's validation on the fused encoder "
                  "(--fused_encoder)", item=12,
@@ -186,7 +223,6 @@ def main(argv=None) -> int:
     device = select_device(args.platform)
 
     from contrastiveprosthetics_torch.config import DEFAULT_CONFIG, compat_config
-    from contrastiveprosthetics_torch.train.checkpoint import load_checkpoint
     from contrastiveprosthetics_torch.train.crossval import (
         best_config,
         cross_validate,
@@ -195,17 +231,17 @@ def main(argv=None) -> int:
         load_crossval,
         sample_hyperparams,
     )
-    from contrastiveprosthetics_torch.train.engine import Hyper, Trainer
+    from contrastiveprosthetics_torch.train.engine import Hyper
     from contrastiveprosthetics_torch.train.loop import run_test, train_loop
 
     cfg = compat_config(DEFAULT_CONFIG) if args.compat else DEFAULT_CONFIG
     print("Loading dataset")
     store = build_store(args, cfg, device)
-    trainer = Trainer(cfg, store, db2=args.db2, adabn=args.no_adabn,
-                      batch_size=args.batch_size,
-                      use_fused_train={"auto": None, "on": True,
-                                       "off": False}[args.fused_train],
-                      use_fused_encoder=True if args.fused_encoder else None)
+    trainer = make_trainer(
+        args, cfg, store,
+        use_fused_train={"auto": None, "on": True,
+                         "off": False}[args.fused_train],
+        use_fused_encoder=True if args.fused_encoder else None)
     print("Dataset loaded")
 
     if crossval_load:
@@ -237,7 +273,7 @@ def main(argv=None) -> int:
     init_state = None
     if args.load_model and os.path.exists(ckpt_path):
         print("Loading model")
-        init_state = load_checkpoint(ckpt_path, device)
+        init_state = load_state(trainer, ckpt_path, device)
     res = train_loop(trainer, hyper, epochs=args.final_epochs,
                      seed=args.seed, annealing=True,
                      checkpoint=args.no_checkpoint, checkpoint_path=ckpt_path,
@@ -247,7 +283,7 @@ def main(argv=None) -> int:
 
     state = res.state
     if args.no_checkpoint and os.path.exists(ckpt_path):
-        state = load_checkpoint(ckpt_path, device)
+        state = load_state(trainer, ckpt_path, device)
     if args.test:
         t = run_test(trainer, state, hyper, trainer.generator(args.seed + 5))
         print("loss,\t\t\tcorrect")

@@ -78,6 +78,14 @@ def gather_eval_batch(emg_groups, emg_rand, items) -> torch.Tensor:
     return emg_groups[emg_rand[:, items].T]
 
 
+def gather_glove_batch(glove_flat, glove_rand, items,
+                       D_glove: int) -> torch.Tensor:
+    """(bs, n_tasks, glove_dim): one glove row per task per item, items
+    wrapping modulo the glove corpus size ``D_glove`` (``utils.py:53``;
+    ``glove_rand`` is (n_tasks, D_glove))."""
+    return glove_flat[glove_rand[:, items % D_glove].T]
+
+
 # ---------------------------------------------------------- config axis
 # The crossval sweep trains C configs at once; each config draws its own
 # index matrices from its own generator, so a config's draws do not depend
@@ -120,3 +128,11 @@ def stacked_gather_eval_batch(emg_groups, emg_rand, items) -> torch.Tensor:
     """(C, bs, n_tasks, output_dim, emg_dim): :func:`gather_eval_batch`
     per config."""
     return emg_groups[_stacked_rows(emg_rand, items)]
+
+
+def stacked_gather_glove_batch(glove_flat, glove_rand, items,
+                               D_glove: int) -> torch.Tensor:
+    """(C, bs, n_tasks, glove_dim) from ``glove_rand`` (C, n_tasks,
+    D_glove) and ``items`` (C, bs): :func:`gather_glove_batch` per
+    config."""
+    return glove_flat[_stacked_rows(glove_rand, items % D_glove)]

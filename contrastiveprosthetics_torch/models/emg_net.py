@@ -3,9 +3,12 @@
 The 12-channel frame is a 1x12 one-channel image (NCHW here, as in the
 reference): Conv(1->64, 3x3, pad 1) -> ReLU -> BN -> Conv(64->64) -> ReLU ->
 BN -> flatten (768, channel-major ``c*12+p``) -> ``n_linear`` x [Dense ->
-ReLU -> BN (+ Dropout on the last 4 blocks)] -> Dense(hidden->d_e, no
-bias). The Sequential indices are the reference's, Dropout and ReLU
-included, so the state_dict keys are the reference's
+ReLU -> BN (+ Dropout on the last 4 blocks)] -> head. The contrastive
+head is Dense(hidden->d_e, no bias) (models.py:312-315); the prediction
+head (``prediction=True``, the softmax baseline, models.py:300-309) is
+Linear(hidden->128)@0, ReLU@1, BN@2, Linear(128->n_classes, no bias)@3,
+with no dropout. The Sequential indices are the reference's, Dropout and
+ReLU included, so the state_dict keys are the reference's
 (``train/torch_export.py:189-218`` of the JAX package). The dropout rate
 is a forward argument (the JAX package's ``RateDropout``), so one module
 trains at any rate.
@@ -26,7 +29,8 @@ from contrastiveprosthetics_torch.models.layers import (
 class EMGNet(nn.Module):
     def __init__(self, d_e: int = 16, emg_dim: int = 12, adabn: bool = False,
                  n_linear: int = 7, hidden: int = 512,
-                 conv_features: int = 64, device=None):
+                 conv_features: int = 64, prediction: bool = False,
+                 n_classes: int = 41, device=None):
         super().__init__()
         self.emg_dim = emg_dim
         F = conv_features
@@ -48,17 +52,25 @@ class EMGNet(nn.Module):
                 blocks.append(RateDropout())
             width = hidden
         self.linear = nn.Sequential(*blocks)
-        self.last = nn.Sequential(
-            nn.Linear(hidden, d_e, bias=False, device=device))
+        if prediction:
+            self.last = nn.Sequential(
+                nn.Linear(hidden, 128, device=device), nn.ReLU(),
+                make_norm(128, adabn, device),
+                nn.Linear(128, n_classes, bias=False, device=device))
+        else:
+            self.last = nn.Sequential(
+                nn.Linear(hidden, d_e, bias=False, device=device))
 
     def norms(self) -> list[nn.Module]:
-        """The BatchNorm layers in forward order (2 conv + n_linear)."""
+        """The BatchNorm layers in forward order (2 conv + n_linear, and
+        the prediction head's)."""
         return [m for m in self.modules() if isinstance(m, BatchNorm)]
 
     def forward(self, frames: torch.Tensor, collect: list | None = None,
                 dropout: float = 0.0,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """(rows, emg_dim) frames -> (rows, d_e) unnormalized embeddings.
+        """(rows, emg_dim) frames -> (rows, d_e) unnormalized embeddings
+        (the prediction head: (rows, n_classes) scores).
         ``collect`` gathers each BatchNorm's batch statistics; in train
         mode the dropout layers drop at rate ``dropout`` with masks drawn
         from ``generator``."""

@@ -27,6 +27,11 @@ same kernels whatever C is:
   identity bit for bit;
 * :func:`stacked_l2_penalty`: each config's sum of Frobenius norms, (C,).
 
+Every mode of ``ContrastiveModel`` stacks so: the softmax baseline's
+prediction head, and the glove-angle MLP of ``--prediction --glove`` and
+``--glove_encoding``, whose BatchNorm is per (config, channel) and whose
+dropout runs at each config's ``dp_glove``.
+
 Every reduction is per config, so a config that diverges to NaN leaves
 the other configs' numbers as they were.
 """
@@ -40,6 +45,7 @@ from contrastiveprosthetics_torch.models.convert import (
     architecture,
     model_from_state_dict,
 )
+from contrastiveprosthetics_torch.models.glove_net import tower_mode
 from contrastiveprosthetics_torch.models.layers import update_running
 
 
@@ -175,10 +181,11 @@ def _norm(C: int, F: int, adabn: bool, conv: bool, device) -> nn.Module:
 
 class StackedEMGNet(nn.Module):
     """C ``EMGNet``s, with the same Sequential indices (so the same
-    state_dict keys)."""
+    state_dict keys), the prediction head included."""
 
     def __init__(self, C: int, d_e: int, emg_dim: int, adabn: bool,
-                 n_linear: int, hidden: int, conv_features: int, device=None):
+                 n_linear: int, hidden: int, conv_features: int,
+                 prediction: bool = False, n_classes: int = 41, device=None):
         super().__init__()
         self.emg_dim = emg_dim
         F = conv_features
@@ -196,13 +203,20 @@ class StackedEMGNet(nn.Module):
                 blocks.append(StackedDropout())
             width = hidden
         self.linear = nn.Sequential(*blocks)
-        self.last = nn.Sequential(
-            StackedLinear(C, hidden, d_e, bias=False, device=device))
+        if prediction:
+            self.last = nn.Sequential(
+                StackedLinear(C, hidden, 128, device=device), nn.ReLU(),
+                _norm(C, 128, adabn, False, device),
+                StackedLinear(C, 128, n_classes, bias=False, device=device))
+        else:
+            self.last = nn.Sequential(
+                StackedLinear(C, hidden, d_e, bias=False, device=device))
 
     def forward(self, frames: torch.Tensor, dropout: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """(C, rows, emg_dim) frames -> (C, rows, d_e) unnormalized
-        embeddings; in train mode with a ``generator`` the dropout layers
+        embeddings (the prediction head: (C, rows, n_classes) scores); in
+        train mode with a ``generator`` the dropout layers
         drop config c at rate ``dropout[c]``."""
         C, rows, P = frames.shape
         x = self.conv_emg(frames.unsqueeze(-1))   # (C, rows, P, F)
@@ -219,18 +233,53 @@ class StackedEMGNet(nn.Module):
 
 
 class StackedGloveNet(nn.Module):
-    """C one-hot class encoders (``GLOVENet``), ``last`` as dead as there."""
+    """C class encoders (``GLOVENet``) in one ``mode``, with its keys:
+    one-hot (``last`` as dead as there), the baseline's idle reference
+    tower, or the glove-angle MLP with one dropout rate per config."""
 
-    def __init__(self, C: int, d_e: int, n_classes: int, device=None):
+    def __init__(self, C: int, d_e: int, n_classes: int, mode: str = "onehot",
+                 out: int | None = None, glove_dim: int = 20,
+                 adabn: bool = False, device=None):
         super().__init__()
+        self.mode = mode
         self.n_classes = n_classes
+        if mode == "mlp":
+            self.mlp = nn.Sequential(
+                StackedLinear(C, glove_dim, 128, device=device), nn.ReLU(),
+                _norm(C, 128, adabn, False, device), StackedDropout(),
+                StackedLinear(C, 128, out, bias=False, device=device))
+            return
         self.easy = nn.Sequential(StackedLinear(C, n_classes, d_e,
                                                 device=device))
-        self.last = nn.Sequential(StackedLinear(C, 256, d_e, bias=False,
-                                                device=device))
+        if mode == "onehot":
+            self.last = nn.Sequential(StackedLinear(C, 256, d_e, bias=False,
+                                                    device=device))
+        else:
+            self.last = nn.Sequential(
+                StackedLinear(C, 256, 128, device=device), nn.ReLU(),
+                _norm(C, 128, adabn, False, device), StackedDropout(),
+                StackedLinear(C, 128, n_classes, bias=False, device=device))
 
-    def forward(self, labels: torch.Tensor) -> torch.Tensor:
-        """(rows,) class ids -> (C, rows, d_e) unnormalized embeddings."""
+    def trained(self) -> nn.Module:
+        """As ``GLOVENet.trained``."""
+        if self.mode == "reference":
+            return nn.Sequential()
+        return self.easy if self.mode == "onehot" else self.mlp
+
+    def forward(self, labels: torch.Tensor | None = None,
+                glove: torch.Tensor | None = None,
+                dropout: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """One-hot: (rows,) class ids -> (C, rows, d_e). MLP: (C, rows,
+        glove_dim) glove angles -> (C, rows, out), config c's dropout at
+        rate ``dropout[c]`` in train mode with a ``generator``.
+        Unnormalized."""
+        if self.mode == "mlp":
+            x = glove
+            for m in self.mlp:
+                x = m(x, dropout, generator) \
+                    if isinstance(m, StackedDropout) else m(x)
+            return x
         lin = self.easy[0]
         hot = nn.functional.one_hot(labels, self.n_classes).to(
             lin.weight.dtype)
@@ -240,25 +289,35 @@ class StackedGloveNet(nn.Module):
 def stacked_l2_penalty(module: nn.Module) -> torch.Tensor:
     """(C,): each config's ``clip.l2_penalty``, the sum of the Frobenius
     norms of its conv and dense weights (biases and BatchNorms left out,
-    selected by module type)."""
+    selected by module type); 0 for an empty module (an idle tower)."""
     norms = [torch.linalg.vector_norm(m.weight.flatten(1), dim=1)
              for m in module.modules()
              if isinstance(m, (StackedConv, StackedLinear))]
-    return torch.stack(norms).sum(0)
+    return torch.stack(norms).sum(0) if norms else torch.zeros(())
 
 
 class StackedContrastiveModel(nn.Module):
-    """C ``ContrastiveModel``s of one architecture. Built empty on
+    """C ``ContrastiveModel``s of one architecture and mode. Built empty on
     ``device``; :meth:`from_models` fills it."""
 
     def __init__(self, n_configs: int, d_e: int = 16, emg_dim: int = 12,
                  n_classes: int = 41, adabn: bool = False, n_linear: int = 7,
-                 hidden: int = 512, conv_features: int = 64, device=None):
+                 hidden: int = 512, conv_features: int = 64,
+                 prediction: bool = False, glove: bool = False,
+                 glove_encoding: bool = False, glove_dim: int = 20,
+                 device=None):
         super().__init__()
         C = n_configs
+        self.prediction = prediction
+        self.glove = glove and prediction
+        self.glove_encoding = glove_encoding and not prediction
         self.emg_net = StackedEMGNet(C, d_e, emg_dim, adabn, n_linear, hidden,
-                                     conv_features, device="meta")
-        self.glove_net = StackedGloveNet(C, d_e, n_classes, device="meta")
+                                     conv_features, prediction, n_classes,
+                                     device="meta")
+        mode = tower_mode(prediction, glove, glove_encoding)
+        self.glove_net = StackedGloveNet(
+            C, d_e, n_classes, mode, n_classes if prediction else d_e,
+            glove_dim, adabn, device="meta")
         self.logit_scale = nn.Parameter(torch.zeros(C, device="meta"))
         self.to_empty(device=device or "cpu")
 
@@ -282,32 +341,60 @@ class StackedContrastiveModel(nn.Module):
 
     def towers(self) -> dict[str, nn.Module]:
         """The two trained parameter groups, as ``ContrastiveModel.towers``."""
-        return {"emg_net": self.emg_net, "glove_net": self.glove_net.easy}
+        return {"emg_net": nn.Sequential() if self.glove else self.emg_net,
+                "glove_net": self.glove_net.trained()}
 
-    def _class_rows(self, B: int, T: int) -> torch.Tensor:
-        """(C, B*T, d_e) class embeddings of labels ``arange(T)`` per item."""
+    def _class_rows(self, B: int, T: int, glove: torch.Tensor | None = None,
+                    dp_glove: torch.Tensor | None = None,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+        """(C, B*T, d_e) class embeddings of labels ``arange(T)`` per item,
+        or in glove-encoding mode of the (C, B, T, glove_dim) ``glove``
+        rows."""
+        if self.glove_encoding:
+            return self.glove_net(glove=glove.reshape(glove.shape[0], B * T,
+                                                      -1),
+                                  dropout=dp_glove, generator=generator)
         labels = torch.arange(T, device=self.logit_scale.device).repeat(B)
         return self.glove_net(labels)
 
     def embed(self, emg: torch.Tensor, dp_emg: torch.Tensor | None = None,
-              generator: torch.Generator | None = None):
+              generator: torch.Generator | None = None,
+              glove: torch.Tensor | None = None,
+              dp_glove: torch.Tensor | None = None):
         """(C, B, T, emg_dim) -> normalized ``(e, g)``, both (C, B, T,
         d_e): the inputs of the fused contrastive loss at its config
-        axis."""
+        axis. ``glove`` (C, B, T, glove_dim) feeds the glove-encoding
+        class tower."""
         C, B, T = emg.shape[:3]
         e = self.emg_net(emg.reshape(C, B * T, -1), dp_emg, generator)
-        g = self._class_rows(B, T)
+        g = self._class_rows(B, T, glove, dp_glove, generator)
         return (l2_normalize(e).reshape(C, B, T, -1),
                 l2_normalize(g).reshape(C, B, T, -1))
 
-    def forward(self, emg: torch.Tensor) -> torch.Tensor:
-        """Similarity logits of the vote input without dropout: (C, B, T,
-        W, emg_dim) -> (C, B*W, T, T) in (item, frame) row order per
-        config, as ``ContrastiveModel.forward`` gives for each config."""
-        C, B, T, W = emg.shape[:4]
+    def forward(self, emg: torch.Tensor, dp_emg: torch.Tensor | None = None,
+                generator: torch.Generator | None = None,
+                glove: torch.Tensor | None = None,
+                dp_glove: torch.Tensor | None = None) -> torch.Tensor:
+        """Per config, what ``ContrastiveModel.forward`` gives. Contrastive:
+        the similarity logits of the vote input without dropout, (C, B, T,
+        W, emg_dim) -> (C, B*W, T, T) in (item, frame) row order.
+        Prediction: normalized scores, (C, B*T, n_classes) from (C, B, T,
+        emg_dim) or from the (C, B, T, glove_dim) ``glove`` rows, (C, B*T,
+        W, n_classes) from the vote input."""
+        C, B, T = emg.shape[:3]
+        if self.glove:
+            return l2_normalize(self.glove_net(
+                glove=glove.reshape(C, B * T, -1), dropout=dp_glove,
+                generator=generator))
+        if self.prediction:
+            vote = emg.dim() == 5
+            e = l2_normalize(self.emg_net(emg.reshape(C, -1, emg.shape[-1]),
+                                          dp_emg, generator))
+            return e.reshape(C, B * T, -1, e.shape[-1]) if vote else e
+        W = emg.shape[3]
         e = l2_normalize(self.emg_net(emg.reshape(C, B * T * W, -1)))
         d = e.shape[-1]
         e = e.reshape(C, B, T, W, d).transpose(2, 3).reshape(C, B * W, T, d)
-        g = l2_normalize(self._class_rows(B, T)).reshape(C, B, 1, T, d)
+        g = l2_normalize(self._class_rows(B, T, glove)).reshape(C, B, 1, T, d)
         return e @ g.expand(C, B, W, T, d).reshape(C, B * W, T, d
                                                     ).transpose(-1, -2)

@@ -1,6 +1,5 @@
-"""The training engine: contrastive train steps, epochs and the voted
-evaluation (the JAX package's ``train/engine.py:49-831``, contrastive mode
-only).
+"""The training engine: train steps, epochs and the voted evaluation (the
+JAX package's ``train/engine.py:49-831``), in each of its modes.
 
 A step is the reference's (train.py:65-138): gather one window of every
 task per item, forward both encoders, the fused contrastive loss (the K1
@@ -16,6 +15,20 @@ kernels on CUDA), as the JAX package's flag of that name does
 (``engine.py:315-357``). Its dropout masks come from two Philox seed words
 per step, drawn from the same generator; they differ from the eager
 path's masks, equally valid. At rate 0 both paths compute the same step.
+
+Modes (``Trainer(prediction=, glove=, glove_encoding=)``, the JAX
+package's switches): the contrastive default with the one-hot class
+encoder; ``glove_encoding``, contrastive with class embeddings from an MLP
+over each item's glove rows, whose gradient K1's backward carries; and
+``prediction``, the reference's softmax baseline (models.py:175-196,
+300-309): plain cross-entropy over the l2-normalised class scores of the
+EMG tower's prediction head, or with ``glove`` of the glove MLP, with
+only that tower trained and penalised. The baseline stays off the
+kernels, as in JAX (``engine.py:358-390``): no K1, no fused chain, no
+fused encoder; requests for the last two warn and run unfused. The modes
+that read glove rows draw a glove task permutation beside the EMG one,
+each epoch and evaluation, and gather the items modulo the glove corpus
+(``engine.py:440-453``); the one-hot modes skip that draw and gather.
 
 Randomness: every draw (init, task permutations, batch order, dropout)
 comes from the ``torch.Generator`` the caller passes, on the store's
@@ -64,11 +77,13 @@ from contrastiveprosthetics_torch.data.sampler import (
     epoch_batches,
     epoch_batches_padded,
     gather_eval_batch,
+    gather_glove_batch,
     gather_train_batch,
     identity_permutations,
     stacked_epoch_batches,
     stacked_epoch_batches_padded,
     stacked_gather_eval_batch,
+    stacked_gather_glove_batch,
     stacked_gather_train_batch,
     stacked_task_permutations,
     task_permutations,
@@ -81,6 +96,7 @@ from contrastiveprosthetics_torch.models.clip import (
     l2_normalize,
     l2_penalty,
 )
+from contrastiveprosthetics_torch.models.glove_net import tower_mode
 from contrastiveprosthetics_torch.models.stacked import (
     StackedContrastiveModel,
     stacked_l2_penalty,
@@ -92,6 +108,10 @@ from contrastiveprosthetics_torch.ops.kernels import (
 )
 from contrastiveprosthetics_torch.ops.train_fused import fused_emg_embed
 from contrastiveprosthetics_torch.train.loss import (
+    majority_vote,
+    prediction_accuracy,
+    prediction_loss,
+    prediction_loss_per_item,
     symmetric_contrastive_loss,
     symmetric_contrastive_loss_per_item,
 )
@@ -138,6 +158,8 @@ def stacked_adam_init(params) -> AdamState:
     axis): each a (C, N) buffer, config c's moments of every parameter in
     row c, and a view of it per parameter."""
     params = list(params)
+    if not params:  # an idle tower
+        return AdamState(0, [], [])
     sizes = [p[0].numel() for p in params]
     flat = tuple(params[0].new_zeros(params[0].shape[0], sum(sizes))
                  for _ in range(2))
@@ -169,6 +191,8 @@ def adam_step_(params, grads, state: AdamState, lr: float | torch.Tensor,
     would grow with C."""
     params, grads = list(params), list(grads)
     state.count += 1
+    if not params:  # an idle tower: optax counts the step all the same
+        return
     t = np.float32(state.count)
     bc1 = float(np.float32(1) - np.float32(b1) ** t)
     bc2 = float(np.float32(1) - np.float32(b2) ** t)
@@ -226,17 +250,21 @@ class EvalResult(NamedTuple):
 
 @dataclasses.dataclass
 class Trainer:
-    """Train steps, epochs and evaluation over one store, contrastive mode
-    with the one-hot class encoder."""
+    """Train steps, epochs and evaluation over one store, in one mode
+    (see the module docstring)."""
 
     cfg: Config
     store: DeviceStore
     db2: bool = False
     adabn: bool = True
+    prediction: bool = False
+    glove: bool = False            # prediction mode: classify from glove
+    glove_encoding: bool = False   # contrastive: encode angles, not one-hot
     d_e: int = 16
     batch_size: int = 8
     n_linear: int = 7
     hidden: int = 512
+    conv_features: int = 64
     # the fused training chain for the EMG tower's dense stack; None is
     # off, as in the JAX package, until a benchmark's A/B on the card says
     # otherwise (PERF.md)
@@ -249,6 +277,18 @@ class Trainer:
     def __post_init__(self):
         self.use_fused_train = bool(self.use_fused_train)
         self.use_fused_encoder = bool(self.use_fused_encoder)
+        # the modes whose class tower reads glove rows
+        self.reads_glove = tower_mode(self.prediction, self.glove,
+                                      self.glove_encoding) == "mlp"
+        if self.use_fused_train and self.prediction:
+            # never let an explicit request silently measure the eager
+            # path (engine.py:229-240)
+            warnings.warn(
+                "use_fused_train requested but prediction mode is "
+                "ineligible (the fused chain trains the contrastive "
+                "embedding only); falling back to the eager train path.",
+                stacklevel=3)
+            self.use_fused_train = False
         self.device = self.store.device
         self.view_train = self.store.view("train", db2=self.db2)
         self.view_val = self.store.view("val", db2=self.db2)
@@ -263,8 +303,11 @@ class Trainer:
         return ContrastiveModel(
             d_e=self.d_e, emg_dim=self.cfg.emg_dim,
             n_classes=self.cfg.max_tasks, adabn=self.adabn,
-            n_linear=self.n_linear, hidden=self.hidden, generator=generator,
-            device=self.device)
+            n_linear=self.n_linear, hidden=self.hidden,
+            conv_features=self.conv_features, prediction=self.prediction,
+            glove=self.glove, glove_encoding=self.glove_encoding,
+            glove_dim=self.cfg.glove_dim,
+            generator=generator, device=self.device)
 
     def init_state(self, generator: torch.Generator) -> TrainState:
         """A fresh model (torch's default init from ``generator``) with
@@ -279,10 +322,13 @@ class Trainer:
 
     # ------------------------------------------------------------- train step
     def _embed_fused(self, model: ContrastiveModel, emg_b, dp_emg: float,
-                     generator: torch.Generator | None, ext_masks):
+                     generator: torch.Generator | None, ext_masks,
+                     glove_b=None, dp_glove: float = 0.0):
         """``model.embed`` with the EMG tower's dense stack on the fused
-        chain; a plain-BatchNorm model's running statistics move as in the
-        eager forward. ``ext_masks``: explicit dropout masks (the tests)."""
+        chain and the class tower through ``model.embed_glove`` (the JAX
+        ``engine.py:315-357``); a plain-BatchNorm model's running
+        statistics move as in the eager forward, the glove MLP's too.
+        ``ext_masks``: explicit dropout masks of the chain (the tests)."""
         B, T = emg_b.shape[:2]
         seeds = None
         if ext_masks is None:
@@ -305,17 +351,24 @@ class Trainer:
                     [t for bn in model.emg_net.norms()
                      for t in (bn.running_mean, bn.running_var)],
                     [t for mv in stats for t in mv])
-        g = model._class_rows(B, T).reshape(B, T, -1)
-        return l2_normalize(e.reshape(B, T, -1)), l2_normalize(g)
+        if glove_b is None:
+            g = l2_normalize(model._class_rows(B, T).reshape(B, T, -1))
+        else:
+            g = model.embed_glove(glove_b, dp_glove, generator)
+        return l2_normalize(e.reshape(B, T, -1)), g
 
     def loss_and_grads(self, state: TrainState, emg_b: torch.Tensor,
                        hyper: Hyper, generator: torch.Generator | None,
-                       ext_masks=None):
+                       ext_masks=None, glove_b: torch.Tensor | None = None):
         """Forward (train mode: batch statistics, which also move the
-        running ones), the fused loss plus ``reg * l2`` of each tower, and
-        the gradients of that total. Returns (loss, accuracy, grads by
-        tower), the first two 0-d tensors on the device. ``ext_masks``
-        (fused chain only) replaces the drawn dropout masks.
+        running ones), the loss plus ``reg * l2`` of each tower, and the
+        gradients of that total. The loss is the fused contrastive loss,
+        or in prediction mode the cross-entropy of the normalized scores
+        against labels ``arange(T)`` per item (``engine.py:376-384``).
+        Returns (loss, accuracy, grads by tower), the first two 0-d
+        tensors on the device. ``glove_b`` (B, T, glove_dim): the glove
+        rows of the modes that read them. ``ext_masks`` (fused chain
+        only) replaces the chain's drawn dropout masks.
 
         A stacked state (C configs) takes ``emg_b`` (C, B, T, emg_dim) and
         a ``hyper`` of (C,) f32 tensors on the device; its loss and
@@ -335,13 +388,23 @@ class Trainer:
         params = {k: list(t.parameters()) for k, t in towers.items()}
         B, T = emg_b.shape[-3:-1]
         with f32_convolutions():
-            if self.use_fused_train:
-                e, g = self._embed_fused(model, emg_b, hyper.dp_emg,
-                                         generator, ext_masks)
+            if self.prediction:
+                scores = model(emg_b, hyper.dp_emg, generator, glove_b,
+                               hyper.dp_glove)
+                labels = torch.arange(T, device=scores.device).repeat(B)
+                loss = prediction_loss(scores, labels)
+                acc = prediction_accuracy(scores, labels)
             else:
-                e, g = model.embed(emg_b, hyper.dp_emg, generator)
-            loss, correct = fused_contrastive_loss(e.contiguous(),
-                                                   g.contiguous())
+                if self.use_fused_train:
+                    e, g = self._embed_fused(model, emg_b, hyper.dp_emg,
+                                             generator, ext_masks, glove_b,
+                                             hyper.dp_glove)
+                else:
+                    e, g = model.embed(emg_b, hyper.dp_emg, generator,
+                                       glove_b, hyper.dp_glove)
+                loss, correct = fused_contrastive_loss(e.contiguous(),
+                                                       g.contiguous())
+                acc = correct / (B * T)
             total = (loss
                      + hyper.reg_emg * l2(towers["emg_net"])
                      + hyper.reg_glove * l2(towers["glove_net"]))
@@ -349,17 +412,18 @@ class Trainer:
                 total.sum(), params["emg_net"] + params["glove_net"])
         n = len(params["emg_net"])
         grads = {"emg_net": list(flat[:n]), "glove_net": list(flat[n:])}
-        return loss.detach(), correct / (B * T), grads
+        return loss.detach(), acc, grads
 
     def _sgd_step(self, state: TrainState, emg_b, hyper: Hyper,
                   lr_emg: float | torch.Tensor, lr_glove: float | torch.Tensor,
-                  generator: torch.Generator | None, ext_masks=None):
+                  generator: torch.Generator | None, ext_masks=None,
+                  glove_b: torch.Tensor | None = None):
         """One optimization step: forward, loss + L2, backward, then the
         two Adam updates. Returns (loss, accuracy) on the device. On a
         stacked state (see :meth:`loss_and_grads`) it is one step of every
         config, with (C,) lr tensors."""
         loss, acc, grads = self.loss_and_grads(state, emg_b, hyper, generator,
-                                               ext_masks)
+                                               ext_masks, glove_b)
         towers = state.model.towers()
         adam_step_(towers["emg_net"].parameters(), grads["emg_net"],
                    state.opt_emg, lr_emg)
@@ -372,25 +436,28 @@ class Trainer:
                                  tail, hyper: Hyper, lr_emg_factor: float,
                                  lr_glove_factor: float,
                                  generator: torch.Generator | None,
-                                 ext_masks=None):
+                                 ext_masks=None, glove_rand=None):
         """One epoch over given index matrices: ``emg_rand`` (n_tasks, D)
         task permutations, ``batches`` (n_batches, bs) and the (D % bs,)
         ``tail``, which trains as a smaller batch (DataLoader
-        ``drop_last=False``, train.py:86). ``ext_masks``, for the fused
-        chain in tests, holds each step's explicit dropout masks. Returns
-        the per-step losses and accuracies, on the device."""
+        ``drop_last=False``, train.py:86), and in the modes that read glove
+        rows ``glove_rand`` (n_tasks, D_glove). ``ext_masks``, for the
+        fused chain in tests, holds each step's explicit dropout masks.
+        Returns the per-step losses and accuracies, on the device."""
         v = self.view_train
         lr_e = _f32_product(hyper.lr_emg, lr_emg_factor)
         lr_g = _f32_product(hyper.lr_glove, lr_glove_factor)
         steps = list(batches) + ([tail] if tail.numel() else [])
         losses, accs = [], []
         for i, items in enumerate(steps):
-            # one-hot contrastive mode: the class encoder never reads glove
-            # values, so the glove gather is skipped
             emg_b = gather_train_batch(v.emg_flat, emg_rand, items)
+            glove_b = None
+            if self.reads_glove:
+                glove_b = gather_glove_batch(v.glove_flat, glove_rand, items,
+                                             v.D_glove)
             loss, acc = self._sgd_step(
                 state, emg_b, hyper, lr_e, lr_g, generator,
-                None if ext_masks is None else ext_masks[i])
+                None if ext_masks is None else ext_masks[i], glove_b)
             losses.append(loss)
             accs.append(acc)
         return torch.stack(losses), torch.stack(accs)
@@ -398,16 +465,16 @@ class Trainer:
     def train_epoch(self, state: TrainState, generator: torch.Generator,
                     hyper: Hyper, lr_emg_factor: float = 1.0,
                     lr_glove_factor: float = 1.0):
-        """One epoch: task permutations and batch order from
-        ``generator``, then every step. Returns (state, mean loss, mean
-        accuracy), the last two on the device; ``state`` is updated in
-        place."""
+        """One epoch: task permutations (the glove ones too where the mode
+        reads glove rows) and batch order from ``generator``, then every
+        step. Returns (state, mean loss, mean accuracy), the last two on
+        the device; ``state`` is updated in place."""
         v = self.view_train
-        emg_rand = task_permutations(generator, v.n_tasks, v.D)
+        emg_rand, glove_rand = self._permutations(generator, v)
         batches, tail = epoch_batches(generator, v.D, self.batch_size)
         losses, accs = self.train_epoch_from_indices(
             state, emg_rand, batches, tail, hyper, lr_emg_factor,
-            lr_glove_factor, generator)
+            lr_glove_factor, generator, glove_rand=glove_rand)
         return state, losses.mean(), accs.mean()
 
     def train_epochs(self, state: TrainState, generator: torch.Generator,
@@ -422,6 +489,15 @@ class Trainer:
             accs.append(acc)
         return state, torch.stack(losses), torch.stack(accs)
 
+    def _permutations(self, generator: torch.Generator, view: SplitView):
+        """(emg_rand, glove_rand) of one epoch or evaluation; glove_rand
+        is None in the modes that read no glove rows (and is not drawn)."""
+        emg_rand = task_permutations(generator, view.n_tasks, view.D)
+        if not self.reads_glove:
+            return emg_rand, None
+        return emg_rand, task_permutations(generator, view.n_tasks,
+                                           view.D_glove)
+
     # ------------------------------------------------------------------ eval
     def evaluate(self, state: TrainState, generator: torch.Generator,
                  hyper: Hyper, split: str = "val",
@@ -431,20 +507,22 @@ class Trainer:
         if batch_size is None:
             batch_size = self.batch_size * (1 if split == "val" else 8)
         v = {"val": self.view_val, "test": self.view_test}[split]
-        emg_rand = task_permutations(generator, v.n_tasks, v.D)
+        emg_rand, glove_rand = self._permutations(generator, v)
         batches, weights, inverse = epoch_batches_padded(generator, v.D,
                                                          batch_size)
         return self.evaluate_from_indices(state, v, emg_rand, batches,
-                                          weights, inverse)
+                                          weights, inverse, glove_rand)
 
     def _fused_encoder_on(self, n_tasks: int) -> bool:
         """Whether a voted evaluation of ``n_tasks`` tasks runs the
-        ``encoder_chain`` kernels: on request, with plain BatchNorm and
-        every class (``engine.py:643-657``). A request on another config
-        warns and runs the unfused path."""
+        ``encoder_chain`` kernels: on request, contrastive with the one-hot
+        class encoder, plain BatchNorm and every class
+        (``engine.py:200-203,643-657``). A request on another config warns
+        and runs the unfused path."""
         if not self.use_fused_encoder:
             return False
-        if not self.adabn and n_tasks == self.cfg.max_tasks:
+        if (not self.adabn and not self.prediction and not self.glove_encoding
+                and n_tasks == self.cfg.max_tasks):
             return True
         warnings.warn(
             "use_fused_encoder requested but this eval config is ineligible "
@@ -453,16 +531,40 @@ class Trainer:
             stacklevel=3)
         return False
 
+    def _prediction_items(self, scores: torch.Tensor, bs: int, T: int):
+        """The softmax baseline's evaluation of one batch of ``bs`` items
+        (``engine.py:686-716``): the (..., bs) per-item mean CE over every
+        frame of the item and the (..., bs, T) votes, the majority over
+        each row's W frames, or without a vote window (glove prediction)
+        one argmax per row. ``scores``: (..., bs*T, W, C), or (...,
+        bs*T, C) in glove prediction."""
+        labels = torch.arange(T, device=scores.device).repeat(bs)
+        if self.glove:
+            return (prediction_loss_per_item(scores, labels, bs),
+                    scores.argmax(dim=-1).unflatten(-1, (bs, T)))
+        W = scores.shape[-2]
+        loss = prediction_loss_per_item(scores.flatten(-3, -2),
+                                        labels.repeat_interleave(W), bs)
+        return loss, majority_vote(scores).unflatten(-1, (bs, T))
+
     @torch.no_grad()
     def evaluate_from_indices(self, state: TrainState, view: SplitView,
-                              emg_rand, batches, weights,
-                              inverse) -> EvalResult:
+                              emg_rand, batches, weights, inverse,
+                              glove_rand=None) -> EvalResult:
         """Every item once: padded batches (``weights`` 0 on the pad
         duplicates, which the loss leaves out), per-item outputs back in
-        item order through ``inverse`` (engine.py:624-749). With the fused
-        encoder, each batch's frames go through one ``encoder_chain`` call
-        in (item, task, frame) row order, and its scores are put in the
-        model's (item, frame) vote order (``engine.py:671-673``)."""
+        item order through ``inverse`` (engine.py:624-749); ``glove_rand``
+        (n_tasks, D_glove) in the modes that read glove rows. With the
+        fused encoder, each batch's frames go through one
+        ``encoder_chain`` call in (item, task, frame) row order, and its
+        scores are put in the model's (item, frame) vote order
+        (``engine.py:671-673``).
+
+        Prediction mode (``engine.py:686-716``): the loss is the per-item
+        CE, each item's curve its share of tasks voted right, the same at
+        every prefix, ``y_true`` is ``arange(T)`` per item and the logits
+        are zeros of the contrastive shape, as the JAX package writes
+        them."""
         model = state.model.eval()
         W = self.cfg.prediction_window_size
         n_prefix = self.cfg.n_voting_cols
@@ -475,8 +577,23 @@ class Trainer:
             for items, w in zip(batches, weights):
                 bs = items.shape[0]
                 emg_b = gather_eval_batch(view.emg_groups, emg_rand, items)
+                glove_b = None
+                if self.reads_glove:
+                    glove_b = gather_glove_batch(view.glove_flat, glove_rand,
+                                                 items, view.D_glove)
+                if self.prediction:
+                    item_loss, votes = self._prediction_items(
+                        model(emg_b, glove=glove_b), bs, T)
+                    tasks = torch.arange(T, device=votes.device)
+                    loss_sums.append((item_loss * w).sum())
+                    curves.append((votes == tasks).float().mean(-1)[:, None]
+                                  .expand(bs, n_prefix))
+                    y_preds.append(votes)
+                    y_trues.append(tasks.expand(bs, T))
+                    logits_all.append(emg_b.new_zeros(bs, W, T, T))
+                    continue
                 if folded is None:
-                    logits = model(emg_b)                 # (bs*W, T, T)
+                    logits = model(emg_b, glove=glove_b)  # (bs*W, T, T)
                 else:
                     scores = fused_encoder_logits(
                         emg_b.reshape(-1, emg_b.shape[-1]), folded)
@@ -508,9 +625,13 @@ class Trainer:
         statistics come from that subject alone, the reference's stated
         intent (models.py:245). The eval items are (person, rep, group)
         row-major, so a subject's items are one contiguous block, gathered
-        through identity task permutations; the outputs stay in item order.
-        The loss is the mean of the subjects' mean losses. Deterministic,
-        so it takes no generator."""
+        through identity task permutations (the glove rows too, in glove
+        encoding); the outputs stay in item order. The loss is the mean of
+        the subjects' mean losses. Deterministic, so it takes no generator.
+        Contrastive modes only, as in the JAX package."""
+        if self.prediction:
+            raise ValueError("per-subject evaluation scores contrastive "
+                             "logits; the softmax baseline has none")
         v = {"val": self.view_val, "test": self.view_test}[split]
         model = state.model.eval()
         W = self.cfg.prediction_window_size
@@ -519,11 +640,16 @@ class Trainer:
         subjects = torch.arange(v.D, device=self.device).reshape(
             v.n_people, v.D // v.n_people)
         emg_rand = identity_permutations(T, v.D, device=self.device)
+        glove_rand = identity_permutations(T, v.D_glove, device=self.device)
         losses, curves, y_preds, y_trues, logits_all = [], [], [], [], []
         with f32_convolutions():
             for items in subjects:
+                glove_b = None
+                if self.reads_glove:
+                    glove_b = gather_glove_batch(v.glove_flat, glove_rand,
+                                                 items, v.D_glove)
                 logits = model(gather_eval_batch(v.emg_groups, emg_rand,
-                                                 items))
+                                                 items), glove=glove_b)
                 res = vote_from_logits(logits, window=W, n_prefix=n_prefix)
                 losses.append(symmetric_contrastive_loss(logits))
                 curves.append(res.curve)
@@ -547,12 +673,15 @@ class Trainer:
     def sweep_epoch_from_indices(self, state: TrainState, emg_rand, batches,
                                  tail, hyper: Hyper, lr_emg_factor: float,
                                  lr_glove_factor: float,
-                                 generator: torch.Generator | None):
+                                 generator: torch.Generator | None,
+                                 glove_rand=None):
         """One epoch of every config of a stacked state over given index
         matrices, one stacked step per batch: ``emg_rand`` (C, n_tasks, D),
         ``batches`` (C, n_batches, bs) and the (C, D % bs) ``tail``, which
-        trains as a smaller batch. ``hyper`` holds (C,) f32 tensors on the
-        device; config c's lr is its lr times the factor, in f32.
+        trains as a smaller batch, and ``glove_rand`` (C, n_tasks,
+        D_glove) in the modes that read glove rows. ``hyper`` holds (C,)
+        f32 tensors on the device; config c's lr is its lr times the
+        factor, in f32.
         ``generator`` draws the dropout masks (None: no dropout, every rate
         0). Returns the (C, steps) losses and accuracies on the device."""
         v = self.view_train
@@ -562,8 +691,12 @@ class Trainer:
         losses, accs = [], []
         for items in steps:
             emg_b = stacked_gather_train_batch(v.emg_flat, emg_rand, items)
+            glove_b = None
+            if self.reads_glove:
+                glove_b = stacked_gather_glove_batch(v.glove_flat, glove_rand,
+                                                     items, v.D_glove)
             loss, acc = self._sgd_step(state, emg_b, hyper, lr_e, lr_g,
-                                       generator)
+                                       generator, glove_b=glove_b)
             losses.append(loss)
             accs.append(acc)
         return torch.stack(losses, 1), torch.stack(accs, 1)
@@ -571,13 +704,13 @@ class Trainer:
     @torch.no_grad()
     def sweep_evaluate_from_indices(self, state: TrainState,
                                     view: SplitView, emg_rand, batches,
-                                    weights, inverse):
+                                    weights, inverse, glove_rand=None):
         """The voted evaluation of every config of a stacked state, the
         metrics only (the JAX ``_evaluate_scalars``): ``emg_rand`` (C,
         n_tasks, D), padded ``batches`` and ``weights`` (C, n_batches,
-        bs), ``inverse`` (C, D), each config's as
-        :meth:`evaluate_from_indices` takes them. Returns (C,) mean losses
-        and (C,) voted accuracies on the device."""
+        bs), ``inverse`` (C, D) and ``glove_rand`` (C, n_tasks, D_glove),
+        each config's as :meth:`evaluate_from_indices` takes them. Returns
+        (C,) mean losses and (C,) voted accuracies on the device."""
         self._check_sweep_encoder()
         model = state.model.eval()
         W = self.cfg.prediction_window_size
@@ -588,7 +721,18 @@ class Trainer:
             for items, w in zip(batches.unbind(1), weights.unbind(1)):
                 emg_b = stacked_gather_eval_batch(view.emg_groups, emg_rand,
                                                   items)
-                logits = model(emg_b)                   # (C, bs*W, T, T)
+                glove_b = None
+                if self.reads_glove:
+                    glove_b = stacked_gather_glove_batch(
+                        view.glove_flat, glove_rand, items, view.D_glove)
+                if self.prediction:
+                    item_loss, votes = self._prediction_items(
+                        model(emg_b, glove=glove_b), bs, T)
+                    loss_sums.append((item_loss * w).sum(1))
+                    voted.append((votes == torch.arange(
+                        T, device=votes.device)).float().mean(-1))
+                    continue
+                logits = model(emg_b, glove=glove_b)    # (C, bs*W, T, T)
                 item_loss = symmetric_contrastive_loss_per_item(
                     logits).reshape(C, bs, W).mean(dim=-1)
                 res = vote_from_logits(logits.reshape(-1, T, T), window=W,
@@ -608,7 +752,10 @@ class Trainer:
         ``generator`` the chunk's dropout masks. Returns (C,) val losses and
         accuracies on the device."""
         self._check_sweep_encoder()
-        if generator is None and np.any(np.asarray(hyper.dp_emg)):
+        rates = [hyper.dp_glove] if self.reads_glove else []
+        if not (self.prediction and self.glove):
+            rates.append(hyper.dp_emg)
+        if generator is None and np.any(np.asarray(rates)):
             raise ValueError("dropout at a nonzero rate needs an explicit "
                              "torch.Generator for its masks")
         state = self.init_sweep_state(generators)
@@ -616,13 +763,23 @@ class Trainer:
                                     device=self.device) for x in hyper])
         v = self.view_train
         for f_e, f_g in zip(emg_factors, glove_factors):
-            emg_rand = stacked_task_permutations(generators, v.n_tasks, v.D)
+            emg_rand, glove_rand = self._stacked_permutations(generators, v)
             batches, tail = stacked_epoch_batches(generators, v.D,
                                                   self.batch_size)
             self.sweep_epoch_from_indices(state, emg_rand, batches, tail, h,
-                                          float(f_e), float(f_g), generator)
+                                          float(f_e), float(f_g), generator,
+                                          glove_rand)
         v = self.view_val
-        emg_rand = stacked_task_permutations(generators, v.n_tasks, v.D)
+        emg_rand, glove_rand = self._stacked_permutations(generators, v)
         return self.sweep_evaluate_from_indices(
             state, v, emg_rand,
-            *stacked_epoch_batches_padded(generators, v.D, self.batch_size))
+            *stacked_epoch_batches_padded(generators, v.D, self.batch_size),
+            glove_rand)
+
+    def _stacked_permutations(self, generators, view: SplitView):
+        """:meth:`_permutations` of each config's generator, stacked."""
+        emg_rand = stacked_task_permutations(generators, view.n_tasks, view.D)
+        if not self.reads_glove:
+            return emg_rand, None
+        return emg_rand, stacked_task_permutations(generators, view.n_tasks,
+                                                   view.D_glove)
