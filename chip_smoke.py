@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port: the streaming serve path and
 its calibration, contrastive training, training on the fused chain, the
 crossval sweep, the evaluation and results path, ingest from raw ``.mat``
-files, and the softmax baseline and glove modes.
+files, the softmax baseline and glove modes, and bfloat16 serving.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
@@ -151,12 +151,31 @@ made with numpy from a seed:
    ``cptorch-train --synthetic --crossval_size 3 --final_epochs 1 --test
    --results_dir A`` with ``--prediction`` and with ``--glove_encoding``,
    each checkpoint loaded back strictly in its mode, and
-   ``cptorch-results`` with the same flag writing the same ``logs.npy``.
+   ``cptorch-results`` with the same flag writing the same ``logs.npy``;
+13. bfloat16 serving (``cptorch-serve --bf16``) at full width, the same
+   seeded weights in ``ContrastiveModel(dtype=torch.bfloat16)``: the bf16
+   engines calibrated through the bf16 tower (one ``iir_rms_frames``
+   launch a recording); ``encoder_chain``'s bf16 variant (bf16 folds, one
+   ``mma.sync`` m16n8k16 pass a product) at phase 2's ladder of row
+   counts, with and without affines, against its plain version (atol
+   ``BF16_ATOL``) and the f32 fold of the same statistics (rtol 0.1, atol
+   0.05, JAX's bound), reruns and smaller calls bit-identical, against
+   float64 on the same bf16 operands at one tick, timed in turns with the
+   f32 kernel at 819,200, 32,768 and 1 rows beside its bound, its plain
+   version and the cuBLAS bf16 chain, both tilings by rows, its ptxas
+   stack frames and spills 0; 50 per-tick ``step`` calls (p50/p99) and a
+   200-tick ``steps`` replay that must agree, a trace of 20 steps; the
+   batched replay of 32,768 sessions x 25 ticks with subset masks against
+   the plain version away from near-ties, timed, traced, one live
+   ``step``; one timed replay at 65,536 sessions; the share of preds equal
+   to phase 4's f32 engine's; ``cptorch-serve --bf16`` per tick and
+   ``--sessions 64 --replay``.
 
 Launch counts are reset just before the calibration, phases 3, 4, 7's and
 8's ``train_loop``, 9's ``cross_validate``, 10's test and val passes,
 11's ``cptorch-load`` and 12's ``train_loop`` runs (read again after each
-run's test pass) and ``cross_validate``, and read just after each (phase
+run's test pass) and ``cross_validate``, 13's calibration, ``step`` loop,
+``steps``, batched replays and CLI runs, and read just after each (phase
 3's after its ``step`` loop and after its ``steps`` call); every serve
 kernel must have launched on each of the three serve paths,
 ``iir_rms_frames`` once per calibration recording and once per ingested
@@ -165,15 +184,17 @@ kernel once per train step in 7 and 8 and once per stacked step in 9,
 and the chain's kernels as its depth says in 8; in 12 K1 once per step
 of both glove-encoding runs and per stacked step of their sweep and never
 in the baseline, the chain's kernels as its depth says in the fused run,
-and ``encoder_chain`` never. TF32
+and ``encoder_chain`` never; in 13 the bf16 variant on every path and
+the f32 one on none, and the bf16 variant never in phases 1-12 (its
+launches summed across every reset there). TF32
 is off throughout
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set False), so the plain versions run
 in full f32 (``encoder_chain``, K5f and K5b run 3xTF32 by their own
 instructions, whatever the flags). Any failure raises and the exit code
 is not 0. The last lines are ``{"single", "batched"}``, ``{"train"}``,
-``{"fused_train"}``, ``{"sweep"}``, ``{"eval"}``, ``{"ingest"}`` and
-``{"modes"}`` JSON lines, the card
+``{"fused_train"}``, ``{"sweep"}``, ``{"eval"}``, ``{"ingest"}``,
+``{"modes"}`` and ``{"bf16_serve"}`` JSON lines, the card
 line from nvidia-smi, one
 ``{"kernels": [...]}`` JSON line, and
 ``{"ok": true, "device": {...}}``.
@@ -193,10 +214,11 @@ import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, dense TF32 on the tensor cores and HBM3 bandwidth; a card below
-# its 700 W limit runs slower.
+# cores, dense TF32 and bf16 on the tensor cores and HBM3 bandwidth; a
+# card below its 700 W limit runs slower.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 REPLACES = {
     "dsp_frames": "contrastiveprosthetics_tpu/ops/pallas_ops.py:544 "
@@ -205,6 +227,10 @@ REPLACES = {
     "encoder_chain": "contrastiveprosthetics_tpu/ops/pallas_ops.py:460 "
                      "(_enc_kernel via fused_encoder_logits :475; the chain "
                      "inside :544 and :746)",
+    "encoder_chain_bf16": "contrastiveprosthetics_tpu/ops/pallas_ops.py:460 "
+                          "(_enc_kernel on a bf16 fold, :318-322, via "
+                          "fused_encoder_logits :475; the chain inside :544 "
+                          "and :746)",
     "vote_scan": "contrastiveprosthetics_tpu/ops/pallas_ops.py:544 "
                  "(_tick_chain_kernel, vote part) and :746 "
                  "(_batched_tick_chain_kernel, vote part)",
@@ -240,13 +266,17 @@ TAIL_KERNELS = ("chain_tail_fwd", "chain_tail_bwd")
 SOURCES = {name: "contrastiveprosthetics_torch/csrc/" + (
     "contrastive_loss" if name in TRAIN_KERNELS else
     "train_fused" if name in FUSED_KERNELS else
-    "iir_rms" if name == "iir_rms_frames" else name) + ".cu"
+    "iir_rms" if name == "iir_rms_frames" else
+    "encoder_chain" if name == "encoder_chain_bf16" else name) + ".cu"
     for name in REPLACES}
 # the CUDA functions each port kernel launches, as named in a profiler trace
 DEVICE_FUNCTIONS = {"dsp_frames_kernel": "dsp_frames",
                     "encoder_layer_large_kernel": "encoder_chain",
                     "encoder_layer_small_kernel": "encoder_chain",
                     "encoder_head_kernel": "encoder_chain",
+                    "encoder_layer_large_bf16_kernel": "encoder_chain_bf16",
+                    "encoder_layer_small_bf16_kernel": "encoder_chain_bf16",
+                    "encoder_head_bf16_kernel": "encoder_chain_bf16",
                     "vote_scan_kernel": "vote_scan",
                     "contrastive_loss_fwd_kernel": "contrastive_loss_fwd",
                     "contrastive_loss_bwd_kernel": "contrastive_loss_bwd",
@@ -333,6 +363,21 @@ INGEST_POSITIONS = (0, 1, 40, 41)
 # the JAX package's own device-vs-scipy check (rtol 5e-3, atol 2e-3,
 # tests/test_data.py:68-73)
 INGEST_RTOL, INGEST_ATOL = 1e-3, 1e-4
+# phase 13: encoder_chain's bf16 variant against its plain version. Both
+# round every dot's activations to bf16 (ties to even); their f32 sums run
+# in other orders, and a sum within an f32 rounding of a bf16 boundary
+# rounds to the other neighbour, one bf16 ulp (2^-8) of that activation,
+# which the layers after it carry on. Scores are cosines in [-1, 1]; on
+# this phase's frames (std 217 before the first layer) the plain version
+# lies up to 0.014 from float64 on the same bf16 operands and the kernel
+# 0.018 (this script on an H100 80GB HBM3 at 700 W). Elementwise the
+# two are held at JAX's own absolute bound for bf16 scores (atol 0.05,
+# test_pallas.py:226); that the kernel rounds no worse than the plain
+# version is held against float64: its mean error at most BF16_F64_MEAN
+# times the plain version's (measured 0.85) and its largest at most
+# BF16_F64_MAX times (measured 1.28)
+BF16_ATOL = 5e-2
+BF16_F64_MEAN, BF16_F64_MAX = 1.25, 2.0
 
 
 def log(msg: str) -> None:
@@ -3140,6 +3185,482 @@ def modes_phase(K, eager, train_res) -> tuple[dict, dict]:
     return res, totals
 
 
+# ------------------------------------------------------------ phase 13
+def mm_f32_out():
+    """A cuBLAS bf16 product with f32 output, ``torch.mm(a, b, out_dtype=
+    torch.float32)``, where the installed torch takes ``out_dtype``; else
+    ``torch.mm`` on bf16, whose output rounds to bf16. Returns the function
+    and its name for the ``kernels`` line."""
+    a = torch.ones((16, 16), dtype=torch.bfloat16, device="cuda")
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return (lambda x, y: torch.mm(x, y).float(),
+                "torch.mm on bf16 operands (its output rounds to bf16; "
+                "this torch's mm takes no out_dtype)")
+    return (lambda x, y: torch.mm(x, y, out_dtype=torch.float32),
+            "torch.mm(bf16, bf16, out_dtype=torch.float32)")
+
+
+def bf16_matmul_chain(mm, frames, folded, affines):
+    """One cuBLAS pass of the bf16 fold: each layer's activations as bf16
+    operands times the bf16 weights with f32 output (``mm``), bias, ReLU
+    and affine in place in f32, the head alike: the library yardstick for
+    ``encoder_chain``'s bf16 variant."""
+    *ws, gt = folded
+    h = frames.to(torch.bfloat16)
+    for j in range(0, len(ws) - 2, 2):
+        y = mm(h, ws[j]).add_(ws[j + 1]).relu_()
+        if affines is not None:
+            S = affines[j].shape[0]
+            y.view(-1, S, y.shape[1]).mul_(affines[j]).add_(affines[j + 1])
+        h = y.to(torch.bfloat16)
+    e = mm(h, ws[-2]).add_(ws[-1])
+    e = e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+    return mm(e.to(torch.bfloat16), gt)
+
+
+def f64_operands(chain):
+    """A bf16 chain's f32 tensors (biases, affines) in float64, its bf16
+    weights as they are: the plain version then computes in float64 on
+    the same bf16 operands, rounding each dot's activations to bf16."""
+    return tuple(t.double() if t.dtype == torch.float32 else t
+                 for t in chain)
+
+
+def encoder_bf16_bounds(chain, M: int, tensors) -> dict:
+    """The bf16 variant's bound at ``M`` rows: the bytes of ``tensors``
+    (each input read once, each output written once) against one bf16
+    product a multiply-add at the bf16 peak."""
+    b, by = bound_ms(nbytes(*tensors), 2.0 * chain_macs(chain) * M,
+                     PEAK_BF16_FLOPS)
+    return dict(bound_ms=b, bound_by=by)
+
+
+def check_encoder_bf16(K, rows, single, batched, f32_chains) -> dict:
+    """Phase 13, ``encoder_chain``'s bf16 variant: at every M of phase 2's
+    ladder (the bf16 regime threshold -+ 1, and the f32 one's + 1) on the
+    bf16 engines' shared chain with per-session affines and
+    on the single engine's folded chain, held against its plain version
+    (atol ``BF16_ATOL``); each call's first rows bit-identical to the
+    smaller call's and to a rerun; at one tick of S sessions the kernel
+    and the plain version against float64 on the same bf16 operands. The
+    f32 fold of the same statistics is held at JAX's loose bound on frames
+    of unit scale (seeded normal: the scale the ingest's normalisation
+    gives and JAX's test uses); on ``rows`` (this script's DSP frames, std
+    about 217, since its mean and std are not the recordings' statistics)
+    the distance to the f32 fold is reported only: there bf16 and f32
+    differ by more, in the plain version as in the kernel.
+    Timed with CUDA events and traced beside its bound, the cuBLAS bf16
+    chain and the f32 kernel at the same shape (the two kernels in turns).
+    Returns the ``kernels`` entry."""
+    S = batched.n_sessions
+    M_all = rows.shape[0]
+    thr = K.ENCODER_SMALL_ROWS_BF16
+    shared, affines = batched.shared_chain, batched.session_affines()
+    folded = single.folded_chain
+    f32_shared, f32_folded = f32_chains
+    chains = {"affines": lambda M: (shared, f32_shared,
+                                    tuple(x[:min(M, S)] for x in affines)),
+              "folded": lambda M: (folded, f32_folded, None)}
+    unit = torch.randn(rows.shape, generator=torch.Generator(
+        rows.device).manual_seed(14), device=rows.device)
+    errs, vs_f32, vs_f32_dsp, prev = {}, {}, {}, {}
+    for M in sorted({1, 16, 200, thr - 1, thr + 1, K.ENCODER_SMALL_ROWS + 1,
+                     S, M_all}):
+        for kind, make in chains.items():
+            chain, chain32, aff = make(M)
+            got = K.fused_encoder_logits(rows[:M], chain, aff)
+            again = K.fused_encoder_logits(rows[:M], chain, aff)
+            want = K.fused_encoder_logits_reference(rows[:M], chain, aff)
+            got_unit = K.fused_encoder_logits(unit[:M], chain, aff)
+            want32 = K.fused_encoder_logits_reference(unit[:M], chain32, aff)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"encoder_chain_bf16: non-finite, M={M}")
+            torch.testing.assert_close(got, want, rtol=0, atol=BF16_ATOL)
+            torch.testing.assert_close(got_unit, want32, rtol=0.1, atol=0.05)
+            vs_f32[f"M={M} {kind}"] = max_abs(got_unit, want32)
+            vs_f32_dsp[f"M={M} {kind}"] = max_abs(
+                got, K.fused_encoder_logits_reference(rows[:M], chain32, aff))
+            if not torch.equal(got, again):
+                raise AssertionError(f"encoder_chain_bf16 rerun differs, "
+                                     f"M={M}")
+            if kind in prev and not torch.equal(got[:len(prev[kind])],
+                                                prev[kind]):
+                raise AssertionError(
+                    f"encoder_chain_bf16 rows differ between M="
+                    f"{len(prev[kind])} and M={M} ({kind})")
+            errs[f"M={M} {kind}"] = max_abs(got, want)
+            prev[kind] = got
+            del again, want, want32, got_unit
+    # against float64 on the same bf16 operands at one tick: the kernel
+    # no farther than the plain version, in the mean and at the worst
+    vs_f64 = {}
+    for kind, make in chains.items():
+        chain, _, aff = make(S)
+        want64 = K.fused_encoder_logits_reference(
+            rows[:S].double(), f64_operands(chain),
+            f64_operands(aff) if aff else None)
+        err_k = (prev[kind][:S].double() - want64).abs()
+        err_p = (K.fused_encoder_logits_reference(rows[:S], chain, aff
+                                                  ).double() - want64).abs()
+        vs_f64[kind] = e = dict(
+            kernel_max=float(err_k.max()), plain_max=float(err_p.max()),
+            kernel_mean=float(err_k.mean()), plain_mean=float(err_p.mean()))
+        if (e["kernel_mean"] > BF16_F64_MEAN * e["plain_mean"]
+                or e["kernel_max"] > BF16_F64_MAX * e["plain_max"]):
+            raise AssertionError(f"encoder_chain_bf16 rounds farther from "
+                                 f"float64 than its plain version ({kind}): "
+                                 f"{e}")
+        del want64, err_k, err_p
+    scores = prev["affines"]
+    log(f"[bf16] encoder_chain_bf16 ok at M = 1 .. {M_all} (threshold "
+        f"{thr}), affines and folded: max abs err {max(errs.values()):.3g} "
+        f"against its plain version (atol {BF16_ATOL}), "
+        f"{max(vs_f32.values()):.3g} against the f32 fold on unit-scale "
+        f"frames (rtol 0.1, atol 0.05; {max(vs_f32_dsp.values()):.3g} on the "
+        "DSP frames, reported); first rows bit-identical across M and the "
+        "regime switch; "
+        f"reruns bit-identical; against float64 at M={S}: "
+        f"{json.dumps(vs_f64)}")
+
+    mm, mm_name = mm_f32_out()
+    tick, one = rows[:S], rows[:1]
+    shapes = {
+        f"rows_{M_all}": (rows, shared, f32_shared, affines, 3),
+        f"rows_{S}": (tick, shared, f32_shared, affines, 20),
+        "rows_1": (one, folded, f32_folded, None, 200)}
+    by_shape = {}
+    for name, (x, chain, chain32, aff, reps) in shapes.items():
+        kernel = functools.partial(K.fused_encoder_logits, x, chain, aff)
+        f32_kernel = functools.partial(K.fused_encoder_logits, x, chain32,
+                                       aff)
+        turns = [time_ms(fn, reps, 2) for fn in (f32_kernel, kernel, kernel,
+                                                 f32_kernel)]
+        device_ms, per_call = device_per_call(kernel, 10 if reps < 10
+                                              else 50)
+        out = kernel()
+        by_shape[name] = dict(
+            ms=(turns[1] + turns[2]) / 2, f32_kernel_ms=(turns[0] + turns[3])
+            / 2, ms_in_turns=turns,
+            plain_ms=time_ms(functools.partial(
+                K.fused_encoder_logits_reference, x, chain, aff),
+                max(1, reps // 10), 1),
+            library_ms=time_ms(functools.partial(bf16_matmul_chain, mm, x,
+                                                 chain, aff), reps, 2),
+            device_ms_per_call=device_ms,
+            device_ms_per_launch=device_ms / per_call,
+            device_launches_per_call=per_call,
+            **encoder_bf16_bounds(chain, x.shape[0],
+                                  (x, out, *chain, *(aff or ()))))
+        del out
+    plan = K.encoder_plan(folded)
+    tiling = {M: {name: time_ms(lambda: K.encoder_chain(rows[:M], plan,
+                                                         regime), 50, 3)
+                  for name, regime in (("small", 0), ("large", 1))}
+              for M in (16, 64, 128, 256, 384, 512, 640, 768, 1024)}
+    top = by_shape[f"rows_{M_all}"]
+    report = ptxas_report("encoder_chain")
+    frames = {fn: r for fn, r in report.items() if "bf16" in fn}
+    bad = {fn: r for fn, r in frames.items()
+           if r.get("stack_frame_bytes") or r.get("spill_store_bytes")}
+    if len(frames) != 5 or bad:
+        raise AssertionError(f"encoder_chain_bf16's functions: stack frame "
+                             f"or spills not 0, or missing: {frames}")
+    log(f"[bf16] encoder_chain_bf16 by shape: {json.dumps(by_shape)}; "
+        f"both tilings by rows: {json.dumps(tiling)}")
+    return dict(
+        name="encoder_chain_bf16", route="cuda",
+        source=SOURCES["encoder_chain_bf16"],
+        replaces=REPLACES["encoder_chain_bf16"],
+        max_abs_err=max(errs.values()),
+        max_abs_err_parts=errs, max_abs_err_vs_f32_fold_unit_frames=vs_f32,
+        max_abs_err_vs_f32_fold_dsp_frames=vs_f32_dsp,
+        max_abs_err_vs_f64_at_one_tick=vs_f64,
+        tolerance=f"atol {BF16_ATOL} against the plain bf16 version (the same "
+                  "bf16 roundings; f32 sums in another order flip a few); "
+                  f"against float64 on the same bf16 operands its mean error "
+                  f"at most {BF16_F64_MEAN}x and its largest at most "
+                  f"{BF16_F64_MAX}x the plain version's; rtol 0.1 atol 0.05 "
+                  "against the f32 fold on unit-scale frames (JAX's "
+                  "test_pallas.py:226); rows bit-identical across M, tilings "
+                  "and reruns",
+        ms=top["ms"], kernel_ms=top["ms"], plain_ms=top["plain_ms"],
+        bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+        library_ms=top["library_ms"], library_call=mm_name,
+        f32_kernel_ms=top["f32_kernel_ms"],
+        shape=f"rows={M_all} (tick, session) with per-session affines",
+        by_shape=by_shape,
+        bound_ms_by_shape={k: e["bound_ms"] for k, e in by_shape.items()},
+        tiling_ms_by_rows=tiling, regime_threshold=thr,
+        macs_per_row=chain_macs(shared), ptxas=frames,
+        peaks={"bf16_flops": PEAK_BF16_FLOPS,
+               "bytes_per_s": PEAK_BYTES_PER_S})
+
+
+def step_loop_ms(engine, blocks, mask, n: int) -> np.ndarray:
+    """Host-clock milliseconds of ``n`` synchronised ``engine.step`` calls
+    from a fresh carry (the first, which pays one-time costs, dropped)."""
+    carry, lat = engine.init_carry(), []
+    for i in range(n):
+        t0 = time.perf_counter()
+        carry, *_ = engine.step(carry, blocks[i], mask)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return np.array(lat[1:])
+
+
+def complete_trace(trace_fn, name: str, want: float, tries: int = 3):
+    """A profiler trace (``trace_fn()``) in which kernel ``name`` shows
+    ``want`` launches a step: a trace now and then drops device records,
+    so up to ``tries`` traces are taken; the last is returned, with the
+    count of those that dropped some."""
+    for i in range(tries):
+        trace = trace_fn()
+        if trace["device_launches_per_step"].get(name) == want:
+            break
+    trace["traces_with_dropped_records"] = i + (
+        trace["device_launches_per_step"].get(name) != want)
+    return trace
+
+
+def bf16_phase(K, dev, seed_model, mean, std, calib, recording, batch_blocks,
+               masks, subsets, f32_single, f32_batched,
+               f32_preds) -> tuple[dict, dict]:
+    """Phase 13, bfloat16 serving at full width: the bf16 engines from the
+    same seeded weights as phase 1's (``ContrastiveModel(dtype=
+    torch.bfloat16)``), calibrated through the bf16 tower (one
+    ``iir_rms_frames`` launch a recording); ``encoder_chain``'s bf16
+    variant against its plain version (``check_encoder_bf16``); 50
+    per-tick ``step`` calls and a 200-tick ``steps`` replay that must
+    agree, a trace of 20 steps; the batched replay of S sessions x 25
+    ticks with subset masks against the plain version away from near-ties,
+    timed and traced, one live ``step``, one timed replay at 65,536
+    sessions; the share of preds equal to phase 4's f32 engine's;
+    ``cptorch-serve --bf16`` per tick and batched. The step loop and the
+    batched replay are timed in turns with phases 3 and 4's f32 engines
+    (f32, bf16, bf16, f32). Every bf16 path must launch the bf16 variant
+    and never the f32 one. Returns the ``bf16_serve`` results and the
+    ``kernels`` entry."""
+    from contrastiveprosthetics_torch.cli import serve as cli
+    from contrastiveprosthetics_torch.config import DEFAULT_CONFIG as cfg
+    from contrastiveprosthetics_torch.models.clip import ContrastiveModel
+    from contrastiveprosthetics_torch.serve.stream import (
+        BatchedStreamingEngine,
+        StreamingEngine,
+    )
+
+    t_phase = time.perf_counter()
+    S, T = SESSIONS, TICKS
+    C, D, F = cfg.max_tasks, cfg.emg_dim, cfg.factor
+    bf16 = torch.bfloat16
+    model = ContrastiveModel(generator=torch.Generator().manual_seed(
+        seed_model), dtype=bf16).to(dev)
+
+    def launched(path: str, counts: dict) -> None:
+        """The bf16 variant and the tick's other kernels ran on ``path``,
+        the f32 variant did not."""
+        if counts["encoder_chain"] or not counts["encoder_chain_bf16"]:
+            raise AssertionError(f"bf16 {path}: encoder_chain launches "
+                                 f"{counts}")
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    single = StreamingEngine(cfg, model, mean, std)
+    single.calibrate(calib[4])
+    batched = BatchedStreamingEngine(cfg, model, mean, std, n_sessions=S)
+    for i in range(4):
+        batched.calibrate_session(i, calib[i])
+    batched.session_affines()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    calib_counts = dict(K.launch_counts)
+    if calib_counts["iir_rms_frames"] != 5 or calib_counts["encoder_chain"] \
+            or calib_counts["encoder_chain_bf16"]:
+        raise AssertionError(f"bf16 calibration of 5 recordings launched "
+                             f"{calib_counts}")
+    if single.folded_chain[0].dtype != bf16 or \
+            batched.shared_chain[0].dtype != bf16:
+        raise AssertionError("the bf16 engines did not fold in bf16")
+
+    # the kernel, at every row count of phase 2's ladder, on this phase's
+    # own frames
+    blocks_t = torch.as_tensor(batch_blocks, device=dev)
+    masks_t = torch.as_tensor(masks, device=dev)
+    carries = batched.init_carries()
+    sos, mu, sd = single._sos, single._mean, single._std
+    frames = K.dsp_frames(carries.iir_state, carries.tail, blocks_t, sos, mu,
+                          sd)[0].reshape(T * S, D)
+    f32_chains = (K.fold_encoder_params_shared(
+        batched._single.model.emg_net, batched._single._class_emb),
+        K.fold_encoder_params(single.model.emg_net, single._class_emb))
+    entry = check_encoder_bf16(K, frames, single, batched, f32_chains)
+    del frames, f32_chains
+
+    # single session
+    blocks = recording[: 200 * F].reshape(200, F, D)
+    mask1 = np.zeros(C, bool)
+    mask1[[2, 5, 11, 19, 23, 31, 40]] = True
+    K.reset_launch_counts()
+    carry = single.init_carry()
+    lat, step_p, step_v = [], [], []
+    for i in range(50):
+        t0 = time.perf_counter()
+        carry, p, v, _ = single.step(carry, blocks[i], mask1)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        step_p.append(int(p))
+        step_v.append(int(v))
+    step_counts = dict(K.launch_counts)
+    K.reset_launch_counts()
+    _, preds, votes = single.steps(single.init_carry(), blocks, mask1)
+    torch.cuda.synchronize()
+    steps_counts = dict(K.launch_counts)
+    launched("step", step_counts)
+    launched("steps", steps_counts)
+    if preds[:50].tolist() != step_p or votes[:50].tolist() != step_v:
+        raise AssertionError("bf16 step loop and steps disagree")
+    if not set(preds.tolist()) <= set(np.flatnonzero(mask1).tolist()):
+        raise AssertionError("bf16 single-session preds outside the subset")
+    lat = np.array(lat[1:])
+    steps_ms = time_ms(lambda: single.steps(single.init_carry(), blocks,
+                                            mask1), reps=5)
+    step_trace = complete_trace(lambda: trace_steps(single, blocks, mask1, 20),
+                                "encoder_chain_bf16", 10.0)
+    # the f32 and bf16 step loops in turns, 50 ticks each
+    turns = [step_loop_ms(eng, blocks, mask1, 50)
+             for eng in (f32_single, single, single, f32_single)]
+    single_res = dict(step_p50_ms=float(np.percentile(lat, 50)),
+                      step_p99_ms=float(np.percentile(lat, 99)),
+                      steps_200_ticks_ms=steps_ms, step_trace=step_trace,
+                      in_turns_with_f32=dict(
+                          order="f32, bf16, bf16, f32",
+                          p50_ms=[float(np.percentile(x, 50)) for x in turns],
+                          p99_ms=[float(np.percentile(x, 99)) for x in turns]),
+                      launches=dict(step=step_counts, steps=steps_counts))
+    log(f"[bf16] single session: step p50 {single_res['step_p50_ms']:.4f} "
+        f"ms, p99 {single_res['step_p99_ms']:.4f} ms; steps over 200 ticks "
+        f"{steps_ms:.4f} ms; step loop == steps; in turns with f32: "
+        f"{json.dumps(single_res['in_turns_with_f32'])}; trace of 20 steps: "
+        f"{json.dumps(step_trace)}")
+
+    # batched: S sessions x T ticks against the plain version
+    K.reset_launch_counts()
+    _, b_preds, b_votes = batched.steps(batched.init_carries(), batch_blocks,
+                                        masks)
+    torch.cuda.synchronize()
+    batched_counts = dict(K.launch_counts)
+    launched("batched", batched_counts)
+    chain_args = (*batched.init_carries(), blocks_t, masks_t, sos, mu, sd,
+                  batched.shared_chain, batched.session_affines())
+    _, k_preds, k_votes, k_scores = K.tick_chain(*chain_args)
+    _, p_preds, p_votes, p_scores = K.tick_chain_reference(*chain_args)
+    torch.cuda.synchronize()
+    if not (torch.equal(k_preds, b_preds) and torch.equal(k_votes, b_votes)):
+        raise AssertionError("bf16 engine steps and the kernel chain disagree")
+    if not bool((torch.isfinite(p_scores) | ~masks_t).all()):
+        raise AssertionError("bf16: non-finite scores")
+    live = masks_t.expand_as(k_scores)
+    torch.testing.assert_close(k_scores[live], p_scores[live], rtol=0,
+                               atol=BF16_ATOL)
+    # a pred can differ only where the top two lie within twice the
+    # largest score difference
+    err = max_abs(k_scores[live], p_scores[live])
+    diff = k_preds != p_preds
+    ties = near_tie(k_scores, 2 * err) | near_tie(p_scores, 2 * err)
+    if bool((diff & ~ties).any()):
+        raise AssertionError("bf16 batched preds disagree away from "
+                             "near-ties")
+    clean = ~diff.any(dim=0)
+    if not torch.equal(k_votes[:, clean], p_votes[:, clean]):
+        raise AssertionError("bf16 batched votes disagree")
+    for i, ids in enumerate(subsets):
+        if not set(b_preds[:, i].tolist()) <= set(ids):
+            raise AssertionError(f"bf16 session {i} predicted outside its "
+                                 "subset")
+    if bool(((b_preds < 0) | (b_preds >= C)).any()):
+        raise AssertionError("bf16 pred out of range")
+    same_as_f32 = float((b_preds == f32_preds).float().mean())
+    del k_scores, p_scores
+    batched_ms = time_ms(lambda: batched.steps(batched.init_carries(),
+                                               blocks_t, masks_t), reps=3)
+    replay_turns = [time_ms(lambda eng=eng: eng.steps(
+        eng.init_carries(), blocks_t, masks_t), reps=3)
+        for eng in (f32_batched, batched, batched, f32_batched)]
+    live_carries = batched.init_carries()
+    live_ms = time_ms(lambda: batched.step(live_carries, blocks_t[0],
+                                           masks_t), reps=10, warmup=2)
+    steps_trace = complete_trace(lambda: trace_call(lambda: batched.steps(
+        batched.init_carries(), blocks_t, masks_t)), "encoder_chain_bf16",
+        10.0)
+    del blocks_t, chain_args, live_carries
+
+    # one replay at the top of the JAX round-5 ladder
+    S2 = 2 * S
+    big = BatchedStreamingEngine(cfg, model, mean, std, n_sessions=S2)
+    big_blocks = torch.randn((T, S2, F, D), generator=torch.Generator(
+        dev).manual_seed(13), device=dev)
+    K.reset_launch_counts()
+    _, big_preds, _ = big.steps(big.init_carries(), big_blocks)
+    torch.cuda.synchronize()
+    big_counts = dict(K.launch_counts)
+    launched(f"batched at {S2} sessions", big_counts)
+    if bool(((big_preds < 0) | (big_preds >= C)).any()):
+        raise AssertionError(f"bf16 pred out of range at {S2} sessions")
+    torch.cuda.reset_peak_memory_stats()
+    big_ms = time_ms(lambda: big.steps(big.init_carries(), big_blocks),
+                     reps=2)
+    big_peak = torch.cuda.max_memory_allocated()
+    del big, big_blocks, big_preds
+    batched_res = dict(
+        sessions=S, ticks=T, steps_ms=batched_ms, ms_per_tick=batched_ms / T,
+        steps_ms_in_turns_with_f32=dict(order="f32, bf16, bf16, f32",
+                                        ms=replay_turns),
+        live_step_ms=live_ms, steps_trace=steps_trace,
+        pred_near_tie_disagreements=int(diff.sum()),
+        max_abs_score_err=err, near_tie_eps=2 * err,
+        preds_equal_to_f32_engine_share=same_as_f32,
+        launches=batched_counts,
+        sessions_65536=dict(sessions=S2, ticks=T, steps_ms=big_ms,
+                            ms_per_tick=big_ms / T, launches=big_counts,
+                            peak_memory_bytes=big_peak))
+    log(f"[bf16] batched {S} sessions x {T} ticks: {batched_ms:.3f} ms per "
+        f"steps call, {batched_ms / T:.4f} ms/tick; live step "
+        f"{live_ms:.4f} ms; {int(diff.sum())} near-tie pred differences vs "
+        f"plain; preds equal to the f32 engine's: {same_as_f32:.6f}; "
+        f"{S2} sessions: {big_ms:.3f} ms, {big_ms / T:.4f} ms/tick, peak "
+        f"{big_peak / 1e9:.3f} GB; trace: {json.dumps(steps_trace)}")
+
+    # the CLI in bf16 on the card
+    cli_counts = {}
+    for argv in (["--demo", "--bf16", "--sessions", "1", "--quiet"],
+                 ["--demo", "--bf16", "--sessions", "64", "--replay",
+                  "--quiet"]):
+        K.reset_launch_counts()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"cptorch-serve {' '.join(argv)} failed")
+        torch.cuda.synchronize()
+        cli_counts[" ".join(argv)] = dict(K.launch_counts)
+        launched("cptorch-serve " + " ".join(argv), K.launch_counts)
+    log("[bf16] cptorch-serve --demo --bf16 --sessions 1 and --sessions 64 "
+        "--replay ok on cuda")
+
+    launches = {"step": step_counts["encoder_chain_bf16"],
+                "steps": steps_counts["encoder_chain_bf16"],
+                "batched": batched_counts["encoder_chain_bf16"]}
+    entry.update(launches=sum(launches.values()), launches_by_path=launches,
+                 device_ms_per_launch_by_path={
+                     "step": per_launch(step_trace, "encoder_chain_bf16"),
+                     "batched": per_launch(steps_trace,
+                                           "encoder_chain_bf16")})
+    res = dict(single=single_res, batched=batched_res,
+               setup_s=setup_s, calibration_launches=calib_counts,
+               cli_launches=cli_counts,
+               phase_s=time.perf_counter() - t_phase)
+    return res, entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3156,6 +3677,18 @@ def main() -> int:
         BatchedStreamingEngine,
         StreamingEngine,
     )
+
+    # the bf16 variant's launches in phases 1-12, summed across every reset
+    # of the counts: they must stay 0
+    before_13 = {"encoder_chain_bf16": 0}
+    reset_counts = K.reset_launch_counts
+
+    def tallying_reset() -> None:
+        before_13["encoder_chain_bf16"] += \
+            K.launch_counts["encoder_chain_bf16"]
+        reset_counts()
+
+    K.reset_launch_counts = tallying_reset
 
     dev = torch.device("cuda")
     S, T = SESSIONS, TICKS
@@ -3418,6 +3951,15 @@ def main() -> int:
     # ------------------------------ 12. the softmax baseline and glove modes
     modes_res, modes_counts = modes_phase(K, trainer, train_res)
 
+    # ------------------------------------------------ 13. bf16 serving
+    K.reset_launch_counts = reset_counts
+    if before_13["encoder_chain_bf16"] + K.launch_counts["encoder_chain_bf16"]:
+        raise AssertionError("encoder_chain_bf16 launched in phases 1-12: "
+                             f"{before_13}")
+    bf16_res, bf16_entry = bf16_phase(K, dev, 0, mean, std, calib, recording,
+                                      batch_blocks, masks, subsets, single,
+                                      batched, b_preds)
+
     for name, entry in entries.items():
         if name in FUSED_KERNELS:
             by_path = {"fused_train": fused_counts[name],
@@ -3463,8 +4005,10 @@ def main() -> int:
     print(json.dumps({"eval": eval_res}))
     print(json.dumps({"ingest": ingest_res}))
     print(json.dumps({"modes": modes_res}))
+    print(json.dumps({"bf16_serve": bf16_res}))
     print(card)
-    print(json.dumps({"kernels": list(entries.values()) + eval_entries}))
+    print(json.dumps({"kernels": list(entries.values()) + eval_entries
+                      + [bf16_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,13 +17,16 @@ Inputs:
   --subset       comma-separated class ids to restrict prediction to.
   --sessions     serve S concurrent sessions with the batched engine.
   --replay       the whole recording in one call instead of tick by tick.
+  --bf16         bfloat16 compute: the EMG tower (calibration) in bf16 and
+                 the weight folds in bf16, which run encoder_chain's bf16
+                 variant; parameters, DSP and votes stay f32.
   --demo         fabricate recording, stats and weights (no files needed).
   --platform     cuda (default) or cpu.
 
 The JAX CLI's ``--fused_encoder`` is taken as a no-op (on CUDA every tick
 already runs ``encoder_chain``); ``--no_fused_encoder`` exits, since no
-other encoder path serves on the card; ``--spmd`` and ``--bf16`` are not
-ported yet and exit.
+other encoder path serves on the card; ``--spmd`` is not ported yet and
+exits.
 """
 from __future__ import annotations
 
@@ -63,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spmd", action="store_true",
                    help="shard the session axis over several devices")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 tick compute")
+                   help="bfloat16 tick compute (parameters stay f32; the "
+                        "weight folds are bf16)")
     p.add_argument("--fused_encoder", action="store_true",
                    help="a no-op: every tick runs the encoder_chain kernel")
     p.add_argument("--no_fused_encoder", action="store_true",
@@ -80,10 +84,6 @@ def reject_unported_modes(args) -> None:
             what="--spmd (the session axis over several devices)", item=8,
             hint="drop the flag: the batched engine serves every session on "
                  "one device"))
-    if args.bf16:
-        raise SystemExit(NOT_PORTED.format(
-            what="--bf16 (bfloat16 tick compute and folds)", item=9,
-            hint="drop the flag: the tick runs in float32"))
     if args.no_fused_encoder:
         raise SystemExit(
             "--no_fused_encoder: the port's tick has one encoder path, the "
@@ -118,8 +118,10 @@ def main(argv=None) -> int:
         StreamingEngine,
     )
 
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
     if args.checkpoint:
-        model = model_from_state_dict(load_reference_checkpoint(args.checkpoint))
+        model = model_from_state_dict(
+            load_reference_checkpoint(args.checkpoint), dtype=dtype)
         if model.prediction or model.glove_encoding:
             raise SystemExit(f"{args.checkpoint}: the serve path scores "
                              "EMG against one-hot class embeddings; a "
@@ -129,7 +131,7 @@ def main(argv=None) -> int:
         if not args.demo:
             print("warning: no --checkpoint given — using fresh-init weights")
         model = ContrastiveModel(d_e=args.d_e, emg_dim=cfg.emg_dim,
-                                 n_classes=cfg.max_tasks,
+                                 n_classes=cfg.max_tasks, dtype=dtype,
                                  generator=torch.Generator().manual_seed(0))
     model = model.to(device)
 

@@ -25,7 +25,8 @@ cache; ``--crossval_size 0``: the canonical ones; else the random-search
 sweep, ``train/crossval.py``) -> the nanargmax-val-acc config -> final
 annealed train, checkpointing on val loss -> reload the best checkpoint
 -> ``--test`` (then ``--results_dir``'s artifacts and
-``--per_subject_eval``, contrastive modes only). ``--bf16``,
+``--per_subject_eval``, contrastive modes only). ``--bf16`` (bf16
+training, queue 1 item 9b; ``cptorch-serve --bf16`` serves in bf16),
 ``--profile``, ``--spmd_crossval``, and the sweep on the fused chain or
 with the fused encoder's validation, are not ported yet and raise; so
 does a ``--prng_impl`` other than ``auto``.
@@ -127,8 +128,9 @@ def reject_unported_modes(args) -> None:
                          "CLI): drop one of the two")
     if args.bf16:
         raise SystemExit(NOT_PORTED.format(
-            what="--bf16 (bfloat16 encoder compute)", item=9,
-            hint="drop the flag: the port trains in float32"))
+            what="--bf16 (bf16 training)", item="9b",
+            hint="drop the flag: the port trains and evaluates in float32; "
+                 "cptorch-serve --bf16 serves a checkpoint in bfloat16"))
     if args.profile:
         raise SystemExit(NOT_PORTED.format(
             what="--profile (a trace of the training run)", item=10,

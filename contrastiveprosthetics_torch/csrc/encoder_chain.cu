@@ -13,6 +13,11 @@
 //   encoder_head_kernel: e = h @ Wh + bh; e /= ||e|| (no eps); e @ Gt, in
 //     f32 on the CUDA cores.
 //
+// A bf16 fold (the JAX package's dtype=bfloat16 folds, pallas_ops.py:318-
+// 322) runs the bf16 variant instead, encoder_chain_bf16_launch: the same
+// launches, one bf16 MMA pass a product, a bf16 scratch (see "bf16
+// variant" below). Everything above this paragraph is the f32 chain's.
+//
 // Arithmetic: 3xTF32 on the tensor cores (mma.sync m16n8k8 .tf32). Each
 // operand splits as x = big + small, big = cvt.rna.tf32(x), small =
 // cvt.rna.tf32(x - big). Each k8 chunk sums small*big, big*small and
@@ -67,6 +72,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -444,6 +450,394 @@ cudaError_t launch(void (*kernel)(Params...), dim3 grid, int threads,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
+// ------------------------------------------------------- bf16 variant
+// The same two tilings and head on a bf16 fold (weights and Gt bf16,
+// biases and affines f32), one bf16 mma.sync m16n8k16 pass a product: a
+// product of two bf16 values is exact in f32, so no split. As in the f32
+// kernels, each k16 chunk is summed in the tensor core from zero and added
+// to the row's f32 sum with one round-to-nearest add. A layer's input is
+// rounded to bf16 (round to nearest even) where its fragments are formed:
+// the f32 frames of layer 0 pair by pair as the fragments are loaded, the
+// scratch of every later layer already in bf16. The scratch between layers
+// is bf16 (this variant's choice): the epilogue adds the bias, applies
+// ReLU and the affine in f32, then rounds once to bf16 and stores; the
+// next dot reads only that rounded value, which is what rounding at the
+// dot gives, at half the activation bytes. The first layer's K = 12 is
+// zero-filled to 16 inside the kernels (copies past K write zeros), not
+// in the fold. A row's place in its m16 tile, its chunks and their order
+// are the f32 kernels', so a row's scores have the same bits whatever M
+// and whichever tiling ran them.
+constexpr int kHBK = 32;        // k of a large-tiling stage: two k16 chunks
+constexpr int kHBS = kBN + 8;   // B row stride, bf16: 16-bit loads 4t + g/2
+
+template <typename In>
+struct Bf16Large {
+  static constexpr int kVec = 16 / sizeof(In);  // elements a 16-byte copy
+  // A row stride: f32 as the f32 kernel's; bf16 words at 4g + t
+  static constexpr int kAS = sizeof(In) == 4 ? kHBK + 4 : kHBK + 8;
+  static constexpr int kABytes = kBM * kAS * (int)sizeof(In);
+  static constexpr int kStageBytes = kABytes + kHBK * kHBS * 2;
+  static constexpr size_t kSmem =
+      (size_t)kStages * kStageBytes > sizeof(float) * kBM * kCS
+          ? (size_t)kStages * kStageBytes
+          : sizeof(float) * kBM * kCS;  // the epilogue's f32 tile
+};
+
+// two consecutive elements of a layer's input as a bf16x2 word
+__device__ __forceinline__ uint32_t bf16_pair(const float* p) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  return pack_bf16x2(v.x, v.y);
+}
+__device__ __forceinline__ uint32_t bf16_pair(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragment (m16 x k16, row-major, stride ld) at p = &A[g][2t]: rows g
+// and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9
+template <typename In>
+__device__ __forceinline__ void load_a_bf16(const In* p, int ld, bool lo,
+                                            bool hi, uint32_t (&a)[4]) {
+  a[0] = lo ? bf16_pair(p) : 0u;
+  a[1] = hi ? bf16_pair(p + 8 * ld) : 0u;
+  a[2] = lo ? bf16_pair(p + 8) : 0u;
+  a[3] = hi ? bf16_pair(p + 8 * ld + 8) : 0u;
+}
+
+// B fragment word at q = &B[2t][g] (k16 x n8 of a row-major (k, n) tile):
+// rows 2t and 2t + 1 of column g
+__device__ __forceinline__ uint32_t load_b_bf16(const uint16_t* q, int ld) {
+  return (uint32_t)q[0] | ((uint32_t)q[ld] << 16);
+}
+
+// 4 finished f32 columns rounded to bf16 and stored (8 bytes)
+__device__ __forceinline__ void store4_bf16(uint16_t* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+}
+
+// Layer 0 (f32 frames, paired and rounded as its fragments load) needs
+// more registers than 128 would give without spilling: one CTA an SM there
+// (its K = 12 is one k16 chunk), two for the bf16 layers.
+template <typename In>
+__global__ void __launch_bounds__(kThreads, sizeof(In) == 4 ? 1 : kMinBlocks)
+    encoder_layer_large_bf16_kernel(const In* __restrict__ h,
+                                    const uint16_t* __restrict__ w,
+                                    const float* __restrict__ b,
+                                    const float* __restrict__ a,
+                                    const float* __restrict__ c,
+                                    uint16_t* __restrict__ out, int M, int K,
+                                    int N, int S, int tiles_per_tick,
+                                    int ticks) {
+  using L = Bf16Large<In>;
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (N + kBN - 1) / kBN;
+  const int nt = blockIdx.x % n_tiles;
+  int rt = blockIdx.x / n_tiles;
+  if (tiles_per_tick > 0)  // session block by session block over the ticks
+    rt = (rt % ticks) * tiles_per_tick + rt / ticks;
+  const long long row0 = (long long)rt * kBM;
+  const int col0 = nt * kBN;
+  const int k_tiles = (K + kHBK - 1) / kHBK;
+  const int k_chunks = (K + 15) / 16;
+
+  auto load_a_tile = [&](int kt, int stage) {
+    In* As = reinterpret_cast<In*>(base + stage * L::kStageBytes);
+    const int k0 = kt * kHBK;
+#pragma unroll
+    for (int i = 0; i < kBM * kHBK / L::kVec / kThreads; ++i) {
+      const int id = tid + i * kThreads;
+      const int m = id / (kHBK / L::kVec);
+      const int kc = (id % (kHBK / L::kVec)) * L::kVec;
+      const long long gm = row0 + m;
+      const int gk = k0 + kc;
+      const bool ok = gm < M && gk < K;
+      cp_async16(As + m * L::kAS + kc, ok ? h + gm * K + gk : h, ok);
+    }
+  };
+  auto load_b_tile = [&](int kt, int stage) {
+    uint16_t* Bs = reinterpret_cast<uint16_t*>(base + stage * L::kStageBytes +
+                                               L::kABytes);
+    const int k0 = kt * kHBK;
+#pragma unroll
+    for (int i = 0; i < kHBK * kBN / 8 / kThreads; ++i) {
+      const int id = tid + i * kThreads;
+      const int kr = id / (kBN / 8), nc = (id % (kBN / 8)) * 8;
+      const int gk = k0 + kr, gn = col0 + nc;
+      const bool ok = gk < K && gn < N;
+      cp_async16(Bs + kr * kHBS + nc, ok ? w + (long long)gk * N + gn : w, ok);
+    }
+  };
+
+  // the first stages' weights, then the input once the previous layer is
+  // done: one commit group per stage, the weights riding in the first
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s)
+    if (s < k_tiles) load_b_tile(s, s);
+  wait_for_input();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < k_tiles) load_a_tile(s, s);
+    cp_async_commit();
+  }
+
+  float acc[kMI][kNI][4] = {};
+  const int wm = (warp % kWarpsM) * (kBM / kWarpsM);
+  const int wn = (warp / kWarpsM) * (kBN / kWarpsN);
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int next = kt + kStages - 1;
+    if (next < k_tiles) {
+      load_a_tile(next, next % kStages);
+      load_b_tile(next, next % kStages);
+    }
+    cp_async_commit();
+    const In* As =
+        reinterpret_cast<const In*>(base + (kt % kStages) * L::kStageBytes);
+    const uint16_t* Bs = reinterpret_cast<const uint16_t*>(
+        base + (kt % kStages) * L::kStageBytes + L::kABytes);
+    const int n_kk = min(kHBK / 16, k_chunks - kt * (kHBK / 16));
+#pragma unroll
+    for (int kk = 0; kk < kHBK / 16; ++kk) {
+      if (kk < n_kk) {
+        uint32_t af[kMI][4];
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+          load_a_bf16(As + (wm + mi * 16 + g) * L::kAS + kk * 16 + 2 * t,
+                      L::kAS, true, true, af[mi]);
+#pragma unroll
+        for (int ni = 0; ni < kNI; ++ni) {
+          const uint16_t* q = Bs + (kk * 16 + 2 * t) * kHBS + wn + ni * 8 + g;
+          const uint32_t b0 = load_b_bf16(q, kHBS);
+          const uint32_t b1 = load_b_bf16(q + 8 * kHBS, kHBS);
+          // one fragment's chunk sum at a time: four product registers
+          // instead of sixteen keep the tile's registers under 128
+#pragma unroll
+          for (int mi = 0; mi < kMI; ++mi) {
+            float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_bf16(p, af[mi], b0, b1);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              acc[mi][ni][i] = __fadd_rn(acc[mi][ni][i], p[i]);
+          }
+        }
+      }
+    }
+  }
+
+  // epilogue: stage the f32 tile, then bias/ReLU/affine in f32, one
+  // rounding to bf16 and 8-byte stores
+  cp_async_wait<0>();
+  __syncthreads();
+  float* Cs = smem;
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni) {
+      const int r = wm + mi * 16 + g, col = wn + ni * 8 + 2 * t;
+      *reinterpret_cast<float2*>(Cs + r * kCS + col) =
+          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<float2*>(Cs + (r + 8) * kCS + col) =
+          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  __syncthreads();
+#pragma unroll 4
+  for (int i = 0; i < kBM * kBN / 4 / kThreads; ++i) {
+    const int id = tid + i * kThreads;
+    const int m = id / (kBN / 4), nc = (id % (kBN / 4)) * 4;
+    const long long gm = row0 + m;
+    const int gn = col0 + nc;
+    if (gm < M && gn < N) {
+      const float4 v = *reinterpret_cast<const float4*>(Cs + m * kCS + nc);
+      store4_bf16(out + gm * N + gn, finish4(v, b, a, c, gm, gn, N, S));
+    }
+  }
+}
+
+// the small tiling's A row stride in elements: f32 as the f32 kernel's,
+// bf16 K rounded up to 64 plus 8 (fragment words at 4g + t)
+template <typename In>
+__host__ __device__ constexpr int small_bf16_a_stride(int K) {
+  return sizeof(In) == 4 ? small_a_stride(K) : (K + 63) / 64 * 64 + 8;
+}
+
+template <typename In>
+__host__ __device__ constexpr size_t small_bf16_smem(int K) {
+  return sizeof(In) * (size_t)kSM * small_bf16_a_stride<In>(K) +
+         sizeof(uint16_t) * (size_t)((K + 15) / 16 * 16) * kSN;
+}
+
+template <typename In>
+__global__ void __launch_bounds__(32) encoder_layer_small_bf16_kernel(
+    const In* __restrict__ h, const uint16_t* __restrict__ w,
+    const float* __restrict__ b, const float* __restrict__ a,
+    const float* __restrict__ c, uint16_t* __restrict__ out, int M, int K,
+    int N, int S) {
+  constexpr int kVec = 16 / sizeof(In);
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const int col0 = blockIdx.x * kSN;
+  const long long row0 = (long long)blockIdx.y * kSM;
+  const int rows = (int)min((long long)kSM, M - row0);
+  const int k_chunks = (K + 15) / 16;
+  const int lda = small_bf16_a_stride<In>(K);
+  In* As = reinterpret_cast<In*>(smem);  // rows < `rows` only are read
+  // (k_chunks * 16) x 8, zero past K; N % 8 == 0, so a column block lies
+  // wholly inside N
+  uint16_t* Bs = reinterpret_cast<uint16_t*>(As + kSM * lda);
+
+  // all of this CTA's weights (one commit group), then the input rows once
+  // the previous layer is done, in kGroups commit groups along K
+  for (int k = lane; k < k_chunks * 16; k += 32) {
+    const bool ok = k < K;
+    cp_async16(Bs + k * kSN, ok ? w + (long long)k * N + col0 : w, ok);
+  }
+  cp_async_commit();
+  wait_for_input();
+#pragma unroll
+  for (int gi = 0; gi < kGroups; ++gi) {
+    const int k_lo = gi * k_chunks / kGroups * 16;
+    const int k_hi = (gi + 1) * k_chunks / kGroups * 16;
+    const int per_row = (k_hi - k_lo) / kVec;
+    for (int i = lane; i < rows * per_row; i += 32) {
+      const int r = i / per_row, k = k_lo + (i % per_row) * kVec;
+      const bool ok = k < K;
+      cp_async16(As + r * lda + k, ok ? h + (row0 + r) * K + k : h, ok);
+    }
+    cp_async_commit();
+  }
+
+  float d[4] = {};
+  const bool lo = g < rows, hi = g + 8 < rows;
+#pragma unroll
+  for (int gi = 0; gi < kGroups; ++gi) {
+    if (gi == 0) cp_async_wait<kGroups - 1>();
+    if (gi == 1) cp_async_wait<kGroups - 2>();
+    if (gi == 2) cp_async_wait<kGroups - 3>();
+    if (gi == 3) cp_async_wait<0>();
+    __syncthreads();  // one warp: the other lanes' copies are visible
+    const int c_lo = gi * k_chunks / kGroups;
+    const int c_hi = (gi + 1) * k_chunks / kGroups;
+#pragma unroll 4
+    for (int ch = c_lo; ch < c_hi; ++ch) {
+      uint32_t af[4];
+      load_a_bf16(As + g * lda + ch * 16 + 2 * t, lda, lo, hi, af);
+      const uint16_t* q = Bs + (ch * 16 + 2 * t) * kSN + g;
+      float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_bf16(p, af, load_b_bf16(q, kSN), load_b_bf16(q + 8 * kSN, kSN));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], p[i]);
+    }
+  }
+
+  // as the f32 kernel: an even t stores row g, an odd t row g + 8
+  const unsigned full = 0xffffffffu;
+  const float p0 = __shfl_xor_sync(full, d[0], 1);
+  const float p1 = __shfl_xor_sync(full, d[1], 1);
+  const float p2 = __shfl_xor_sync(full, d[2], 1);
+  const float p3 = __shfl_xor_sync(full, d[3], 1);
+  const bool even = (t & 1) == 0;
+  const int r = even ? g : g + 8;
+  const int n = col0 + (even ? 2 * t : 2 * t - 2);
+  if (r < rows && n < N) {
+    const float4 v = even ? make_float4(d[0], d[1], p0, p1)
+                          : make_float4(p2, p3, d[2], d[3]);
+    store4_bf16(out + (row0 + r) * N + n,
+                finish4(v, b, a, c, row0 + r, n, N, S));
+  }
+}
+
+// e = h @ Wh + bh (h and Wh bf16, exact products, f32 sums), e /= ||e||
+// in f32, then e rounded to bf16 times the bf16 Gt, summed in f32; the
+// f32 head's lanes and order
+__global__ void __launch_bounds__(256) encoder_head_bf16_kernel(
+    const uint16_t* __restrict__ h, const uint16_t* __restrict__ wh,
+    const float* __restrict__ bh, const uint16_t* __restrict__ gt,
+    float* __restrict__ out, int M, int K, int E, int C) {
+  // Wh transposed to (E, K) and Gt (E, C), both in f32 (exact)
+  extern __shared__ __align__(16) float head_smem[];
+  float* wht_s = head_smem;
+  float* gt_s = head_smem + K * E;
+  for (int i = threadIdx.x; i < K * E; i += blockDim.x)
+    wht_s[(i % E) * K + i / E] = bf16_to_f32(wh[i]);
+  for (int i = threadIdx.x; i < E * C; i += blockDim.x)
+    gt_s[i] = bf16_to_f32(gt[i]);
+  wait_for_input();
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  for (long long r = (long long)blockIdx.x * warps + threadIdx.x / 32; r < M;
+       r += (long long)gridDim.x * warps) {
+    float e[kMaxE];
+#pragma unroll
+    for (int j = 0; j < kMaxE; ++j) e[j] = 0.0f;
+#pragma unroll 4
+    for (int k = lane; k < K; k += 32) {
+      const float x = bf16_to_f32(h[r * K + k]);
+#pragma unroll
+      for (int j = 0; j < kMaxE; ++j)
+        if (j < E) e[j] = fmaf(x, wht_s[j * K + k], e[j]);
+    }
+    float sq = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kMaxE; ++j) {
+      if (j < E) {
+        for (int off = 16; off > 0; off >>= 1)
+          e[j] += __shfl_xor_sync(0xffffffffu, e[j], off);
+        e[j] += bh[j];
+        sq = fmaf(e[j], e[j], sq);
+      }
+    }
+    const float norm = sqrtf(sq);
+#pragma unroll
+    for (int j = 0; j < kMaxE; ++j) e[j] = round_bf16(e[j] / norm);
+    for (int cls = lane; cls < C; cls += 32) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kMaxE; ++j)
+        if (j < E) acc = fmaf(e[j], gt_s[j * C + cls], acc);
+      out[r * C + cls] = acc;
+    }
+  }
+}
+
+// one bf16 layer, its input f32 (layer 0) or bf16, in the tiling `regime`
+template <typename In>
+cudaError_t bf16_layer(const In* h, const uint16_t* w, const float* b,
+                       const float* a, const float* c, uint16_t* out, int M,
+                       int K, int N, int S, int regime, int tiles_per_tick,
+                       int ticks, cudaStream_t stream) {
+  static size_t small_ok = 0, large_ok = 0;
+  cudaError_t err;
+  if (regime == 0) {
+    const size_t smem = small_bf16_smem<In>(K);
+    err = allow_smem((const void*)encoder_layer_small_bf16_kernel<In>, smem,
+                     &small_ok);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((N + kSN - 1) / kSN, (M + kSM - 1) / kSM);
+    err = launch(encoder_layer_small_bf16_kernel<In>, grid, 32, smem, stream,
+                 h, w, b, a, c, out, M, K, N, S);
+  } else {
+    const size_t smem = Bf16Large<In>::kSmem;
+    err = allow_smem((const void*)encoder_layer_large_bf16_kernel<In>, smem,
+                     &large_ok);
+    if (err != cudaSuccess) return err;
+    const long long blocks =
+        (long long)((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+    err = launch(encoder_layer_large_bf16_kernel<In>, dim3((unsigned)blocks),
+                 kThreads, smem, stream, h, w, b, a, c, out, M, K, N, S,
+                 tiles_per_tick, ticks);
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return err;
+}
+
+size_t head_bf16_allowed = 0;
+
 }  // namespace
 
 // The whole chain in one call. `layers`: per hidden layer j, the pointers
@@ -523,6 +917,70 @@ extern "C" int encoder_chain_launch(const void* const* layers,
   if (blocks > 132 * 8) blocks = 132 * 8;  // grid-stride over the rest
   err = launch(encoder_head_kernel, dim3((unsigned)blocks), threads, smem,
                stream, h, wh, bh, gt, scores, M, K, E, C);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return (int)err;
+}
+
+// The bf16 variant (see "bf16 variant" above): the same table, but every
+// w_j, Wh and Gt bf16 (uint16_t bits) and `scratch` 2 x M x max(N_j) bf16;
+// frames, biases, affines and scores f32. K_0 a multiple of 4, every other
+// width a multiple of 8. Returns as encoder_chain_launch.
+extern "C" int encoder_chain_bf16_launch(const void* const* layers,
+                                         const int* widths, int n_hidden,
+                                         const float* frames,
+                                         void* scratch_ptr, float* scores,
+                                         int M, int S, int regime,
+                                         void* stream_ptr) {
+  const cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (M <= 0) return (int)cudaSuccess;
+  const bool affine = layers[2] != nullptr;
+  if (S < 1 || (affine && M % S) || (regime != 0 && regime != 1))
+    return (int)cudaErrorInvalidValue;
+  long long max_n = 0;
+  for (int j = 0; j < n_hidden; ++j) {
+    if (widths[j] % (j == 0 ? 4 : 8) || widths[j + 1] % 8)
+      return (int)cudaErrorInvalidValue;
+    if ((layers[4 * j + 2] == nullptr) != !affine ||
+        (layers[4 * j + 3] == nullptr) != !affine)
+      return (int)cudaErrorInvalidValue;
+    if (widths[j + 1] > max_n) max_n = widths[j + 1];
+  }
+  const int tiles_per_tick = affine && S % kBM == 0 ? S / kBM : 0;
+  const int ticks = M / S;
+
+  uint16_t* scratch = static_cast<uint16_t*>(scratch_ptr);
+  const uint16_t* h = nullptr;
+  for (int j = 0; j < n_hidden; ++j) {
+    const int K = widths[j], N = widths[j + 1];
+    const uint16_t* w = static_cast<const uint16_t*>(layers[4 * j]);
+    const float* b = static_cast<const float*>(layers[4 * j + 1]);
+    const float* a = static_cast<const float*>(layers[4 * j + 2]);
+    const float* c = static_cast<const float*>(layers[4 * j + 3]);
+    uint16_t* out = scratch + (size_t)(j & 1) * (size_t)M * (size_t)max_n;
+    const cudaError_t err =
+        j == 0 ? bf16_layer(frames, w, b, a, c, out, M, K, N, S, regime,
+                            tiles_per_tick, ticks, stream)
+               : bf16_layer(h, w, b, a, c, out, M, K, N, S, regime,
+                            tiles_per_tick, ticks, stream);
+    if (err != cudaSuccess) return (int)err;
+    h = out;
+  }
+
+  const int K = widths[n_hidden], E = widths[n_hidden + 1],
+            C = widths[n_hidden + 2];
+  if (E > kMaxE) return (int)cudaErrorInvalidValue;
+  const uint16_t* wh = static_cast<const uint16_t*>(layers[4 * n_hidden]);
+  const float* bh = static_cast<const float*>(layers[4 * n_hidden + 1]);
+  const uint16_t* gt = static_cast<const uint16_t*>(layers[4 * n_hidden + 2]);
+  const size_t smem = sizeof(float) * ((size_t)K * E + (size_t)E * C);
+  cudaError_t err = allow_smem((const void*)encoder_head_bf16_kernel, smem,
+                               &head_bf16_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 256, rows_per_block = threads / 32;
+  long long blocks = ((long long)M + rows_per_block - 1) / rows_per_block;
+  if (blocks > 132 * 8) blocks = 132 * 8;  // grid-stride over the rest
+  err = launch(encoder_head_bf16_kernel, dim3((unsigned)blocks), threads,
+               smem, stream, h, wh, bh, gt, scores, M, K, E, C);
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

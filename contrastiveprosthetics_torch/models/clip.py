@@ -48,7 +48,8 @@ class ContrastiveModel(nn.Module):
                  conv_features: int = 64, prediction: bool = False,
                  glove: bool = False, glove_encoding: bool = False,
                  glove_dim: int = 20,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype = torch.float32):
         """Parameters are made on ``device`` (default the CPU) with
         torch's default init drawn from ``generator``, which must be on the
         same device (a fresh CPU ``torch.Generator`` seeded 0 when None).
@@ -58,16 +59,21 @@ class ContrastiveModel(nn.Module):
         tower's prediction head, or with ``glove`` from the glove-angle
         MLP; ``glove_encoding`` is contrastive with class embeddings from
         the glove-angle MLP. ``glove`` without ``prediction`` changes
-        nothing, as in JAX."""
+        nothing, as in JAX.
+
+        ``dtype`` is the EMG tower's compute dtype, f32 or bf16
+        (``clip.py:39,45-54``); parameters stay f32 and the class tower
+        computes in f32, as the JAX ``GLOVENet`` takes no dtype."""
         super().__init__()
         self.adabn = adabn
         self.n_classes = n_classes
         self.prediction = prediction
         self.glove = glove and prediction
         self.glove_encoding = glove_encoding and not prediction
+        self.dtype = dtype
         self.emg_net = EMGNet(d_e, emg_dim, adabn, n_linear, hidden,
                               conv_features, prediction, n_classes,
-                              device="meta")
+                              device="meta", dtype=dtype)
         mode = tower_mode(prediction, glove, glove_encoding)
         self.glove_net = GLOVENet(
             d_e, n_classes, mode, n_classes if prediction else d_e,

@@ -133,9 +133,12 @@ def from_flax_variables(params: Mapping[str, Any],
     one, and a glove-encoding class tower holds a BatchNorm. A tower the
     tree lacks is the idle one, kept at the port's init (a fresh
     ``ContrastiveModel`` seeded 0) at the ``ContrastiveModel`` ``widths``
-    given (its defaults otherwise). The dead entries of the one-hot layout
-    are synthesized as the JAX exporter does: ``glove_net.last.0.weight``
-    as zeros, ``logit_scale`` as 0.0, ``num_batches_tracked`` as int64 0.
+    given (its defaults otherwise; a ``dtype`` there changes no entry: the
+    state_dict is f32 in any compute dtype, which
+    :func:`model_from_state_dict` takes). The dead entries of the one-hot
+    layout are synthesized as the JAX exporter does:
+    ``glove_net.last.0.weight`` as zeros, ``logit_scale`` as 0.0,
+    ``num_batches_tracked`` as int64 0.
     """
     emg_p, glove_p = params.get("emg_net") or {}, params.get("glove_net") or {}
     stats = batch_stats or {}
@@ -208,9 +211,13 @@ def architecture(sd: Mapping[str, torch.Tensor]) -> dict:
     return arch
 
 
-def model_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ContrastiveModel:
-    """A ``ContrastiveModel`` with the architecture the keys imply, loaded
-    from ``sd`` with ``strict=True``."""
-    model = ContrastiveModel(**architecture(sd))
+def model_from_state_dict(sd: Mapping[str, torch.Tensor],
+                          dtype: torch.dtype = torch.float32
+                          ) -> ContrastiveModel:
+    """A ``ContrastiveModel`` with the architecture the keys imply and the
+    EMG tower's compute ``dtype`` (f32 or bf16: a state_dict carries f32
+    parameters and no compute dtype), loaded from ``sd`` with
+    ``strict=True``."""
+    model = ContrastiveModel(**architecture(sd), dtype=dtype)
     model.load_state_dict(sd, strict=True)
     return model

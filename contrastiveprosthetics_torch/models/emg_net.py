@@ -12,6 +12,11 @@ ReLU included, so the state_dict keys are the reference's
 (``train/torch_export.py:189-218`` of the JAX package). The dropout rate
 is a forward argument (the JAX package's ``RateDropout``), so one module
 trains at any rate.
+
+``dtype=torch.bfloat16`` is the JAX package's bf16 compute dtype
+(``models/emg_net.py:37-66``): parameters and running statistics stay
+f32, each Conv2d and Linear runs through ``layers.low_precision``, the
+BatchNorms take bf16 in and give bf16 out, and the output returns to f32.
 """
 from __future__ import annotations
 
@@ -19,9 +24,12 @@ import torch
 from torch import nn
 
 from contrastiveprosthetics_torch.models.layers import (
+    COMPUTE_DTYPES,
     AdaBN,
     BatchNorm,
     RateDropout,
+    at_least_f32,
+    low_precision,
     make_norm,
 )
 
@@ -30,9 +38,14 @@ class EMGNet(nn.Module):
     def __init__(self, d_e: int = 16, emg_dim: int = 12, adabn: bool = False,
                  n_linear: int = 7, hidden: int = 512,
                  conv_features: int = 64, prediction: bool = False,
-                 n_classes: int = 41, device=None):
+                 n_classes: int = 41, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute dtype {dtype}: want one of "
+                             f"{COMPUTE_DTYPES}")
         self.emg_dim = emg_dim
+        self.dtype = dtype
         F = conv_features
         self.conv_emg = nn.Sequential(
             nn.Conv2d(1, F, 3, padding=1, device=device),
@@ -70,16 +83,20 @@ class EMGNet(nn.Module):
                 dropout: float = 0.0,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """(rows, emg_dim) frames -> (rows, d_e) unnormalized embeddings
-        (the prediction head: (rows, n_classes) scores).
-        ``collect`` gathers each BatchNorm's batch statistics; in train
-        mode the dropout layers drop at rate ``dropout`` with masks drawn
-        from ``generator``."""
+        (the prediction head: (rows, n_classes) scores), f32 in a bf16
+        compute dtype, else in the parameters' dtype. ``collect`` gathers
+        each BatchNorm's batch statistics; in train mode the dropout
+        layers drop at rate ``dropout`` with masks drawn from
+        ``generator``."""
         x = frames.reshape(-1, 1, 1, self.emg_dim)
+        low = self.dtype != torch.float32
         for m in (*self.conv_emg, *self.linear, *self.last):
             if isinstance(m, (BatchNorm, AdaBN)):
                 x = m(x, collect)
             elif isinstance(m, RateDropout):
                 x = m(x, dropout, generator)
+            elif low and isinstance(m, (nn.Conv2d, nn.Linear)):
+                x = low_precision(m, x, self.dtype)
             else:
                 x = m(x)
-        return x
+        return at_least_f32(x)

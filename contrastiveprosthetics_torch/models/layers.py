@@ -20,13 +20,23 @@ the JAX package's flax BatchNorm does (``models/layers.py:91-113``):
 
 ``RateDropout`` takes its rate as a call argument and its keep mask from
 the caller's generator (the JAX package's ``models/layers.py:116-127``).
+
+A bfloat16 tower (``EMGNet(dtype=torch.bfloat16)``) rounds where flax's
+``dtype=bfloat16`` layers do, with parameters and running statistics in
+f32 (the JAX package's ``models/layers.py:47-113``): :func:`low_precision`
+runs a Conv2d or Linear, and ``BatchNorm`` takes its statistics and
+normalizes in f32 from a bf16 input and returns bf16 (flax 0.12.3's
+``_compute_stats`` and ``_normalize``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class BatchNorm(nn.Module):
@@ -53,19 +63,22 @@ class BatchNorm(nn.Module):
         return [1, -1] + [1] * (x.dim() - 2)
 
     def batch_stats(self, x: torch.Tensor):
-        """Per-channel (mean, biased var) of ``x``. flax takes
-        ``E[x^2] - E[x]^2`` with XLA's pairwise sums; PyTorch's CPU sum
-        over the row axis is sequential, so a few thousand rows lose
-        digits that way. One Welford pass keeps both within f32 roundoff
-        of the exact statistics."""
+        """Per-channel (mean, biased var) of ``x``, a bf16 ``x`` in f32
+        (flax promotes to at least f32). flax takes ``E[x^2] - E[x]^2``
+        with XLA's pairwise sums; PyTorch's CPU sum over the row axis is
+        sequential, so a few thousand rows lose digits that way. One
+        Welford pass keeps both within f32 roundoff of the exact
+        statistics."""
         dims = [0] + list(range(2, x.dim()))
-        var, mean = torch.var_mean(x, dim=dims, correction=0)
+        var, mean = torch.var_mean(at_least_f32(x), dim=dims, correction=0)
         return mean, var
 
     def normalize(self, x, mean, var) -> torch.Tensor:
+        """In f32 (a bf16 ``x`` promotes), returned in ``x``'s dtype."""
         shape = self._shape(x)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return ((x - mean.view(shape)) * mul.view(shape)
+                + self.bias.view(shape)).to(x.dtype)
 
     def forward(self, x: torch.Tensor, collect: list | None = None):
         """Batch statistics in train mode or without running stats,
@@ -116,6 +129,33 @@ class RateDropout(nn.Module):
         keep = 1.0 - rate
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
         return torch.where(mask, x / keep, 0.0)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` promoted to f32 if it is of a narrower float type (bf16), else
+    as it is (f32 and float64 keep their bits)."""
+    return x.float() if torch.finfo(x.dtype).bits < 32 else x
+
+
+def low_precision(layer: nn.Module, x: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """A ``Conv2d`` or ``Linear`` at compute dtype ``dtype``, as flax's
+    ``Conv``/``Dense`` with ``dtype=bfloat16`` and f32 parameters: input,
+    weight and bias cast to ``dtype``; the product (each product of two
+    bf16 values is exact in f32, the sums are f32) rounded to ``dtype``;
+    then the bias added in ``dtype``, a second rounding. Returns
+    ``dtype``."""
+    w = layer.weight.to(dtype).float()
+    x = x.to(dtype).float()
+    if isinstance(layer, nn.Conv2d):
+        y = F.conv2d(x, w, None, layer.stride, layer.padding)
+    else:
+        y = F.linear(x, w)
+    y = y.to(dtype)
+    if layer.bias is None:
+        return y
+    b = layer.bias.to(dtype)
+    return y + (b.view(1, -1, 1, 1) if y.dim() == 4 else b)
 
 
 def make_norm(num_features: int, adabn: bool, device=None) -> nn.Module:

@@ -14,7 +14,8 @@ Hopper (``csrc/``):
   shared memory by ``cp.async``, the frames taken by the whole CTA;
 * ``encoder_chain`` (:func:`fused_encoder_logits`): the folded encoder
   chain in 3xTF32 on the tensor cores, one host call that issues 9 layer
-  launches and 1 head launch;
+  launches and 1 head launch; on a bf16 fold its bf16 variant (counted
+  as ``encoder_chain_bf16``), one bf16 ``mma.sync`` pass a product;
 * ``vote_scan``: masked first-max prediction and the majority vote,
   parallel over (tick, session), and the masked scores where asked.
 
@@ -44,7 +45,9 @@ The folds (:func:`fold_encoder_params`, :func:`fold_encoder_params_shared`,
 :func:`session_bn_affines`) are plain torch on the weights, in the JAX
 package's layout: activations position-major (``p*F+c``), both convs as
 banded dense matrices, each BatchNorm affine absorbed into the following
-layer (``pallas_ops.py:280-397``).
+layer (``pallas_ops.py:280-397``). They fold in f32; with ``dtype=
+torch.bfloat16`` each weight matrix and ``Gt`` is then cast to bf16, the
+biases and the per-session affines stay f32 (``pallas_ops.py:318-322``).
 """
 from __future__ import annotations
 
@@ -58,7 +61,8 @@ from contrastiveprosthetics_torch.ops import _build
 
 NEG = torch.finfo(torch.float32).min  # the mask value of stream.py:268
 
-launch_counts = {"dsp_frames": 0, "encoder_chain": 0, "vote_scan": 0,
+launch_counts = {"dsp_frames": 0, "encoder_chain": 0,
+                 "encoder_chain_bf16": 0, "vote_scan": 0,
                  "iir_rms_frames": 0,
                  "contrastive_loss_fwd": 0, "contrastive_loss_bwd": 0,
                  "dense_block_fwd": 0, "dense_block_bwd": 0,
@@ -72,11 +76,18 @@ def reset_launch_counts() -> None:
 
 
 # ------------------------------------------------------------------ folds
+CHAIN_DTYPES = (torch.float32, torch.bfloat16)
+
+
 @torch.no_grad()
-def _fold_chain(emg_net, bn_affine, class_emb) -> tuple[torch.Tensor, ...]:
+def _fold_chain(emg_net, bn_affine, class_emb,
+                dtype) -> tuple[torch.Tensor, ...]:
     """EMGNet weights + a ``bn_affine(i) -> (a, c)`` policy -> the flat
     (A0, d0, ..., Ah, dh, Gt) chain; each BN affine goes into the next
-    layer's weights (``pallas_ops.py:280-323``). Biases are 1-D."""
+    layer's weights (``pallas_ops.py:280-323``), in f32; then the weights
+    and Gt are cast to ``dtype``. Biases are 1-D f32."""
+    if dtype not in CHAIN_DTYPES:
+        raise ValueError(f"fold dtype {dtype}: want one of {CHAIN_DTYPES}")
     conv1, conv2 = emg_net.conv_emg[0], emg_net.conv_emg[3]
     # only the middle kernel row touches the 1x12 image
     k1 = conv1.weight[:, 0, 1, :].T              # (3, F)
@@ -109,15 +120,17 @@ def _fold_chain(emg_net, bn_affine, class_emb) -> tuple[torch.Tensor, ...]:
     layers.append((a[:, None] * wh, c @ wh))
     flat = []
     for w, b in layers:
-        flat += [w.float().contiguous(), b.float().contiguous()]
-    flat.append(class_emb.T.float().contiguous())  # Gt: (d_e, n_classes)
+        flat += [w.float().to(dtype).contiguous(), b.float().contiguous()]
+    # Gt: (d_e, n_classes)
+    flat.append(class_emb.T.float().to(dtype).contiguous())
     return tuple(flat)
 
 
-def fold_encoder_params(emg_net, class_emb, *, eps: float = 1e-5):
+def fold_encoder_params(emg_net, class_emb, *, eps: float = 1e-5,
+                        dtype: torch.dtype = torch.float32):
     """EMGNet (running statistics absorbed) + normalized class embeddings
-    -> the chain :func:`fused_encoder_logits` takes
-    (``pallas_ops.py:326-351``)."""
+    -> the chain :func:`fused_encoder_logits` takes, its weights in
+    ``dtype`` (``pallas_ops.py:326-351``)."""
     norms = emg_net.norms()
 
     def bn_affine(i):
@@ -125,19 +138,21 @@ def fold_encoder_params(emg_net, class_emb, *, eps: float = 1e-5):
         a = bn.weight / torch.sqrt(bn.running_var + eps)
         return a, bn.bias - bn.running_mean * a
 
-    return _fold_chain(emg_net, bn_affine, class_emb)
+    return _fold_chain(emg_net, bn_affine, class_emb, dtype)
 
 
-def fold_encoder_params_shared(emg_net, class_emb):
-    """The BN-free chain shared by every session of the batched engine; the
-    per-session statistics come as :func:`session_bn_affines`
-    (``pallas_ops.py:354-368``)."""
+def fold_encoder_params_shared(emg_net, class_emb, *,
+                               dtype: torch.dtype = torch.float32):
+    """The BN-free chain shared by every session of the batched engine, its
+    weights in ``dtype``; the per-session statistics come as
+    :func:`session_bn_affines`, f32 in any dtype (``pallas_ops.py:354-368``).
+    """
     norms = emg_net.norms()
 
     def identity(i):
         return torch.ones_like(norms[i].weight), torch.zeros_like(norms[i].bias)
 
-    return _fold_chain(emg_net, identity, class_emb)
+    return _fold_chain(emg_net, identity, class_emb, dtype)
 
 
 @torch.no_grad()
@@ -204,8 +219,9 @@ def _fn(name: str):
     """The C launcher ``name`` with its ctypes signature: pointers, ints,
     an optional float, then the stream; returns the cudaError_t."""
     if name not in _fns:
-        if name == "encoder_chain":  # the layer table, then as above
-            fn = _build.load(name).encoder_chain_launch
+        if name in ("encoder_chain", "encoder_chain_bf16"):
+            # the layer table, then as below
+            fn = getattr(_build.load("encoder_chain"), name + "_launch")
             fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p),
                             ctypes.POINTER(ctypes.c_int), ctypes.c_int]
                            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -424,22 +440,35 @@ def fadd_latency_cycles(device, n: int = 1 << 16) -> float:
 
 
 # ----------------------------------------------------------- encoder_chain
+def _dot(h, w):
+    """``h @ w`` as the JAX package's ``_dot_f32`` (``pallas_ops.py:400-404``):
+    on a bf16 weight, ``h`` rounded to bf16 and the product summed in the
+    activations' precision (each product of two bf16 values is exact in f32
+    and in TF32, so TF32 matmuls change no product); else plain."""
+    if w.dtype == torch.bfloat16:
+        return h.to(torch.bfloat16).to(h.dtype) @ w.to(h.dtype)
+    return h @ w
+
+
 def fused_encoder_logits_reference(frames, folded, affines=None):
     """Plain version of ``encoder_chain``: (N, emg_dim) frames -> (N,
     n_classes) scores. With ``affines`` (the batched engine), rows are
     (tick, session) ordered and row r takes session r % S's affine after
-    each hidden layer's ReLU."""
+    each hidden layer's ReLU. On a bf16 fold each dot rounds its
+    activations to bf16 (:func:`_dot`); bias, ReLU, affine and the norm of
+    ``e`` stay in the frames' precision (f32, or float64 given float64
+    frames and biases)."""
     *ws, gt = folded
     h = frames
     for j in range(0, len(ws) - 2, 2):
-        h = torch.relu(h @ ws[j] + ws[j + 1])
+        h = torch.relu(_dot(h, ws[j]) + ws[j + 1])
         if affines is not None:
             a, c = affines[j], affines[j + 1]
             S = a.shape[0]
             h = (h.view(-1, S, h.shape[1]) * a + c).view(-1, h.shape[1])
-    e = h @ ws[-2] + ws[-1]
+    e = _dot(h, ws[-2]) + ws[-1]
     e = e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
-    return e @ gt
+    return _dot(e, gt)
 
 
 # Calls of at most this many rows run the small-row tiling (16-row tiles,
@@ -447,23 +476,31 @@ def fused_encoder_logits_reference(frames, folded, affines=None):
 # a row the same bits. Fixed where chip_smoke.py's timing of both tilings
 # crosses on an H100 (between 640 and 768 rows, PERF.md).
 ENCODER_SMALL_ROWS = 640
+# the bf16 variant's: its tilings cross between 256 and 512 rows, and read
+# the same at 384 (chip_smoke.py phase 13 on an H100, PERF.md)
+ENCODER_SMALL_ROWS_BF16 = 384
 ENCODER_MAX_K = 2048  # the small tiling stages a 16-row A and K x 8 of W
 ENCODER_MAX_E = 32    # the head's embedding width held per lane
 
 
-def encoder_regime(M: int) -> int:
-    """The tiling ``encoder_chain`` runs ``M`` rows with: 0 small, 1 large."""
-    return 0 if M <= ENCODER_SMALL_ROWS else 1
+def encoder_regime(M: int, dtype: torch.dtype = torch.float32) -> int:
+    """The tiling ``encoder_chain`` runs ``M`` rows of a ``dtype`` chain
+    with: 0 small, 1 large."""
+    small = (ENCODER_SMALL_ROWS_BF16 if dtype == torch.bfloat16
+             else ENCODER_SMALL_ROWS)
+    return 0 if M <= small else 1
 
 
 class EncoderPlan:
     """A folded chain (and per-session affines) checked once for the
     ``encoder_chain`` kernels, with its launch table: the layer pointers and
-    widths as ctypes arrays. Holds its tensors by weak reference."""
+    widths as ctypes arrays, and the chain's dtype (f32 or bf16), which
+    picks the kernel variant. Holds its tensors by weak reference."""
 
     def __init__(self, folded, affines, device, tensors, widths):
         self.refs = tuple(weakref.ref(t) for t in (*folded, *(affines or ())))
         self.device = device
+        self.dtype = folded[0].dtype
         self.n_hidden = len(widths) - 3
         self.S = affines[0].shape[0] if affines is not None else 1
         self.widths = tuple(widths)
@@ -478,8 +515,9 @@ class EncoderPlan:
                 and all(r() is t for r, t in zip(self.refs, tensors)))
 
 
-def _expect_aligned(name: str, t: torch.Tensor, shape, device) -> None:
-    _expect(name, t, shape, torch.float32, device)
+def _expect_aligned(name: str, t: torch.Tensor, shape, device,
+                    dtype: torch.dtype = torch.float32) -> None:
+    _expect(name, t, shape, dtype, device)
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: not 16-byte aligned")
 
@@ -488,9 +526,11 @@ def encoder_plan(folded, affines=None) -> EncoderPlan:
     """Check ``folded`` (and ``affines``) for the ``encoder_chain`` kernels
     and build their launch table; raises ``ValueError`` on what the
     kernels do not take: a shape, dtype, device or layout that does not
-    chain, a hidden width that is not a multiple of 4 (rows of 16 bytes),
-    a pointer that is not 16-byte aligned, K above ``ENCODER_MAX_K`` or E
-    above ``ENCODER_MAX_E``."""
+    chain, a hidden width that is not a multiple of 4 (8 in a bf16 chain:
+    rows of 16 bytes), a pointer that is not 16-byte aligned, K above
+    ``ENCODER_MAX_K`` or E above ``ENCODER_MAX_E``. A chain's weights and
+    Gt are all f32 or all bf16 (the dtype of the first weight); its
+    biases and affines are f32 in both."""
     *ws, gt = folded
     n_hidden = (len(ws) - 2) // 2
     if len(ws) % 2 or n_hidden < 1:
@@ -499,16 +539,22 @@ def encoder_plan(folded, affines=None) -> EncoderPlan:
     if affines is not None and len(affines) != 2 * n_hidden:
         raise ValueError(f"{len(affines)} affines for {n_hidden} layers")
     dev = gt.device
+    wt = ws[0].dtype
+    if wt not in CHAIN_DTYPES:
+        raise ValueError(f"w0: dtype {wt}, want one of {CHAIN_DTYPES}")
+    vec = 8 if wt == torch.bfloat16 else 4  # elements in 16 bytes
     S = affines[0].shape[0] if affines is not None else 1
     K = ws[0].shape[0]
     widths, tensors = [K], []
     for j in range(n_hidden):
         w, b = ws[2 * j], ws[2 * j + 1]
         N = w.shape[-1]
-        if K % 4 or N % 4 or K > ENCODER_MAX_K:
+        # the first layer reads f32 frames, every later one the scratch
+        if K % (4 if j == 0 else vec) or N % vec or K > ENCODER_MAX_K:
             raise ValueError(f"layer {j}: K={K}, N={N}; the kernels take "
-                             f"multiples of 4 and K <= {ENCODER_MAX_K}")
-        _expect_aligned(f"w{j}", w, (K, N), dev)
+                             f"multiples of {vec} (the frames' K: of 4) and "
+                             f"K <= {ENCODER_MAX_K}")
+        _expect_aligned(f"w{j}", w, (K, N), dev, wt)
         _expect_aligned(f"b{j}", b, (N,), dev)
         a = c = None
         if affines is not None:
@@ -523,9 +569,9 @@ def encoder_plan(folded, affines=None) -> EncoderPlan:
     if E > ENCODER_MAX_E or E % 4:
         raise ValueError(f"embedding width {E}: the head takes multiples of "
                          f"4 up to {ENCODER_MAX_E}")
-    _expect_aligned("wh", wh, (K, E), dev)
+    _expect_aligned("wh", wh, (K, E), dev, wt)
     _expect("bh", bh, (E,), torch.float32, dev)
-    _expect("gt", gt, (E, C), torch.float32, dev)
+    _expect("gt", gt, (E, C), wt, dev)
     return EncoderPlan(folded, affines, dev, tensors + [wh, bh, gt],
                        widths + [E, C])
 
@@ -545,8 +591,10 @@ def _plan_for(folded, affines) -> EncoderPlan:
 
 
 def encoder_chain(frames, plan: EncoderPlan, regime: int) -> torch.Tensor:
-    """One ``encoder_chain_launch`` call on ``frames`` (M, K_0): every
-    layer launch and the head launch, in the tiling ``regime``."""
+    """One ``encoder_chain_launch`` call on ``frames`` (M, K_0) f32, or
+    ``encoder_chain_bf16_launch`` for a bf16 plan: every layer launch and
+    the head launch, in the tiling ``regime``. The bf16 variant keeps the
+    activations between layers in a bf16 scratch."""
     M = frames.shape[0]
     _expect_aligned("frames", frames, (M, plan.widths[0]), plan.device)
     if M % plan.S:
@@ -555,28 +603,30 @@ def encoder_chain(frames, plan: EncoderPlan, regime: int) -> torch.Tensor:
                          device=plan.device)
     if M == 0:
         return scores
-    scratch = torch.empty((2, M, plan.max_n), dtype=torch.float32,
+    name = ("encoder_chain_bf16" if plan.dtype == torch.bfloat16
+            else "encoder_chain")
+    scratch = torch.empty((2, M, plan.max_n), dtype=plan.dtype,
                           device=plan.device)
-    rc = _fn("encoder_chain")(plan.table, plan.dims, plan.n_hidden,
-                              frames.data_ptr(), scratch.data_ptr(),
-                              scores.data_ptr(), M, plan.S, regime,
-                              _stream(plan.device))
+    rc = _fn(name)(plan.table, plan.dims, plan.n_hidden, frames.data_ptr(),
+                   scratch.data_ptr(), scores.data_ptr(), M, plan.S, regime,
+                   _stream(plan.device))
     if rc != 0:
-        raise RuntimeError(f"encoder_chain kernel launch failed: cudaError "
-                           f"{rc}")
-    launch_counts["encoder_chain"] += plan.n_hidden + 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    launch_counts[name] += plan.n_hidden + 1
     return scores
 
 
 def fused_encoder_logits(frames, folded, affines=None):
     """The ``encoder_chain`` kernels (see
     :func:`fused_encoder_logits_reference`): one host call launches one
-    3xTF32 tensor-core layer kernel per hidden layer and the head, in the
-    tiling :func:`encoder_regime` picks from the row count."""
+    tensor-core layer kernel per hidden layer and the head, in the tiling
+    :func:`encoder_regime` picks from the row count; 3xTF32 on an f32
+    chain, one bf16 pass on a bf16 chain."""
     if frames.device.type == "cpu":
         return fused_encoder_logits_reference(frames, folded, affines)
-    return encoder_chain(frames, _plan_for(folded, affines),
-                         encoder_regime(frames.shape[0]))
+    plan = _plan_for(folded, affines)
+    return encoder_chain(frames, plan,
+                         encoder_regime(frames.shape[0], plan.dtype))
 
 
 # --------------------------------------------------------------- vote_scan

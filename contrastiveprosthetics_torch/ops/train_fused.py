@@ -42,7 +42,8 @@ eps)``, running averages with momentum 0.9 and the biased variance.
 Gradients flow through the batch statistics inside the backward, and the
 chain's (means, variances) outputs take none.
 
-Only f32 runs here; other compute dtypes raise.
+Only f32 runs here; other compute dtypes raise (bf16 training is ROADMAP
+queue 1 item 9b).
 """
 from __future__ import annotations
 
@@ -68,7 +69,7 @@ DGRAD_TILES = ((32, 64), (32, 32))
 FWD_TILING, BWD_TILING = 0, 0
 MOMENTUM = 0.9  # flax's BatchNorm momentum (layers.update_running)
 F32_ONLY = ("the fused training chain runs in float32 only; a bf16 compute "
-            "dtype is ROADMAP.md queue 1 item 9")
+            "dtype is ROADMAP.md, queue 1 item 9b (bf16 training)")
 
 
 def keep_threshold(keep) -> torch.Tensor:

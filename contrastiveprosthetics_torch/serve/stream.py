@@ -15,8 +15,14 @@ The single-session engine folds its (calibrated) BatchNorm statistics into
 the weight chain; the batched engine keeps per-session statistics over one
 shared BN-free chain and applies them as per-session affines.
 
-Left out against the JAX engines: the mesh (session axis over chips), the
-TPU's VMEM session-block census and its compile probe, and bf16 folds.
+Both fold in the model's compute dtype (JAX ``serve/stream.py:203,526``): a
+bf16 model (``ContrastiveModel(dtype=torch.bfloat16)``) gives bf16 weight
+chains, which run ``encoder_chain``'s bf16 variant, and calibrates through
+its bf16 tower; the DSP, the affines and the vote stay f32, as in the JAX
+tick, where only the dots take the folds' dtype.
+
+Left out against the JAX engines: the mesh (session axis over chips), and
+the TPU's VMEM session-block census and its compile probe.
 """
 from __future__ import annotations
 
@@ -47,7 +53,9 @@ def recalibrate_batch_stats(model: ContrastiveModel, frames: torch.Tensor,
                             stats=None, passes: int = 40):
     """Online AdaBN: re-estimate every BatchNorm's running statistics from
     preprocessed calibration ``frames`` (T, emg_dim)
-    (``serve/stream.py:74-93`` of the JAX package).
+    (``serve/stream.py:53-93`` of the JAX package), through the model's
+    compute dtype: a bf16 tower gives the statistics of JAX's bf16
+    ``_calibration_pass``.
 
     The JAX version iterates ``passes`` train-mode forwards, each moving
     the running averages toward the batch (flax momentum 0.9, biased
@@ -110,7 +118,11 @@ class StreamingEngine:
         self._std = torch.as_tensor(np.asarray(emg_std, np.float32), **f32)
         with torch.no_grad():
             self._class_emb = self.model.encode_classes()
-        self._folded = fold_encoder_params(self.model.emg_net, self._class_emb)
+        self._folded = self._fold()
+
+    def _fold(self) -> tuple[torch.Tensor, ...]:
+        return fold_encoder_params(self.model.emg_net, self._class_emb,
+                                   dtype=self.model.dtype)
 
     @property
     def folded_chain(self) -> tuple[torch.Tensor, ...]:
@@ -188,7 +200,7 @@ class StreamingEngine:
         for bn, (mean, var) in zip(self.model.emg_net.norms(), new_stats):
             bn.running_mean.copy_(mean)
             bn.running_var.copy_(var)
-        self._folded = fold_encoder_params(self.model.emg_net, self._class_emb)
+        self._folded = self._fold()
 
     def run(self, raw: np.ndarray, subset_mask=None):
         """Stream a whole recording (T, emg_dim) through :meth:`steps`;
@@ -212,8 +224,8 @@ class BatchedStreamingEngine:
         self.cfg = cfg
         self._single = StreamingEngine(cfg, model, emg_mean, emg_std)
         emg_net = self._single.model.emg_net
-        self._shared = fold_encoder_params_shared(emg_net,
-                                                  self._single._class_emb)
+        self._shared = fold_encoder_params_shared(
+            emg_net, self._single._class_emb, dtype=self._single.model.dtype)
         S = n_sessions
         self._stats = [(bn.running_mean.expand(S, -1).clone(),
                         bn.running_var.expand(S, -1).clone())

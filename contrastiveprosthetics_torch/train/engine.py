@@ -221,14 +221,26 @@ def adam_step_(params, grads, state: AdamState, lr: float | torch.Tensor,
     torch._foreach_sub_(params, update)
 
 
+BF16_TRAINING = ("a bf16 model: bfloat16 training and evaluation are not "
+                 "ported to the PyTorch package yet (ROADMAP.md, queue 1 "
+                 "item 9b (bf16 training)); train and evaluate in float32, "
+                 "and serve in bf16 with cptorch-serve --bf16")
+
+
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and BatchNorm running statistics) and the two
-    Adam chains, over ``model.towers()``."""
+    Adam chains, over ``model.towers()``. The model computes in f32: every
+    step and evaluation of a ``Trainer`` takes one, so a bf16 model is
+    refused here, the fused encoder's evaluation included."""
 
     model: ContrastiveModel
     opt_emg: AdamState
     opt_glove: AdamState
+
+    def __post_init__(self):
+        if getattr(self.model, "dtype", torch.float32) != torch.float32:
+            raise ValueError(BF16_TRAINING)
 
     @classmethod
     def fresh(cls, model: ContrastiveModel) -> "TrainState":

@@ -12,7 +12,12 @@ warp-collective exchanges of 32-bit values (the whole warp takes part, as
 the full mask says), ``__syncwarp`` as a warp
 barrier, thread-block clusters as their CTAs run at once with a barrier
 across them and each other's shared memory mapped (``cooperative_groups``
-``this_cluster``, launched by ``cudaLaunchKernelEx``), ``cp.async`` as a
+``this_cluster``, launched by ``cudaLaunchKernelEx``), ``mma.sync``
+m16n8k16 with bf16 operands the same way (each output's sixteen exact
+products summed in float64) and the f32 -> bf16 conversion
+(``cvt.rn.bf16x2.f32``) as round to nearest even on the bit pattern,
+programmatic dependent launch as plain ordering (a launch runs to its end
+before the next starts, so ``griddepcontrol`` is dropped), ``cp.async`` as a
 synchronous 16-byte copy (zeros past the edges), atomics (on 32-bit ints,
 global or shared) as host atomics. A kernel's static ``__shared__`` arrays
 become function statics, which the CTAs share one after another.
@@ -214,10 +219,16 @@ void emu_launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   emu_run(kernel, grid, threads, smem, 1, args...);
 }
 
-enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+enum cudaLaunchAttributeID {
+  cudaLaunchAttributeProgrammaticStreamSerialization = 3,
+  cudaLaunchAttributeClusterDimension = 4
+};
 struct cudaLaunchAttribute {
   cudaLaunchAttributeID id;
-  struct { struct { unsigned x, y, z; } clusterDim; } val;
+  struct {
+    struct { unsigned x, y, z; } clusterDim;
+    int programmaticStreamSerializationAllowed;
+  } val;
 };
 struct cudaLaunchConfig_t {
   dim3 gridDim, blockDim;
@@ -284,6 +295,15 @@ inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                      uint32_t b1) {
   emu_mma(d, a, b0, b1);
 }
+inline void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
+                       const uint32_t (&a_small)[4], uint32_t b_big0,
+                       uint32_t b_big1, uint32_t b_small0, uint32_t b_small1) {
+  float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(p, a_small, b_big0, b_big1);
+  mma_tf32(p, a_big, b_small0, b_small1);
+  mma_tf32(p, a_big, b_big0, b_big1);
+  for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], p[i]);
+}
 inline void cp_async16(void* smem, const void* gmem, bool valid) {
   if (valid) std::memcpy(smem, gmem, 16); else std::memset(smem, 0, 16);
 }
@@ -291,6 +311,59 @@ inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
 inline float select_f32(bool p, float a, float b) { return p ? a : b; }
 inline float in_register(float v) { return v; }
+}  // namespace
+"""
+
+BF16_MMA = r"""
+#pragma once
+#include <stdint.h>
+namespace {
+// f32 -> bf16, round to nearest even on the bit pattern (NaN kept quiet)
+inline uint32_t bf16_rn(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return (u >> 16) | 0x40u;
+  return (u + 0x7FFFu + ((u >> 16) & 1u)) >> 16;
+}
+inline uint32_t pack_bf16x2(float lo, float hi) {
+  return bf16_rn(lo) | (bf16_rn(hi) << 16);
+}
+inline float bf16_to_f32(uint32_t u) { return __uint_as_float(u << 16); }
+inline float round_bf16(float x) { return bf16_to_f32(bf16_rn(x)); }
+// mma.sync.m16n8k16 .row.col .bf16 on the warp's fragments (PTX ISA
+// layouts): each output's sixteen products summed in float64 onto d
+inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                     uint32_t b1) {
+  const int lane = threadIdx.x & 31;
+  Warp& w = (*g_warps)[threadIdx.x >> 5];
+  for (int q = 0; q < 4; ++q) {
+    w.a[lane][q] = __uint_as_float(a[q]);
+    w.c[lane][q] = d[q];
+  }
+  w.b[lane][0] = __uint_as_float(b0);
+  w.b[lane][1] = __uint_as_float(b1);
+  w.bar->arrive_and_wait();
+  const int g = lane >> 2, t = lane & 3;
+  auto half = [](float word, int k) {  // element k & 1 of a bf16x2 word
+    return (double)bf16_to_f32((__float_as_uint(word) >> (16 * (k & 1))) &
+                               0xFFFFu);
+  };
+  float out[4];
+  for (int q = 0; q < 4; ++q) {
+    const int row = g + 8 * (q >= 2), col = 2 * t + (q & 1);
+    double s = w.c[lane][q];
+    for (int k = 0; k < 16; ++k) {
+      // A: register (row >= 8) + 2 (k >= 8) of lane (row % 8) * 4 + k % 8 / 2
+      const float aw =
+          w.a[(row % 8) * 4 + (k % 8) / 2][(row >= 8) + 2 * (k >= 8)];
+      // B: register (k >= 8) of lane col * 4 + k % 8 / 2
+      const float bw = w.b[col * 4 + (k % 8) / 2][k >= 8];
+      s += half(aw, k) * half(bw, k);
+    }
+    out[q] = (float)s;
+  }
+  w.bar->arrive_and_wait();
+  for (int q = 0; q < 4; ++q) d[q] = out[q];
+}
 }  // namespace
 """
 
@@ -303,6 +376,9 @@ def _translate(src: str) -> str:
     src = src.replace("#include <curand_philox4x32_x.h>", "")
     src = src.replace("#include <cooperative_groups.h>", "")
     src = src.replace('#include "tf32_mma.cuh"', '#include "emu_tf32_mma.h"')
+    src = src.replace('#include "bf16_mma.cuh"', '#include "emu_bf16_mma.h"')
+    src = re.sub(r'asm volatile\("griddepcontrol\.\w+;\\n" ::: "memory"\);',
+                 "", src)
     src = re.sub(r"extern __shared__ __align__\(16\) float (\w+)\[\];",
                  r"float* \1 = emu_smem;", src)
     launch = r"(\w+(?:<[^<>;]*>)?)\s*<<<([^;]*?)>>>\s*\("
@@ -317,12 +393,14 @@ def compiler() -> str | None:
 def build(name: str, out_dir: Path) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` for the CPU emulation and load it."""
     src = _translate((_build.SRC_DIR / f"{name}.cu").read_text())
-    digest = hashlib.sha256((src + RUNTIME + TF32_MMA).encode()).hexdigest()
+    digest = hashlib.sha256((src + RUNTIME + TF32_MMA + BF16_MMA).encode()
+                            ).hexdigest()
     lib = out_dir / f"lib{name}_emulated-{digest[:16]}.so"
     if not lib.exists():
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
             (Path(tmp) / "emu_runtime.h").write_text(RUNTIME)
             (Path(tmp) / "emu_tf32_mma.h").write_text(TF32_MMA)
+            (Path(tmp) / "emu_bf16_mma.h").write_text(BF16_MMA)
             cpp = Path(tmp) / f"{name}.cpp"
             cpp.write_text(src)
             so = Path(tmp) / lib.name

@@ -167,6 +167,49 @@ def test_encoder_chain_both_tilings_agree_on_ragged_sessions(cuda, S, ticks):
                        small[:S])
 
 
+def _bf16(chain):
+    """A fold's weights and Gt in bf16 (the biases stay f32)."""
+    return tuple(t.to(torch.bfloat16) if i % 2 == 0 or i == len(chain) - 1
+                 else t for i, t in enumerate(chain))
+
+
+@pytest.mark.parametrize("width", ["narrow", "full"])
+@pytest.mark.parametrize("with_affines", [False, True])
+def test_encoder_chain_bf16_kernel_matches_plain(cuda, with_affines, width):
+    """The bf16 variant at M = 1, 16, 200, its regime threshold -+ 1 and
+    32,768 rows: within atol 0.05 of the plain bf16 version (chip_smoke.py's
+    BF16_ATOL: the same bf16 roundings, f32 sums in another order), only
+    the bf16 variant launched, one launch per layer and the head, a rerun
+    and each smaller call's rows bit-identical, and both tilings the same
+    bits."""
+    thr = K.ENCODER_SMALL_ROWS_BF16
+    ladder = sorted({1, 16, 200, thr - 1, thr + 1, 32768})
+    folded, shared, affines = _encoder_chains(cuda, width, ladder[-1])
+    folded, shared = _bf16(folded), _bf16(shared)
+    frames = _frames(cuda, ladder[-1])
+    launches = (len(folded) - 1) // 2
+    prev = None
+    for M in ladder:
+        chain, aff = ((shared, tuple(a[:M] for a in affines)) if with_affines
+                      else (folded, None))
+        before = dict(K.launch_counts)
+        got = K.fused_encoder_logits(frames[:M], chain, aff)
+        want = K.fused_encoder_logits_reference(frames[:M], chain, aff)
+        torch.cuda.synchronize()
+        assert K.launch_counts["encoder_chain_bf16"] == \
+            before["encoder_chain_bf16"] + launches
+        assert K.launch_counts["encoder_chain"] == before["encoder_chain"]
+        torch.testing.assert_close(got, want, rtol=0, atol=5e-2)
+        assert torch.equal(K.fused_encoder_logits(frames[:M], chain, aff),
+                           got)
+        if prev is not None:
+            assert torch.equal(got[:len(prev)], prev)
+        prev = got
+        plan = K.encoder_plan(chain, aff)
+        assert torch.equal(K.encoder_chain(frames[:M], plan, 0),
+                           K.encoder_chain(frames[:M], plan, 1))
+
+
 def test_encoder_chain_rejects_bad_inputs(cuda):
     """A misaligned, non-contiguous or ragged input raises before any
     launch, never faults or falls back."""

@@ -118,13 +118,29 @@ def test_cli_default_platform_needs_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,match", [
-    ("--spmd", r"queue 1 item 8\)"), ("--bf16", r"queue 1 item 9\)"),
+    ("--spmd", r"queue 1 item 8\)"),
     ("--no_fused_encoder", "one encoder path")])
 def test_cli_serve_jax_flags_exit_with_their_reason(flag, match):
     """The JAX serve CLI's flags that the port does not run exit, naming
     the ROADMAP item or the reason, before a device is chosen."""
     with pytest.raises(SystemExit, match=match):
         port_serve.main(["--demo", "--platform", "cpu", "--quiet", flag])
+
+
+@pytest.mark.parametrize("extra,shape", [
+    ([], (1, 20)), (["--sessions", "2", "--replay"], (2, 20))])
+def test_cli_serve_bf16_serves(tmp_path, extra, shape):
+    """``--bf16`` serves per tick and batched in one replay, in bfloat16
+    compute (the JAX package's ``test_cli.py:270-282``), with outputs
+    inside the subset."""
+    out = tmp_path / "bf16.npz"
+    assert port_serve.main(["--demo", "--platform", "cpu", "--bf16",
+                            "--seconds", "0.2", "--subset", "2,4",
+                            "--quiet", "--out", str(out), *extra]) == 0
+    with np.load(out) as z:
+        assert z["preds"].shape == z["votes"].shape == shape
+        assert set(np.unique(z["preds"])) <= {2, 4}
+        assert set(np.unique(z["votes"])) <= {2, 4}
 
 
 def test_cli_serve_fused_encoder_is_a_no_op(tmp_path):

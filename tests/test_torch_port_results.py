@@ -461,8 +461,8 @@ def test_cli_fused_encoder_with_a_sweep_is_not_ported(tmp_path):
 
 def test_cli_results_rejects_unported_modes(tmp_path):
     """The modes (item 7) run (``test_torch_port_modes.py``); bfloat16
-    compute (item 9) still exits NOT_PORTED, in any mode."""
-    with pytest.raises(SystemExit, match="ROADMAP.md, queue 1 item 9"):
+    training and evaluation (item 9b) still exit NOT_PORTED, in any mode."""
+    with pytest.raises(SystemExit, match=r"ROADMAP.md, queue 1 item 9b\)"):
         cli_results.main(["--prediction", "--bf16", "--platform", "cpu"])
 
 

@@ -599,10 +599,12 @@ def test_cli_unported_requests_name_the_roadmap(tmp_path, argv):
                         str(tmp_path)])
 
 
-@pytest.mark.parametrize("flag,item", [("--bf16", 9), ("--profile", 10)])
+@pytest.mark.parametrize("flag,item", [
+    pytest.param("--bf16", "9b", id="--bf16-9"), ("--profile", 10)])
 def test_cli_jax_flags_name_their_item(tmp_path, flag, item):
     """The JAX CLI's flags that the port does not run yet exit NOT_PORTED
-    with their own ROADMAP item, before any store is built."""
+    with their own ROADMAP item, before any store is built: bf16 training
+    is item 9b (its serving half, 9a, runs in ``cptorch-serve --bf16``)."""
     with pytest.raises(SystemExit, match=f"queue 1 item {item}\\)"):
         cli_train.main([flag, "--platform", "cpu", "--data_dir",
                         str(tmp_path)])
