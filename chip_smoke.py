@@ -2,7 +2,8 @@
 """Chip smoke test of the PyTorch/CUDA port: the streaming serve path and
 its calibration, contrastive training, training on the fused chain, the
 crossval sweep, the evaluation and results path, ingest from raw ``.mat``
-files, the softmax baseline and glove modes, and bfloat16 serving.
+files, the softmax baseline and glove modes, bfloat16 serving and
+bfloat16 training.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
@@ -169,13 +170,33 @@ made with numpy from a seed:
    the plain version away from near-ties, timed, traced, one live
    ``step``; one timed replay at 65,536 sessions; the share of preds equal
    to phase 4's f32 engine's; ``cptorch-serve --bf16`` per tick and
-   ``--sessions 64 --replay``.
+   ``--sessions 64 --replay``;
+14. bfloat16 training (``cptorch-train --bf16``) on phase 7's store at
+   full width, bs 8: the bf16 variants of K5f, K5b and the tail pair
+   (``*_bf16``: bf16 x, W, r, dz, dx, h; f32 statistics, sums, dW, db)
+   against their plain versions at N=328 and 123, block 0's 768 inputs
+   and an inner dropped block's 512 (rtol and atol 0.05 on r and dx, the
+   f32 K5b's tolerance on dW, db and the sums, the tail bit for bit),
+   reruns, both tilings, both weight layouts and replayed masks
+   bit-identical, against float64 on the same bf16 operands no worse than
+   the plain versions, each timed in turns with the f32 kernel beside its
+   bound at the bf16 peak and the cuBLAS bf16 GEMMs; ``train_loop`` for 2
+   annealed epochs eager and on the fused chain (test accuracy above 0.5;
+   the fused run 7 launches of each bf16 K5 variant a step and one of each
+   bf16 tail kernel, the f32 ones never, the eager run none); 50 steps of
+   the f32 and the bf16 paths, eager and fused, in turns; traces of 20 bf16 steps each way;
+   a stacked bf16 step of 2 configs against their single steps;
+   ``cross_validate`` of the CLI's default 10 configs in bf16; the fused
+   bf16 state's test pass unfused and on the fused encoder
+   (``encoder_chain_bf16`` 10 launches a batch); ``cptorch-train --bf16``
+   and ``cptorch-results`` with and without ``--bf16``.
 
 Launch counts are reset just before the calibration, phases 3, 4, 7's and
 8's ``train_loop``, 9's ``cross_validate``, 10's test and val passes,
 11's ``cptorch-load`` and 12's ``train_loop`` runs (read again after each
 run's test pass) and ``cross_validate``, 13's calibration, ``step`` loop,
-``steps``, batched replays and CLI runs, and read just after each (phase
+``steps``, batched replays and CLI runs, 14's ``train_loop`` runs,
+sweep and test passes, and read just after each (phase
 3's after its ``step`` loop and after its ``steps`` call); every serve
 kernel must have launched on each of the three serve paths,
 ``iir_rms_frames`` once per calibration recording and once per ingested
@@ -186,7 +207,9 @@ of both glove-encoding runs and per stacked step of their sweep and never
 in the baseline, the chain's kernels as its depth says in the fused run,
 and ``encoder_chain`` never; in 13 the bf16 variant on every path and
 the f32 one on none, and the bf16 variant never in phases 1-12 (its
-launches summed across every reset there). TF32
+launches summed across every reset there); in 14 the bf16 chain's four
+kernels as its depth says on the fused run and never in phases 1-13.
+TF32
 is off throughout
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set False), so the plain versions run
@@ -194,7 +217,8 @@ in full f32 (``encoder_chain``, K5f and K5b run 3xTF32 by their own
 instructions, whatever the flags). Any failure raises and the exit code
 is not 0. The last lines are ``{"single", "batched"}``, ``{"train"}``,
 ``{"fused_train"}``, ``{"sweep"}``, ``{"eval"}``, ``{"ingest"}``,
-``{"modes"}`` and ``{"bf16_serve"}`` JSON lines, the card
+``{"modes"}``, ``{"bf16_serve"}`` and ``{"bf16_train"}`` JSON lines, the
+card
 line from nvidia-smi, one
 ``{"kernels": [...]}`` JSON line, and
 ``{"ok": true, "device": {...}}``.
@@ -251,6 +275,20 @@ REPLACES = {
     "dropout_masks": "contrastiveprosthetics_tpu/ops/train_fused.py:777 "
                      "(extract_prng_masks; body _mask_kernel :771, "
                      "_draw_mask :146)",
+    "dense_block_fwd_bf16": "contrastiveprosthetics_tpu/ops/train_fused.py:362 "
+                            "(_fwd_block_call with ChainCfg.dtype bfloat16, "
+                            ":127; body _fwd_block_kernel :183, roundings "
+                            ":221-228)",
+    "dense_block_bwd_bf16": "contrastiveprosthetics_tpu/ops/train_fused.py:412 "
+                            "(_bwd_block_call with ChainCfg.dtype bfloat16; "
+                            "body _bwd_block_kernel :239, roundings "
+                            ":292-317)",
+    "chain_tail_fwd_bf16": "contrastiveprosthetics_tpu/ops/train_fused.py:777 "
+                           "(K5m, the last block's mask) and the XLA tail in "
+                           "bfloat16 (_chain_fwd :593-601)",
+    "chain_tail_bwd_bf16": "contrastiveprosthetics_tpu/ops/train_fused.py:777 "
+                           "(K5m, the mask redrawn) and the XLA tail in "
+                           "bfloat16 (_chain_bwd :624-638)",
     "iir_rms_frames": "no Pallas kernel: XLA's lax.scan "
                       "contrastiveprosthetics_tpu/ops/signal.py:65 (sosfilt) "
                       "and :128 (moving_rms), as preprocess_segment :149 "
@@ -263,9 +301,15 @@ TRAIN_KERNELS = ("contrastive_loss_fwd", "contrastive_loss_bwd")
 FUSED_KERNELS = ("dense_block_fwd", "dense_block_bwd", "chain_tail_fwd",
                  "chain_tail_bwd", "dropout_masks")
 TAIL_KERNELS = ("chain_tail_fwd", "chain_tail_bwd")
+# the bf16 chain's variants, counted under their own names
+BF16_K5 = ("dense_block_fwd_bf16", "dense_block_bwd_bf16",
+           "chain_tail_fwd_bf16", "chain_tail_bwd_bf16")
+# the element type of the bf16 instantiations in a demangled kernel name
+# (bf16_t, a bf16 value's 16 bits)
+BF16_ELEMENT = "unsigned short"
 SOURCES = {name: "contrastiveprosthetics_torch/csrc/" + (
     "contrastive_loss" if name in TRAIN_KERNELS else
-    "train_fused" if name in FUSED_KERNELS else
+    "train_fused" if name in FUSED_KERNELS + BF16_K5 else
     "iir_rms" if name == "iir_rms_frames" else
     "encoder_chain" if name == "encoder_chain_bf16" else name) + ".cu"
     for name in REPLACES}
@@ -378,6 +422,26 @@ INGEST_RTOL, INGEST_ATOL = 1e-3, 1e-4
 # BF16_F64_MAX times (measured 1.28)
 BF16_ATOL = 5e-2
 BF16_F64_MEAN, BF16_F64_MAX = 1.25, 2.0
+# phase 14: the bf16 K5 pair against its plain versions. Both compute h and
+# dy in f32 with the same operations and round the GEMM operands to bf16
+# the same way; their f32 sums run in other orders, so r and dx, rounded to
+# bf16 after them, may land on the other bf16 neighbour: each element held
+# within one bf16 ulp of the plain version's (of the larger magnitude),
+# plus BF16_K5_ORDER_FLOOR x the largest |value| where a sum cancels to
+# near 0 and two f32 orders differ by more than its own tiny ulp, and at
+# most BF16_K5_FLIP_SHARE of the elements apart at all; JAX's own bf16
+# bound (atol BF16_ATOL, test_train_fused.py:131-152) is reported beside.
+# dW, db and the lower block's sums are f32 sums of the same exact
+# products: held as the f32 K5b is (rtol 1e-4, atol 1e-5 x max). Against
+# float64 on the same bf16 operands, the kernel's error (r and dx: largest
+# and mean absolute; dW, db and the sums: relative 2-norm) is held at most
+# BF16_K5_F64 times the plain version's plus BF16_K5_F64_FLOOR (r and dx)
+# or one f32 order's error of the sum (k5_bf16_vs_f64): two f32 orders of
+# the same sums, neither more accurate by construction
+BF16_K5_F64, BF16_K5_F64_FLOOR = 1.25, 1e-7
+BF16_K5_ORDER_FLOOR, BF16_K5_FLIP_SHARE = 2.0 ** -16, 0.05
+CLI_SWEEP_CONFIGS = 10  # cptorch-train's --crossval_size default
+TURN_STEPS = 50  # phase 14's steps a turn: 2/9 of an epoch
 
 
 def log(msg: str) -> None:
@@ -564,6 +628,8 @@ def family_of(name: str) -> str:
     low = name.lower()
     for family, parts in TRAIN_FAMILIES:
         if any(part in low for part in parts):
+            if family in FUSED_KERNELS and BF16_ELEMENT in low:
+                return family + "_bf16"
             return family
     return "other elementwise (PyTorch ops)"
 
@@ -1399,6 +1465,24 @@ def within_one_ulp(got: torch.Tensor, want: torch.Tensor) -> int:
         raise AssertionError(f"more than one ulp off: max abs error "
                              f"{max_abs(got, want)}")
     return int((got != want).sum())
+
+
+def within_one_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Raises unless each element of bf16 ``got`` lies within one bf16 ulp
+    of bf16 ``want`` (of the larger magnitude's) plus
+    ``BF16_K5_ORDER_FLOOR`` x max |want|, and at most
+    ``BF16_K5_FLIP_SHARE`` of them differ; returns the share that differs."""
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.where(big > 0, big, 1.0)))
+                     - 7)
+    floor = BF16_K5_ORDER_FLOOR * float(w.abs().max())
+    over = float(((g - w).abs() / (ulp + floor)).max())
+    share = float((g != w).float().mean())
+    if over > 1.0 or share > BF16_K5_FLIP_SHARE:
+        raise AssertionError(f"bf16 values {over:.3g} ulps off, {share:.3g} "
+                             f"of them apart (max abs {max_abs(g, w)})")
+    return share
 
 
 def check_tail(TF, dev) -> dict:
@@ -3661,6 +3745,598 @@ def bf16_phase(K, dev, seed_model, mean, std, calib, recording, batch_blocks,
     return res, entry
 
 
+# ------------------------------------------------------------ phase 14
+def k5_bf16_vs_f64(TF, xb, wb, b, in_stats, dzb, r, st, sums, kw, keep,
+                   outs):
+    """Errors against float64 of the bf16 block's products on the same bf16
+    operands (h and dyc rounded as the kernels and the plain versions round
+    them): r and dx, largest and mean absolute error; dW, db and the lower
+    block's sums, relative 2-norm. ``outs`` maps a label to (r, (dx, dW,
+    db, sums)). Block 0 (``in_stats`` None) has no affine, no dropout and
+    no lower block's sums. The label ``"f32_order"`` holds how far a
+    kernel may lie beyond ``BF16_K5_F64`` times the plain version's error:
+    ``BF16_K5_F64_FLOOR`` for r and dx, and for each sum over the N rows the
+    size of one f32 order's error, sqrt(N) 2^-24 |sum of |terms|| /
+    |exact sum| (the BatchNorm backward centres dy, so dW and db cancel and
+    that size grows with it)."""
+    N, K_in = xb.shape
+    if in_stats is None:
+        z, mask = xb.float(), torch.ones_like(xb, dtype=torch.bool)
+    else:
+        mask = TF.dropout_masks_reference(kw["seed"], keep, N, K_in,
+                                          kw["drop_block"]) > 0
+        z = torch.where(mask, (xb.float() * in_stats[3] + in_stats[4])
+                        / keep, 0.0)
+    h = z.to(torch.bfloat16).double()
+    w64 = wb.double()
+    r64 = torch.relu(h @ w64 + b.double())
+    rf = r.float()
+    xn = (rf - st[0]) * st[2]
+    n = rf.new_tensor(float(N))
+    dy = torch.where(rf > 0, st[3] * (dzb.float() - sums[0] / n
+                                      - xn * (sums[1] / n)), 0.0)
+    dyc = dy.to(torch.bfloat16).double()
+    dh = dyc @ w64.T
+    want = dict(dw=h.T @ dyc, db=dy.double().sum(0))
+    if in_stats is not None:
+        dh = torch.where(mask, dh / keep.double(), 0.0)
+        xn_in = (xb.double() - in_stats[0].double()) * in_stats[2].double()
+        want["sums"] = torch.stack([dh.sum(0), (dh * xn_in).sum(0)])
+
+    def rel(a, b):
+        return float((a.double() - b).norm() / b.norm().clamp_min(1e-30))
+
+    def order(terms, exact):
+        return float(N ** 0.5 * 2.0 ** -24 * terms.norm()
+                     / exact.norm().clamp_min(1e-30))
+
+    out = {"f32_order": dict(
+        r_max=BF16_K5_F64_FLOOR, r_mean=BF16_K5_F64_FLOOR,
+        dx_max=BF16_K5_F64_FLOOR, dx_mean=BF16_K5_F64_FLOOR,
+        dw_rel_l2=order(h.abs().T @ dyc.abs(), want["dw"]),
+        db_rel_l2=order(dy.double().abs().sum(0), want["db"]))}
+    if in_stats is not None:
+        out["f32_order"]["sums_rel_l2"] = order(torch.stack(
+            [dh.abs().sum(0), (dh * xn_in).abs().sum(0)]), want["sums"])
+    for label, (rr, (dx, dw, db, osums)) in outs.items():
+        er, edx = (rr.double() - r64).abs(), (dx.double() - dh).abs()
+        out[label] = dict(r_max=float(er.max()), r_mean=float(er.mean()),
+                          dx_max=float(edx.max()), dx_mean=float(edx.mean()),
+                          dw_rel_l2=rel(dw, want["dw"]),
+                          db_rel_l2=rel(db, want["db"]))
+        if osums is not None:
+            out[label]["sums_rel_l2"] = rel(osums, want["sums"])
+    return out
+
+
+def check_k5_bf16(TF, dev, f32_entries) -> dict:
+    """Phase 14, kernels: the bf16 K5f and K5b (``dense_block_fwd_bf16``,
+    ``dense_block_bwd_bf16``) against their plain versions at N=328 and a
+    ragged 123, block 0's form (768 inputs) and an inner dropped block's
+    (512 inputs, affine, dropout 0.5 drawn), the weight as the chain casts
+    it (a Linear weight's ``.T``): r and dx within one bf16 ulp
+    (:func:`within_one_bf16_ulp`), the rest as the f32 K5b; reruns, the
+    other tiling, the row-major weight and the replayed masks
+    bit-identical; at each of the four cases, against float64 on the same
+    bf16 operands no worse than the plain version (``BF16_K5_F64``); the bf16
+    tail pair bit for bit (its sums within one f32 ulp), drawn and
+    replayed. Each timed (CUDA events, profiler device time) beside its
+    bound at the bf16 peak, the cuBLAS bf16 GEMMs and the f32 kernel, in
+    turns. Returns the four ``kernels`` entries."""
+    bf = torch.bfloat16
+    F = 512
+    keep = torch.full((1,), 0.5, device=dev)
+    mm, mm_name = mm_f32_out()
+    errs = {name: {} for name in BF16_K5}
+    flips, vs_f64 = {}, {}
+    for N in (328, 123):
+        for K_in, inner in ((768, False), (512, True)):
+            x, w, (b, gamma, beta), in_stats, dz, seed = k5_case(
+                N, K_in, F, N + K_in, dev)
+            xb, dzb = x.to(bf), dz.to(bf)
+            w_lin = w.T.contiguous().T.to(bf)  # the chain's weight.T layout
+            w_row = w.to(bf)
+            kw = dict(seed=seed, keep=keep, drop_block=3) if inner else {}
+            in_st = in_stats if inner else None
+            r, st = TF.dense_block_fwd(xb, w_lin, b, gamma, beta, in_st, **kw)
+            r_p, st_p = TF.dense_block_fwd_reference(xb, w_lin, b, gamma,
+                                                     beta, in_st, **kw)
+            sums = torch.stack([dzb.float().sum(0), (dzb.float() * (
+                r_p.float() - st_p[0]) * st_p[2]).sum(0)])
+            got = TF.dense_block_bwd(dzb, r_p, xb, w_lin, st_p, sums, in_st,
+                                     **kw)
+            want = TF.dense_block_bwd_reference(dzb, r_p, xb, w_lin, st_p,
+                                                sums, in_st, **kw)
+            torch.cuda.synchronize()
+            case = f"N={N} K={K_in}"
+            if r.dtype != bf or got[0].dtype != bf or got[1].dtype != \
+                    torch.float32:
+                raise AssertionError(f"bf16 K5 output dtypes at {case}")
+            flips[case] = dict(r=within_one_bf16_ulp(r, r_p),
+                               dx=within_one_bf16_ulp(got[0], want[0]))
+            e_r = max_abs(r, r_p)
+            errs["dense_block_fwd_bf16"][case] = max(
+                e_r, close(st, st_p, 1e-3, 1e-3))
+            e_dx = max_abs(got[0], want[0])
+            errs["dense_block_bwd_bf16"][case] = max(
+                e_dx, *(close(g, v, 1e-4, 1e-5) for g, v in
+                        zip(got[1:], want[1:]) if v is not None))
+            again = (TF.dense_block_fwd(xb, w_lin, b, gamma, beta, in_st,
+                                        **kw),
+                     TF.dense_block_bwd(dzb, r_p, xb, w_lin, st_p, sums,
+                                        in_st, **kw))
+            same = [torch.equal(a, c) for a, c in
+                    zip((r, st, *got), (*again[0], *again[1]))
+                    if a is not None]
+            # the other tiling and the row-major weight: r, dx and dW
+            for wv, tiling in ((w_lin, 1), (w_row, 0), (w_row, 1)):
+                r2, _ = TF.dense_block_fwd(xb, wv, b, gamma, beta, in_st,
+                                           tiling=tiling, **kw)
+                g2 = TF.dense_block_bwd(dzb, r_p, xb, wv, st_p, sums, in_st,
+                                        tiling=tiling, **kw)
+                same += [torch.equal(r2, r), torch.equal(g2[0], got[0]),
+                         torch.equal(g2[1].T if wv is w_row else g2[1],
+                                     got[1].T if wv is w_row else got[1])]
+            if inner:
+                mask = TF.dropout_masks(seed, keep, N, K_in, 3)
+                fed = dict(keep=keep, mask=mask)
+                same += [torch.equal(a, c) for a, c in zip(
+                    (r, st, *got),
+                    (*TF.dense_block_fwd(xb, w_lin, b, gamma, beta, in_st,
+                                         **fed),
+                     *TF.dense_block_bwd(dzb, r_p, xb, w_lin, st_p, sums,
+                                         in_st, **fed)))]
+            if not all(same):
+                raise AssertionError(f"bf16 K5 not bit-identical on a rerun, "
+                                     f"across tilings and layouts or against "
+                                     f"replayed masks at {case}")
+            # against float64 on the same bf16 operands
+            vs_f64[case] = k5_bf16_vs_f64(
+                TF, xb, w_lin, b, in_st, dzb, r_p, st_p, sums, kw, keep,
+                {"kernel": (r, got), "plain": (r_p, want)})
+            worse = [k for k, e in vs_f64[case]["kernel"].items()
+                     if e > BF16_K5_F64 * vs_f64[case]["plain"][k]
+                     + vs_f64[case]["f32_order"][k]]
+            if worse:
+                raise AssertionError(f"bf16 K5 farther from float64 than the "
+                                     f"plain version at {case}: {worse}")
+    # the tail pair: h and dz bit for bit, sums within one f32 ulp
+    for N in (328, 123):
+        x, _, _, in_stats, dz, seed = k5_case(N, F, F, 7 + N, dev)
+        xb, dhb = x.to(bf), dz.to(bf)
+        mask = TF.dropout_masks(seed, keep, N, F, 6)
+        for form, kw in (("drawn", dict(seed=seed, keep=keep, drop_block=6)),
+                         ("replayed", dict(keep=keep, mask=mask))):
+            h = TF.chain_tail_fwd(xb, in_stats, **kw)
+            dzk, sk = TF.chain_tail_bwd(dhb, xb, in_stats, **kw)
+            h_p = TF.chain_tail_fwd_reference(xb, in_stats, **kw)
+            dz_p, s_p = TF.chain_tail_bwd_reference(dhb, xb, in_stats, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(h, h_p) and torch.equal(dzk, dz_p)
+                    and torch.equal(h, TF.chain_tail_fwd(xb, in_stats, **kw))):
+                raise AssertionError(f"bf16 tail disagrees at N={N} {form}")
+            within_one_ulp(sk, s_p)
+            errs["chain_tail_fwd_bf16"][f"N={N} {form}"] = 0.0
+            errs["chain_tail_bwd_bf16"][f"N={N} {form}"] = max_abs(sk, s_p)
+    if any(e > BF16_ATOL for parts in errs.values() for e in parts.values()):
+        raise AssertionError(f"bf16 K5 beyond JAX's bound {BF16_ATOL}: {errs}")
+    log(f"[bf16 train] bf16 K5f/K5b and the tail pair ok at N=328 and 123, "
+        f"K=768 and 512: {json.dumps(errs)}; r and dx within one bf16 ulp, "
+        f"share of elements apart {json.dumps(flips)}; reruns, both tilings, "
+        "both weight layouts and replayed masks bit-identical")
+    log(f"[bf16 train] bf16 K5 against float64 on the same bf16 operands "
+        f"(F={F}; K=512: affine + dropout 0.5): {json.dumps(vs_f64)}")
+
+    # the timed inputs: the inner dropped block
+    N, K_in = 328, 512
+    x, w, (b, gamma, beta), in_stats, dz, seed = k5_case(N, K_in, F, 1, dev)
+    xb, dzb, wb = x.to(bf), dz.to(bf), w.T.contiguous().T.to(bf)
+    kw = dict(seed=seed, keep=keep, drop_block=3)
+    r, st = TF.dense_block_fwd(xb, wb, b, gamma, beta, in_stats, **kw)
+    r_p, st_p = TF.dense_block_fwd_reference(xb, wb, b, gamma, beta, in_stats,
+                                             **kw)
+    sums = torch.stack([dzb.float().sum(0), dzb.float().sum(0) * 0.5])
+    bk = TF.dense_block_bwd(dzb, r_p, xb, wb, st_p, sums, in_stats, **kw)
+    torch.cuda.synchronize()
+
+    # timing: block 0 (768 inputs) and the inner block, the bf16 kernel in
+    # turns with the f32 one (f32, bf16, bf16, f32), beside the bf16 GEMMs
+    x0, w0 = k5_case(N, 768, F, 2, dev)[:2]
+    x0b, w0b = x0.to(bf), w0.T.contiguous().T.to(bf)
+    wf = w.T.contiguous().T
+    r32, st32 = TF.dense_block_fwd(x, wf, b, gamma, beta, in_stats, **kw)
+    calls = {
+        "dense_block_fwd_bf16": (
+            lambda: TF.dense_block_fwd(xb, wb, b, gamma, beta, in_stats, **kw),
+            lambda: TF.dense_block_fwd(x, wf, b, gamma, beta, in_stats, **kw),
+            lambda: TF.dense_block_fwd_reference(xb, wb, b, gamma, beta,
+                                                 in_stats, **kw),
+            lambda: mm(xb, wb)),
+        "dense_block_bwd_bf16": (
+            lambda: TF.dense_block_bwd(dzb, r, xb, wb, st, sums, in_stats,
+                                       **kw),
+            lambda: TF.dense_block_bwd(dz, r32, x, wf, st32, sums, in_stats,
+                                       **kw),
+            lambda: TF.dense_block_bwd_reference(dzb, r, xb, wb, st, sums,
+                                                 in_stats, **kw),
+            lambda: (mm(dzb, wb.T), mm(xb.T, dzb))),
+        "chain_tail_fwd_bf16": (
+            lambda: TF.chain_tail_fwd(r, st, seed=seed, keep=keep,
+                                      drop_block=6),
+            lambda: TF.chain_tail_fwd(r32, st32, seed=seed, keep=keep,
+                                      drop_block=6),
+            lambda: TF.chain_tail_fwd_reference(r, st, seed=seed, keep=keep,
+                                                drop_block=6),
+            None),
+        "chain_tail_bwd_bf16": (
+            lambda: TF.chain_tail_bwd(dzb, r, st, seed=seed, keep=keep,
+                                      drop_block=6),
+            lambda: TF.chain_tail_bwd(dz, r32, st32, seed=seed, keep=keep,
+                                      drop_block=6),
+            lambda: TF.chain_tail_bwd_reference(dzb, r, st, seed=seed,
+                                                keep=keep, drop_block=6),
+            None)}
+    h = TF.chain_tail_fwd(r, st, seed=seed, keep=keep, drop_block=6)
+    dzt, st_sums = TF.chain_tail_bwd(dzb, r, st, seed=seed, keep=keep,
+                                     drop_block=6)
+    small = nbytes(b, gamma, beta, in_stats, seed, keep)
+    bounds = {
+        "dense_block_fwd_bf16": bound_ms(nbytes(xb, wb, r, st) + small,
+                                         2.0 * N * K_in * F, PEAK_BF16_FLOPS),
+        "dense_block_bwd_bf16": bound_ms(
+            nbytes(dzb, r, xb, wb, st, sums, *bk) + small,
+            4.0 * N * K_in * F, PEAK_BF16_FLOPS),
+        "chain_tail_fwd_bf16": bound_ms(nbytes(r, st, h, seed, keep), 0.0),
+        "chain_tail_bwd_bf16": bound_ms(nbytes(dzb, r, st, dzt, st_sums, seed,
+                                               keep), 0.0)}
+    block0 = dict(
+        bf16_ms=time_ms(lambda: TF.dense_block_fwd(x0b, w0b, b, gamma, beta),
+                        200, 5),
+        f32_ms=time_ms(lambda: TF.dense_block_fwd(x0, w0.T.contiguous().T, b,
+                                                  gamma, beta), 200, 5),
+        bf16_device_ms=device_ms_per_call(lambda: TF.dense_block_fwd(
+            x0b, w0b, b, gamma, beta)),
+        gemm_bf16_ms=time_ms(lambda: mm(x0b, w0b), 200, 5),
+        shape=f"N={N} K=768 F={F}, no affine or dropout")
+    entries = {}
+    with torch.no_grad():
+        for name, (kernel, f32_kernel, plain, gemm) in calls.items():
+            turns = {"f32": [], "bf16": []}
+            for which in ("f32", "bf16", "bf16", "f32"):
+                turns[which].append(time_ms(
+                    kernel if which == "bf16" else f32_kernel, 200, 5))
+            f32_name = name[:-len("_bf16")]
+            extra = dict(
+                device_ms=device_ms_per_call(kernel),
+                f32_kernel_ms_in_turns=turns["f32"],
+                bf16_kernel_ms_in_turns=turns["bf16"],
+                f32_kernel_device_ms=device_ms_per_call(f32_kernel),
+                f32_entry_ms=f32_entries[f32_name]["ms"])
+            lib = None
+            if gemm is not None:
+                lib = time_ms(gemm, 200, 5)
+                extra.update(
+                    library_device_ms=device_ms_per_call(gemm),
+                    library_call=mm_name + (" (x W)" if "fwd" in name else
+                                            " (dy W^T and h^T dy)"),
+                    library_note="not the same function: the bf16 GEMM"
+                                 + ("" if "fwd" in name else "s") + " alone",
+                    max_abs_err_vs_f64=vs_f64, bf16_flip_share=flips)
+                if "fwd" in name:
+                    extra["block0"] = block0
+            tol = ("h and dz bit for bit, the sums within one f32 ulp"
+                   if "tail" in name else
+                   "r and dx within one bf16 ulp (of the larger magnitude) "
+                   f"+ {BF16_K5_ORDER_FLOOR} x max, at most "
+                   f"{BF16_K5_FLIP_SHARE} of them apart, and within JAX's "
+                   f"bound atol {BF16_ATOL}; stats rtol 1e-3, "
+                   "atol 1e-3 x max; dW, db and sums rtol 1e-4, atol 1e-5 x "
+                   "max; reruns, tilings, layouts and replayed masks "
+                   "bit-identical; against float64 at each case at most "
+                   f"{BF16_K5_F64} x the plain version's error + "
+                   f"{BF16_K5_F64_FLOOR}")
+            bd, by = bounds[name]
+            entries[name] = dict(
+                route="cuda", max_abs_err=max(errs[name].values()),
+                max_abs_err_parts=errs[name], tolerance=tol,
+                ms=sum(turns["bf16"]) / 2,
+                plain_ms=time_ms(plain, reps=20, warmup=2),
+                bound_ms=bd, bound_by=by, library_ms=lib,
+                shape=(f"N={N} K={K_in} F={F}, affine + dropout 0.5 on the "
+                       "input" if "dense" in name else
+                       f"N={N} F={F}, dropout 0.5"),
+                peaks={"bf16_flops": PEAK_BF16_FLOPS,
+                       "bytes_per_s": PEAK_BYTES_PER_S}, **extra)
+    return entries
+
+
+def bf16_train_phase(K, TF, eager, train_res, fused_res,
+                     f32_entries) -> tuple[dict, dict]:
+    """Phase 14, bfloat16 training (``Trainer(compute_dtype="bfloat16")``,
+    ``cptorch-train --bf16``) on phase 7's store at full width, bs 8: the
+    bf16 K5 kernels (:func:`check_k5_bf16`); ``train_loop`` for 2 annealed
+    epochs eager and on the fused chain, each test accuracy above 0.5, the
+    fused one launching each bf16 K5 variant 7 times a step, each bf16
+    tail kernel once, no f32 K5 kernel, the eager one none of them;
+    ``TURN_STEPS`` steps of phase 7's and 8's f32 paths and of the two bf16
+    ones in turns by CUDA events; traces of 20 steps of each bf16 path; a stacked bf16 step
+    of 2 configs against their single steps; ``cross_validate`` of the
+    CLI's default 10 configs x 1 epoch in bf16; the fused bf16 test pass
+    (``encoder_chain_bf16`` 10 times a batch, ``encoder_chain`` never)
+    against the unfused one; ``cptorch-train --bf16`` and
+    ``cptorch-results`` with and without ``--bf16`` on cuda. Returns the
+    ``bf16_train`` results and the four ``kernels`` entries."""
+    from contrastiveprosthetics_torch.cli import results as cli_results
+    from contrastiveprosthetics_torch.cli import train as cli_train
+    from contrastiveprosthetics_torch.data.sampler import (
+        epoch_batches,
+        gather_train_batch,
+        task_permutations,
+    )
+    from contrastiveprosthetics_torch.models.convert import (
+        load_reference_checkpoint,
+        model_from_state_dict,
+    )
+    from contrastiveprosthetics_torch.train import engine
+    from contrastiveprosthetics_torch.train.crossval import (
+        cross_validate,
+        sample_hyperparams,
+    )
+    from contrastiveprosthetics_torch.train.loop import run_test, train_loop
+
+    t_phase = time.perf_counter()
+    entries = check_k5_bf16(TF, eager.device, f32_entries)
+    cfg, dev = eager.cfg, eager.device
+    paths = {name: engine.Trainer(cfg, eager.store, adabn=False, batch_size=8,
+                                  compute_dtype="bfloat16",
+                                  use_fused_train=(name == "fused"))
+             for name in ("eager", "fused")}
+    v = eager.view_train
+    steps_per_epoch = -(-v.D // 8)
+    n_steps = TRAIN_EPOCHS * steps_per_epoch
+    L = eager.n_linear
+    hyper = engine.Hyper.single(*CANONICAL)
+    loops, counts, states = {}, {}, {}
+    for name, trainer in paths.items():
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_loop(trainer, hyper, TRAIN_EPOCHS, seed=0, annealing=True,
+                         verbose=False)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        counts[name] = dict(K.launch_counts)
+        test = run_test(trainer, res.state, hyper, trainer.generator(5))
+        fused = name == "fused"
+        want = {k: 0 for k in K.launch_counts}
+        want.update(contrastive_loss_fwd=n_steps,
+                    contrastive_loss_bwd=n_steps)
+        if fused:
+            want.update(dense_block_fwd_bf16=L * n_steps,
+                        dense_block_bwd_bf16=L * n_steps,
+                        chain_tail_fwd_bf16=n_steps,
+                        chain_tail_bwd_bf16=n_steps)
+        if counts[name] != want:
+            raise AssertionError(f"bf16 {name} train_loop launches "
+                                 f"{counts[name]}, want {want}")
+        if not (np.isfinite(res.train_losses).all()
+                and res.train_losses[-1] < res.train_losses[0]):
+            raise AssertionError(f"bf16 {name} train losses "
+                                 f"{res.train_losses}")
+        if res.train_accs[-1] <= 0.5 or float(test.accuracy) <= 0.5:
+            raise AssertionError(f"bf16 {name} train acc "
+                                 f"{res.train_accs[-1]}, test acc "
+                                 f"{float(test.accuracy)}: not above 0.5")
+        if any(p.dtype != torch.float32 for p in res.state.model.parameters()):
+            raise AssertionError("bf16 training left non-f32 parameters")
+        states[name] = res.state
+        loops[name] = dict(train_loop_s=loop_s, train_losses=res.train_losses,
+                           train_accs=res.train_accs, val_loss=res.val_loss,
+                           val_acc=res.val_acc, test_loss=float(test.loss),
+                           test_acc=float(test.accuracy),
+                           launches={k: c for k, c in counts[name].items()
+                                     if c})
+        log(f"[bf16 train] {name} train_loop {TRAIN_EPOCHS} epochs "
+            f"({n_steps} steps) in {loop_s:.2f} s: losses "
+            f"{res.train_losses}, accs {res.train_accs}; test loss "
+            f"{float(test.loss):.4f} voted acc {float(test.accuracy):.4f}; "
+            f"launches {loops[name]['launches']}")
+
+    # steps in turns: phase 7's and 8's f32 paths and the bf16 ones, each
+    # on its own copy of the fused bf16 run's weights in its own dtype
+    f32_fused = engine.Trainer(cfg, eager.store, adabn=False, batch_size=8,
+                               use_fused_train=True)
+    trainers = {"f32 eager": eager, "f32 fused": f32_fused,
+                "bf16 eager": paths["eager"], "bf16 fused": paths["fused"]}
+    order = list(trainers) + list(trainers)[::-1]
+    turn_ms = {k: [] for k in trainers}
+    weights = states["fused"].model.state_dict()
+    turn_states = {name: engine.TrainState.fresh(model_from_state_dict(
+        weights, dtype=tr.dtype).to(dev), tr.mu_dtype)
+        for name, tr in trainers.items()}
+    gen = eager.generator(11)
+    emg_rand = task_permutations(gen, v.n_tasks, v.D)
+    batches = epoch_batches(gen, v.D, 8)[0][:TURN_STEPS]
+    for name in order:
+        gen = trainers[name].generator(12)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        trainers[name].train_epoch_from_indices(
+            turn_states[name], emg_rand, batches, batches.new_empty(0), hyper, 1.0, 1.0,
+            gen)
+        end.record()
+        torch.cuda.synchronize()
+        turn_ms[name].append(start.elapsed_time(end))
+    windows = 8 * v.n_tasks * TURN_STEPS
+    timing = {name: dict(steps=TURN_STEPS, ms=ms,
+                         ms_per_step=[m / TURN_STEPS for m in ms],
+                         train_windows_per_s=[windows / m * 1e3 for m in ms])
+              for name, ms in turn_ms.items()}
+    traces = {name: trace_train_steps(paths[name], turn_states[f"bf16 {name}"],
+                                      hyper, 20)
+              for name in paths}
+    summary = {name: dict(device_ms_per_step=tr["device_ms_per_step"],
+                          device_idle_share=tr["device_idle_share"],
+                          wall_ms_per_step_traced=tr["wall_ms_per_step_traced"])
+               for name, tr in traces.items()}
+    summary["f32 eager (phase 7)"] = {
+        k: train_res["step_trace"][k] for k in ("device_ms_per_step",
+                                                "device_idle_share",
+                                                "wall_ms_per_step_traced")}
+    summary["f32 fused (phase 8)"] = {
+        k: fused_res["step_trace"][k] for k in ("device_ms_per_step",
+                                                "device_idle_share",
+                                                "wall_ms_per_step_traced")}
+    log(f"[bf16 train] {TURN_STEPS} steps in turns ({', '.join(order)}): "
+        f"{json.dumps(timing)}; traced steps: {json.dumps(summary)}")
+    log(f"[bf16 train] profiler trace of 20 fused bf16 steps: "
+        f"{json.dumps(traces['fused'])}")
+
+    # a stacked bf16 step of 2 configs against their single steps: the
+    # bf16 roundings flip where the batched and single f32 sums straddle a
+    # tie, and the backward compounds the flips, so the whole gradient is
+    # held against the spread bf16 itself puts between the single step and
+    # its f32 twin on the same weights
+    bf = paths["eager"]
+    sweep_state = bf.init_sweep_state([bf.generator(21), bf.generator(22)])
+    gen = bf.generator(23)
+    emg_rand = task_permutations(gen, v.n_tasks, v.D)
+    items = torch.randperm(v.D, generator=gen, device=dev)[:16]
+    emg_b = gather_train_batch(v.emg_flat, emg_rand, items).reshape(
+        2, 8, v.n_tasks, -1)
+    hypers = SWEEP_STEP_HYPERS[:2]
+    hs = engine.Hyper(*[torch.tensor([h[i] for h in hypers], device=dev)
+                        for i in range(6)])
+    loss_s, _, grads_s = bf.loss_and_grads(sweep_state, emg_b, hs, None)
+
+    def whole(grads, c=None):
+        return torch.cat([(g if c is None else g[c]).reshape(-1)
+                          for tower in ("emg_net", "glove_net")
+                          for g in grads[tower]]).double()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    stack_err = {}
+    for c in range(2):
+        single = engine.TrainState.fresh(sweep_state.model.unstack(c))
+        twin = engine.TrainState.fresh(model_from_state_dict(
+            single.model.state_dict()).to(dev))
+        h1 = engine.Hyper.single(*hypers[c])
+        loss_c, _, grads_c = bf.loss_and_grads(single, emg_b[c], h1, None)
+        _, _, grads_f = eager.loss_and_grads(twin, emg_b[c], h1, None)
+        torch.testing.assert_close(loss_s[c], loss_c, rtol=1e-3, atol=0)
+        stack_err[c] = dict(
+            loss_stacked=float(loss_s[c]), loss_single=float(loss_c),
+            grad_rel_l2_stacked_vs_single=rel(whole(grads_s, c),
+                                              whole(grads_c)),
+            grad_rel_l2_bf16_vs_f32=rel(whole(grads_c), whole(grads_f)))
+        if (stack_err[c]["grad_rel_l2_stacked_vs_single"]
+                > stack_err[c]["grad_rel_l2_bf16_vs_f32"]):
+            raise AssertionError(f"stacked bf16 step config {c}: "
+                                 f"{stack_err[c]}")
+    log(f"[bf16 train] stacked bf16 step of 2 configs against single steps "
+        f"(loss rtol 1e-3; the whole gradient's relative 2-norm no larger "
+        f"than the single bf16 step's from its f32 twin): "
+        f"{json.dumps(stack_err)}")
+
+    # the CLI's default sweep in bf16
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        values = cross_validate(bf, sample_hyperparams(CLI_SWEEP_CONFIGS,
+                                                       seed=42),
+                                epochs=1, seed=42, save_dir=tmp)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_counts = {k: c for k, c in K.launch_counts.items() if c}
+    if not (np.isfinite(values).all() and np.nanmax(values[:, 1]) > 0.1):
+        raise AssertionError(f"bf16 sweep values {values.tolist()}")
+    if set(sweep_counts) != set(TRAIN_KERNELS):
+        raise AssertionError(f"bf16 sweep launches {sweep_counts}")
+    log(f"[bf16 train] cross_validate of {CLI_SWEEP_CONFIGS} configs x 1 "
+        f"epoch in bf16: {sweep_s:.2f} s, best val acc "
+        f"{float(np.nanmax(values[:, 1])):.4f}; launches {sweep_counts}")
+
+    # the test pass of the fused bf16 state, unfused and on the fused encoder
+    folded = engine.Trainer(cfg, eager.store, adabn=False, batch_size=8,
+                            compute_dtype="bfloat16", use_fused_encoder=True)
+    K.reset_launch_counts()
+    t_unf = run_test(paths["eager"], states["fused"], hyper,
+                     folded.generator(5))
+    unf_counts = dict(K.launch_counts)
+    K.reset_launch_counts()
+    t_fus = run_test(folded, states["fused"], hyper, folded.generator(5))
+    torch.cuda.synchronize()
+    fus_counts = dict(K.launch_counts)
+    n_batches = -(-folded.view_test.D // 64)
+    if not (fus_counts["encoder_chain_bf16"] == 10 * n_batches
+            and fus_counts["encoder_chain"] == 0
+            and unf_counts["encoder_chain_bf16"] == 0):
+        raise AssertionError(f"bf16 test pass launches: fused {fus_counts}, "
+                             f"unfused {unf_counts}")
+    logit_err = max_abs(t_fus.logits, t_unf.logits)
+    if logit_err > BF16_ATOL or not torch.equal(t_fus.y_true, t_unf.y_true):
+        raise AssertionError(f"fused bf16 test pass logits {logit_err} from "
+                             "the unfused one's")
+    eval_res = dict(unfused_acc=float(t_unf.accuracy),
+                    fused_acc=float(t_fus.accuracy),
+                    max_abs_logit_diff=logit_err,
+                    encoder_chain_bf16_launches=fus_counts[
+                        "encoder_chain_bf16"])
+    log(f"[bf16 train] test pass of the fused bf16 state: unfused acc "
+        f"{eval_res['unfused_acc']:.4f}, fused encoder acc "
+        f"{eval_res['fused_acc']:.4f}, logits within {logit_err:.3g}; "
+        f"encoder_chain_bf16 launched {fus_counts['encoder_chain_bf16']} "
+        f"times ({n_batches} batches)")
+
+    # the CLIs on cuda
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--synthetic", "--batch_size", "8", "--no_adabn",
+                  "--data_dir", tmp, "--checkpoint_dir", tmp]
+        t0 = time.perf_counter()
+        if cli_train.main([*common, "--bf16", "--crossval_size", "2",
+                           "--final_epochs", "1", "--test", "--results_dir",
+                           f"{tmp}/A"]) != 0:
+            raise AssertionError("cptorch-train --bf16 failed")
+        cli_s = time.perf_counter() - t0
+        model_from_state_dict(load_reference_checkpoint(
+            f"{tmp}/contrastive.pt"))
+        for out, extra in (("B", ["--bf16"]), ("C", [])):
+            if cli_results.main([*common, *extra, "--results_dir",
+                                 f"{tmp}/{out}"]) != 0:
+                raise AssertionError(f"cptorch-results {extra} failed")
+        if not np.array_equal(np.load(f"{tmp}/B/logs.npy"),
+                              np.load(f"{tmp}/C/logs.npy")):
+            raise AssertionError("cptorch-results --bf16 differs from the "
+                                 "f32 evaluation")
+    log(f"[cli] cptorch-train --bf16 --synthetic --crossval_size 2 "
+        f"--final_epochs 1 --test --results_dir ok on cuda in {cli_s:.1f} s; "
+        "cptorch-results with and without --bf16 wrote the same logs.npy")
+    launches = {
+        "dense_block_fwd_bf16": counts["fused"]["dense_block_fwd_bf16"],
+        "dense_block_bwd_bf16": counts["fused"]["dense_block_bwd_bf16"],
+        "chain_tail_fwd_bf16": counts["fused"]["chain_tail_fwd_bf16"],
+        "chain_tail_bwd_bf16": counts["fused"]["chain_tail_bwd_bf16"]}
+    fam = traces["fused"]["device_ms_by_family"]
+    per = traces["fused"]["device_launches_per_step"]
+    for name, entry in entries.items():
+        entry.update(name=name, source=SOURCES[name], replaces=REPLACES[name],
+                     kernel_ms=entry["ms"], launches=launches[name],
+                     launches_by_path={"bf16_fused_train": launches[name]},
+                     device_ms_per_launch_traced=(
+                         fam[name] / per[name] if per.get(name) else None))
+    res = dict(train=loops, steps_in_turns=timing, traced_steps=summary,
+               step_traces=traces, stacked_step=stack_err,
+               sweep=dict(configs=CLI_SWEEP_CONFIGS, seconds=sweep_s,
+                          values=values.tolist(), launches=sweep_counts),
+               test_pass=eval_res, cli_train_s=cli_s,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"[bf16 train] phase 14 took {res['phase_s']:.1f} s")
+    return res, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3678,14 +4354,16 @@ def main() -> int:
         StreamingEngine,
     )
 
-    # the bf16 variant's launches in phases 1-12, summed across every reset
-    # of the counts: they must stay 0
-    before_13 = {"encoder_chain_bf16": 0}
+    # the bf16 variants' launches before their phases (encoder_chain's in
+    # phases 1-12, the bf16 chain's four in phases 1-13), summed across
+    # every reset of the counts: they must stay 0
+    before = dict.fromkeys(("encoder_chain_bf16", *BF16_K5), 0)
+    tracked = set(before)
     reset_counts = K.reset_launch_counts
 
     def tallying_reset() -> None:
-        before_13["encoder_chain_bf16"] += \
-            K.launch_counts["encoder_chain_bf16"]
+        for name in tracked:
+            before[name] += K.launch_counts[name]
         reset_counts()
 
     K.reset_launch_counts = tallying_reset
@@ -3952,13 +4630,23 @@ def main() -> int:
     modes_res, modes_counts = modes_phase(K, trainer, train_res)
 
     # ------------------------------------------------ 13. bf16 serving
-    K.reset_launch_counts = reset_counts
-    if before_13["encoder_chain_bf16"] + K.launch_counts["encoder_chain_bf16"]:
+    if before["encoder_chain_bf16"] + K.launch_counts["encoder_chain_bf16"]:
         raise AssertionError("encoder_chain_bf16 launched in phases 1-12: "
-                             f"{before_13}")
+                             f"{before}")
+    tracked.discard("encoder_chain_bf16")
     bf16_res, bf16_entry = bf16_phase(K, dev, 0, mean, std, calib, recording,
                                       batch_blocks, masks, subsets, single,
                                       batched, b_preds)
+
+    # ----------------------------------------------- 14. bf16 training
+    K.reset_launch_counts = reset_counts
+    early = {name: before[name] + K.launch_counts[name] for name in BF16_K5}
+    if any(early.values()):
+        raise AssertionError(f"the bf16 chain's kernels launched in phases "
+                             f"1-13: {early}")
+    f32_k5 = {name: dict(entries[name]) for name in FUSED_KERNELS}
+    bf16_train_res, bf16_train_entries = bf16_train_phase(
+        K, TF, trainer, train_res, fused_res, f32_k5)
 
     for name, entry in entries.items():
         if name in FUSED_KERNELS:
@@ -4006,9 +4694,10 @@ def main() -> int:
     print(json.dumps({"ingest": ingest_res}))
     print(json.dumps({"modes": modes_res}))
     print(json.dumps({"bf16_serve": bf16_res}))
+    print(json.dumps({"bf16_train": bf16_train_res}))
     print(card)
     print(json.dumps({"kernels": list(entries.values()) + eval_entries
-                      + [bf16_entry]}))
+                      + [bf16_entry] + list(bf16_train_entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

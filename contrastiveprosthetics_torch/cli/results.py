@@ -6,6 +6,9 @@ and export the full artifact set, the set-size sweep and ``results.png``
 included (``results/export.py``). ``--per_subject_eval`` adds the
 per-subject accuracies. ``--prediction``, ``--glove`` and
 ``--glove_encoding`` name the checkpoint's mode, as for ``cptorch-train``.
+``--bf16`` is accepted and changes nothing: the checkpoint is evaluated in
+float32, as ``cptpu-results`` builds its Trainer without a compute dtype
+(its ``cli/results.py:42-52``).
 """
 from __future__ import annotations
 

@@ -25,11 +25,13 @@ cache; ``--crossval_size 0``: the canonical ones; else the random-search
 sweep, ``train/crossval.py``) -> the nanargmax-val-acc config -> final
 annealed train, checkpointing on val loss -> reload the best checkpoint
 -> ``--test`` (then ``--results_dir``'s artifacts and
-``--per_subject_eval``, contrastive modes only). ``--bf16`` (bf16
-training, queue 1 item 9b; ``cptorch-serve --bf16`` serves in bf16),
-``--profile``, ``--spmd_crossval``, and the sweep on the fused chain or
-with the fused encoder's validation, are not ported yet and raise; so
-does a ``--prng_impl`` other than ``auto``.
+``--per_subject_eval``, contrastive modes only). ``--bf16`` trains and
+evaluates the EMG tower in bfloat16 (``Trainer(compute_dtype=
+"bfloat16")``, as the JAX CLI's ``:154``), the sweep and the final run
+alike; the checkpoint stays the f32 reference state_dict and is reloaded
+in bf16. ``--profile``, ``--spmd_crossval``, and the sweep on the fused
+chain or with the fused encoder's validation, are not ported yet and
+raise; so does a ``--prng_impl`` other than ``auto``.
 """
 from __future__ import annotations
 
@@ -126,11 +128,6 @@ def reject_unported_modes(args) -> None:
         raise SystemExit("--per_subject_eval scores contrastive logits, "
                          "which --prediction does not make (as in the JAX "
                          "CLI): drop one of the two")
-    if args.bf16:
-        raise SystemExit(NOT_PORTED.format(
-            what="--bf16 (bf16 training)", item="9b",
-            hint="drop the flag: the port trains and evaluates in float32; "
-                 "cptorch-serve --bf16 serves a checkpoint in bfloat16"))
     if args.profile:
         raise SystemExit(NOT_PORTED.format(
             what="--profile (a trace of the training run)", item=10,
@@ -144,23 +141,24 @@ def reject_unported_modes(args) -> None:
             "stream can be reproduced: drop the flag or pass auto")
 
 
-def make_trainer(args, cfg, store, **fused):
+def make_trainer(args, cfg, store, **options):
     """The ``Trainer`` of the flags: the store, db2, AdaBN, batch size and
-    mode, and the fused paths ``fused`` asks for."""
+    mode, and what ``options`` asks for (the fused paths, the compute
+    dtype)."""
     from contrastiveprosthetics_torch.train.engine import Trainer
 
     return Trainer(cfg, store, db2=args.db2, adabn=args.no_adabn,
                    prediction=args.prediction, glove=args.glove,
                    glove_encoding=args.glove_encoding,
-                   batch_size=args.batch_size, **fused)
+                   batch_size=args.batch_size, **options)
 
 
 def load_state(trainer, path: str, device):
-    """The checkpoint at ``path`` on ``device``, which must be of the
-    trainer's mode."""
+    """The checkpoint at ``path`` on ``device``, in the trainer's compute
+    dtype, which must be of the trainer's mode."""
     from contrastiveprosthetics_torch.train.checkpoint import load_checkpoint
 
-    state = load_checkpoint(path, device)
+    state = load_checkpoint(path, device, dtype=trainer.dtype)
     model = state.model
     want = (trainer.prediction, trainer.prediction and trainer.glove,
             trainer.glove_encoding and not trainer.prediction)
@@ -243,7 +241,8 @@ def main(argv=None) -> int:
         args, cfg, store,
         use_fused_train={"auto": None, "on": True,
                          "off": False}[args.fused_train],
-        use_fused_encoder=True if args.fused_encoder else None)
+        use_fused_encoder=True if args.fused_encoder else None,
+        compute_dtype="bfloat16" if args.bf16 else "float32")
     print("Dataset loaded")
 
     if crossval_load:

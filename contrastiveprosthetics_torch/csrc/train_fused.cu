@@ -110,14 +110,79 @@
 // launchers refuse the rest); stats (5, F) rows mean, var, rstd, a, c;
 // sums (2, F) rows sum dz, sum dz xhat; partial (row tiles, 2, width)
 // scratch; tickets one uint32 per column strip, 0 at launch.
+//
+// bf16 variants (the JAX chain's compute_dtype=bfloat16, ChainCfg.dtype
+// :127, rounding points :203-236, :266-324, the tail :593-601, :624-638):
+// the same templates instantiated on the stored element type bf16 (its 16
+// bits, bf16_mma.cuh) for x, W, r, dz, dx and the tail's r, h, dh, dz;
+// statistics, sums, biases, dW and db stay f32. Each bf16 operand's
+// 16-byte copies (8 values) land in a raw tile beside the f32 tile; the
+// elementwise pass reads the raw tile, computes in f32 exactly as the f32
+// kernels do, and writes the f32 tile, unrounded; the bf16 MMA rounds it
+// to bf16 where its fragments are formed (one mma.sync m16n8k16 pass a
+// product: a product of two bf16 values is exact in f32). So h = bf16(a x
+// + c, dropped), dyc = bf16(dy) in both GEMMs, while db sums the unrounded
+// dy in the pass, and the lower block's two sums take the unrounded f32 dh
+// after its dropout. K5f rounds r to bf16 before it stores it and sums r
+// and r^2 from the rounded values; K5b's dx and the tails' h and dz are
+// rounded once when stored. k16 chunks run in k order, each added with one
+// round-to-nearest add, so the bits hold across tilings as in f32. The
+// bf16 kernels take K and F multiples of 8 (a copy's 8 values).
 #include <cuda_runtime.h>
 #include <curand_philox4x32_x.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
+
+// ------------------------------------------------------ element types
+using bf16_t = uint16_t;  // a stored bf16 value's 16 bits
+
+// value: whether E is bf16; kChunk: the depth of a k chunk, the unit of
+// one round-to-nearest add (m16n8k8 in 3xTF32, m16n8k16 in bf16)
+template <class E>
+struct Bf16 {
+  static constexpr bool value = false;
+  static constexpr int kChunk = 8;
+};
+template <>
+struct Bf16<bf16_t> {
+  static constexpr bool value = true;
+  static constexpr int kChunk = 16;
+};
+
+// 4 consecutive elements as f32: one float4, or 4 bf16 (8 bytes) widened
+// exactly
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16_t* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_to_f32(u.x & 0xFFFFu), bf16_to_f32(u.x >> 16),
+                     bf16_to_f32(u.y & 0xFFFFu), bf16_to_f32(u.y >> 16));
+}
+// ... the same through the read-only cache for f32
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const bf16_t* p) { return load4(p); }
+
+// 4 f32 values stored as they are, or rounded to bf16 (8 bytes)
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16_t* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+}
+
+__device__ __forceinline__ float4 round4_bf16(float4 v) {
+  return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                     round_bf16(v.w));
+}
 
 // ------------------------------------------------------------- tilings
 template <int BM_, int BN_, int WARPS_M_, int WARPS_N_>
@@ -133,6 +198,7 @@ struct Tile {
 
 constexpr int kBK = 32;     // depth of a k-tile
 constexpr int kStages = 4;  // cp.async ring slots
+
 
 // Tilings: output tile rows x columns, then warps along rows x columns;
 // tiling 0 is the chain's. The wrapper (ops/train_fused.py FWD_TILES,
@@ -313,20 +379,31 @@ struct Operand {
   }
 };
 
+// A bf16 operand's k-tile as its copies land, before its elementwise pass
+// writes Op's f32 tile: Op's rows and columns, rows of kCols + 8 values
+// (16-byte copies), kWords 32-bit words in a ring slot.
+template <class Op>
+struct Raw {
+  static constexpr int kLd = Op::kCols + 8;
+  static constexpr int kElems = Op::kRows * kLd;
+  static constexpr int kWords = kElems / 2;
+};
+
 // 16-byte cp.async copies of the R x C tile at (r0, c0) of a row-major
-// (rows, cols) array with row stride ld, into rows of LD floats; zeros past
-// the array's edges
-template <int R, int C, int LD, int T>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
+// (rows, cols) array with row stride ld, into rows of LD elements; zeros
+// past the array's edges. A copy carries 4 f32 or 8 bf16 values, and cols
+// is a multiple of that.
+template <int R, int C, int LD, int T, class E>
+__device__ __forceinline__ void load_tile(E* dst, const E* __restrict__ src,
                                           int ld, int r0, int rows, int c0,
                                           int cols) {
-  constexpr int kPieces = R * C / 4;
+  constexpr int kV = 16 / (int)sizeof(E);
+  constexpr int kPieces = R * C / kV;
 #pragma unroll
   for (int p = 0; p < (kPieces + T - 1) / T; ++p) {
     const int i = threadIdx.x + p * T;
     if (kPieces % T == 0 || i < kPieces) {
-      const int r = i / (C / 4), c = (i % (C / 4)) * 4;
+      const int r = i / (C / kV), c = (i % (C / kV)) * kV;
       const bool ok = r0 + r < rows && c0 + c < cols;
       cp_async16(dst + r * LD + c,
                  ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
@@ -373,14 +450,42 @@ __device__ __forceinline__ void prep_tile(float* raw, Op op) {
       *reinterpret_cast<float4*>(raw + P::row(p) * LD + c) = v[p];
 }
 
+// ... for a bf16 operand: op on the thread's float4s of the raw R x C tile
+// (rows of LDR values), widened to f32, written to the f32 tile `dst` (rows
+// of LD floats) unrounded
+template <int R, int C, int LD, int LDR, int T, class Op>
+__device__ __forceinline__ void prep_tile_from(float* dst, const bf16_t* raw,
+                                               Op op) {
+  using P = Pieces<R, C, T>;
+  const int c = P::col();
+  float4 v[P::kPer];
+#pragma unroll
+  for (int p = 0; p < P::kPer; ++p)
+    if (P::has(p)) v[p] = load4(raw + P::row(p) * LDR + c);
+#pragma unroll
+  for (int p = 0; p < P::kPer; ++p)
+    if (P::has(p)) v[p] = op(P::row(p), c, v[p]);
+#pragma unroll
+  for (int p = 0; p < P::kPer; ++p)
+    if (P::has(p))
+      *reinterpret_cast<float4*>(dst + P::row(p) * LD + c) = v[p];
+}
+
+// an operand with no elementwise part (the weight): widened as it is
+struct Widen {
+  __device__ __forceinline__ float4 operator()(int, int, float4 v) const {
+    return v;
+  }
+};
+
 // The MMAs of one k-tile, issued before the chunk sums are added: the
 // warp's MI x NI m16n8 tiles at (wm, wn) from the f32 ring slots a and b,
 // each fragment split into TF32 halves in registers, each chunk's three
 // products (mma_3xtf32's) into p[chunk] from zero (chunks past n_chunks
-// stay 0)
-template <class G>
+// stay 0). KC is the chunk depth, 8 here and 16 for bf16.
+template <class G, int KC = 8>
 struct ChunkSums {
-  float p[kBK / 8][G::MI][G::NI][4];
+  float p[kBK / KC][G::MI][G::NI][4];
 };
 
 template <class G, class A, class B>
@@ -424,12 +529,73 @@ __device__ __forceinline__ void mma_ktile(const float* a, const float* b,
   }
 }
 
-// ... then mma_3xtf32's round-to-nearest adds, chunk by chunk in k order
-template <class G>
-__device__ __forceinline__ void add_chunks(float (&acc)[G::MI][G::NI][4],
-                                           const ChunkSums<G>& cs) {
+// ... the bf16 MMAs of one k-tile: each k16 chunk's fragments rounded to
+// bf16 from the f32 slots (pairs along k, the lower index in the low half),
+// one m16n8k16 pass into p[chunk] from zero
+template <class G, class A, class B>
+__device__ __forceinline__ void mma_ktile_bf16(const float* a, const float* b,
+                                               int n_chunks,
+                                               ChunkSums<G, 16>& cs, int wm,
+                                               int wn, int g, int t) {
 #pragma unroll
-  for (int kk = 0; kk < kBK / 8; ++kk)
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+    for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < G::NI; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) cs.p[kk][mi][ni][q] = 0.0f;
+    if (kk < n_chunks) {
+      const int kd = kk * 16 + 2 * t;
+      uint32_t af[G::MI][4];
+#pragma unroll
+      for (int mi = 0; mi < G::MI; ++mi) {
+        const int m = wm + mi * 16 + g;
+        af[mi][0] = pack_bf16x2(a[A::at(m, kd)], a[A::at(m, kd + 1)]);
+        af[mi][1] = pack_bf16x2(a[A::at(m + 8, kd)], a[A::at(m + 8, kd + 1)]);
+        af[mi][2] = pack_bf16x2(a[A::at(m, kd + 8)], a[A::at(m, kd + 9)]);
+        af[mi][3] =
+            pack_bf16x2(a[A::at(m + 8, kd + 8)], a[A::at(m + 8, kd + 9)]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < G::NI; ++ni) {
+        const int n = wn + ni * 8 + g;
+        const uint32_t b0 = pack_bf16x2(b[B::at(n, kd)], b[B::at(n, kd + 1)]);
+        const uint32_t b1 =
+            pack_bf16x2(b[B::at(n, kd + 8)], b[B::at(n, kd + 9)]);
+#pragma unroll
+        for (int mi = 0; mi < G::MI; ++mi)
+          mma_bf16(cs.p[kk][mi][ni], af[mi], b0, b1);
+      }
+    }
+  }
+}
+
+// The MMAs of a k-tile in the element type's arithmetic
+template <class E, class G, class A, class B>
+__device__ __forceinline__ void mma_ktile_of(const float* a, const float* b,
+                                             int n_chunks,
+                                             ChunkSums<G, Bf16<E>::kChunk>& cs,
+                                             int wm, int wn, int g, int t) {
+  if constexpr (Bf16<E>::value)
+    mma_ktile_bf16<G, A, B>(a, b, n_chunks, cs, wm, wn, g, t);
+  else
+    mma_ktile<G, A, B>(a, b, n_chunks, cs, wm, wn, g, t);
+}
+
+// chunks of k-tile kt with data, of a contraction `depth` long
+template <class E>
+__device__ __forceinline__ int chunks_in(int depth, int kt) {
+  constexpr int KC = Bf16<E>::kChunk;
+  return min(kBK / KC, (depth - kt * kBK + KC - 1) / KC);
+}
+
+// ... then mma_3xtf32's round-to-nearest adds, chunk by chunk in k order
+template <class G, int KC = 8>
+__device__ __forceinline__ void add_chunks(float (&acc)[G::MI][G::NI][4],
+                                           const ChunkSums<G, KC>& cs) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / KC; ++kk)
 #pragma unroll
     for (int mi = 0; mi < G::MI; ++mi)
 #pragma unroll
@@ -446,7 +612,7 @@ __device__ __forceinline__ void add_chunks(float (&acc)[G::MI][G::NI][4],
 // shadow. mma(kt) and prep(kt+1) run between the same two barriers while
 // the copies of kt+2 and kt+3 are in flight. Ends with every copy landed
 // and the shared memory free for the epilogue.
-template <class G, class Load, class Prep, class Mma>
+template <class G, int KC, class Load, class Prep, class Mma>
 __device__ __forceinline__ void run_pipeline(int n_kt, Load load, Prep prep,
                                              Mma mma,
                                              float (&acc)[G::MI][G::NI][4]) {
@@ -461,7 +627,7 @@ __device__ __forceinline__ void run_pipeline(int n_kt, Load load, Prep prep,
   cp_async_wait<kAhead - 1>();
   __syncthreads();  // k-tile 0 and the staged vectors are visible
   prep(0, 0);
-  ChunkSums<G> cs;
+  ChunkSums<G, KC> cs;
   for (int kt = 0; kt < n_kt; ++kt) {
     cp_async_wait<kAhead - 2>();  // this thread's copies of kt + 1
     // everyone's copies of kt + 1 and prep(kt) are visible; mma(kt - 1) is
@@ -472,7 +638,7 @@ __device__ __forceinline__ void run_pipeline(int n_kt, Load load, Prep prep,
     cp_async_commit();
     mma(kt % kStages, kt, cs);
     if (kt + 1 < n_kt) prep((kt + 1) % kStages, kt + 1);
-    add_chunks<G>(acc, cs);
+    add_chunks<G, KC>(acc, cs);
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -555,10 +721,14 @@ __device__ __forceinline__ float2 strip_sums(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------- K5f
+// E: the element type of x, w and r (float, or bf16_t in the bf16 variant)
+template <class E>
 struct FwdArgs {
-  const float *x, *w, *b, *gamma, *beta, *in_stats;
+  const E *x, *w;
+  const float *b, *gamma, *beta, *in_stats;
   Dropout d;
-  float *r, *partial;
+  E* r;
+  float* partial;
   unsigned* tickets;
   float* stats;
   int N, K, F;
@@ -566,12 +736,18 @@ struct FwdArgs {
 };
 
 // WROW: w is a row-major (K, F); else the transpose of a Linear weight
-// (F, K), contiguous along k
-template <class G, bool WROW>
+// (F, K), contiguous along k. A slot holds the f32 tiles of h and W, then
+// in bf16 the raw tiles of x and W that their copies fill.
+template <class G, bool WROW, class E>
 struct FwdLayout {
   using A = Operand<G::BM, false>;  // h as (n, k)
   using B = Operand<G::BN, WROW>;   // W as (f, k) or (k, f)
-  static constexpr int kStage = A::kTile + B::kTile;  // x (h in place), W
+  using RA = Raw<A>;
+  using RB = Raw<B>;
+  static constexpr bool kBf16 = Bf16<E>::value;
+  // x (h in place in f32), W; in bf16 then raw x, raw W
+  static constexpr int kStage =
+      A::kTile + B::kTile + (kBf16 ? RA::kWords + RB::kWords : 0);
   static constexpr int kCs = G::BN + 8;  // staged output row stride
   // the ring, then a_in and c_in (K floats each)
   static constexpr int kFloats = kStages * kStage;
@@ -579,12 +755,22 @@ struct FwdLayout {
   static size_t bytes(int K) {
     return sizeof(float) * ((size_t)kFloats + 2 * (size_t)K);
   }
+  // where a slot's copies of x and W land, and their row strides
+  static constexpr int kLdX = kBf16 ? RA::kLd : A::kLd;
+  static constexpr int kLdW = kBf16 ? RB::kLd : B::kLd;
+  __device__ static __forceinline__ E* x_copy(float* s) {
+    return reinterpret_cast<E*>(kBf16 ? s + A::kTile + B::kTile : s);
+  }
+  __device__ static __forceinline__ E* w_copy(float* s) {
+    return kBf16 ? x_copy(s) + RA::kElems
+                 : reinterpret_cast<E*>(s + A::kTile);
+  }
 };
 
-template <class G, bool WROW>
+template <class G, bool WROW, class E>
 __global__ void __launch_bounds__(G::kThreads)
-    dense_block_fwd_kernel(const FwdArgs p) {
-  using L = FwdLayout<G, WROW>;
+    dense_block_fwd_kernel(const FwdArgs<E> p) {
+  using L = FwdLayout<G, WROW, E>;
   using A = typename L::A;
   using B = typename L::B;
   constexpr int T = G::kThreads;
@@ -608,32 +794,43 @@ __global__ void __launch_bounds__(G::kThreads)
   auto load = [&](int kt, int slot) {
     float* s = ring + slot * L::kStage;
     const int k0 = kt * kBK;
-    load_tile<A::kRows, A::kCols, A::kLd, T>(s, p.x, K, row0, N, k0, K);
+    load_tile<A::kRows, A::kCols, L::kLdX, T>(L::x_copy(s), p.x, K, row0, N,
+                                              k0, K);
     if constexpr (WROW)  // w[k * F + f]
-      load_tile<B::kRows, B::kCols, B::kLd, T>(s + A::kTile, p.w, F, k0, K,
-                                               col0, F);
+      load_tile<B::kRows, B::kCols, L::kLdW, T>(L::w_copy(s), p.w, F, k0, K,
+                                                col0, F);
     else  // w[f * K + k]
-      load_tile<B::kRows, B::kCols, B::kLd, T>(s + A::kTile, p.w, K, col0, F,
-                                               k0, K);
+      load_tile<B::kRows, B::kCols, L::kLdW, T>(L::w_copy(s), p.w, K, col0,
+                                                F, k0, K);
   };
   auto prep = [&](int slot, int kt) {
+    float* s = ring + slot * L::kStage;
     const int k0 = kt * kBK;
-    prep_tile<A::kRows, A::kCols, A::kLd, T>(
-        ring + slot * L::kStage, [&](int i, int j, float4 v) {
-          return block_input4(v, row0 + i, k0 + j, N, K,
-                              affine ? vec : nullptr, vec + K, 0, drop);
-        });
+    auto op = [&](int i, int j, float4 v) {
+      return block_input4(v, row0 + i, k0 + j, N, K, affine ? vec : nullptr,
+                          vec + K, 0, drop);
+    };
+    if constexpr (L::kBf16) {
+      prep_tile_from<A::kRows, A::kCols, A::kLd, L::kLdX, T>(s, L::x_copy(s),
+                                                              op);
+      prep_tile_from<B::kRows, B::kCols, B::kLd, L::kLdW, T>(
+          s + A::kTile, L::w_copy(s), Widen());
+    } else {
+      prep_tile<A::kRows, A::kCols, A::kLd, T>(s, op);
+    }
   };
+  constexpr int KC = Bf16<E>::kChunk;
   float acc[G::MI][G::NI][4] = {};
-  auto mma = [&](int slot, int kt, ChunkSums<G>& cs) {
+  auto mma = [&](int slot, int kt, ChunkSums<G, KC>& cs) {
     const float* a = ring + slot * L::kStage;
-    mma_ktile<G, A, B>(a, a + A::kTile, min(kBK / 8, (K - kt * kBK + 7) / 8),
-                       cs, wm, wn, g, t);
+    mma_ktile_of<E, G, A, B>(a, a + A::kTile, chunks_in<E>(K, kt), cs, wm,
+                             wn, g, t);
   };
-  run_pipeline<G>((K + kBK - 1) / kBK, load, prep, mma, acc);
+  run_pipeline<G, KC>((K + kBK - 1) / kBK, load, prep, mma, acc);
 
-  // epilogue: bias, ReLU, 16-byte stores of r; the tile's v and v^2 staged
-  // for the column sums (0 past the edges)
+  // epilogue: bias, ReLU (in bf16 then rounded), 16-byte stores of r (8 in
+  // bf16); the tile's stored v and v^2 staged for the column sums (0 past
+  // the edges)
   float* Cs = smem;
   float* Cs2 = smem + G::BM * L::kCs;
   stage_acc<G>(Cs, L::kCs, acc, wm, wn, g, t);
@@ -654,7 +851,8 @@ __global__ void __launch_bounds__(G::kThreads)
                         fmaxf(__fadd_rn(a.y, bias.y), 0.0f),
                         fmaxf(__fadd_rn(a.z, bias.z), 0.0f),
                         fmaxf(__fadd_rn(a.w, bias.w), 0.0f));
-        *reinterpret_cast<float4*>(p.r + (size_t)gm * F + gn) = v;
+        if constexpr (L::kBf16) v = round4_bf16(v);
+        store4(p.r + (size_t)gm * F + gn, v);
       }
       *at = v;
       *reinterpret_cast<float4*>(Cs2 + m * L::kCs + c) =
@@ -686,21 +884,31 @@ __global__ void __launch_bounds__(G::kThreads)
 }
 
 // ---------------------------------------------------------------- K5b
+// E: the element type of dz, r, x, w and dx; dW, db and the sums are f32
+template <class E>
 struct BwdArgs {
-  const float *dz, *r, *x, *w, *stats, *sums, *in_stats;
+  const E *dz, *r, *x, *w;
+  const float *stats, *sums, *in_stats;
   Dropout d;
-  float *dx, *dw, *db, *out_sums, *partial;
+  E* dx;
+  float *dw, *db, *out_sums, *partial;
   unsigned* tickets;
   int N, K, F;
   int n_dgrad;  // CTAs of the dgrad role, first in the grid
 };
 
-template <class G, bool WROW>
+// f32: dz (dy in place), r, W. bf16: the f32 tiles of dy and W, then the
+// raw tiles of dz, r and W.
+template <class G, bool WROW, class E>
 struct DgradLayout {
   using A = Operand<G::BM, false>;  // dy as (n, f)
   using B = Operand<G::BN, !WROW>;  // W as (k, f) or (f, k)
-  // dz (dy in place), r, W
-  static constexpr int kStage = 2 * A::kTile + B::kTile;
+  using RA = Raw<A>;
+  using RB = Raw<B>;
+  static constexpr bool kBf16 = Bf16<E>::value;
+  static constexpr int kW = kBf16 ? A::kTile : 2 * A::kTile;  // W's f32 tile
+  static constexpr int kStage =
+      kW + B::kTile + (kBf16 ? 2 * RA::kWords + RB::kWords : 0);
   static constexpr int kCs = G::BN + 8;
   // the ring, then dy's 5 column vectors (F each)
   static constexpr int kFloats = kStages * kStage;
@@ -708,14 +916,32 @@ struct DgradLayout {
   static size_t bytes(int F) {
     return sizeof(float) * ((size_t)kFloats + 5 * (size_t)F);
   }
+  static constexpr int kLdA = kBf16 ? RA::kLd : A::kLd;  // dz's and r's copies
+  static constexpr int kLdW = kBf16 ? RB::kLd : B::kLd;
+  __device__ static __forceinline__ E* dz_copy(float* s) {
+    return reinterpret_cast<E*>(kBf16 ? s + kW + B::kTile : s);
+  }
+  __device__ static __forceinline__ E* r_copy(float* s) {
+    return kBf16 ? dz_copy(s) + RA::kElems
+                 : reinterpret_cast<E*>(s + A::kTile);
+  }
+  __device__ static __forceinline__ E* w_copy(float* s) {
+    return kBf16 ? r_copy(s) + RA::kElems : reinterpret_cast<E*>(s + kW);
+  }
 };
 
-template <class G, bool WROW>
+// f32: x (h in place), dz (dy in place), r. bf16: the f32 tiles of h and
+// dy, then the raw tiles of x, dz and r.
+template <class G, bool WROW, class E>
 struct WgradLayout {
   using A = Operand<G::BM, true>;  // h as (n, k)
   using B = Operand<G::BN, true>;  // dy as (n, f)
-  // x (h in place), dz (dy in place), r
-  static constexpr int kStage = A::kTile + 2 * B::kTile;
+  using RA = Raw<A>;
+  using RB = Raw<B>;
+  static constexpr bool kBf16 = Bf16<E>::value;
+  static constexpr int kStage =
+      A::kTile + (kBf16 ? B::kTile + RA::kWords + 2 * RB::kWords
+                        : 2 * B::kTile);
   static_assert(G::kThreads % (G::BN / 4) == 0,
                 "each thread sums db over one column quad");
   static constexpr int kGroups = G::kThreads / (G::BN / 4);  // per column
@@ -727,12 +953,25 @@ struct WgradLayout {
   static_assert((WROW ? G::BM : G::BN) * kCs + kGroups * G::BN <= kFloats,
                 "the staged dW and db partials fit");
   static size_t bytes() { return sizeof(float) * (size_t)(kFloats + kVec); }
+  static constexpr int kLdX = kBf16 ? RA::kLd : A::kLd;
+  static constexpr int kLdB = kBf16 ? RB::kLd : B::kLd;  // dz's and r's
+  __device__ static __forceinline__ E* x_copy(float* s) {
+    return reinterpret_cast<E*>(kBf16 ? s + A::kTile + B::kTile : s);
+  }
+  __device__ static __forceinline__ E* dz_copy(float* s) {
+    return kBf16 ? x_copy(s) + RA::kElems
+                 : reinterpret_cast<E*>(s + A::kTile);
+  }
+  __device__ static __forceinline__ E* r_copy(float* s) {
+    return kBf16 ? dz_copy(s) + RB::kElems
+                 : reinterpret_cast<E*>(s + A::kTile + B::kTile);
+  }
 };
 
 // dgrad: the dx tile at (rows n, columns k), contraction over f
-template <class G, bool WROW>
-__device__ __forceinline__ void dgrad_tile(const BwdArgs& p, int bid) {
-  using L = DgradLayout<G, WROW>;
+template <class G, bool WROW, class E>
+__device__ __forceinline__ void dgrad_tile(const BwdArgs<E>& p, int bid) {
+  using L = DgradLayout<G, WROW, E>;
   using A = typename L::A;
   using B = typename L::B;
   constexpr int T = G::kThreads;
@@ -755,35 +994,46 @@ __device__ __forceinline__ void dgrad_tile(const BwdArgs& p, int bid) {
   auto load = [&](int kt, int slot) {
     float* s = ring + slot * L::kStage;
     const int f0 = kt * kBK;
-    load_tile<A::kRows, A::kCols, A::kLd, T>(s, p.dz, F, row0, N, f0, F);
-    load_tile<A::kRows, A::kCols, A::kLd, T>(s + A::kTile, p.r, F, row0, N,
-                                             f0, F);
+    load_tile<A::kRows, A::kCols, L::kLdA, T>(L::dz_copy(s), p.dz, F, row0,
+                                              N, f0, F);
+    load_tile<A::kRows, A::kCols, L::kLdA, T>(L::r_copy(s), p.r, F, row0, N,
+                                              f0, F);
     if constexpr (WROW)  // w[k * F + f]
-      load_tile<B::kRows, B::kCols, B::kLd, T>(s + 2 * A::kTile, p.w, F,
-                                               col0, K, f0, F);
+      load_tile<B::kRows, B::kCols, L::kLdW, T>(L::w_copy(s), p.w, F, col0,
+                                                K, f0, F);
     else  // w[f * K + k]
-      load_tile<B::kRows, B::kCols, B::kLd, T>(s + 2 * A::kTile, p.w, K, f0,
-                                               F, col0, K);
+      load_tile<B::kRows, B::kCols, L::kLdW, T>(L::w_copy(s), p.w, K, f0, F,
+                                                col0, K);
   };
   auto prep = [&](int slot, int kt) {
     float* s = ring + slot * L::kStage;
-    const float* rs = s + A::kTile;
+    const E* rs = L::r_copy(s);
     const int f0 = kt * kBK;
-    prep_tile<A::kRows, A::kCols, A::kLd, T>(s, [&](int i, int j, float4 dz) {
-      const float4 rv = *reinterpret_cast<const float4*>(rs + i * A::kLd + j);
+    auto op = [&](int i, int j, float4 dz) {
+      const float4 rv = load4(rs + i * L::kLdA + j);
       return dy4(dz, rv, row0 + i, f0 + j, N, F, vec, F, 0);
-    });
+    };
+    if constexpr (L::kBf16) {
+      prep_tile_from<A::kRows, A::kCols, A::kLd, L::kLdA, T>(s, L::dz_copy(s),
+                                                              op);
+      prep_tile_from<B::kRows, B::kCols, B::kLd, L::kLdW, T>(
+          s + L::kW, L::w_copy(s), Widen());
+    } else {
+      prep_tile<A::kRows, A::kCols, A::kLd, T>(s, op);
+    }
   };
+  constexpr int KC = Bf16<E>::kChunk;
   float acc[G::MI][G::NI][4] = {};
-  auto mma = [&](int slot, int kt, ChunkSums<G>& cs) {
+  auto mma = [&](int slot, int kt, ChunkSums<G, KC>& cs) {
     const float* a = ring + slot * L::kStage;
-    mma_ktile<G, A, B>(a, a + 2 * A::kTile,
-                       min(kBK / 8, (F - kt * kBK + 7) / 8), cs, wm, wn, g, t);
+    mma_ktile_of<E, G, A, B>(a, a + L::kW, chunks_in<E>(F, kt), cs, wm, wn, g,
+                             t);
   };
-  run_pipeline<G>((F + kBK - 1) / kBK, load, prep, mma, acc);
+  run_pipeline<G, KC>((F + kBK - 1) / kBK, load, prep, mma, acc);
 
-  // epilogue: dropout with the redrawn bits, 16-byte stores of dx; dx and
-  // dx xhat_in staged for the lower block's two sums (0 past the edges)
+  // epilogue: dropout with the redrawn bits, 16-byte stores of dx (8-byte,
+  // rounded, in bf16); the unrounded dx and dx xhat_in staged for the lower
+  // block's two sums (0 past the edges)
   float* Cs = smem;
   float* Cx = smem + G::BM * L::kCs;
   stage_acc<G>(Cs, L::kCs, acc, wm, wn, g, t);
@@ -801,9 +1051,9 @@ __device__ __forceinline__ void dgrad_tile(const BwdArgs& p, int bid) {
       if (gm < N && gk < K) {
         const size_t e = (size_t)gm * K + gk;
         v = drop4(*at, drop, gm, gk, K);
-        *reinterpret_cast<float4*>(p.dx + e) = v;
+        store4(p.dx + e, v);
         if (sums_out) {
-          const float4 xv = __ldg(reinterpret_cast<const float4*>(p.x + e));
+          const float4 xv = ldg4(p.x + e);
           const float4 mu =
               __ldg(reinterpret_cast<const float4*>(p.in_stats + gk));
           const float4 rs =
@@ -836,9 +1086,9 @@ __device__ __forceinline__ void dgrad_tile(const BwdArgs& p, int bid) {
 
 // wgrad: the dW tile at (rows k, columns f), contraction over the N rows;
 // the tiles of the first k strip also sum db
-template <class G, bool WROW>
-__device__ __forceinline__ void wgrad_tile(const BwdArgs& p, int wid) {
-  using L = WgradLayout<G, WROW>;
+template <class G, bool WROW, class E>
+__device__ __forceinline__ void wgrad_tile(const BwdArgs<E>& p, int wid) {
+  using L = WgradLayout<G, WROW, E>;
   using A = typename L::A;
   using B = typename L::B;
   constexpr int T = G::kThreads;
@@ -870,39 +1120,49 @@ __device__ __forceinline__ void wgrad_tile(const BwdArgs& p, int wid) {
   auto load = [&](int kt, int slot) {
     float* s = ring + slot * L::kStage;
     const int n0 = kt * kBK;
-    load_tile<A::kRows, A::kCols, A::kLd, T>(s, p.x, K, n0, N, k0, K);
-    load_tile<B::kRows, B::kCols, B::kLd, T>(s + A::kTile, p.dz, F, n0, N,
-                                             f0, F);
-    load_tile<B::kRows, B::kCols, B::kLd, T>(s + A::kTile + B::kTile, p.r, F,
-                                             n0, N, f0, F);
+    load_tile<A::kRows, A::kCols, L::kLdX, T>(L::x_copy(s), p.x, K, n0, N, k0,
+                                              K);
+    load_tile<B::kRows, B::kCols, L::kLdB, T>(L::dz_copy(s), p.dz, F, n0, N,
+                                              f0, F);
+    load_tile<B::kRows, B::kCols, L::kLdB, T>(L::r_copy(s), p.r, F, n0, N, f0,
+                                              F);
   };
-  // this thread's share of db: one column quad, its rows in order
+  // this thread's share of db: one column quad, its rows in order (the
+  // unrounded dy in bf16 too)
   float4 db4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   auto prep = [&](int slot, int kt) {
     float* s = ring + slot * L::kStage;
-    const float* rs = s + A::kTile + B::kTile;
+    const E* rs = L::r_copy(s);
     const int n0 = kt * kBK;
-    prep_tile<A::kRows, A::kCols, A::kLd, T>(s, [&](int i, int j, float4 v) {
+    auto h_op = [&](int i, int j, float4 v) {
       return block_input4(v, n0 + i, k0 + j, N, K, affine ? avec : nullptr,
                           avec + G::BM, k0, drop);
-    });
-    prep_tile<B::kRows, B::kCols, B::kLd, T>(
-        s + A::kTile, [&](int i, int j, float4 dz) {
-          const float4 rv =
-              *reinterpret_cast<const float4*>(rs + i * B::kLd + j);
-          const float4 y = dy4(dz, rv, n0 + i, f0 + j, N, F, vec, G::BN, f0);
-          db4 = make_float4(__fadd_rn(db4.x, y.x), __fadd_rn(db4.y, y.y),
-                            __fadd_rn(db4.z, y.z), __fadd_rn(db4.w, y.w));
-          return y;
-        });
+    };
+    auto dy_op = [&](int i, int j, float4 dz) {
+      const float4 rv = load4(rs + i * L::kLdB + j);
+      const float4 y = dy4(dz, rv, n0 + i, f0 + j, N, F, vec, G::BN, f0);
+      db4 = make_float4(__fadd_rn(db4.x, y.x), __fadd_rn(db4.y, y.y),
+                        __fadd_rn(db4.z, y.z), __fadd_rn(db4.w, y.w));
+      return y;
+    };
+    if constexpr (L::kBf16) {
+      prep_tile_from<A::kRows, A::kCols, A::kLd, L::kLdX, T>(s, L::x_copy(s),
+                                                              h_op);
+      prep_tile_from<B::kRows, B::kCols, B::kLd, L::kLdB, T>(
+          s + A::kTile, L::dz_copy(s), dy_op);
+    } else {
+      prep_tile<A::kRows, A::kCols, A::kLd, T>(s, h_op);
+      prep_tile<B::kRows, B::kCols, B::kLd, T>(s + A::kTile, dy_op);
+    }
   };
+  constexpr int KC = Bf16<E>::kChunk;
   float acc[G::MI][G::NI][4] = {};
-  auto mma = [&](int slot, int kt, ChunkSums<G>& cs) {
+  auto mma = [&](int slot, int kt, ChunkSums<G, KC>& cs) {
     const float* a = ring + slot * L::kStage;
-    mma_ktile<G, A, B>(a, a + A::kTile, min(kBK / 8, (N - kt * kBK + 7) / 8),
-                       cs, wm, wn, g, t);
+    mma_ktile_of<E, G, A, B>(a, a + A::kTile, chunks_in<E>(N, kt), cs, wm, wn,
+                             g, t);
   };
-  run_pipeline<G>((N + kBK - 1) / kBK, load, prep, mma, acc);
+  run_pipeline<G, KC>((N + kBK - 1) / kBK, load, prep, mma, acc);
 
   // epilogue: dW staged along its contiguous dimension, 16-byte stores;
   // db from the column's thread partials in a fixed order
@@ -942,14 +1202,14 @@ __device__ __forceinline__ void wgrad_tile(const BwdArgs& p, int wid) {
   }
 }
 
-template <class GD, class GW, bool WROW>
+template <class GD, class GW, bool WROW, class E>
 __global__ void __launch_bounds__(GD::kThreads)
-    dense_block_bwd_kernel(const BwdArgs p) {
+    dense_block_bwd_kernel(const BwdArgs<E> p) {
   static_assert(GD::kThreads == GW::kThreads, "one block size per launch");
   if ((int)blockIdx.x < p.n_dgrad)
-    dgrad_tile<GD, WROW>(p, blockIdx.x);
+    dgrad_tile<GD, WROW, E>(p, blockIdx.x);
   else
-    wgrad_tile<GW, WROW>(p, blockIdx.x - p.n_dgrad);
+    wgrad_tile<GW, WROW, E>(p, blockIdx.x - p.n_dgrad);
 }
 
 // ------------------------------------------------ the chain's tail, K5m
@@ -966,20 +1226,23 @@ __device__ __forceinline__ int row_ctas(int F) {
 // Philox call per 4 columns, F % 4 == 0. The row's loads are issued before
 // the seed words and keep are read, so that one round trip to memory
 // serves both (read_drop's first use of keep would otherwise hold them).
+// E: the element type of x and h (bf16: x widened, h rounded once when
+// stored, 8-byte loads and stores).
+template <class E>
 __global__ void __launch_bounds__(kRowThreads)
-    chain_tail_fwd_kernel(const float* __restrict__ x,
+    chain_tail_fwd_kernel(const E* __restrict__ x,
                           const float* __restrict__ stats, const Dropout d,
-                          float* __restrict__ h, int F) {
+                          E* __restrict__ h, int F) {
   const int per_row = row_ctas(F);
   const int n = blockIdx.x / per_row;
   const int k = ((blockIdx.x % per_row) * kRowThreads + threadIdx.x) * 4;
   if (k >= F) return;
   const int e = n * F + k;
-  const float4 v = __ldg(reinterpret_cast<const float4*>(x + e));
+  const float4 v = ldg4(x + e);
   const float4 a = __ldg(reinterpret_cast<const float4*>(stats + 3 * F + k));
   const float4 c = __ldg(reinterpret_cast<const float4*>(stats + 4 * F + k));
   const Drop drop = read_drop(d);
-  *reinterpret_cast<float4*>(h + e) = drop4(affine4(v, a, c), drop, n, k, F);
+  store4(h + e, drop4(affine4(v, a, c), drop, n, k, F));
 }
 
 // dz = dropout^T(dh) with the same bits, and the top BatchNorm's two
@@ -995,11 +1258,13 @@ constexpr int kTailGroups = kTailThreads / (8 * kTailQuads);  // stage one
 static_assert(kTailSlots % kTailGroups == 0,
               "stage one adds kTailSlots / kTailGroups slots a thread");
 
+// E: the element type of dh, r and dz (bf16: dh and r widened, the sums
+// from the unrounded dz, which is rounded once when stored).
+template <class E>
 __global__ void __launch_bounds__(kTailThreads)
-    chain_tail_bwd_kernel(const float* __restrict__ dh,
-                          const float* __restrict__ r,
+    chain_tail_bwd_kernel(const E* __restrict__ dh, const E* __restrict__ r,
                           const float* __restrict__ stats, const Dropout d,
-                          float* __restrict__ dz, float* __restrict__ sums,
+                          E* __restrict__ dz, float* __restrict__ sums,
                           int N, int F) {
   // [sum][slot * kTailQuads + quad], then [group][sum * kTailQuads + quad]
   __shared__ double part[8][kTailThreads];
@@ -1017,10 +1282,9 @@ __global__ void __launch_bounds__(kTailThreads)
     const float ds[4] = {rstd.x, rstd.y, rstd.z, rstd.w};
     for (int n = slot; n < N; n += kTailSlots) {
       const int e = n * F + k;
-      const float4 g = drop4(__ldg(reinterpret_cast<const float4*>(dh + e)),
-                             drop, n, k, F);
-      const float4 rv = __ldg(reinterpret_cast<const float4*>(r + e));
-      *reinterpret_cast<float4*>(dz + e) = g;
+      const float4 g = drop4(ldg4(dh + e), drop, n, k, F);
+      const float4 rv = ldg4(r + e);
+      store4(dz + e, g);
       const float gs[4] = {g.x, g.y, g.z, g.w};
       const float rs[4] = {rv.x, rv.y, rv.z, rv.w};
 #pragma unroll
@@ -1122,13 +1386,15 @@ int weight_layout(int K, int F, int wsk, int wsn) {
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Dynamic shared memory above 48 KB is opted into once per kernel.
+// Dynamic shared memory above 32 KB is opted into once per kernel: the
+// default 48 KB limit counts the static shared memory (tile_partials' flag)
+// too, so exactly 48 KB of dynamic shared memory is refused without it.
 cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  constexpr int kMax = 16;
+  constexpr int kMax = 32;
   static const void* kernels[kMax];
   static size_t allowed[kMax];
   static int n = 0;
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes <= 32 * 1024) return cudaSuccess;
   int i = 0;
   while (i < n && kernels[i] != kernel) ++i;
   if (i < n && allowed[i] >= bytes) return cudaSuccess;
@@ -1140,10 +1406,10 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
   return cudaSuccess;
 }
 
-template <class G, bool WROW>
-int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
-  const size_t smem = FwdLayout<G, WROW>::bytes(a.K);
-  const auto kernel = dense_block_fwd_kernel<G, WROW>;
+template <class G, bool WROW, class E>
+int launch_fwd(const FwdArgs<E>& a, cudaStream_t stream) {
+  const size_t smem = FwdLayout<G, WROW, E>::bytes(a.K);
+  const auto kernel = dense_block_fwd_kernel<G, WROW, E>;
   cudaError_t err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(cdiv(a.N, G::BM), cdiv(a.F, G::BN));
@@ -1151,14 +1417,14 @@ int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <class GD, class GW, bool WROW>
-int launch_bwd(BwdArgs a, cudaStream_t stream) {
+template <class GD, class GW, bool WROW, class E>
+int launch_bwd(BwdArgs<E> a, cudaStream_t stream) {
   a.n_dgrad = cdiv(a.N, GD::BM) * cdiv(a.K, GD::BN);
   const int n_wgrad = cdiv(a.K, GW::BM) * cdiv(a.F, GW::BN);
-  const size_t smem_d = DgradLayout<GD, WROW>::bytes(a.F);
-  const size_t smem_w = WgradLayout<GW, WROW>::bytes();
+  const size_t smem_d = DgradLayout<GD, WROW, E>::bytes(a.F);
+  const size_t smem_w = WgradLayout<GW, WROW, E>::bytes();
   const size_t smem = smem_d > smem_w ? smem_d : smem_w;
-  const auto kernel = dense_block_bwd_kernel<GD, GW, WROW>;
+  const auto kernel = dense_block_bwd_kernel<GD, GW, WROW, E>;
   cudaError_t err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<a.n_dgrad + n_wgrad, GD::kThreads, smem, stream>>>(a);
@@ -1171,24 +1437,27 @@ bool too_large(int N, int F) { return (long long)N * F > INT_MAX; }
 // One thread per (row, 4-column group): the CTAs of the N rows.
 int row_grid(int N, int F) { return N * cdiv(cdiv(F, 4), kRowThreads); }
 
-}  // namespace
+// the widths a copy of E takes: multiples of 4 f32 or 8 bf16 values
+template <class E>
+bool ragged(int width) {
+  return width % (16 / (int)sizeof(E)) != 0;
+}
 
-// `tiling` 0 or 1 picks FwdTile0 or FwdTile1.
-extern "C" int dense_block_fwd_launch(
-    const float* x, const float* w, const float* b, const float* gamma,
-    const float* beta, const float* in_stats, const int* seed,
-    const float* keep, const float* mask, float* r, float* partial,
-    unsigned* tickets, float* stats, int N, int K, int F, int wsk, int wsn,
-    int drop_block, int tiling, float eps, void* stream) {
+template <class E>
+int fwd_entry(const E* x, const E* w, const float* b, const float* gamma,
+              const float* beta, const float* in_stats, const int* seed,
+              const float* keep, const float* mask, E* r, float* partial,
+              unsigned* tickets, float* stats, int N, int K, int F, int wsk,
+              int wsn, int drop_block, int tiling, float eps, void* stream) {
   const int wrow = weight_layout(K, F, wsk, wsn);
-  if (N < 1 || K < 1 || F < 1 || K % 4 || F % 4 || wrow < 0 ||
+  if (N < 1 || K < 1 || F < 1 || ragged<E>(K) || ragged<E>(F) || wrow < 0 ||
       bad_dropout(seed, keep, mask) || misaligned(x) || misaligned(w) ||
       misaligned(b) || misaligned(in_stats) || misaligned(mask) ||
       misaligned(r))
     return (int)cudaErrorInvalidValue;
-  const FwdArgs a{x, w, b, gamma, beta, in_stats,
-                  Dropout{seed, keep, mask, drop_block},
-                  r, partial, tickets, stats, N, K, F, eps};
+  const FwdArgs<E> a{x, w, b, gamma, beta, in_stats,
+                     Dropout{seed, keep, mask, drop_block},
+                     r, partial, tickets, stats, N, K, F, eps};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (tiling * 2 + wrow) {
     case 0: return launch_fwd<FwdTile0, false>(a, s);
@@ -1199,24 +1468,23 @@ extern "C" int dense_block_fwd_launch(
   }
 }
 
-// `tiling` 0 or 1 picks DgradTile0 + WgradTile0 or DgradTile1 + WgradTile1.
-extern "C" int dense_block_bwd_launch(
-    const float* dz, const float* r, const float* x, const float* w,
-    const float* stats, const float* sums, const float* in_stats,
-    const int* seed, const float* keep, const float* mask, float* dx,
-    float* dw, float* db, float* out_sums, float* partial, unsigned* tickets,
-    int N, int K, int F, int wsk, int wsn, int drop_block, int tiling,
-    void* stream) {
+template <class E>
+int bwd_entry(const E* dz, const E* r, const E* x, const E* w,
+              const float* stats, const float* sums, const float* in_stats,
+              const int* seed, const float* keep, const float* mask, E* dx,
+              float* dw, float* db, float* out_sums, float* partial,
+              unsigned* tickets, int N, int K, int F, int wsk, int wsn,
+              int drop_block, int tiling, void* stream) {
   const int wrow = weight_layout(K, F, wsk, wsn);
-  if (N < 1 || K < 1 || F < 1 || K % 4 || F % 4 || wrow < 0 ||
+  if (N < 1 || K < 1 || F < 1 || ragged<E>(K) || ragged<E>(F) || wrow < 0 ||
       bad_dropout(seed, keep, mask) ||
       (in_stats == nullptr) != (out_sums == nullptr) || misaligned(dz) ||
       misaligned(r) || misaligned(x) || misaligned(w) || misaligned(in_stats) ||
       misaligned(mask) || misaligned(dx) || misaligned(dw))
     return (int)cudaErrorInvalidValue;
-  const BwdArgs a{dz, r, x, w, stats, sums, in_stats,
-                  Dropout{seed, keep, mask, drop_block},
-                  dx, dw, db, out_sums, partial, tickets, N, K, F, 0};
+  const BwdArgs<E> a{dz, r, x, w, stats, sums, in_stats,
+                     Dropout{seed, keep, mask, drop_block},
+                     dx, dw, db, out_sums, partial, tickets, N, K, F, 0};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (tiling * 2 + wrow) {
     case 0: return launch_bwd<DgradTile0, WgradTile0, false>(a, s);
@@ -1227,20 +1495,105 @@ extern "C" int dense_block_bwd_launch(
   }
 }
 
+template <class E>
+int tail_fwd_entry(const E* x, const float* stats, const int* seed,
+                   const float* keep, const float* mask, E* h, int N, int F,
+                   int drop_block, void* stream) {
+  if (N < 1 || F < 1 || F % 4 || too_large(N, F) ||
+      bad_dropout(seed, keep, mask) || misaligned(x) || misaligned(stats) ||
+      misaligned(mask) || misaligned(h))
+    return (int)cudaErrorInvalidValue;
+  chain_tail_fwd_kernel<E><<<row_grid(N, F), kRowThreads, 0,
+                             (cudaStream_t)stream>>>(
+      x, stats, Dropout{seed, keep, mask, drop_block}, h, F);
+  return (int)cudaGetLastError();
+}
+
+template <class E>
+int tail_bwd_entry(const E* dh, const E* r, const float* stats,
+                   const int* seed, const float* keep, const float* mask,
+                   E* dz, float* sums, int N, int F, int drop_block,
+                   void* stream) {
+  if (N < 1 || F < 1 || F % 4 || too_large(N, F) ||
+      bad_dropout(seed, keep, mask) || misaligned(dh) || misaligned(r) ||
+      misaligned(stats) || misaligned(mask) || misaligned(dz))
+    return (int)cudaErrorInvalidValue;
+  chain_tail_bwd_kernel<E><<<cdiv(F, kTailCols), kTailThreads, 0,
+                             (cudaStream_t)stream>>>(
+      dh, r, stats, Dropout{seed, keep, mask, drop_block}, dz, sums, N, F);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// `tiling` 0 or 1 picks FwdTile0 or FwdTile1. The _bf16 launchers take x,
+// w and r (K5b: dz, r, x, w and dx; the tails: x and h, dh, r and dz) as
+// bf16 bits, K and F multiples of 8; everything else as the f32 ones.
+extern "C" int dense_block_fwd_launch(
+    const float* x, const float* w, const float* b, const float* gamma,
+    const float* beta, const float* in_stats, const int* seed,
+    const float* keep, const float* mask, float* r, float* partial,
+    unsigned* tickets, float* stats, int N, int K, int F, int wsk, int wsn,
+    int drop_block, int tiling, float eps, void* stream) {
+  return fwd_entry(x, w, b, gamma, beta, in_stats, seed, keep, mask, r,
+                   partial, tickets, stats, N, K, F, wsk, wsn, drop_block,
+                   tiling, eps, stream);
+}
+
+extern "C" int dense_block_fwd_bf16_launch(
+    const bf16_t* x, const bf16_t* w, const float* b, const float* gamma,
+    const float* beta, const float* in_stats, const int* seed,
+    const float* keep, const float* mask, bf16_t* r, float* partial,
+    unsigned* tickets, float* stats, int N, int K, int F, int wsk, int wsn,
+    int drop_block, int tiling, float eps, void* stream) {
+  return fwd_entry(x, w, b, gamma, beta, in_stats, seed, keep, mask, r,
+                   partial, tickets, stats, N, K, F, wsk, wsn, drop_block,
+                   tiling, eps, stream);
+}
+
+// `tiling` 0 or 1 picks DgradTile0 + WgradTile0 or DgradTile1 + WgradTile1.
+extern "C" int dense_block_bwd_launch(
+    const float* dz, const float* r, const float* x, const float* w,
+    const float* stats, const float* sums, const float* in_stats,
+    const int* seed, const float* keep, const float* mask, float* dx,
+    float* dw, float* db, float* out_sums, float* partial, unsigned* tickets,
+    int N, int K, int F, int wsk, int wsn, int drop_block, int tiling,
+    void* stream) {
+  return bwd_entry(dz, r, x, w, stats, sums, in_stats, seed, keep, mask, dx,
+                   dw, db, out_sums, partial, tickets, N, K, F, wsk, wsn,
+                   drop_block, tiling, stream);
+}
+
+extern "C" int dense_block_bwd_bf16_launch(
+    const bf16_t* dz, const bf16_t* r, const bf16_t* x, const bf16_t* w,
+    const float* stats, const float* sums, const float* in_stats,
+    const int* seed, const float* keep, const float* mask, bf16_t* dx,
+    float* dw, float* db, float* out_sums, float* partial, unsigned* tickets,
+    int N, int K, int F, int wsk, int wsn, int drop_block, int tiling,
+    void* stream) {
+  return bwd_entry(dz, r, x, w, stats, sums, in_stats, seed, keep, mask, dx,
+                   dw, db, out_sums, partial, tickets, N, K, F, wsk, wsn,
+                   drop_block, tiling, stream);
+}
+
 // h = dropout(a x + c) of the top block: x (N, F), stats (5, F), the
 // dropout of block `drop_block`'s output (seed and keep, or mask and keep).
 extern "C" int chain_tail_fwd_launch(const float* x, const float* stats,
                                      const int* seed, const float* keep,
                                      const float* mask, float* h, int N,
                                      int F, int drop_block, void* stream) {
-  if (N < 1 || F < 1 || F % 4 || too_large(N, F) ||
-      bad_dropout(seed, keep, mask) || misaligned(x) || misaligned(stats) ||
-      misaligned(mask) || misaligned(h))
-    return (int)cudaErrorInvalidValue;
-  chain_tail_fwd_kernel<<<row_grid(N, F), kRowThreads, 0,
-                          (cudaStream_t)stream>>>(
-      x, stats, Dropout{seed, keep, mask, drop_block}, h, F);
-  return (int)cudaGetLastError();
+  return tail_fwd_entry(x, stats, seed, keep, mask, h, N, F, drop_block,
+                        stream);
+}
+
+extern "C" int chain_tail_fwd_bf16_launch(const bf16_t* x,
+                                          const float* stats, const int* seed,
+                                          const float* keep,
+                                          const float* mask, bf16_t* h, int N,
+                                          int F, int drop_block,
+                                          void* stream) {
+  return tail_fwd_entry(x, stats, seed, keep, mask, h, N, F, drop_block,
+                        stream);
 }
 
 // dz (N, F) and sums (2, F) from dh (N, F), the top block's r (N, F) and
@@ -1250,14 +1603,18 @@ extern "C" int chain_tail_bwd_launch(const float* dh, const float* r,
                                      const float* keep, const float* mask,
                                      float* dz, float* sums, int N, int F,
                                      int drop_block, void* stream) {
-  if (N < 1 || F < 1 || F % 4 || too_large(N, F) ||
-      bad_dropout(seed, keep, mask) || misaligned(dh) || misaligned(r) ||
-      misaligned(stats) || misaligned(mask) || misaligned(dz))
-    return (int)cudaErrorInvalidValue;
-  chain_tail_bwd_kernel<<<cdiv(F, kTailCols), kTailThreads, 0,
-                          (cudaStream_t)stream>>>(
-      dh, r, stats, Dropout{seed, keep, mask, drop_block}, dz, sums, N, F);
-  return (int)cudaGetLastError();
+  return tail_bwd_entry(dh, r, stats, seed, keep, mask, dz, sums, N, F,
+                        drop_block, stream);
+}
+
+extern "C" int chain_tail_bwd_bf16_launch(const bf16_t* dh, const bf16_t* r,
+                                          const float* stats, const int* seed,
+                                          const float* keep,
+                                          const float* mask, bf16_t* dz,
+                                          float* sums, int N, int F,
+                                          int drop_block, void* stream) {
+  return tail_bwd_entry(dh, r, stats, seed, keep, mask, dz, sums, N, F,
+                        drop_block, stream);
 }
 
 extern "C" int dropout_masks_launch(const int* seed, const float* keep,

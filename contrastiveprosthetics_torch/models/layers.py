@@ -137,25 +137,36 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     return x.float() if torch.finfo(x.dtype).bits < 32 else x
 
 
+def bf16_values(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (round to nearest even), as f32 values: the
+    operands whose products are exact in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def low_product(x: torch.Tensor, w: torch.Tensor, bias, dtype: torch.dtype,
+                product) -> torch.Tensor:
+    """``product(x, w)`` at compute dtype ``dtype``, as flax's ``Conv``/
+    ``Dense`` with ``dtype=bfloat16`` and f32 parameters compute it: ``x``
+    and ``w`` cast to ``dtype``; their product (each product of two bf16
+    values is exact in f32, the sums are f32) rounded to ``dtype`` once;
+    then ``bias`` (None, or shaped to broadcast) cast to ``dtype`` and
+    added in ``dtype``, a second rounding. Returns ``dtype``."""
+    y = product(x.to(dtype).float(), w.to(dtype).float()).to(dtype)
+    return y if bias is None else y + bias.to(dtype)
+
+
 def low_precision(layer: nn.Module, x: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
-    """A ``Conv2d`` or ``Linear`` at compute dtype ``dtype``, as flax's
-    ``Conv``/``Dense`` with ``dtype=bfloat16`` and f32 parameters: input,
-    weight and bias cast to ``dtype``; the product (each product of two
-    bf16 values is exact in f32, the sums are f32) rounded to ``dtype``;
-    then the bias added in ``dtype``, a second rounding. Returns
-    ``dtype``."""
-    w = layer.weight.to(dtype).float()
-    x = x.to(dtype).float()
+    """A ``Conv2d`` or ``Linear`` at compute dtype ``dtype``
+    (:func:`low_product`). Returns ``dtype``."""
+    bias = layer.bias
     if isinstance(layer, nn.Conv2d):
-        y = F.conv2d(x, w, None, layer.stride, layer.padding)
+        def product(x, w):
+            return F.conv2d(x, w, None, layer.stride, layer.padding)
+        bias = None if bias is None else bias.view(1, -1, 1, 1)
     else:
-        y = F.linear(x, w)
-    y = y.to(dtype)
-    if layer.bias is None:
-        return y
-    b = layer.bias.to(dtype)
-    return y + (b.view(1, -1, 1, 1) if y.dim() == 4 else b)
+        product = F.linear
+    return low_product(x, layer.weight, bias, dtype, product)
 
 
 def make_norm(num_features: int, adabn: bool, device=None) -> nn.Module:

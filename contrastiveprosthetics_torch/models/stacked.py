@@ -34,6 +34,15 @@ dropout runs at each config's ``dp_glove``.
 
 Every reduction is per config, so a config that diverges to NaN leaves
 the other configs' numbers as they were.
+
+A bf16 EMG tower (``dtype=torch.bfloat16``, the JAX sweep's ``jax.vmap``
+of the bf16 model) rounds where one config's bf16 layers do
+(``layers.low_precision``): each dense product and each convolution's
+three taps summed in f32 from bf16-rounded operands and rounded once to
+bf16, then the bias added in bf16 (so not inside ``baddbmm``, and not
+tap by tap); the BatchNorm statistics and normalization in f32 from the
+bf16 input, returned in bf16. The f32 tower keeps the ``baddbmm`` forms
+above.
 """
 from __future__ import annotations
 
@@ -46,15 +55,38 @@ from contrastiveprosthetics_torch.models.convert import (
     model_from_state_dict,
 )
 from contrastiveprosthetics_torch.models.glove_net import tower_mode
-from contrastiveprosthetics_torch.models.layers import update_running
+from contrastiveprosthetics_torch.models.layers import (
+    at_least_f32,
+    low_product,
+    update_running,
+)
+
+
+def _low_linear(x, w_t, bias, dtype):
+    """(C, rows, in) by (C, in, out) at compute dtype ``dtype``
+    (``layers.low_product``)."""
+    return low_product(x, w_t, None if bias is None else bias.unsqueeze(1),
+                       dtype, torch.bmm)
+
+
+def _taps(line: torch.Tensor, taps: torch.Tensor, n: int, out=None):
+    """The three taps of a stacked conv summed over strided windows of
+    ``line``, onto ``out`` (None: nothing) with ``baddbmm``."""
+    for k in range(3):
+        win, tap = line[:, k:k + n], taps[..., k]
+        out = torch.bmm(win, tap) if out is None else torch.baddbmm(out, win,
+                                                                    tap)
+    return out
 
 
 class StackedLinear(nn.Module):
-    """C ``nn.Linear`` layers: ``weight`` (C, out, in), ``bias`` (C, out)."""
+    """C ``nn.Linear`` layers: ``weight`` (C, out, in), ``bias`` (C, out),
+    computing in ``dtype`` (f32, or bf16 in a bf16 EMG tower)."""
 
     def __init__(self, C: int, in_f: int, out_f: int, bias: bool = True,
-                 device=None):
+                 device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(C, out_f, in_f, device=device))
         self.bias = (nn.Parameter(torch.empty(C, out_f, device=device))
                      if bias else None)
@@ -62,6 +94,8 @@ class StackedLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(C, rows, in) -> (C, rows, out)."""
         w = self.weight.transpose(1, 2)
+        if self.dtype != torch.float32:
+            return _low_linear(x, w, self.bias, self.dtype)
         if self.bias is None:
             return torch.bmm(x, w)
         return torch.baddbmm(self.bias.unsqueeze(1), x, w)
@@ -74,8 +108,10 @@ class StackedConv(nn.Module):
     ``nn.Conv2d`` at this height, get a gradient from the L2 penalty
     alone."""
 
-    def __init__(self, C: int, in_c: int, out_c: int, device=None):
+    def __init__(self, C: int, in_c: int, out_c: int, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(C, out_c, in_c, 3, 3,
                                                device=device))
         self.bias = nn.Parameter(torch.empty(C, out_c, device=device))
@@ -88,15 +124,20 @@ class StackedConv(nn.Module):
         position j of that line is the sum over taps k of line position j
         + k times tap k's (in, out) matrix, one ``baddbmm`` over strided
         windows of the line per tap, and positions P, P+1 of each row,
-        which straddle two rows of the same config, are dropped."""
+        which straddle two rows of the same config, are dropped. In bf16
+        the three taps are summed in f32 from rounded operands, without the
+        bias, then rounded once and the bias added in bf16."""
         C, rows, P, cin = x.shape
         n = rows * (P + 2)
         line = x.new_zeros(C, n + 2, cin)
         line[:, :n].view(C, rows, P + 2, cin)[:, :, 1:P + 1] = x
         taps = self.weight[:, :, :, 1].transpose(1, 2)   # (C, in, out, 3)
-        out = self.bias.unsqueeze(1)
-        for k in range(3):
-            out = torch.baddbmm(out, line[:, k:k + n], taps[..., k])
+        bias = self.bias.unsqueeze(1)
+        if self.dtype != torch.float32:
+            out = low_product(line, taps, bias, self.dtype,
+                              lambda line, taps: _taps(line, taps, n))
+        else:
+            out = _taps(line, taps, n, bias)
         return out.view(C, rows, P + 2, -1)[:, :, :P]
 
 
@@ -132,7 +173,8 @@ class StackedBatchNorm(nn.Module):
         else:          # statistics over rows
             dims, shape = (1,), (C, 1, F)
         if self.training or not self.track_running_stats:
-            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            var, mean = torch.var_mean(at_least_f32(x), dim=dims,
+                                       correction=0)
             if self.training and self.track_running_stats:
                 with torch.no_grad():
                     self.running_mean.copy_(
@@ -142,7 +184,9 @@ class StackedBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        # a bf16 x: in f32, returned in bf16 (layers.BatchNorm.normalize)
+        return ((x - mean.view(shape)) * mul.view(shape)
+                + self.bias.view(shape)).to(x.dtype)
 
 
 class StackedAdaBN(nn.Module):
@@ -171,7 +215,7 @@ class StackedDropout(nn.Module):
             return x
         keep = (1.0 - rate).view(-1, 1, 1)
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-        return torch.where(mask, x / keep, 0.0)
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 def _norm(C: int, F: int, adabn: bool, conv: bool, device) -> nn.Module:
@@ -185,19 +229,22 @@ class StackedEMGNet(nn.Module):
 
     def __init__(self, C: int, d_e: int, emg_dim: int, adabn: bool,
                  n_linear: int, hidden: int, conv_features: int,
-                 prediction: bool = False, n_classes: int = 41, device=None):
+                 prediction: bool = False, n_classes: int = 41, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.emg_dim = emg_dim
+        self.dtype = dtype
         F = conv_features
+        lin = dict(device=device, dtype=dtype)
         self.conv_emg = nn.Sequential(
-            StackedConv(C, 1, F, device), nn.ReLU(),
+            StackedConv(C, 1, F, **lin), nn.ReLU(),
             _norm(C, F, adabn, True, device),
-            StackedConv(C, F, F, device), nn.ReLU(),
+            StackedConv(C, F, F, **lin), nn.ReLU(),
             _norm(C, F, adabn, True, device))
         blocks: list[nn.Module] = []
         width = F * emg_dim
         for i in range(n_linear):
-            blocks += [StackedLinear(C, width, hidden, device=device),
+            blocks += [StackedLinear(C, width, hidden, **lin),
                        nn.ReLU(), _norm(C, hidden, adabn, False, device)]
             if i >= n_linear - 4:  # dropout on the last 4 blocks
                 blocks.append(StackedDropout())
@@ -205,19 +252,19 @@ class StackedEMGNet(nn.Module):
         self.linear = nn.Sequential(*blocks)
         if prediction:
             self.last = nn.Sequential(
-                StackedLinear(C, hidden, 128, device=device), nn.ReLU(),
+                StackedLinear(C, hidden, 128, **lin), nn.ReLU(),
                 _norm(C, 128, adabn, False, device),
-                StackedLinear(C, 128, n_classes, bias=False, device=device))
+                StackedLinear(C, 128, n_classes, bias=False, **lin))
         else:
             self.last = nn.Sequential(
-                StackedLinear(C, hidden, d_e, bias=False, device=device))
+                StackedLinear(C, hidden, d_e, bias=False, **lin))
 
     def forward(self, frames: torch.Tensor, dropout: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """(C, rows, emg_dim) frames -> (C, rows, d_e) unnormalized
-        embeddings (the prediction head: (C, rows, n_classes) scores); in
-        train mode with a ``generator`` the dropout layers
-        drop config c at rate ``dropout[c]``."""
+        embeddings (the prediction head: (C, rows, n_classes) scores), f32
+        in either compute dtype; in train mode with a ``generator`` the
+        dropout layers drop config c at rate ``dropout[c]``."""
         C, rows, P = frames.shape
         x = self.conv_emg(frames.unsqueeze(-1))   # (C, rows, P, F)
         x = x.reshape(C, rows, -1)                # p*F + f per row
@@ -225,11 +272,14 @@ class StackedEMGNet(nn.Module):
         # the reference flattens channel-major (f*P + p) and its first
         # dense weight's columns follow, so they are read position-major
         w = first.weight.unflatten(2, (-1, P)).transpose(2, 3).flatten(2)
-        x = torch.baddbmm(first.bias.unsqueeze(1), x, w.transpose(1, 2))
+        if self.dtype != torch.float32:
+            x = _low_linear(x, w.transpose(1, 2), first.bias, self.dtype)
+        else:
+            x = torch.baddbmm(first.bias.unsqueeze(1), x, w.transpose(1, 2))
         for m in rest:
             x = m(x, dropout, generator) if isinstance(m, StackedDropout) \
                 else m(x)
-        return self.last(x)
+        return at_least_f32(self.last(x))
 
 
 class StackedGloveNet(nn.Module):
@@ -305,15 +355,16 @@ class StackedContrastiveModel(nn.Module):
                  hidden: int = 512, conv_features: int = 64,
                  prediction: bool = False, glove: bool = False,
                  glove_encoding: bool = False, glove_dim: int = 20,
-                 device=None):
+                 device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         C = n_configs
         self.prediction = prediction
         self.glove = glove and prediction
         self.glove_encoding = glove_encoding and not prediction
+        self.dtype = dtype  # the EMG tower's, as ContrastiveModel's
         self.emg_net = StackedEMGNet(C, d_e, emg_dim, adabn, n_linear, hidden,
                                      conv_features, prediction, n_classes,
-                                     device="meta")
+                                     device="meta", dtype=dtype)
         mode = tower_mode(prediction, glove, glove_encoding)
         self.glove_net = StackedGloveNet(
             C, d_e, n_classes, mode, n_classes if prediction else d_e,
@@ -325,10 +376,11 @@ class StackedContrastiveModel(nn.Module):
     def from_models(cls, models: list[ContrastiveModel]
                     ) -> "StackedContrastiveModel":
         """The C models' parameters and buffers stacked, on the first
-        model's device."""
+        model's device, in its compute dtype."""
         sds = [m.state_dict() for m in models]
         stacked = cls(len(models), **architecture(sds[0]),
-                      device=models[0].logit_scale.device)
+                      device=models[0].logit_scale.device,
+                      dtype=models[0].dtype)
         stacked.load_state_dict({k: torch.stack([sd[k] for sd in sds])
                                  for k in sds[0]}, strict=True)
         return stacked
@@ -336,7 +388,8 @@ class StackedContrastiveModel(nn.Module):
     def unstack(self, c: int) -> ContrastiveModel:
         """Config ``c`` as a ``ContrastiveModel`` (a copy)."""
         return model_from_state_dict({k: v[c].clone() for k, v in
-                                      self.state_dict().items()}).to(
+                                      self.state_dict().items()},
+                                     dtype=self.dtype).to(
             self.logit_scale.device)
 
     def towers(self) -> dict[str, nn.Module]:

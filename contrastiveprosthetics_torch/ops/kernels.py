@@ -28,7 +28,8 @@ where the ingest gives one.
 
 The fused training chain's kernels (``ops/train_fused.py``: K5f, K5b,
 the chain's tail pair and K5m) launch through the same table and count
-here too.
+here too; the bf16 chain's four (K5f, K5b and the tail pair on bf16
+activations) count under their own names, ``*_bf16``.
 
 The train step's K1 pair (``pallas_ops.py:185,213``) is
 :func:`fused_contrastive_loss`, a ``torch.autograd.Function`` whose forward
@@ -67,6 +68,8 @@ launch_counts = {"dsp_frames": 0, "encoder_chain": 0,
                  "contrastive_loss_fwd": 0, "contrastive_loss_bwd": 0,
                  "dense_block_fwd": 0, "dense_block_bwd": 0,
                  "chain_tail_fwd": 0, "chain_tail_bwd": 0,
+                 "dense_block_fwd_bf16": 0, "dense_block_bwd_bf16": 0,
+                 "chain_tail_fwd_bf16": 0, "chain_tail_bwd_bf16": 0,
                  "dropout_masks": 0}
 
 
@@ -207,6 +210,14 @@ _SIGNATURES = {
     "dense_block_bwd": ("train_fused", "dense_block_bwd_launch", 16, 7, False),
     "chain_tail_fwd": ("train_fused", "chain_tail_fwd_launch", 6, 3, False),
     "chain_tail_bwd": ("train_fused", "chain_tail_bwd_launch", 8, 3, False),
+    "dense_block_fwd_bf16": ("train_fused", "dense_block_fwd_bf16_launch", 13,
+                             7, True),
+    "dense_block_bwd_bf16": ("train_fused", "dense_block_bwd_bf16_launch", 16,
+                             7, False),
+    "chain_tail_fwd_bf16": ("train_fused", "chain_tail_fwd_bf16_launch", 6, 3,
+                            False),
+    "chain_tail_bwd_bf16": ("train_fused", "chain_tail_bwd_bf16_launch", 8, 3,
+                            False),
     "dropout_masks": ("train_fused", "dropout_masks_launch", 3, 3, False),
     "philox_check": ("train_fused", "philox_check_launch", 4, 1, False),
 }

@@ -42,8 +42,16 @@ eps)``, running averages with momentum 0.9 and the biased variance.
 Gradients flow through the batch statistics inside the backward, and the
 chain's (means, variances) outputs take none.
 
-Only f32 runs here; other compute dtypes raise (bf16 training is ROADMAP
-queue 1 item 9b).
+A bf16 chain (the JAX package's ``compute_dtype=bfloat16``, the dtype of
+``x0``) stores x, r, dx and the tail's h and dz in bf16 and keeps the
+statistics, the sums, dW and db in f32, rounding where the JAX kernels do
+(``train_fused.py:203-236,266-324,593-601,624-638``): h = bf16(a x + c,
+dropped) and dyc = bf16(dy) feed the GEMMs, whose products are exact and
+sums f32; r is rounded before its statistics are taken; db, the lower
+block's two sums and the top BatchNorm's are taken from the unrounded f32
+dy, dh and dz. On CUDA these run the ``*_bf16`` kernels, counted under
+their own names. The weights are cast to bf16 inside the chain, once per
+step, so dW comes back in f32 unrounded, as JAX's custom VJP returns it.
 """
 from __future__ import annotations
 
@@ -52,7 +60,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from contrastiveprosthetics_torch.models.layers import AdaBN, BatchNorm
+from contrastiveprosthetics_torch.models.layers import (
+    COMPUTE_DTYPES,
+    AdaBN,
+    BatchNorm,
+    at_least_f32,
+    bf16_values,
+    low_precision,
+)
 from contrastiveprosthetics_torch.ops import kernels as K
 
 U32 = 0xFFFFFFFF
@@ -68,8 +83,7 @@ FWD_TILES = ((16, 32), (16, 64))
 DGRAD_TILES = ((32, 64), (32, 32))
 FWD_TILING, BWD_TILING = 0, 0
 MOMENTUM = 0.9  # flax's BatchNorm momentum (layers.update_running)
-F32_ONLY = ("the fused training chain runs in float32 only; a bf16 compute "
-            "dtype is ROADMAP.md, queue 1 item 9b (bf16 training)")
+BF16 = torch.bfloat16
 
 
 def keep_threshold(keep) -> torch.Tensor:
@@ -206,12 +220,24 @@ def dense_block_fwd_reference(x, w, b, gamma, beta, in_stats=None, *,
     the previous block's (5, K) statistics, whose affine (rows 3, 4) is
     applied to ``x``; dropout on the input when ``keep`` is given, with
     ``mask`` or the bits of block ``drop_block`` drawn from ``seed``.
-    Returns r (N, F) and stats (5, F): mean, var, rstd, a, c."""
-    h, _ = _block_input(x, in_stats, seed, keep, mask, drop_block)
+    Returns r (N, F) and stats (5, F): mean, var, rstd, a, c.
+
+    bf16 ``x`` and ``w`` (``_fwd_block_kernel`` with ``cdtype`` bf16): h
+    computed in f32 and rounded to bf16, f32 sums of the exact products,
+    r rounded to bf16 after the ReLU and its statistics taken from the
+    rounded values; r is returned in bf16, stats in f32."""
+    low = x.dtype == BF16
+    h, _ = _block_input(at_least_f32(x), in_stats, seed, keep, mask,
+                        drop_block)
+    if low:
+        h, w = bf16_values(h), w.float()
     r = torch.relu(h @ w + b)
-    n = r.new_tensor(float(r.shape[0]))  # a tensor: exact division on CUDA
-    mean = _col_sum(r) / n
-    var = torch.clamp(_col_sum(r * r) / n - mean * mean, min=0.0)
+    if low:
+        r = r.to(BF16)
+    rf = at_least_f32(r)
+    n = rf.new_tensor(float(r.shape[0]))  # a tensor: exact division on CUDA
+    mean = _col_sum(rf) / n
+    var = torch.clamp(_col_sum(rf * rf) / n - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + eps)
     a = gamma * rstd
     return r, torch.stack([mean, var, rstd, a, beta - mean * a])
@@ -229,44 +255,70 @@ def dense_block_bwd_reference(dz, r, x, w, stats, sums, in_stats=None, *,
     (2, F) = (sum dz, sum dz xhat); the rest as in
     :func:`dense_block_fwd_reference`. Returns dx (N, K), dW (K, F, laid
     out as ``w``), db (F,) and, with ``in_stats``, the lower block's (2, K)
-    sums (sum dx, sum dx xhat_in), else None."""
+    sums (sum dx, sum dx xhat_in), else None.
+
+    bf16 ``dz``, ``r``, ``x`` and ``w`` (``_bwd_block_kernel`` with
+    ``cdtype`` bf16): dy in f32 from their f32 values; both GEMMs read
+    dyc = bf16(dy) and h = bf16(dropout(a x + c)) with f32 sums; db sums
+    the unrounded dy, dW stays f32 and unrounded, dh's dropout is applied
+    in f32 and the lower block's sums are taken from that f32 dh, which is
+    returned rounded to bf16 as dx."""
+    low = dz.dtype == BF16
     mean, _, rstd, a, _ = stats
-    inv_n = 1.0 / dz.new_tensor(float(dz.shape[0]))
-    xn = (r - mean) * rstd
-    t = dz - sums[0] * inv_n - xn * (sums[1] * inv_n)
-    dy = torch.where(r > 0, a * t, 0.0)
-    h, kept = _block_input(x, in_stats, seed, keep, mask, drop_block)
-    dx = dy @ w.T
+    inv_n = 1.0 / stats.new_tensor(float(dz.shape[0]))
+    rf, xf = at_least_f32(r), at_least_f32(x)
+    xn = (rf - mean) * rstd
+    t = at_least_f32(dz) - sums[0] * inv_n - xn * (sums[1] * inv_n)
+    dy = torch.where(rf > 0, a * t, 0.0)
+    h, kept = _block_input(xf, in_stats, seed, keep, mask, drop_block)
+    dyc = dy
+    if low:
+        dyc, h, w = bf16_values(dy), bf16_values(h), w.float()
+    dx = dyc @ w.T
     if kept is not None:
         dx = torch.where(kept, dx / keep, 0.0)
-    dw = torch.empty_like(w).copy_(h.T @ dy)
+    dw = torch.empty_like(w, dtype=dy.dtype).copy_(h.T @ dyc)
     out_sums = None
     if in_stats is not None:
-        xn_in = (x - in_stats[0]) * in_stats[2]
+        xn_in = (xf - in_stats[0]) * in_stats[2]
         out_sums = torch.stack([_col_sum(dx), _col_sum(dx * xn_in)])
-    return dx, dw, _col_sum(dy), out_sums
+    return dx.to(dz.dtype) if low else dx, dw, _col_sum(dy), out_sums
 
 
-def _check_weight(w, shape, dev):
+def _check_weight(w, shape, dtype, dev):
     """``w`` may be row-major or the transpose of a row-major tensor (a
     Linear weight's ``.T``); returns its element strides."""
-    if tuple(w.shape) != tuple(shape) or w.dtype != torch.float32 \
-            or w.device != dev:
-        K._expect("w", w, shape, torch.float32, dev)
+    if tuple(w.shape) != tuple(shape) or w.dtype != dtype or w.device != dev:
+        K._expect("w", w, shape, dtype, dev)
     if not (w.is_contiguous() or w.T.is_contiguous()):
         raise ValueError("w: neither contiguous nor a contiguous transpose")
     return w.stride()
 
 
-def _check_tiled(K_in: int, F: int, tiling: int, *tensors) -> None:
+def _kernel_dtype(t: torch.Tensor) -> torch.dtype:
+    """The element type of the chain's activations that a kernel takes:
+    f32, or bf16 for the ``*_bf16`` variants."""
+    if t.dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"dtype {t.dtype}: the kernels take "
+                         f"{COMPUTE_DTYPES}")
+    return t.dtype
+
+
+def _variant(name: str, dtype: torch.dtype) -> str:
+    return name + "_bf16" if dtype == BF16 else name
+
+
+def _check_tiled(K_in: int, F: int, tiling: int, *tensors,
+                 dtype: torch.dtype = torch.float32) -> None:
     """What the kernels' 16-byte copies need: widths that are multiples of
-    4 and 16-byte aligned arrays; and a tiling they have."""
+    4 (8 in bf16) and 16-byte aligned arrays; and a tiling they have."""
     if tiling not in range(len(FWD_TILES)):
         raise ValueError(f"tiling {tiling}: the kernels have "
                          f"0 .. {len(FWD_TILES) - 1}")
-    if K_in % 4 or F % 4:
-        raise ValueError(f"widths {K_in} -> {F}: the kernels take multiples "
-                         "of 4")
+    unit = 8 if dtype == BF16 else 4
+    if K_in % unit or F % unit:
+        raise ValueError(f"widths {K_in} -> {F}: the {dtype} kernels take "
+                         f"multiples of {unit}")
     for t in tensors:
         if t is not None and t.data_ptr() % 16:
             raise ValueError("an input is not 16-byte aligned")
@@ -302,9 +354,10 @@ def _zeroed_tickets(dev: torch.device, n: int) -> torch.Tensor:
 def dense_block_fwd(x, w, b, gamma, beta, in_stats=None, *, seed=None,
                     keep=None, mask=None, drop_block: int = -1,
                     eps: float = 1e-5, tiling: int = FWD_TILING):
-    """The ``dense_block_fwd`` kernel (K5f); see
-    :func:`dense_block_fwd_reference`. ``tiling`` picks one of the kernel's
-    two tilings (for tests and timing); both give the same r."""
+    """The ``dense_block_fwd`` kernel (K5f), or ``dense_block_fwd_bf16``
+    for bf16 ``x`` and ``w``; see :func:`dense_block_fwd_reference`.
+    ``tiling`` picks one of the kernel's two tilings (for tests and
+    timing); both give the same r."""
     if x.device.type == "cpu":
         return dense_block_fwd_reference(
             x, w, b, gamma, beta, in_stats, seed=seed, keep=keep, mask=mask,
@@ -314,21 +367,23 @@ def dense_block_fwd(x, w, b, gamma, beta, in_stats=None, *, seed=None,
         raise ValueError(f"x: shape {tuple(x.shape)}, want (N, K)")
     N, Kw = x.shape
     F = w.shape[-1]
-    K._expect("x", x, (N, Kw), torch.float32, dev)
-    wsk, wsn = _check_weight(w, (Kw, F), dev)
+    dtype = _kernel_dtype(x)
+    K._expect("x", x, (N, Kw), dtype, dev)
+    wsk, wsn = _check_weight(w, (Kw, F), dtype, dev)
     for name, t in (("b", b), ("gamma", gamma), ("beta", beta)):
         K._expect(name, t, (F,), torch.float32, dev)
     if in_stats is not None:
         K._expect("in_stats", in_stats, (5, Kw), torch.float32, dev)
     _check_dropout(seed, keep, mask, (N, Kw), dev)
-    _check_tiled(Kw, F, tiling, x, w, b, in_stats, mask)
-    r = torch.empty((N, F), dtype=torch.float32, device=dev)
+    _check_tiled(Kw, F, tiling, x, w, b, in_stats, mask, dtype=dtype)
+    r = torch.empty((N, F), dtype=dtype, device=dev)
     stats = torch.empty((5, F), dtype=torch.float32, device=dev)
     bm, bn = FWD_TILES[tiling]
     partial = torch.empty((-(-N // bm), 2, F), dtype=torch.float32,
                           device=dev)
     tickets = _zeroed_tickets(dev, -(-F // bn))
-    K._launch("dense_block_fwd", "dense_block_fwd", K._ptr(x), K._ptr(w),
+    name = _variant("dense_block_fwd", dtype)
+    K._launch(name, name, K._ptr(x), K._ptr(w),
               K._ptr(b), K._ptr(gamma), K._ptr(beta), K._ptr(in_stats),
               K._ptr(seed), K._ptr(keep), K._ptr(mask), K._ptr(r),
               K._ptr(partial), K._ptr(tickets), K._ptr(stats), N, Kw, F, wsk,
@@ -340,7 +395,9 @@ def dense_block_bwd(dz, r, x, w, stats, sums, in_stats=None, *, seed=None,
                     keep=None, mask=None, drop_block: int = -1,
                     tiling: int = BWD_TILING):
     """The ``dense_block_bwd`` kernel (K5b), dgrad and wgrad tiles in one
-    launch; see :func:`dense_block_bwd_reference`. ``tiling`` as for
+    launch, or ``dense_block_bwd_bf16`` for bf16 ``dz``, ``r``, ``x`` and
+    ``w`` (dW and db f32 either way); see
+    :func:`dense_block_bwd_reference`. ``tiling`` as for
     :func:`dense_block_fwd`."""
     if dz.device.type == "cpu":
         return dense_block_bwd_reference(
@@ -351,18 +408,19 @@ def dense_block_bwd(dz, r, x, w, stats, sums, in_stats=None, *, seed=None,
         raise ValueError("dz and x must be (N, F) and (N, K)")
     N, F = dz.shape
     Kw = x.shape[1]
-    K._expect("dz", dz, (N, F), torch.float32, dev)
-    K._expect("r", r, (N, F), torch.float32, dev)
-    K._expect("x", x, (N, Kw), torch.float32, dev)
-    wsk, wsn = _check_weight(w, (Kw, F), dev)
+    dtype = _kernel_dtype(dz)
+    K._expect("dz", dz, (N, F), dtype, dev)
+    K._expect("r", r, (N, F), dtype, dev)
+    K._expect("x", x, (N, Kw), dtype, dev)
+    wsk, wsn = _check_weight(w, (Kw, F), dtype, dev)
     K._expect("stats", stats, (5, F), torch.float32, dev)
     K._expect("sums", sums, (2, F), torch.float32, dev)
     if in_stats is not None:
         K._expect("in_stats", in_stats, (5, Kw), torch.float32, dev)
     _check_dropout(seed, keep, mask, (N, Kw), dev)
-    _check_tiled(Kw, F, tiling, dz, r, x, w, in_stats, mask)
-    dx = torch.empty((N, Kw), dtype=torch.float32, device=dev)
-    dw = torch.empty_like(w)  # the strides of w
+    _check_tiled(Kw, F, tiling, dz, r, x, w, in_stats, mask, dtype=dtype)
+    dx = torch.empty((N, Kw), dtype=dtype, device=dev)
+    dw = torch.empty_like(w, dtype=torch.float32)  # the strides of w
     db = torch.empty((F,), dtype=torch.float32, device=dev)
     out_sums = partial = None
     if in_stats is not None:
@@ -370,7 +428,8 @@ def dense_block_bwd(dz, r, x, w, stats, sums, in_stats=None, *, seed=None,
         partial = torch.empty((-(-N // DGRAD_TILES[tiling][0]), 2, Kw),
                               dtype=torch.float32, device=dev)
     tickets = _zeroed_tickets(dev, -(-Kw // DGRAD_TILES[tiling][1]))
-    K._launch("dense_block_bwd", "dense_block_bwd", K._ptr(dz), K._ptr(r),
+    name = _variant("dense_block_bwd", dtype)
+    K._launch(name, name, K._ptr(dz), K._ptr(r),
               K._ptr(x), K._ptr(w), K._ptr(stats), K._ptr(sums),
               K._ptr(in_stats), K._ptr(seed), K._ptr(keep), K._ptr(mask),
               K._ptr(dx), K._ptr(dw), K._ptr(db), K._ptr(out_sums),
@@ -386,8 +445,9 @@ def chain_tail_fwd_reference(x, stats, *, seed=None, keep=None, mask=None,
     ``train_fused.py:593-600``): the top block's ReLU output ``x`` (N, F)
     through its BatchNorm affine (``stats`` rows 3, 4) and the dropout of
     block ``drop_block``'s output, ``h = where(kept, (a x + c) / keep,
-    0)``."""
-    return _block_input(x, stats, seed, keep, mask, drop_block)[0]
+    0)``; bf16 ``x`` gives h rounded once to bf16."""
+    h = _block_input(at_least_f32(x), stats, seed, keep, mask, drop_block)[0]
+    return h.to(x.dtype)
 
 
 def chain_tail_bwd_reference(dh, r, stats, *, seed=None, keep=None,
@@ -396,23 +456,27 @@ def chain_tail_bwd_reference(dh, r, stats, *, seed=None, keep=None,
     ``dz = where(kept, dh / keep, 0)`` with the forward's dropout, and the
     top BatchNorm's two backward sums ``(sum dz, sum dz xhat)``, xhat =
     (r - mean) rstd from ``stats`` rows 0 and 2. Returns dz (N, F) and
-    sums (2, F)."""
+    sums (2, F). bf16 ``dh`` and ``r``: dz and the sums in f32 from their
+    f32 values, then dz rounded once to bf16."""
     kept = _kept(dh.shape, seed, keep, mask, drop_block)
-    dz = dh if kept is None else torch.where(kept, dh / keep, 0.0)
-    xn = (r - stats[0]) * stats[2]
-    return dz, torch.stack([_col_sum(dz), _col_sum(dz * xn)])
+    g = at_least_f32(dh)
+    dz = g if kept is None else torch.where(kept, g / keep, 0.0)
+    xn = (at_least_f32(r) - stats[0]) * stats[2]
+    return dz.to(dh.dtype), torch.stack([_col_sum(dz), _col_sum(dz * xn)])
 
 
 def _check_tail(stats, seed, keep, mask, **arrays):
-    """What the tail kernels take: ``arrays`` (N, F) f32 with F % 4 == 0,
-    (5, F) statistics, 16-byte aligned arrays. Returns (N, F)."""
+    """What the tail kernels take: ``arrays`` (N, F) of one dtype (f32, or
+    bf16 for the ``_bf16`` variants) with F % 4 == 0, (5, F) f32
+    statistics, 16-byte aligned arrays. Returns (N, F)."""
     name, t = next(iter(arrays.items()))
     if t.dim() != 2:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, want (N, F)")
     N, F = t.shape
     dev = t.device
+    dtype = _kernel_dtype(t)
     for name, a in arrays.items():
-        K._expect(name, a, (N, F), torch.float32, dev)
+        K._expect(name, a, (N, F), dtype, dev)
     K._expect("stats", stats, (5, F), torch.float32, dev)
     _check_dropout(seed, keep, mask, (N, F), dev)
     if F % 4:
@@ -425,14 +489,16 @@ def _check_tail(stats, seed, keep, mask, **arrays):
 
 def chain_tail_fwd(x, stats, *, seed=None, keep=None, mask=None,
                    drop_block: int = -1):
-    """The ``chain_tail_fwd`` kernel: h in one pass, the mask drawn in
-    registers and never stored; see :func:`chain_tail_fwd_reference`."""
+    """The ``chain_tail_fwd`` kernel (``chain_tail_fwd_bf16`` for a bf16
+    ``x``): h in one pass, the mask drawn in registers and never stored;
+    see :func:`chain_tail_fwd_reference`."""
     if x.device.type == "cpu":
         return chain_tail_fwd_reference(x, stats, seed=seed, keep=keep,
                                         mask=mask, drop_block=drop_block)
     N, F = _check_tail(stats, seed, keep, mask, x=x)
     h = torch.empty_like(x)
-    K._launch("chain_tail_fwd", "chain_tail_fwd", K._ptr(x), K._ptr(stats),
+    name = _variant("chain_tail_fwd", x.dtype)
+    K._launch(name, name, K._ptr(x), K._ptr(stats),
               K._ptr(seed), K._ptr(keep), K._ptr(mask), K._ptr(h), N, F,
               drop_block, K._stream(x.device))
     return h
@@ -440,16 +506,18 @@ def chain_tail_fwd(x, stats, *, seed=None, keep=None, mask=None,
 
 def chain_tail_bwd(dh, r, stats, *, seed=None, keep=None, mask=None,
                    drop_block: int = -1):
-    """The ``chain_tail_bwd`` kernel: dz and the two sums in one launch, the
-    forward's bits redrawn, the sums taken in f64 in a fixed order and
-    rounded once; see :func:`chain_tail_bwd_reference`."""
+    """The ``chain_tail_bwd`` kernel (``chain_tail_bwd_bf16`` for bf16
+    ``dh`` and ``r``): dz and the two sums in one launch, the forward's
+    bits redrawn, the sums taken in f64 in a fixed order and rounded once;
+    see :func:`chain_tail_bwd_reference`."""
     if dh.device.type == "cpu":
         return chain_tail_bwd_reference(dh, r, stats, seed=seed, keep=keep,
                                         mask=mask, drop_block=drop_block)
     N, F = _check_tail(stats, seed, keep, mask, dh=dh, r=r)
     dz = torch.empty_like(dh)
     sums = torch.empty((2, F), dtype=torch.float32, device=dh.device)
-    K._launch("chain_tail_bwd", "chain_tail_bwd", K._ptr(dh), K._ptr(r),
+    name = _variant("chain_tail_bwd", dh.dtype)
+    K._launch(name, name, K._ptr(dh), K._ptr(r),
               K._ptr(stats), K._ptr(seed), K._ptr(keep), K._ptr(mask),
               K._ptr(dz), K._ptr(sums), N, F, drop_block,
               K._stream(dh.device))
@@ -479,6 +547,10 @@ class _FusedDenseChain(torch.autograd.Function):
     def forward(ctx, chain, seed, keep, masks, x0, *params):
         L = chain.n_linear
         ws, bs, gammas, betas = (params[j * L:(j + 1) * L] for j in range(4))
+        # the f32 weights cast to the chain's dtype once per step, here and
+        # not by the caller: autograd would otherwise cast each dW returned
+        # for a bf16 input to bf16 (a no-op in f32)
+        ws = tuple(w.to(x0.dtype) for w in ws)
         rs, stats = [], []
         x, in_stats = x0, None
         for i in range(L):
@@ -522,18 +594,20 @@ def fused_dense_chain(x0, ws, bs, gammas, betas, seeds, rate, *,
     """The dense stack as fused kernels with their own backward
     (``fused_dense_chain``, ``train_fused.py:669-714``).
 
-    ``x0`` (N, D0) f32; ``ws`` (D_in, F) per block (a Linear weight's
-    ``.T`` is taken without a copy), ``bs``/``gammas``/``betas`` (F,);
+    ``x0`` (N, D0) in the compute dtype, f32 or bf16 (the bf16 chain; see
+    the module docstring); ``ws`` (D_in, F) f32 per block (a Linear
+    weight's ``.T`` is taken without a copy in f32, cast to bf16 inside the
+    chain in bf16), ``bs``/``gammas``/``betas`` (F,) f32;
     ``seeds`` (2,) int32, the step's Philox key; ``rate`` the dropout
     rate. ``mask_mode="input"`` takes the masks from
     ``ext_masks`` instead, one (N, F) {0,1} f32 tensor per dropped block
     (the last is the final block's). Dropout acts on the last
     ``min(4, L)`` blocks' outputs.
 
-    Returns ``(h_L, means (L, F), variances (L, F))``; the statistics are
-    for the running averages and take no gradient."""
-    if x0.dtype != torch.float32:
-        raise ValueError(f"{F32_ONLY}; got {x0.dtype}")
+    Returns ``(h_L, means (L, F), variances (L, F))``: h_L in the compute
+    dtype, the statistics f32, for the running averages, taking no
+    gradient."""
+    _kernel_dtype(x0)
     if mask_mode not in ("prng", "input"):
         raise ValueError(f"mask_mode must be 'prng' or 'input', not "
                          f"{mask_mode!r}")
@@ -555,29 +629,46 @@ def fused_dense_chain(x0, ws, bs, gammas, betas, seeds, rate, *,
 
 
 def dense_chain_reference(x0, ws, bs, gammas, betas, masks, keep, *,
-                          dropout_from: int, eps: float = 1e-5):
+                          dropout_from: int,
+                          compute_dtype: torch.dtype = torch.float32,
+                          eps: float = 1e-5):
     """The chain in plain PyTorch with explicit {0,1} masks, differentiable
-    by autograd (``dense_chain_reference``, ``train_fused.py:722-763``)."""
+    by autograd (``dense_chain_reference``, ``train_fused.py:722-763``). In
+    a bf16 ``compute_dtype`` each block's input and weight are rounded to
+    bf16 before the f32 product, r is stored in bf16 and its statistics
+    are taken from its f32 values, and h_L is returned in bf16, as JAX's
+    oracle does; autograd then rounds the gradients where those casts
+    stand."""
+    low = compute_dtype == BF16
     L = len(ws)
     x, affine = x0, None
     means, variances = [], []
     mi = 0
     for i in range(L):
-        z = x if affine is None else x * affine[0] + affine[1]
+        z = at_least_f32(x)
+        if affine is not None:
+            z = z * affine[0] + affine[1]
         if i > 0 and i - 1 >= dropout_from:
             z = torch.where(masks[mi] > 0, z / keep, 0.0)
             mi += 1
-        r = torch.relu(z @ ws[i] + bs[i])
-        mu = r.mean(0)
-        var = torch.clamp((r * r).mean(0) - mu * mu, min=0.0)
+        w = ws[i]
+        if low:
+            z, w = bf16_values(z), bf16_values(w)
+        r = torch.relu(z @ w + bs[i])
+        if low:
+            r = r.to(BF16)
+        rf = at_least_f32(r)
+        mu = rf.mean(0)
+        var = torch.clamp((rf * rf).mean(0) - mu * mu, min=0.0)
         a = gammas[i] * torch.rsqrt(var + eps)
         means.append(mu)
         variances.append(var)
         x, affine = r, (a, betas[i] - mu * a)
-    z = x * affine[0] + affine[1]
+    z = at_least_f32(x) * affine[0] + affine[1]
     if L - 1 >= dropout_from:
         z = torch.where(masks[mi] > 0, z / keep, 0.0)
-    return z, torch.stack(means), torch.stack(variances)
+    return z.to(compute_dtype) if low else z, torch.stack(means), \
+        torch.stack(variances)
 
 
 # ---------------------------------------------- the whole EMG encoder
@@ -590,19 +681,22 @@ def fused_emg_embed(emg_net, frames, rate, seeds, *, mask_mode: str = "prng",
     """EMGNet's train-mode forward with the fused dense chain
     (``fused_emg_embed``, ``train_fused.py:848-921``): the conv stack in
     plain PyTorch (cuDNN convolutions, as the JAX package leaves it to
-    XLA), the chain, then the head as ``torch.matmul``.
+    XLA), the chain, then the head as ``torch.matmul``. A bf16 tower
+    (``emg_net.dtype``) runs the convolutions and the head through
+    ``low_precision`` and its BatchNorms in bf16, as the eager tower does
+    (JAX ``:874-888,902-903``), and the chain in bf16.
 
     Returns ``(embeddings (rows, d_e) f32, new running statistics)``: for a
     plain-BatchNorm model one (mean, var) pair per BatchNorm in forward
     order, moved toward the batch's with flax's momentum; None for
     AdaBN."""
-    if frames.dtype != torch.float32:
-        raise ValueError(f"{F32_ONLY}; got {frames.dtype}")
+    dtype = emg_net.dtype
+    low = dtype != torch.float32
     conv = emg_net.conv_emg
     x = frames.reshape(-1, 1, 1, emg_net.emg_dim)
     batch = []
     for c, bn in ((conv[0], conv[2]), (conv[3], conv[5])):
-        x = torch.relu(c(x))
+        x = torch.relu(low_precision(c, x, dtype) if low else c(x))
         bn = _norm(bn)
         mean, var = bn.batch_stats(x)
         x = bn.normalize(x, mean, var)
@@ -615,7 +709,9 @@ def fused_emg_embed(emg_net, frames, rate, seeds, *, mask_mode: str = "prng",
         [bn.weight for bn in norms[2:]], [bn.bias for bn in norms[2:]],
         seeds, rate, mask_mode=mask_mode, ext_masks=ext_masks,
         eps=norms[2].eps)
-    e = h @ emg_net.last[0].weight.T
+    head = emg_net.last[0]
+    e = at_least_f32(low_precision(head, h, dtype)) if low \
+        else h @ head.weight.T
     if not norms[0].track_running_stats:
         return e, None
     batch += list(zip(means, variances))

@@ -37,11 +37,14 @@ def save_checkpoint(path: str, state: TrainState) -> None:
                adam_path(path))
 
 
-def load_checkpoint(path: str, device) -> TrainState:
-    """The model of ``path`` on ``device``, with the Adam chains of its
+def load_checkpoint(path: str, device,
+                    dtype: torch.dtype = torch.float32) -> TrainState:
+    """The model of ``path`` on ``device``, its EMG tower computing in
+    ``dtype`` (a checkpoint carries none), with the Adam chains of its
     sibling file where there is one (fresh chains otherwise, as after a
     reference checkpoint)."""
-    model = model_from_state_dict(load_reference_checkpoint(path)).to(device)
+    model = model_from_state_dict(load_reference_checkpoint(path),
+                                  dtype=dtype).to(device)
     state = TrainState.fresh(model)
     if os.path.exists(adam_path(path)):
         saved = torch.load(adam_path(path), map_location=device,

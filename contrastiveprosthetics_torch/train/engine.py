@@ -61,7 +61,18 @@ trainer that asks for it raises.
 
 Precision: the forward and backward run in f32 with cuDNN's TF32
 convolutions off (``device.f32_convolutions``, as calibration does);
-matmuls keep PyTorch's f32 default.
+matmuls keep PyTorch's f32 default. ``Trainer(compute_dtype="bfloat16")``
+(the JAX package's field, ``engine.py:138,252``) runs the EMG tower in
+bf16, as ``cptpu-train --bf16`` does: every Conv2d and Linear rounds its
+operands and output to bf16 (``models/layers.py``), the fused chain runs
+its bf16 kernels, the fused-encoder evaluation folds in bf16 and runs
+``encoder_chain``'s bf16 variant; parameters, running statistics,
+gradients and the Adam moments stay f32, the class tower computes in f32
+and the embeddings reach K1 in f32. A train step refuses a model of
+another dtype than the trainer's; an evaluation takes the dtype of the
+model it is given (a checkpoint carries none: the CLI loads it in the
+trainer's). ``adam_mu_dtype="bfloat16"`` stores Adam's first
+moment in bf16 (``engine.py:146-155``), as optax's ``mu_dtype``.
 """
 from __future__ import annotations
 
@@ -137,7 +148,8 @@ class Hyper(NamedTuple):
 @dataclasses.dataclass
 class AdamState:
     """``optax.scale_by_adam``'s state: the step count and both moments,
-    one tensor per parameter. For stacked parameters
+    one tensor per parameter, ``mu`` in f32 or bf16 (optax's
+    ``mu_dtype``), ``nu`` f32. For stacked parameters
     (:func:`stacked_adam_init`) ``mu`` and ``nu`` are views of two flat
     (C, N) buffers, ``flat``, that the update runs over."""
 
@@ -147,22 +159,31 @@ class AdamState:
     flat: tuple | None = None
 
 
-def adam_init(params) -> AdamState:
+# the JAX Trainer's dtype names (compute_dtype, adam_mu_dtype)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def adam_init(params, mu_dtype: torch.dtype | None = None) -> AdamState:
+    """Zeroed moments, ``mu`` in ``mu_dtype`` (None: the parameters' own,
+    as optax's default)."""
     params = list(params)
-    return AdamState(0, [torch.zeros_like(p) for p in params],
+    return AdamState(0, [torch.zeros_like(p, dtype=mu_dtype) for p in params],
                      [torch.zeros_like(p) for p in params])
 
 
-def stacked_adam_init(params) -> AdamState:
+def stacked_adam_init(params,
+                      mu_dtype: torch.dtype | None = None) -> AdamState:
     """Zeroed moments of stacked parameters (C configs on the leading
     axis): each a (C, N) buffer, config c's moments of every parameter in
-    row c, and a view of it per parameter."""
+    row c, and a view of it per parameter; the first moment's in
+    ``mu_dtype`` (None: the parameters' own)."""
     params = list(params)
     if not params:  # an idle tower
         return AdamState(0, [], [])
     sizes = [p[0].numel() for p in params]
-    flat = tuple(params[0].new_zeros(params[0].shape[0], sum(sizes))
-                 for _ in range(2))
+    flat = tuple(params[0].new_zeros(params[0].shape[0], sum(sizes),
+                                     dtype=dtype or params[0].dtype)
+                 for dtype in (mu_dtype, None))
     mu, nu = ([part.view(p.shape) for part, p in zip(f.split(sizes, 1),
                                                       params)]
               for f in flat)
@@ -173,6 +194,14 @@ def _f32_product(a: float, b: float) -> float:
     return float(np.float32(a) * np.float32(b))
 
 
+def _bf16_decay(mu: torch.Tensor, b1: float) -> torch.Tensor:
+    """optax's ``b1 * mu`` for a bf16 ``mu``, as f32 values: jnp takes the
+    Python float b1 as a weak-typed bf16 constant and rounds the product to
+    bf16 (``tree_update_moment``)."""
+    return (mu.float() * float(torch.tensor(b1, dtype=torch.bfloat16))
+            ).to(torch.bfloat16).float()
+
+
 @torch.no_grad()
 def adam_step_(params, grads, state: AdamState, lr: float | torch.Tensor,
                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
@@ -181,7 +210,9 @@ def adam_step_(params, grads, state: AdamState, lr: float | torch.Tensor,
     order of operations: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu,
     u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps), with the bias
     corrections taken in f32. (``torch.optim.Adam`` orders the bias
-    correction differently.)
+    correction differently.) A bf16 ``mu`` (optax 0.2.6's ``mu_dtype``)
+    takes ``b1 mu`` in bf16 and the sum in f32; the update is computed from
+    that f32 moment, and only the stored ``mu`` is rounded to bf16.
 
     Stacked parameters (a state of :func:`stacked_adam_init`) take a (C,)
     ``lr``, one per config; the count and the bias corrections are shared,
@@ -199,56 +230,58 @@ def adam_step_(params, grads, state: AdamState, lr: float | torch.Tensor,
     if state.flat is not None:
         mu, nu = state.flat
         g = torch.cat([x.reshape(mu.shape[0], -1) for x in grads], 1)
-        mu.mul_(b1).add_(g * (1 - b1))
+        if mu.dtype == torch.bfloat16:
+            m = _bf16_decay(mu, b1) + g * (1 - b1)
+            mu.copy_(m)
+        else:
+            m = mu.mul_(b1).add_(g * (1 - b1))
         nu.mul_(b2).add_(g * g * (1 - b2))
-        update = (mu / bc1).div_((nu / bc2).sqrt_().add_(eps)).mul_(
+        update = (m / bc1).div_((nu / bc2).sqrt_().add_(eps)).mul_(
             lr.view(-1, 1))
         for p, u in zip(params, update.split([p[0].numel() for p in params],
                                              1)):
             p.sub_(u.view(p.shape))
         return
-    torch._foreach_mul_(state.mu, b1)
-    torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1 - b1))
+    low = state.mu[0].dtype == torch.bfloat16
+    if low:
+        mu = torch._foreach_add([_bf16_decay(m, b1) for m in state.mu],
+                                torch._foreach_mul(grads, 1 - b1))
+    else:
+        mu = state.mu
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
     torch._foreach_mul_(state.nu, b2)
     torch._foreach_add_(state.nu, torch._foreach_mul(
         torch._foreach_mul(grads, grads), 1 - b2))
     denom = torch._foreach_div(state.nu, bc2)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, eps)
-    update = torch._foreach_div(state.mu, bc1)
+    update = torch._foreach_div(mu, bc1)
     torch._foreach_div_(update, denom)
     torch._foreach_mul_(update, lr)
     torch._foreach_sub_(params, update)
-
-
-BF16_TRAINING = ("a bf16 model: bfloat16 training and evaluation are not "
-                 "ported to the PyTorch package yet (ROADMAP.md, queue 1 "
-                 "item 9b (bf16 training)); train and evaluate in float32, "
-                 "and serve in bf16 with cptorch-serve --bf16")
+    if low:
+        torch._foreach_copy_(state.mu, mu)
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (parameters and BatchNorm running statistics) and the two
-    Adam chains, over ``model.towers()``. The model computes in f32: every
-    step and evaluation of a ``Trainer`` takes one, so a bf16 model is
-    refused here, the fused encoder's evaluation included."""
+    """The model (parameters and BatchNorm running statistics, f32; the
+    EMG tower's compute dtype is the model's) and the two Adam chains,
+    over ``model.towers()``."""
 
     model: ContrastiveModel
     opt_emg: AdamState
     opt_glove: AdamState
 
-    def __post_init__(self):
-        if getattr(self.model, "dtype", torch.float32) != torch.float32:
-            raise ValueError(BF16_TRAINING)
-
     @classmethod
-    def fresh(cls, model: ContrastiveModel) -> "TrainState":
+    def fresh(cls, model: ContrastiveModel,
+              mu_dtype: torch.dtype | None = None) -> "TrainState":
         towers = model.towers()
         init = (stacked_adam_init
                 if isinstance(model, StackedContrastiveModel) else adam_init)
-        return cls(model, init(towers["emg_net"].parameters()),
-                   init(towers["glove_net"].parameters()))
+        return cls(model, init(towers["emg_net"].parameters(), mu_dtype),
+                   init(towers["glove_net"].parameters(), mu_dtype))
 
 
 class EvalResult(NamedTuple):
@@ -285,8 +318,22 @@ class Trainer:
     # off, as in the JAX package, until a benchmark's A/B on the card says
     # otherwise
     use_fused_encoder: bool | None = None
+    # the EMG tower's compute dtype, "float32" or "bfloat16" (mixed
+    # precision: parameters, statistics and the optimizer stay f32)
+    compute_dtype: str = "float32"
+    # Adam's first moment stored in "float32" or "bfloat16" (optax's
+    # mu_dtype); the second stays f32
+    adam_mu_dtype: str = "float32"
 
     def __post_init__(self):
+        for name in ("compute_dtype", "adam_mu_dtype"):
+            if getattr(self, name) not in DTYPES:
+                raise ValueError(f"{name} {getattr(self, name)!r}: want one "
+                                 f"of {sorted(DTYPES)}")
+        self.dtype = DTYPES[self.compute_dtype]
+        # "float32" is optax's default: mu in the parameters' dtype
+        self.mu_dtype = (torch.bfloat16 if self.adam_mu_dtype == "bfloat16"
+                         else None)
         self.use_fused_train = bool(self.use_fused_train)
         self.use_fused_encoder = bool(self.use_fused_encoder)
         # the modes whose class tower reads glove rows
@@ -319,18 +366,18 @@ class Trainer:
             conv_features=self.conv_features, prediction=self.prediction,
             glove=self.glove, glove_encoding=self.glove_encoding,
             glove_dim=self.cfg.glove_dim,
-            generator=generator, device=self.device)
+            generator=generator, device=self.device, dtype=self.dtype)
 
     def init_state(self, generator: torch.Generator) -> TrainState:
-        """A fresh model (torch's default init from ``generator``) with
-        zeroed Adam chains."""
-        return TrainState.fresh(self._model(generator))
+        """A fresh model (torch's default init from ``generator``) in the
+        trainer's compute dtype, with zeroed Adam chains."""
+        return TrainState.fresh(self._model(generator), self.mu_dtype)
 
     def init_sweep_state(self, generators) -> TrainState:
         """C fresh models, config c's drawn from ``generators[c]``, as one
         stacked model with zeroed stacked Adam chains."""
         return TrainState.fresh(StackedContrastiveModel.from_models(
-            [self._model(g) for g in generators]))
+            [self._model(g) for g in generators]), self.mu_dtype)
 
     # ------------------------------------------------------------- train step
     def _embed_fused(self, model: ContrastiveModel, emg_b, dp_emg: float,
@@ -388,6 +435,12 @@ class Trainer:
         configs of each config's total, so each config gets its own and
         K1's backward one upstream 1 per config. With no ``generator`` the
         stacked model drops nothing (every rate must be 0)."""
+        if state.model.dtype != self.dtype:
+            # the step runs in the model's dtype: a state of the other one
+            # would train in a dtype this trainer was not built for
+            raise ValueError(f"a {state.model.dtype} model given to a "
+                             f"Trainer of compute_dtype "
+                             f"{self.compute_dtype!r}")
         model = state.model.train()
         stacked = isinstance(model, StackedContrastiveModel)
         if stacked and self.use_fused_train:
@@ -583,7 +636,10 @@ class Trainer:
         T = view.n_tasks
         folded = None
         if self._fused_encoder_on(T):
-            folded = fold_encoder_params(model.emg_net, model.encode_classes())
+            # in the model's dtype: a bf16 fold runs encoder_chain's bf16
+            # variant (engine.py:671)
+            folded = fold_encoder_params(model.emg_net, model.encode_classes(),
+                                         dtype=model.dtype)
         loss_sums, curves, y_preds, y_trues, logits_all = [], [], [], [], []
         with f32_convolutions():
             for items, w in zip(batches, weights):

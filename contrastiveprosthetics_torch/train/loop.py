@@ -9,6 +9,10 @@ nearly every epoch.
 Randomness: ``seed`` seeds two generators on the trainer's device, one for
 the init and the epochs, one for validation, so the weights a seed trains
 do not depend on whether every epoch is validated.
+
+Precision: the trainer's ``compute_dtype`` (``cptorch-train --bf16``) sets
+the dtype of the model it initialises; an ``init_state`` keeps its own
+model's, and the checkpoint is the f32 reference state_dict in either.
 """
 from __future__ import annotations
 

@@ -381,17 +381,36 @@ def test_f32_default_keeps_its_bits():
     assert all(t.dtype == torch.float32 for t in eng.folded_chain)
 
 
-def test_bf16_model_is_refused_for_training_and_evaluation():
-    """A bf16 model in a ``TrainState`` (what every ``Trainer`` step and
-    evaluation, the fused encoder's included, takes) raises, naming ROADMAP
-    queue 1 item 9b."""
-    from contrastiveprosthetics_torch.ops import train_fused
-    from contrastiveprosthetics_torch.train.engine import TrainState
+def test_bf16_model_trains_and_evaluates():
+    """A bf16 model in a ``TrainState`` (bf16 training): a ``Trainer(
+    compute_dtype="bfloat16")`` step, eager and on the fused chain, and an
+    evaluation, the fused encoder's included, run on it; the parameters,
+    gradients and Adam moments stay f32 and the loss is finite."""
+    from contrastiveprosthetics_torch.data.store import DeviceStore
+    from contrastiveprosthetics_torch.data.synthetic import (
+        make_processed_dataset,
+    )
+    from contrastiveprosthetics_torch.train.engine import Hyper, Trainer
 
-    model = TorchModel(n_linear=2, hidden=64, dtype=BF16)
-    with pytest.raises(ValueError, match=r"queue 1 item 9b"):
-        TrainState.fresh(model)
-    assert "item 9b" in train_fused.F32_ONLY
+    store = DeviceStore(CFG, *make_processed_dataset(
+        CFG, people_positions=[40], seed=3))
+    for fused in (False, True):
+        tr = Trainer(CFG, store, adabn=False, n_linear=2, hidden=64,
+                     compute_dtype="bfloat16", use_fused_train=fused,
+                     use_fused_encoder=True)
+        state = tr.init_state(tr.generator(0))
+        assert state.model.dtype == BF16
+        v = tr.view_train
+        emg_b = v.emg_flat[:8 * v.n_tasks].reshape(8, v.n_tasks, -1)
+        loss, _ = tr._sgd_step(state, emg_b, Hyper.single(1e-3, 0, 0.5, 1e-3,
+                                                          0, 0.3),
+                               1e-3, 1e-3, tr.generator(1))
+        assert bool(torch.isfinite(loss))
+        assert all(p.dtype == torch.float32
+                   for p in state.model.parameters())
+        assert all(m.dtype == torch.float32 for m in state.opt_emg.mu)
+        res = tr.evaluate(state, tr.generator(2), None, "val")
+        assert bool(torch.isfinite(res.loss))
 
 
 def test_bf16_state_dict_is_f32_and_loads_in_any_dtype():

@@ -827,3 +827,45 @@ def test_chain_tail_wrappers_reject_bad_inputs(cuda):
         TF.chain_tail_bwd(dh, torch.empty(r.numel() + 1, device=cuda)[1:]
                           .view(r.shape), stats, **kw)
     assert K.launch_counts == before
+
+
+@pytest.mark.parametrize("N", [328, 123])
+def test_bf16_chain_kernels_match_plain_and_launch(cuda, N):
+    """The bf16 chain on the card: ``fused_dense_chain`` on a bf16 input
+    runs the four bf16 kernels (7 K5f, 7 K5b, one of each tail kernel) and
+    none of the f32 ones, and its h_L meets the plain bf16 chain's at
+    JAX's bf16 rtol and atol 0.05, its gradients at 0.1 in the relative
+    2-norm (bf16 flips of f32 sums in other orders, carried through seven
+    blocks: 0.044 between the two plain versions on the CPU at N=328)."""
+    L, D0, F = 7, 768, 512
+    rng = np.random.default_rng(N)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    x0 = t(rng.standard_normal((N, D0))).to(torch.bfloat16)
+    ws = [t(rng.uniform(-1, 1, (D0 if i == 0 else F, F)) / np.sqrt(D0))
+          .requires_grad_() for i in range(L)]
+    bs = [t(rng.normal(0, 0.1, F)).requires_grad_() for _ in range(L)]
+    gs = [t(np.ones(F)).requires_grad_() for _ in range(L)]
+    betas = [t(np.zeros(F)).requires_grad_() for _ in range(L)]
+    masks = [t(rng.random((N, F)) < 0.5) for _ in range(4)]
+    keep = torch.full((1,), 0.5, device=cuda)
+    cot = t(rng.standard_normal((N, F)))
+    K.reset_launch_counts()
+    h, _, _ = TF.fused_dense_chain(x0, ws, bs, gs, betas, None, 0.5,
+                                   mask_mode="input", ext_masks=masks)
+    got = torch.autograd.grad((h.float() * cot).sum(), ws + bs)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in K.launch_counts.items() if v}
+    assert counts == {"dense_block_fwd_bf16": L, "dense_block_bwd_bf16": L,
+                      "chain_tail_fwd_bf16": 1, "chain_tail_bwd_bf16": 1}
+    hp, _, _ = TF.dense_chain_reference(x0, ws, bs, gs, betas, masks, keep,
+                                        dropout_from=L - 4,
+                                        compute_dtype=torch.bfloat16)
+    want = torch.autograd.grad((hp.float() * cot).sum(), ws + bs)
+    assert h.dtype == torch.bfloat16
+    torch.testing.assert_close(h.float(), hp.float(), rtol=0.05, atol=0.05)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        assert float((a - b).norm() / b.norm()) <= 0.1

@@ -460,10 +460,12 @@ def test_cli_fused_encoder_with_a_sweep_is_not_ported(tmp_path):
 
 
 def test_cli_results_rejects_unported_modes(tmp_path):
-    """The modes (item 7) run (``test_torch_port_modes.py``); bfloat16
-    training and evaluation (item 9b) still exit NOT_PORTED, in any mode."""
-    with pytest.raises(SystemExit, match=r"ROADMAP.md, queue 1 item 9b\)"):
-        cli_results.main(["--prediction", "--bf16", "--platform", "cpu"])
+    """The modes (item 7) run (``test_torch_port_modes.py``) and ``--bf16``
+    is accepted (``test_torch_port_train_bf16.py``); a trace of the run
+    (``--profile``, item 10) still exits NOT_PORTED, in any mode."""
+    with pytest.raises(SystemExit, match=r"ROADMAP.md, queue 1 item 10\)"):
+        cli_results.main(["--prediction", "--bf16", "--profile",
+                          "--platform", "cpu"])
 
 
 def test_encoder_chain_counts_no_launch_on_the_cpu(data):

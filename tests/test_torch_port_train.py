@@ -592,22 +592,39 @@ def test_cli_train_on_cpu_writes_a_reference_checkpoint(tmp_path, monkeypatch,
     ["--crossval_size", "3", "--fused_train", "on"],
     ["--crossval_size", "3", "--spmd_crossval"],
     ["--glove_encoding", "--crossval_size", "3", "--fused_train", "on"],
-    ["--bf16", "--prediction"]])
+    ["--bf16", "--crossval_size", "3", "--fused_train", "on"]])
 def test_cli_unported_requests_name_the_roadmap(tmp_path, argv):
     with pytest.raises(SystemExit, match="ROADMAP.md, queue 1 item"):
         cli_train.main([*argv, "--platform", "cpu", "--data_dir",
                         str(tmp_path)])
 
 
-@pytest.mark.parametrize("flag,item", [
-    pytest.param("--bf16", "9b", id="--bf16-9"), ("--profile", 10)])
+@pytest.mark.parametrize("flag,item", [("--profile", 10)])
 def test_cli_jax_flags_name_their_item(tmp_path, flag, item):
     """The JAX CLI's flags that the port does not run yet exit NOT_PORTED
-    with their own ROADMAP item, before any store is built: bf16 training
-    is item 9b (its serving half, 9a, runs in ``cptorch-serve --bf16``)."""
+    with their own ROADMAP item, before any store is built."""
     with pytest.raises(SystemExit, match=f"queue 1 item {item}\\)"):
         cli_train.main([flag, "--platform", "cpu", "--data_dir",
                         str(tmp_path)])
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "--bf16"])
+def test_cli_bf16_flag_sets_the_compute_dtype(monkeypatch, bf16):
+    """``--bf16`` builds the Trainer with ``compute_dtype="bfloat16"``, as
+    the JAX CLI's ``:154`` does, and without it float32; the store and the
+    run after that are ``test_torch_port_train_bf16.py``'s."""
+    built = {}
+
+    def stop(args, cfg, store, **options):
+        built.update(options)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(cli_train, "build_store", lambda *a: None)
+    monkeypatch.setattr(cli_train, "make_trainer", stop)
+    with pytest.raises(SystemExit):
+        cli_train.main(["--platform", "cpu", "--crossval_size", "0"]
+                       + (["--bf16"] if bf16 else []))
+    assert built["compute_dtype"] == ("bfloat16" if bf16 else "float32")
 
 
 @pytest.mark.parametrize("impl", ["threefry2x32", "rbg", "unsafe_rbg"])

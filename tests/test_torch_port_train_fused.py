@@ -167,8 +167,8 @@ def test_fused_chain_matches_its_own_reference_in_prng_mode():
 def test_fused_chain_rejects_other_dtypes_and_mask_counts():
     args, masks = chain_inputs(2, 32, 16, 8)
     x0, ws, bs, gs, be = split([t(a) for a in args], 2)
-    with pytest.raises(ValueError, match="float32 only.*ROADMAP"):
-        TF.fused_dense_chain(x0.to(torch.bfloat16), ws, bs, gs, be, None,
+    with pytest.raises(ValueError, match="float16: the kernels take"):
+        TF.fused_dense_chain(x0.to(torch.float16), ws, bs, gs, be, None,
                              0.0, mask_mode="input", ext_masks=masks)
     with pytest.raises(ValueError, match="1 masks for 2 dropped blocks"):
         TF.fused_dense_chain(x0, ws, bs, gs, be, None, 0.0,
