@@ -2,8 +2,9 @@
 """Chip smoke test of the PyTorch/CUDA port: the streaming serve path and
 its calibration, contrastive training, training on the fused chain, the
 crossval sweep, the evaluation and results path, ingest from raw ``.mat``
-files, the softmax baseline and glove modes, bfloat16 serving and
-bfloat16 training.
+files, the softmax baseline and glove modes, bfloat16 serving,
+bfloat16 training, and the go.sh/results.sh twins with checkpoint
+interop.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
@@ -189,14 +190,30 @@ made with numpy from a seed:
    ``cross_validate`` of the CLI's default 10 configs in bf16; the fused
    bf16 state's test pass unfused and on the fused encoder
    (``encoder_chain_bf16`` 10 launches a batch); ``cptorch-train --bf16``
-   and ``cptorch-results`` with and without ``--bf16``.
+   and ``cptorch-results`` with and without ``--bf16``;
+15. the twins and checkpoint interop, in a temporary directory holding a
+   copy of the repo's cached 150-config crossval: ``scripts/go_torch.sh
+   --synthetic --final_epochs 1`` (go.sh runs 8) and
+   ``scripts/results_torch.sh`` over its checkpoint, each in its own
+   process, whose test loss and accuracy must be equal; ``cptorch-export`` of the checkpoint to the JAX
+   ``TrainState`` msgpack and ``cptorch-import`` of that into a second
+   directory (state_dict and both Adam chains bit-equal) and
+   ``cptorch-results`` over the import (the same test numbers);
+   ``cptorch-serve --checkpoint X.msgpack`` per tick and ``--replay``,
+   preds and votes equal to the ``.pt``'s; ``cptorch-train --crossval_size
+   0 --final_epochs 1 --batch_size 64`` timed without and with
+   ``--profile``, whose Chrome
+   trace must parse and hold a ``contrastive_loss_fwd`` device record;
+   ``cptorch-train --spmd_crossval --crossval_size 2`` and
+   ``cptorch-serve --spmd --demo --sessions 8 --replay`` on the one card.
 
 Launch counts are reset just before the calibration, phases 3, 4, 7's and
 8's ``train_loop``, 9's ``cross_validate``, 10's test and val passes,
 11's ``cptorch-load`` and 12's ``train_loop`` runs (read again after each
 run's test pass) and ``cross_validate``, 13's calibration, ``step`` loop,
 ``steps``, batched replays and CLI runs, 14's ``train_loop`` runs,
-sweep and test passes, and read just after each (phase
+sweep and test passes, 15's serving from the checkpoints and its
+profiled run, and read just after each (phase
 3's after its ``step`` loop and after its ``steps`` call); every serve
 kernel must have launched on each of the three serve paths,
 ``iir_rms_frames`` once per calibration recording and once per ingested
@@ -217,7 +234,8 @@ in full f32 (``encoder_chain``, K5f and K5b run 3xTF32 by their own
 instructions, whatever the flags). Any failure raises and the exit code
 is not 0. The last lines are ``{"single", "batched"}``, ``{"train"}``,
 ``{"fused_train"}``, ``{"sweep"}``, ``{"eval"}``, ``{"ingest"}``,
-``{"modes"}``, ``{"bf16_serve"}`` and ``{"bf16_train"}`` JSON lines, the
+``{"modes"}``, ``{"bf16_serve"}``, ``{"bf16_train"}`` and ``{"interop"}``
+JSON lines, the
 card
 line from nvidia-smi, one
 ``{"kernels": [...]}`` JSON line, and
@@ -225,10 +243,14 @@ line from nvidia-smi, one
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
+import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -442,6 +464,7 @@ BF16_K5_F64, BF16_K5_F64_FLOOR = 1.25, 1e-7
 BF16_K5_ORDER_FLOOR, BF16_K5_FLIP_SHARE = 2.0 ** -16, 0.05
 CLI_SWEEP_CONFIGS = 10  # cptorch-train's --crossval_size default
 TURN_STEPS = 50  # phase 14's steps a turn: 2/9 of an epoch
+TWIN_EPOCHS = 1  # phase 15's go twin (go.sh runs 8)
 
 
 def log(msg: str) -> None:
@@ -4337,6 +4360,239 @@ def bf16_train_phase(K, TF, eager, train_res, fused_res,
     return res, entries
 
 
+# ------------------------------------------------------------ phase 15
+TEST_NUMBERS = re.compile(r"loss,\t+correct\n(\(.*\))")
+
+
+def run_captured(main, argv: list[str]) -> str:
+    """An in-process CLI ``main(argv)``, which must return 0; its standard
+    output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {' '.join(argv)} exited "
+                             f"{rc}:\n{buf.getvalue()[-2000:]}")
+    return buf.getvalue()
+
+
+def run_twin(script: str, args: list[str], shim_dir: str) -> tuple[str, float]:
+    """``bash scripts/<script> ARGS`` in its own process, ``python`` on its
+    PATH being this interpreter; its standard output and seconds."""
+    env = {**os.environ, "PATH": f"{shim_dir}{os.pathsep}{os.environ['PATH']}"}
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run(["bash", os.path.join(repo, "scripts", script), *args],
+                       capture_output=True, text=True, timeout=600, env=env,
+                       cwd=repo)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"{script} exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    return r.stdout, seconds
+
+
+def test_numbers(out: str, what: str) -> str:
+    found = TEST_NUMBERS.search(out)
+    if found is None:
+        raise AssertionError(f"{what} printed no test numbers")
+    return found.group(1)
+
+
+def same_pair(path_a: str, path_b: str) -> None:
+    """Two checkpoint pairs hold the same state_dict and Adam chains, bit
+    for bit."""
+    from contrastiveprosthetics_torch.train.checkpoint import load_checkpoint
+
+    a, b = (load_checkpoint(p, torch.device("cpu")) for p in (path_a, path_b))
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    if set(sa) != set(sb):
+        raise AssertionError("the imported state_dict has other keys")
+    for name in sa:
+        if sa[name].dtype != sb[name].dtype or not torch.equal(sa[name],
+                                                               sb[name]):
+            raise AssertionError(f"{name} differs after export and import")
+    for x, y in ((a.opt_emg, b.opt_emg), (a.opt_glove, b.opt_glove)):
+        if x.count != y.count or len(x.mu) != len(y.mu):
+            raise AssertionError("Adam counts or chains differ")
+        for u, v in zip(x.mu + x.nu, y.mu + y.nu):
+            if u.dtype != v.dtype or not torch.equal(u, v):
+                raise AssertionError("an Adam moment differs after export "
+                                     "and import")
+
+
+def interop_phase(K, cli, cli_train, cli_results) -> tuple[dict, dict]:
+    """Phase 15: the go and results twins, checkpoint interop with the JAX
+    format, serving from a msgpack, ``--profile`` and the ``--spmd*``
+    flags on one card. Returns the results and the launch counts of the
+    in-process main-path runs (serving from the msgpack, the profiled
+    train)."""
+    from contrastiveprosthetics_torch.cli import export_ckpt, import_ckpt
+    from contrastiveprosthetics_torch.config import DEFAULT_CONFIG as cfg
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # room for the twins' own processes
+    res: dict = {}
+    counts = dict.fromkeys(K.launch_counts, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, ckpt, ckpt2 = (os.path.join(tmp, d) for d in
+                             ("data", "ckpt", "ckpt2"))
+        os.makedirs(data)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        for name in ("cross_val_keys.npy", "cross_val_values.npy"):
+            shutil.copy(os.path.join(repo, "data", name), data)
+        shim = os.path.join(tmp, "bin")
+        os.makedirs(shim)
+        with open(os.path.join(shim, "python"), "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(os.path.join(shim, "python"), 0o755)
+        dirs = ["--data_dir", data, "--checkpoint_dir", ckpt]
+
+        # the twins: go.sh's flags (its epochs cut to 1 for the script's
+        # time), then results.sh's over its checkpoint
+        go, go_s = run_twin("go_torch.sh", ["--synthetic", "--final_epochs",
+                                            str(TWIN_EPOCHS), *dirs], shim)
+        if "no cached crossval found" in go:
+            raise AssertionError("the go twin did not load the cache")
+        results, results_s = run_twin(
+            "results_torch.sh", ["--synthetic", "--batch_size", "8", *dirs,
+                                 "--results_dir", os.path.join(tmp, "B")],
+            shim)
+        numbers = test_numbers(go, "the go twin")
+        if test_numbers(results, "the results twin") != numbers:
+            raise AssertionError(f"the twins' test numbers differ: {numbers}"
+                                 f" and {test_numbers(results, '')}")
+        res["twins"] = dict(go_s=go_s, results_s=results_s,
+                            test_numbers=numbers)
+        log(f"[interop] go_torch.sh --synthetic --final_epochs {TWIN_EPOCHS} in "
+            f"{go_s:.1f} s, results_torch.sh in {results_s:.1f} s (own "
+            f"processes): both print {numbers}")
+
+        # export to the JAX format, import into a second directory
+        pt, msg = os.path.join(ckpt, "contrastive.pt"), \
+            os.path.join(tmp, "contrastive.msgpack")
+        pt2 = os.path.join(ckpt2, "contrastive.pt")
+        t0 = time.perf_counter()
+        run_captured(export_ckpt.main, [pt, "--out", msg])
+        export_s = time.perf_counter() - t0
+        run_captured(import_ckpt.main, [msg, "--out", pt2, "--no_adabn"])
+        import_s = time.perf_counter() - t0 - export_s
+        same_pair(pt, pt2)
+        t0 = time.perf_counter()
+        out = run_captured(cli_results.main, [
+            "--synthetic", "--batch_size", "8", "--no_adabn", "--data_dir",
+            data, "--checkpoint_dir", ckpt2, "--results_dir",
+            os.path.join(tmp, "C")])
+        if test_numbers(out, "cptorch-results on the import") != numbers:
+            raise AssertionError("cptorch-results over the imported pair "
+                                 f"printed {test_numbers(out, '')}, the go "
+                                 f"twin {numbers}")
+        results_import_s = time.perf_counter() - t0
+        res["interop"] = dict(export_s=export_s, import_s=import_s,
+                              msgpack_bytes=os.path.getsize(msg),
+                              results_on_import_s=results_import_s)
+        log(f"[interop] cptorch-export {export_s:.2f} s, cptorch-import "
+            f"{import_s:.2f} s ({os.path.getsize(msg)} bytes): state_dict "
+            "and both Adam chains bit-equal; cptorch-results over the import "
+            f"({results_import_s:.2f} s, in process) prints {numbers}")
+
+        # serve from the msgpack and from the .pt, per tick and replayed
+        rng = np.random.default_rng(15)
+        rec = os.path.join(tmp, "recording.npy")
+        np.save(rec, rng.standard_normal((2 * cfg.hz, cfg.emg_dim)
+                                         ).astype(np.float32))
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        for extra in ([], ["--replay"]):
+            got = []
+            for src in (msg, pt):
+                out_npz = os.path.join(tmp, "serve.npz")
+                run_captured(cli.main, ["--checkpoint", src, "--recording",
+                                        rec, "--data_dir", data, "--quiet",
+                                        "--out", out_npz, *extra])
+                with np.load(out_npz) as z:
+                    got.append((z["preds"], z["votes"]))
+            if not (np.array_equal(got[0][0], got[1][0])
+                    and np.array_equal(got[0][1], got[1][1])):
+                raise AssertionError(f"serve {extra} from the msgpack "
+                                     "differs from serve from the .pt")
+        torch.cuda.synchronize()
+        serve_counts = dict(K.launch_counts)
+        res["serve_4_runs_s"] = time.perf_counter() - t0
+        for name in SERVE_KERNELS:
+            if not serve_counts[name]:
+                raise AssertionError(f"{name} never launched serving from "
+                                     f"the checkpoints: {serve_counts}")
+        log(f"[interop] cptorch-serve --checkpoint X.msgpack per tick and "
+            "--replay: preds and votes equal to the .pt's; launches "
+            f"{ {k: v for k, v in serve_counts.items() if v} }")
+
+        # --profile: one epoch with and without the trace, at batch size
+        # 64 (28 steps): the trace needs K1f records, not many of them
+        prof_args = ["--synthetic", "--crossval_size", "0", "--final_epochs",
+                     "1", "--batch_size", "64", "--no_adabn", "--data_dir",
+                     data, "--checkpoint_dir", os.path.join(tmp, "p")]
+        t0 = time.perf_counter()
+        run_captured(cli_train.main, prof_args)
+        plain_s = time.perf_counter() - t0
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_captured(cli_train.main, [*prof_args, "--profile"])
+        profile_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        train_counts = dict(K.launch_counts)
+        for name in TRAIN_KERNELS:
+            if not train_counts[name]:
+                raise AssertionError(f"{name} never launched in the profiled "
+                                     f"run: {train_counts}")
+        if f"profile trace written to {cli_train.trace_dir()}" not in out:
+            raise AssertionError("--profile printed no trace path")
+        path = out.split("profile trace written to")[1].splitlines()[1].strip()
+        with open(path) as f:
+            trace = json.load(f)
+        size_mb = os.path.getsize(path) / 1e6
+        os.remove(path)
+        k1f = sum(1 for e in trace["traceEvents"]
+                  if e.get("cat") == "kernel"
+                  and "contrastive_loss_fwd" in e.get("name", ""))
+        if not k1f:
+            raise AssertionError("the trace holds no contrastive_loss_fwd "
+                                 "device record")
+        res["profile"] = dict(plain_s=plain_s, profile_s=profile_s,
+                              trace_mb=size_mb, k1f_device_records=k1f,
+                              k1f_launches=train_counts[
+                                  "contrastive_loss_fwd"])
+        log(f"[interop] cptorch-train --crossval_size 0 --final_epochs 1: "
+            f"{plain_s:.2f} s, with --profile {profile_s:.2f} s; trace "
+            f"{size_mb:.1f} MB, {k1f} contrastive_loss_fwd device records "
+            f"of {train_counts['contrastive_loss_fwd']} launches")
+
+        # --spmd_crossval and --spmd run unsharded on the one card
+        t0 = time.perf_counter()
+        out = run_captured(cli_train.main, [
+            "--spmd_crossval", "--synthetic", "--crossval_size", "2",
+            "--final_epochs", "1", "--no_adabn",
+            "--data_dir", os.path.join(tmp, "s"), "--checkpoint_dir",
+            os.path.join(tmp, "s")])
+        out += run_captured(cli.main, ["--spmd", "--demo", "--sessions", "8",
+                                       "--replay", "--quiet"])
+        spmd_s = time.perf_counter() - t0
+        for flag in ("--spmd_crossval: 1 cuda device visible",
+                     "--spmd: 1 cuda device visible"):
+            if flag not in out:
+                raise AssertionError(f"no '{flag}' line")
+        res["spmd_s"] = spmd_s
+        log(f"[interop] --spmd_crossval (2 configs) and --spmd --sessions 8 "
+            f"--replay ran unsharded on one card in {spmd_s:.1f} s")
+    for name in SERVE_KERNELS:
+        counts[name] = serve_counts[name]
+    for name in TRAIN_KERNELS:
+        counts[name] = train_counts[name]
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[interop] phase 15 took {res['phase_s']:.1f} s")
+    return res, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -4648,6 +4904,13 @@ def main() -> int:
     bf16_train_res, bf16_train_entries = bf16_train_phase(
         K, TF, trainer, train_res, fused_res, f32_k5)
 
+    # ------------------------- 15. interop, the twins, --profile, --spmd*
+    from contrastiveprosthetics_torch.cli import results as cli_results
+    from contrastiveprosthetics_torch.cli import train as cli_train
+
+    interop_res, interop_counts = interop_phase(K, cli, cli_train,
+                                                cli_results)
+
     for name, entry in entries.items():
         if name in FUSED_KERNELS:
             by_path = {"fused_train": fused_counts[name],
@@ -4663,7 +4926,8 @@ def main() -> int:
             by_path = {"train": train_counts[name],
                        "fused_train": fused_counts[name],
                        "sweep": sweep_counts[name],
-                       "modes": modes_counts[name]}
+                       "modes": modes_counts[name],
+                       "interop": interop_counts[name]}
             traced = {}
             for path, trace in (("train", train_res["step_trace"]),
                                 ("fused_train", fused_res["step_trace"]),
@@ -4675,7 +4939,8 @@ def main() -> int:
         else:
             by_path = {"step": step_counts[name],
                        "steps": steps_counts[name],
-                       "batched": batched_counts[name]}
+                       "batched": batched_counts[name],
+                       "interop": interop_counts[name]}
             entry["device_ms_per_launch_by_path"] = {
                 "step": per_launch(single_res["step_trace"], name),
                 "steps": per_launch(steps_trace_1, name),
@@ -4695,6 +4960,7 @@ def main() -> int:
     print(json.dumps({"modes": modes_res}))
     print(json.dumps({"bf16_serve": bf16_res}))
     print(json.dumps({"bf16_train": bf16_train_res}))
+    print(json.dumps({"interop": interop_res}))
     print(card)
     print(json.dumps({"kernels": list(entries.values()) + eval_entries
                       + [bf16_entry] + list(bf16_train_entries.values())}))

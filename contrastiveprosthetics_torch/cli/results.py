@@ -6,20 +6,22 @@ and export the full artifact set, the set-size sweep and ``results.png``
 included (``results/export.py``). ``--per_subject_eval`` adds the
 per-subject accuracies. ``--prediction``, ``--glove`` and
 ``--glove_encoding`` name the checkpoint's mode, as for ``cptorch-train``.
-``--bf16`` is accepted and changes nothing: the checkpoint is evaluated in
-float32, as ``cptpu-results`` builds its Trainer without a compute dtype
-(its ``cli/results.py:42-52``).
+``--bf16``, ``--profile`` and any ``--prng_impl`` are accepted and change
+nothing, as ``cptpu-results`` reads none of them (its ``cli/results.py:
+15-17,42-63``): the checkpoint is evaluated in float32 and untraced, and
+the test pass draws from torch's generators. A ``--checkpoint_dir`` that
+holds only the JAX package's ``contrastive.msgpack`` exits naming
+``cptorch-import``.
 """
 from __future__ import annotations
-
-import os
 
 from contrastiveprosthetics_torch.cli.train import (
     build_parser,
     build_store,
+    checkpoint_file,
     load_state,
     make_trainer,
-    reject_unported_modes,
+    reject_conflicts,
     report_per_subject,
 )
 from contrastiveprosthetics_torch.device import select_device
@@ -27,7 +29,8 @@ from contrastiveprosthetics_torch.device import select_device
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    reject_unported_modes(args)
+    reject_conflicts(args)
+    ckpt_path = checkpoint_file(args.checkpoint_dir)
     device = select_device(args.platform)
 
     from contrastiveprosthetics_torch.config import DEFAULT_CONFIG, compat_config
@@ -49,8 +52,7 @@ def main(argv=None) -> int:
 
     values, keys = load_crossval(args.data_dir, id_=args.crossval_id)
     _, hyper = hyper_from_key(best_config(values, keys))
-    state = load_state(
-        trainer, os.path.join(args.checkpoint_dir, "contrastive.pt"), device)
+    state = load_state(trainer, ckpt_path, device)
 
     t = run_test(trainer, state, hyper, trainer.generator(args.seed + 5))
     out_dir = args.results_dir or args.data_dir

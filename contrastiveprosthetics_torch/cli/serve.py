@@ -7,7 +7,10 @@ the running majority vote, and the measured tick latency.
 
 Inputs:
   --checkpoint   a reference ``Model.state_dict()`` saved with torch.save
-                 (``.pt``); serve requires a plain-BN model.
+                 (``.pt``), or the JAX package's ``TrainState`` msgpack
+                 (``.msgpack``, from ``cptpu-train``; read by
+                 ``train/jax_interop.py``); serve requires a plain-BN
+                 model.
   --data_dir     where ``emg_mean.npy``/``emg_std.npy`` live (ingest stats).
   --recording    .npy (T, 12) raw 2 kHz samples, or .npz with key ``emg``;
                  with --sessions S also (S, T, 12).
@@ -25,8 +28,9 @@ Inputs:
 
 The JAX CLI's ``--fused_encoder`` is taken as a no-op (on CUDA every tick
 already runs ``encoder_chain``); ``--no_fused_encoder`` exits, since no
-other encoder path serves on the card; ``--spmd`` is not ported yet and
-exits.
+other encoder path serves on the card. ``--spmd`` serves unsharded on one
+device, as the JAX CLI does unless more than one device is visible and
+the session count divides by theirs; there it exits, not ported yet.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from contrastiveprosthetics_torch.cli.train import NOT_PORTED
+from contrastiveprosthetics_torch.cli.train import run_unsharded
 from contrastiveprosthetics_torch.config import DEFAULT_CONFIG as cfg
 from contrastiveprosthetics_torch.device import add_platform_flag, select_device
 
@@ -46,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Stream a recording through the online inference engine")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="reference state_dict .pt (default: fresh weights)")
+                   help="reference state_dict .pt, or a JAX TrainState "
+                        ".msgpack (default: fresh weights)")
     p.add_argument("--data_dir", type=str, default="data")
     p.add_argument("--recording", type=str, default=None)
     p.add_argument("--calibrate", type=str, default=None)
@@ -78,19 +83,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def reject_unported_modes(args) -> None:
-    if args.spmd:
-        raise SystemExit(NOT_PORTED.format(
-            what="--spmd (the session axis over several devices)", item=8,
-            hint="drop the flag: the batched engine serves every session on "
-                 "one device"))
-    if args.no_fused_encoder:
-        raise SystemExit(
-            "--no_fused_encoder: the port's tick has one encoder path, the "
-            "encoder_chain kernel on the folded weights (ops/kernels.py), "
-            "and no unfused one to switch to; drop the flag")
-
-
 def _load_recording(path: str) -> np.ndarray:
     if path.endswith(".npz"):
         with np.load(path) as z:
@@ -105,8 +97,15 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    reject_unported_modes(args)
+    if args.no_fused_encoder:
+        raise SystemExit(
+            "--no_fused_encoder: the port's tick has one encoder path, the "
+            "encoder_chain kernel on the folded weights (ops/kernels.py), "
+            "and no unfused one to switch to; drop the flag")
     device = select_device(args.platform)
+    if args.spmd:
+        run_unsharded("--spmd", "the sessions served", device,
+                      sessions=args.sessions)
 
     from contrastiveprosthetics_torch.models.clip import ContrastiveModel
     from contrastiveprosthetics_torch.models.convert import (
@@ -120,8 +119,17 @@ def main(argv=None) -> int:
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     if args.checkpoint:
-        model = model_from_state_dict(
-            load_reference_checkpoint(args.checkpoint), dtype=dtype)
+        if args.checkpoint.endswith(".msgpack"):
+            from contrastiveprosthetics_torch.train.jax_interop import (
+                read_msgpack,
+            )
+
+            # serving runs plain BatchNorm, as the JAX CLI builds its model
+            sd = read_msgpack(args.checkpoint,
+                              adabn=False)[0].model.state_dict()
+        else:
+            sd = load_reference_checkpoint(args.checkpoint)
+        model = model_from_state_dict(sd, dtype=dtype)
         if model.prediction or model.glove_encoding:
             raise SystemExit(f"{args.checkpoint}: the serve path scores "
                              "EMG against one-hot class embeddings; a "

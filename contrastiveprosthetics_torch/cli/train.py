@@ -29,14 +29,21 @@ annealed train, checkpointing on val loss -> reload the best checkpoint
 evaluates the EMG tower in bfloat16 (``Trainer(compute_dtype=
 "bfloat16")``, as the JAX CLI's ``:154``), the sweep and the final run
 alike; the checkpoint stays the f32 reference state_dict and is reloaded
-in bf16. ``--profile``, ``--spmd_crossval``, and the sweep on the fused
-chain or with the fused encoder's validation, are not ported yet and
-raise; so does a ``--prng_impl`` other than ``auto``.
+in bf16. ``--profile`` traces the whole run with ``torch.profiler``
+(CPU and CUDA activities on the card, the CPU alone on the CPU) and
+writes a Chrome trace under ``$TMPDIR/cptorch_trace`` (``/tmp`` by
+default), as the JAX CLI traces to ``/tmp/cptpu_trace``.
+``--spmd_crossval`` runs the sweep unsharded on one device, as the JAX
+CLI does with one device visible; with more than one CUDA device it
+exits, not ported yet, as do the sweep on the fused chain or with the
+fused encoder's validation, and a ``--prng_impl`` other than ``auto``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import tempfile
 import time
 
 import numpy as np
@@ -123,22 +130,73 @@ def build_store(args, cfg, device):
     return DeviceStore.load(cfg, args.data_dir, device=device)
 
 
-def reject_unported_modes(args) -> None:
+def reject_conflicts(args) -> None:
+    """The flag pair that no CLI of either package runs."""
     if args.per_subject_eval and args.prediction:
         raise SystemExit("--per_subject_eval scores contrastive logits, "
                          "which --prediction does not make (as in the JAX "
                          "CLI): drop one of the two")
-    if args.profile:
+
+
+def run_unsharded(flag: str, what: str, device, sessions: int | None = None
+                  ) -> None:
+    """``--spmd_crossval`` and ``--spmd``: the JAX CLIs shard only over
+    more than one visible device (of ``sessions`` dividing by the count,
+    for ``--spmd``), and otherwise run unsharded. So does the port, which
+    says so; where JAX would shard, it exits (not ported yet)."""
+    import torch
+
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n > 1 and (sessions is None or sessions % n == 0):
         raise SystemExit(NOT_PORTED.format(
-            what="--profile (a trace of the training run)", item=10,
-            hint="drop the flag, or trace with torch.profiler around "
-                 "train_loop"))
-    if args.prng_impl != "auto":
+            what=f"{flag} ({what} sharded over {n} CUDA devices)", item=8,
+            hint="drop the flag, or make one device visible "
+                 "(CUDA_VISIBLE_DEVICES): it then runs unsharded"))
+    print(f"{flag}: {n} {device.type} device{'s' if n > 1 else ''} "
+          f"visible, {what} unsharded")
+
+
+def trace_dir() -> str:
+    """Where ``--profile`` writes its Chrome trace."""
+    return os.path.join(tempfile.gettempdir(), "cptorch_trace")
+
+
+@contextlib.contextmanager
+def profiled(on: bool, device):
+    """``--profile``: the enclosed run under ``torch.profiler``, its
+    Chrome trace written to :func:`trace_dir` when the run ends."""
+    if not on:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    out = trace_dir()
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"cptorch_train_{time.strftime('%Y%m%d_%H%M%S')}"
+                             f"_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    print(f"profile trace written to {out}")
+    print(f"  {path}")
+
+
+def checkpoint_file(checkpoint_dir: str) -> str:
+    """``contrastive.pt`` in ``checkpoint_dir``. Where only a JAX
+    checkpoint (``contrastive.msgpack``) is there, exits naming
+    ``cptorch-import``, which converts it."""
+    path = os.path.join(checkpoint_dir, "contrastive.pt")
+    jax_path = os.path.join(checkpoint_dir, "contrastive.msgpack")
+    if not os.path.exists(path) and os.path.exists(jax_path):
         raise SystemExit(
-            f"--prng_impl {args.prng_impl} names a JAX random-number "
-            "generator; the port draws every random stream (init, "
-            "shuffles, dropout) from torch's Philox generators, so no JAX "
-            "stream can be reproduced: drop the flag or pass auto")
+            f"{checkpoint_dir} holds contrastive.msgpack, a checkpoint of "
+            "the JAX package, and no contrastive.pt: convert it with "
+            f"cptorch-import {jax_path} (add --no_adabn for a model trained "
+            "with --no_adabn)")
+    return path
 
 
 def make_trainer(args, cfg, store, **options):
@@ -192,13 +250,13 @@ def report_per_subject(trainer, state, hyper, out_dir=None, pooled=None):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    reject_unported_modes(args)
-    if args.spmd_crossval:
-        raise SystemExit(NOT_PORTED.format(
-            what="--spmd_crossval (the sweep's configs sharded over several "
-                 "devices)", item=8,
-            hint="drop the flag: the sweep trains its configs as one stacked "
-                 "model on one device"))
+    reject_conflicts(args)
+    if args.prng_impl != "auto":
+        raise SystemExit(
+            f"--prng_impl {args.prng_impl} names a JAX random-number "
+            "generator; the port draws every random stream (init, "
+            "shuffles, dropout) from torch's Philox generators, so no JAX "
+            "stream can be reproduced: drop the flag or pass auto")
     crossval_load = args.crossval_load
     if crossval_load and not os.path.exists(os.path.join(
             args.data_dir, f"cross_val_values{args.crossval_id}.npy")):
@@ -220,8 +278,18 @@ def main(argv=None) -> int:
             hint="encoder_chain takes no config axis yet; drop "
                  "--fused_encoder for the sweep, or pass --crossval_load "
                  "with a cached sweep or --crossval_size 0"))
+    if args.load_model:
+        checkpoint_file(args.checkpoint_dir)
     device = select_device(args.platform)
+    if args.spmd_crossval and sweep:
+        run_unsharded("--spmd_crossval", "the sweep's configs", device)
+    with profiled(args.profile, device):
+        return run(args, device, crossval_load, sweep)
 
+
+def run(args, device, crossval_load: bool, sweep: bool) -> int:
+    """The run after the flags' checks: store, hyperparameters, the final
+    train and the test."""
     from contrastiveprosthetics_torch.config import DEFAULT_CONFIG, compat_config
     from contrastiveprosthetics_torch.train.crossval import (
         best_config,

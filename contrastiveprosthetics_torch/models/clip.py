@@ -12,7 +12,7 @@ whole glove tower of the softmax baseline (models.py:411-428; the
 reference trains the EMG tower only, train.py:101). The JAX package has
 none of them, so none is trained or penalised: :meth:`towers` names the
 two parameter groups that are, an empty module for a tower the mode does
-not train.
+not train. Each holds fixed values (:meth:`dead_modules`).
 """
 from __future__ import annotations
 
@@ -85,6 +85,27 @@ class ContrastiveModel(nn.Module):
         torch_default_init_(self, generator)
         with torch.no_grad():
             self.logit_scale.zero_()
+            for dead in self.dead_modules():
+                for m in dead.modules():
+                    if isinstance(m, (nn.Conv2d, nn.Linear)):
+                        m.weight.zero_()
+                        if m.bias is not None:
+                            m.bias.zero_()
+
+    def dead_modules(self) -> list[nn.Module]:
+        """The modules that no mode computes with: the one-hot layout's
+        ``glove_net.last`` and the idle tower of the baseline modes. They
+        hold the values the JAX package's exporter writes for them (zero
+        weights and biases, BatchNorm at its init; its
+        ``train/torch_export.py:253-290``), drawn and then overwritten, so
+        the live parameters' draws are unchanged: the JAX TrainState has
+        no place for them, and a trip through it
+        (``train/jax_interop.py``) gives them back as they were."""
+        if self.glove:
+            return [self.emg_net]
+        if self.glove_net.mode == "reference":
+            return [self.glove_net]
+        return [self.glove_net.last] if self.glove_net.mode == "onehot" else []
 
     def towers(self) -> dict[str, nn.Module]:
         """The two parameter groups, as the JAX TrainState holds them: the

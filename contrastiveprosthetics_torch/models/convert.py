@@ -10,7 +10,8 @@ and goes under the port's own keys, ``glove_net.mlp`` (``glove_net.py``).
 :func:`from_flax_variables` turns the JAX package's variable trees (nested
 dicts of numpy arrays, as a msgpack restore gives them) into that layout:
 the port's own copy of the transforms in the JAX package's
-``train/torch_export.py:55-73,178-267``.
+``train/torch_export.py:55-73,178-267``; :func:`to_flax_variables` the
+other way, as its ``train/torch_import.py`` does.
 """
 from __future__ import annotations
 
@@ -131,14 +132,15 @@ def from_flax_variables(params: Mapping[str, Any],
     (``engine.py:270-288``): a prediction state has no ``glove_net``
     subtree (or an empty one), a glove prediction state no ``emg_net``
     one, and a glove-encoding class tower holds a BatchNorm. A tower the
-    tree lacks is the idle one, kept at the port's init (a fresh
-    ``ContrastiveModel`` seeded 0) at the ``ContrastiveModel`` ``widths``
-    given (its defaults otherwise; a ``dtype`` there changes no entry: the
-    state_dict is f32 in any compute dtype, which
+    tree lacks is the idle one, at the fixed values of
+    ``ContrastiveModel.dead_modules`` and the ``ContrastiveModel``
+    ``widths`` given (its defaults otherwise; a ``dtype`` there changes
+    no entry: the state_dict is f32 in any compute dtype, which
     :func:`model_from_state_dict` takes). The dead entries of the one-hot
     layout are synthesized as the JAX exporter does:
     ``glove_net.last.0.weight`` as zeros, ``logit_scale`` as 0.0,
-    ``num_batches_tracked`` as int64 0.
+    ``num_batches_tracked`` as int64 0. :func:`to_flax_variables` is the
+    inverse.
     """
     emg_p, glove_p = params.get("emg_net") or {}, params.get("glove_net") or {}
     stats = batch_stats or {}
@@ -171,6 +173,91 @@ def from_flax_variables(params: Mapping[str, Any],
         raise ValueError(f"variable tree entries outside the {mode} "
                          f"layout: {sorted(extra)}")
     return {**init, **sd}
+
+
+def _flax_conv_kernel(weight: np.ndarray) -> np.ndarray:
+    """torch (out, in, kh, kw) -> flax NHWC (kh, kw, in, out)."""
+    return np.ascontiguousarray(np.transpose(weight, (2, 3, 1, 0)))
+
+
+def _flax_first_dense_kernel(weight: np.ndarray,
+                             conv_features: int) -> np.ndarray:
+    """The inverse of :func:`_first_dense_weight`: channel-major torch
+    (out, in) -> position-major flax (in, out)."""
+    out_f, in_f = weight.shape
+    positions = in_f // conv_features
+    return np.ascontiguousarray(
+        weight.reshape(out_f, conv_features, positions)
+        .transpose(2, 1, 0).reshape(in_f, out_f))
+
+
+def to_flax_variables(sd: Mapping[str, torch.Tensor]
+                      ) -> tuple[dict, dict]:
+    """The port's state_dict -> the JAX package's ``(params,
+    batch_stats)`` trees (nested dicts of f32 numpy arrays under the flax
+    module names), in the mode and widths :func:`architecture` reads from
+    the keys: the inverse of :func:`from_flax_variables` on every entry
+    the JAX trees hold. An idle tower is an empty ``params`` subtree with
+    no ``batch_stats`` one, as the JAX trainer builds it. An AdaBN model
+    has no running statistics, and the JAX one keeps statistics that no
+    layer reads: they come out at flax's init (mean 0, variance 1)."""
+    arch = architecture(sd)
+    adabn = arch["adabn"]
+
+    def a(key: str) -> np.ndarray:
+        return sd[key].detach().cpu().float().numpy()
+
+    def dense(key: str, bias: bool = True, kernel=None) -> dict:
+        out = {"kernel": np.ascontiguousarray(
+            a(key + ".weight").T if kernel is None else kernel)}
+        if bias:
+            out["bias"] = a(key + ".bias")
+        return {"Dense_0": out}
+
+    def bn(prefix: str) -> tuple[dict, dict]:
+        mid = f"{prefix}.bn." if adabn else f"{prefix}."
+        scale = a(mid + "weight")
+        stats = ({"mean": np.zeros_like(scale), "var": np.ones_like(scale)}
+                 if adabn else {"mean": a(mid + "running_mean"),
+                                "var": a(mid + "running_var")})
+        return ({"BatchNorm_0": {"scale": scale, "bias": a(mid + "bias")}},
+                {"BatchNorm_0": stats})
+
+    params: dict = {"emg_net": {}, "glove_net": {}}
+    stats: dict = {}
+    if not arch["glove"]:
+        p, s = params["emg_net"], stats.setdefault("emg_net", {})
+        norms = []
+        for j, idx in enumerate((0, 3)):
+            key = f"emg_net.conv_emg.{idx}"
+            p[f"TorchConv_{j}"] = {"Conv_0": {
+                "kernel": _flax_conv_kernel(a(key + ".weight")),
+                "bias": a(key + ".bias")}}
+            norms.append(f"emg_net.conv_emg.{idx + 2}")
+        n, idx = arch["n_linear"], 0
+        for i in range(n):
+            key = f"emg_net.linear.{idx}"
+            p[f"TorchDense_{i}"] = dense(key, kernel=_flax_first_dense_kernel(
+                a(key + ".weight"), arch["conv_features"]) if i == 0 else None)
+            norms.append(f"emg_net.linear.{idx + 2}")
+            idx += 3 + (1 if i >= n - 4 else 0)
+        if arch["prediction"]:
+            p[f"TorchDense_{n}"] = dense("emg_net.last.0")
+            norms.append("emg_net.last.2")
+            p[f"TorchDense_{n + 1}"] = dense("emg_net.last.3", bias=False)
+        else:
+            p[f"TorchDense_{n}"] = dense("emg_net.last.0", bias=False)
+        for k, prefix in enumerate(norms):
+            p[f"BatchNorm_{k}"], s[f"BatchNorm_{k}"] = bn(prefix)
+    if "glove_net.mlp.0.weight" in sd:
+        p = params["glove_net"]
+        p["TorchDense_0"] = dense("glove_net.mlp.0")
+        p["BatchNorm_0"], glove_stats = bn("glove_net.mlp.2")
+        p["TorchDense_1"] = dense("glove_net.mlp.4", bias=False)
+        stats["glove_net"] = {"BatchNorm_0": glove_stats}
+    elif not arch["prediction"]:
+        params["glove_net"]["TorchDense_0"] = dense("glove_net.easy.0")
+    return params, stats
 
 
 def load_reference_checkpoint(path: str) -> dict[str, torch.Tensor]:

@@ -25,16 +25,37 @@ def adam_path(path: str) -> str:
     return os.path.splitext(path)[0] + ".adam.pt"
 
 
-def save_checkpoint(path: str, state: TrainState) -> None:
+def save_checkpoint(path: str, state: TrainState,
+                    jax_batch_stats: dict | None = None) -> None:
+    """``jax_batch_stats``: the running statistics a JAX AdaBN checkpoint
+    keeps and no layer reads (``train/jax_interop.py``), carried in the
+    Adam sibling for a later export; a port run saves none."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     torch.save({k: v.detach().cpu()
                 for k, v in state.model.state_dict().items()}, path)
-    torch.save({name: {"count": opt.count,
-                       "mu": [t.cpu() for t in opt.mu],
-                       "nu": [t.cpu() for t in opt.nu]}
-                for name, opt in (("emg_net", state.opt_emg),
-                                  ("glove_net", state.opt_glove))},
-               adam_path(path))
+    adam = {name: {"count": opt.count,
+                   "mu": [t.cpu() for t in opt.mu],
+                   "nu": [t.cpu() for t in opt.nu]}
+            for name, opt in (("emg_net", state.opt_emg),
+                              ("glove_net", state.opt_glove))}
+    if jax_batch_stats is not None:
+        adam["jax_batch_stats"] = _tensors(jax_batch_stats)
+    torch.save(adam, adam_path(path))
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.as_tensor(tree)
+
+
+def load_jax_batch_stats(path: str) -> dict | None:
+    """The JAX AdaBN running statistics saved beside checkpoint ``path``
+    (trees of CPU tensors), or None."""
+    if not os.path.exists(adam_path(path)):
+        return None
+    return torch.load(adam_path(path), map_location="cpu",
+                      weights_only=True).get("jax_batch_stats")
 
 
 def load_checkpoint(path: str, device,

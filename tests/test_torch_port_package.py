@@ -120,11 +120,41 @@ def test_cli_default_platform_needs_a_gpu(monkeypatch):
 @pytest.mark.parametrize("flag,match", [
     ("--spmd", r"queue 1 item 8\)"),
     ("--no_fused_encoder", "one encoder path")])
-def test_cli_serve_jax_flags_exit_with_their_reason(flag, match):
+def test_cli_serve_jax_flags_exit_with_their_reason(monkeypatch, flag,
+                                                    match):
     """The JAX serve CLI's flags that the port does not run exit, naming
-    the ROADMAP item or the reason, before a device is chosen."""
+    the ROADMAP item or the reason, before any CUDA work:
+    ``--no_fused_encoder`` always, ``--spmd`` where the JAX CLI would
+    shard (two CUDA devices visible, the sessions divisible by two; on
+    one device it serves unsharded:
+    ``test_cli_serve_spmd_serves_unsharded_on_one_device``)."""
+    platform = "cpu"
+    if flag == "--spmd":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        platform = "cuda"
     with pytest.raises(SystemExit, match=match):
-        port_serve.main(["--demo", "--platform", "cpu", "--quiet", flag])
+        port_serve.main(["--demo", "--platform", platform, "--quiet",
+                         "--sessions", "4", flag])
+
+
+@pytest.mark.parametrize("extra,shape", [
+    ([], (1, 20)), (["--sessions", "8", "--replay"], (8, 20))])
+def test_cli_serve_spmd_serves_unsharded_on_one_device(tmp_path, capsys,
+                                                       extra, shape):
+    """``--spmd --demo`` on one device (the CPU) serves unsharded, says
+    so, and gives the preds and votes of the same command without it."""
+    outs = [tmp_path / "plain.npz", tmp_path / "spmd.npz"]
+    for out, spmd in zip(outs, ([], ["--spmd"])):
+        assert port_serve.main(["--demo", "--platform", "cpu", "--quiet",
+                                "--seconds", "0.2", "--out", str(out),
+                                *extra, *spmd]) == 0
+    assert "--spmd: 1 cpu device visible, the sessions served unsharded" \
+        in capsys.readouterr().out
+    with np.load(outs[0]) as a, np.load(outs[1]) as b:
+        assert a["preds"].shape == shape
+        np.testing.assert_array_equal(a["preds"], b["preds"])
+        np.testing.assert_array_equal(a["votes"], b["votes"])
 
 
 @pytest.mark.parametrize("extra,shape", [

@@ -12,6 +12,7 @@ from __future__ import annotations
 import functools
 import os
 import shutil
+import tempfile
 import warnings
 
 import jax
@@ -460,12 +461,40 @@ def test_cli_fused_encoder_with_a_sweep_is_not_ported(tmp_path):
 
 
 def test_cli_results_rejects_unported_modes(tmp_path):
-    """The modes (item 7) run (``test_torch_port_modes.py``) and ``--bf16``
-    is accepted (``test_torch_port_train_bf16.py``); a trace of the run
-    (``--profile``, item 10) still exits NOT_PORTED, in any mode."""
-    with pytest.raises(SystemExit, match=r"ROADMAP.md, queue 1 item 10\)"):
-        cli_results.main(["--prediction", "--bf16", "--profile",
-                          "--platform", "cpu"])
+    """The modes (item 7) run (``test_torch_port_modes.py``), ``--bf16``
+    is accepted (``test_torch_port_train_bf16.py``), and ``--profile``
+    and ``--prng_impl`` are too (``test_cli_results_ignores_profile_and_
+    prng_impl``): the one request still refused is the one the JAX CLI
+    refuses, per-subject scores of the softmax baseline, before a device
+    is chosen."""
+    with pytest.raises(SystemExit, match="--per_subject_eval scores "
+                                         "contrastive logits"):
+        cli_results.main(["--prediction", "--per_subject_eval", "--bf16",
+                          "--profile", "--prng_impl", "rbg",
+                          "--data_dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("flags", [["--profile"], ["--prng_impl", "auto"],
+                                   ["--prng_impl", "threefry2x32"],
+                                   ["--prng_impl", "rbg"],
+                                   ["--prng_impl", "unsafe_rbg"]],
+                         ids=lambda f: "".join(f))
+def test_cli_results_ignores_profile_and_prng_impl(tmp_path, small_cli,
+                                                   monkeypatch, flags):
+    """``cptpu-results`` reads neither ``--profile`` nor ``--prng_impl``
+    (its ``cli/results.py:15-17,63``): ``cptorch-results`` runs with each
+    and writes the artifacts it writes without them, bit for bit, and no
+    trace."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    a, b = str(tmp_path / "A"), str(tmp_path / "B")
+    assert cli_train.main([*small_cli, "--final_epochs", "1"]) == 0
+    assert cli_results.main([*small_cli, "--results_dir", a]) == 0
+    assert cli_results.main([*small_cli, *flags, "--results_dir", b]) == 0
+    for stem in ARTIFACTS:
+        np.testing.assert_array_equal(np.load(f"{a}/{stem}.npy"),
+                                      np.load(f"{b}/{stem}.npy"),
+                                      err_msg=stem)
+    assert not os.path.exists(os.path.join(tmp_path, "cptorch_trace"))
 
 
 def test_encoder_chain_counts_no_launch_on_the_cpu(data):

@@ -10,6 +10,9 @@ random streams would differ.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +35,7 @@ from contrastiveprosthetics_torch.models.convert import (
 from contrastiveprosthetics_torch.models.layers import RateDropout
 from contrastiveprosthetics_torch.ops import kernels as K
 from contrastiveprosthetics_torch.train import crossval as port_crossval
+from contrastiveprosthetics_torch.train import engine as port_engine
 from contrastiveprosthetics_torch.train import loop as port_loop
 from contrastiveprosthetics_torch.train import loss as port_loss
 from contrastiveprosthetics_torch.train import schedules as port_schedules
@@ -588,24 +592,93 @@ def test_cli_train_on_cpu_writes_a_reference_checkpoint(tmp_path, monkeypatch,
                 if isinstance(m, torch.nn.Linear)]) == 7
 
 
+def two_cuda_devices(monkeypatch) -> None:
+    """A machine with two visible CUDA devices, as far as the CLIs' checks
+    before any CUDA call can tell."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+
+
+def refuse_stores(args, cfg, device):
+    raise AssertionError("a store was built")
+
+
 @pytest.mark.parametrize("argv", [
     ["--crossval_size", "3", "--fused_train", "on"],
     ["--crossval_size", "3", "--spmd_crossval"],
     ["--glove_encoding", "--crossval_size", "3", "--fused_train", "on"],
     ["--bf16", "--crossval_size", "3", "--fused_train", "on"]])
-def test_cli_unported_requests_name_the_roadmap(tmp_path, argv):
+def test_cli_unported_requests_name_the_roadmap(tmp_path, monkeypatch, argv):
+    """Each exits NOT_PORTED before a store is built; ``--spmd_crossval``
+    only where the JAX CLI would shard, more than one device visible (on
+    one device or the CPU it runs unsharded:
+    ``test_cli_spmd_crossval_runs_unsharded_on_one_device``)."""
+    platform = "cpu"
+    if "--spmd_crossval" in argv:
+        two_cuda_devices(monkeypatch)
+        platform = "cuda"
+    monkeypatch.setattr(cli_train, "build_store", refuse_stores)
     with pytest.raises(SystemExit, match="ROADMAP.md, queue 1 item"):
-        cli_train.main([*argv, "--platform", "cpu", "--data_dir",
+        cli_train.main([*argv, "--platform", platform, "--data_dir",
                         str(tmp_path)])
 
 
-@pytest.mark.parametrize("flag,item", [("--profile", 10)])
-def test_cli_jax_flags_name_their_item(tmp_path, flag, item):
-    """The JAX CLI's flags that the port does not run yet exit NOT_PORTED
-    with their own ROADMAP item, before any store is built."""
-    with pytest.raises(SystemExit, match=f"queue 1 item {item}\\)"):
-        cli_train.main([flag, "--platform", "cpu", "--data_dir",
-                        str(tmp_path)])
+@pytest.fixture()
+def small_train_cli(monkeypatch, tmp_path):
+    """``cptorch-train`` on a one-person store at small width."""
+    def one_person(args, cfg, device):
+        emg, pos, glove = make_processed_dataset(cfg, people_positions=[40])
+        return DeviceStore(cfg, emg, pos, glove, device=device)
+
+    monkeypatch.setattr(cli_train, "build_store", one_person)
+    monkeypatch.setattr(port_engine, "Trainer",
+                        functools.partial(Trainer, **SMALL))
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    return ["--synthetic", "--final_epochs", "1", "--batch_size", "8",
+            "--no_adabn", "--platform", "cpu", "--data_dir", str(tmp_path),
+            "--checkpoint_dir", str(tmp_path)]
+
+
+def test_cli_profile_writes_a_chrome_trace(tmp_path, small_train_cli,
+                                           capsys):
+    """``--profile`` traces the whole run (CPU activities on the CPU) and
+    writes a Chrome trace under ``$TMPDIR/cptorch_trace`` that parses as
+    JSON and holds the run's operators, the store's set-up among them."""
+    assert cli_train.main([*small_train_cli, "--crossval_size", "0",
+                           "--test", "--profile"]) == 0
+    out = capsys.readouterr().out
+    where = str(tmp_path / "cptorch_trace")
+    assert f"profile trace written to {where}" in out
+    traces = list((tmp_path / "cptorch_trace").glob("*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "aten::addmm" in names and len(events) > 1000
+    assert out.index("Loading dataset") < out.index("profile trace written")
+
+
+def test_cli_spmd_crossval_runs_unsharded_on_one_device(small_train_cli,
+                                                        capsys):
+    """With one device (here the CPU) ``--spmd_crossval`` runs the sweep
+    unsharded and says so, as the JAX CLI shards only over more than one
+    device (its ``cli/train.py:195``)."""
+    assert cli_train.main([*small_train_cli, "--crossval_size", "2",
+                           "--spmd_crossval"]) == 0
+    out = capsys.readouterr().out
+    assert ("--spmd_crossval: 1 cpu device visible, the sweep's configs "
+            "unsharded") in out
+    assert "crossval: 2 configs in" in out
+
+
+def test_cli_load_model_names_cptorch_import_for_a_jax_checkpoint(tmp_path):
+    """A ``--checkpoint_dir`` with only ``contrastive.msgpack`` (a
+    ``cptpu-train`` checkpoint): ``--load_model`` exits naming
+    ``cptorch-import``, before a store is built."""
+    (tmp_path / "contrastive.msgpack").write_bytes(b"\x80")
+    with pytest.raises(SystemExit, match="cptorch-import"):
+        cli_train.main(["--load_model", "--crossval_size", "0",
+                        "--platform", "cpu", "--checkpoint_dir",
+                        str(tmp_path), "--data_dir", str(tmp_path)])
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "--bf16"])
