@@ -3,8 +3,9 @@
 its calibration, contrastive training, training on the fused chain, the
 crossval sweep, the evaluation and results path, ingest from raw ``.mat``
 files, the softmax baseline and glove modes, bfloat16 serving,
-bfloat16 training, and the go.sh/results.sh twins with checkpoint
-interop.
+bfloat16 training, the go.sh/results.sh twins with checkpoint interop,
+and the crossval sweep on the fused chain and the fused encoder with
+``Trainer(remat=True)``.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
@@ -205,7 +206,29 @@ made with numpy from a seed:
    ``--profile``, whose Chrome
    trace must parse and hold a ``contrastive_loss_fwd`` device record;
    ``cptorch-train --spmd_crossval --crossval_size 2`` and
-   ``cptorch-serve --spmd --demo --sessions 8 --replay`` on the one card.
+   ``cptorch-serve --spmd --demo --sessions 8 --replay`` on the one card;
+16. the sweep on the fused chain and the fused encoder, and remat, on
+   phase 7's store: K5f, K5b and the tail pair at their config axis
+   against their plain versions at C=1, 2 and 150, N=328 and 123, block
+   0 and an inner dropped block, f32 and bf16 (the single-config rows'
+   tolerances; bf16 statistics at phase 14's), reruns bit-identical,
+   every config of the C=2 and C=150 launches bit-equal to its own
+   launch, each timed at C=150 beside the stacked eager layer's
+   ``baddbmm``/``bmm``; ``encoder_chain`` at its config axis on a stacked
+   fold of 150 configs, 8,200 rows a config, at C=1, 2, 10 and 150, both
+   tilings, f32 and bf16, against its plain version, float64 at C=2 and
+   each config's own call, timed at C=150 beside the ``baddbmm`` chain
+   (``library_ms``); ``Trainer(remat=True)``: one epoch eager and fused,
+   f32 and bf16, and 20 stacked steps of 150 configs eager and fused,
+   bit-equal to remat off under deterministic algorithms, ms a step and
+   peak memory beside it; ``cross_validate`` of 150 configs x 1 epoch on
+   both fused paths, in turns with phase 9's eager sweep, traces of 10
+   stacked fused
+   steps at C=2 and 150, a dropout-0 chunk fused against eager, the bf16
+   and glove-encoding fused sweeps of 10 configs, the sweep's val of 150
+   configs fused against unfused; ``scripts/go_torch.sh --synthetic
+   --fused_train on --fused_encoder --crossval_size 150 --final_epochs
+   1`` in its own process.
 
 Launch counts are reset just before the calibration, phases 3, 4, 7's and
 8's ``train_loop``, 9's ``cross_validate``, 10's test and val passes,
@@ -225,7 +248,12 @@ in the baseline, the chain's kernels as its depth says in the fused run,
 and ``encoder_chain`` never; in 13 the bf16 variant on every path and
 the f32 one on none, and the bf16 variant never in phases 1-12 (its
 launches summed across every reset there); in 14 the bf16 chain's four
-kernels as its depth says on the fused run and never in phases 1-13.
+kernels as its depth says on the fused run and never in phases 1-13; in
+16, reset before each remat run, each sweep and each val pass, 7 K5f,
+7 K5b and one of each tail kernel a fused step (with remat: 14 K5f, 2
+tail forwards and 2 K1f a step, the backward's as without), per stacked
+fused step whatever C is, ``encoder_chain`` 10 times a val batch of the
+fused sweep, none of them on the eager sweep.
 TF32
 is off throughout
 (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -234,8 +262,8 @@ in full f32 (``encoder_chain``, K5f and K5b run 3xTF32 by their own
 instructions, whatever the flags). Any failure raises and the exit code
 is not 0. The last lines are ``{"single", "batched"}``, ``{"train"}``,
 ``{"fused_train"}``, ``{"sweep"}``, ``{"eval"}``, ``{"ingest"}``,
-``{"modes"}``, ``{"bf16_serve"}``, ``{"bf16_train"}`` and ``{"interop"}``
-JSON lines, the
+``{"modes"}``, ``{"bf16_serve"}``, ``{"bf16_train"}``, ``{"interop"}``
+and ``{"sweep_fused"}`` JSON lines, the
 card
 line from nvidia-smi, one
 ``{"kernels": [...]}`` JSON line, and
@@ -385,7 +413,7 @@ SWEEP_EPOCHS = 1     # cptorch-train's --crossval_epochs default
 SCAN_WIDTHS = (1, 2, 10, 50, 150)
 SCAN_STEPS = 20
 SWEEP_TRACE_STEPS = 10
-SWEEP_TRACE_REPEATS = 3
+SWEEP_TRACE_REPEATS = 2  # cut from 3 for phase 16's time
 SWEEP_CHECK_STEPS = 5
 # the step check's 3 configs at dropout 0, each its own lr and reg
 SWEEP_STEP_HYPERS = ((1e-3, 1e-6, 0.0, 1e-3, 1e-6, 0.0),
@@ -2225,7 +2253,8 @@ def sweep_trace(K, trainer, hypers, C: int,
     def run():
         K.reset_launch_counts()
         run_sweep_steps(trainer, inputs, 2, n, tail=5)
-        k1.append({k: K.launch_counts[k] / n for k in TRAIN_KERNELS})
+        k1.append({k: K.launch_counts[k] / n
+                   for k in (*TRAIN_KERNELS, *AXIS_K5)})
 
     for _ in range(repeats):
         traces.append(trace_families(
@@ -2234,7 +2263,9 @@ def sweep_trace(K, trainer, hypers, C: int,
         raise AssertionError(f"K1 launches per stacked step at C={C}: {k1}")
     trace = traces[0]
     trace["configs"] = C
-    trace["k1_wrapper_launches_per_step"] = k1[0]
+    trace["k1_wrapper_launches_per_step"] = {k: k1[0][k]
+                                             for k in TRAIN_KERNELS}
+    trace["wrapper_launches_per_step"] = k1[0]
     for key in ("host_launch_calls_per_step", "host_op_calls_per_step",
                 "device_records_missing_per_step"):
         trace[key + "_by_trace"] = [tr[key] for tr in traces]
@@ -2282,6 +2313,7 @@ def sweep_phase(K, trainer, sweep_dir: str) -> tuple[dict, dict, dict]:
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     counts = {name: K.launch_counts[name] for name in TRAIN_KERNELS}
+    all_counts = dict(K.launch_counts)
     back_values, back_keys = crossval.load_crossval(sweep_dir)
     sweep_ms = start.elapsed_time(end)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2306,6 +2338,7 @@ def sweep_phase(K, trainer, sweep_dir: str) -> tuple[dict, dict, dict]:
         ms_per_stacked_step_all_in=sweep_ms / (n_chunks * steps
                                                * SWEEP_EPOCHS),
         peak_device_memory_gb=peak_gb, k1_launches=counts,
+        launches=all_counts,
         best_val_acc=best_acc, finite=int(np.isfinite(values).all(1).sum()),
         val_acc_quantiles=np.nanquantile(values[:, 1],
                                          [0, 0.25, 0.5, 0.75, 1]).tolist())
@@ -3293,20 +3326,23 @@ def modes_phase(K, eager, train_res) -> tuple[dict, dict]:
 
 
 # ------------------------------------------------------------ phase 13
-def mm_f32_out():
-    """A cuBLAS bf16 product with f32 output, ``torch.mm(a, b, out_dtype=
+def mm_f32_out(product=torch.mm):
+    """A cuBLAS bf16 product (``product``: ``torch.mm``, or ``torch.bmm``
+    for batched operands) with f32 output, ``product(a, b, out_dtype=
     torch.float32)``, where the installed torch takes ``out_dtype``; else
-    ``torch.mm`` on bf16, whose output rounds to bf16. Returns the function
+    ``product`` on bf16, whose output rounds to bf16. Returns the function
     and its name for the ``kernels`` line."""
-    a = torch.ones((16, 16), dtype=torch.bfloat16, device="cuda")
+    name = product.__name__
+    shape = (16, 16) if product is torch.mm else (2, 16, 16)
+    a = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
     try:
-        torch.mm(a, a, out_dtype=torch.float32)
+        product(a, a, out_dtype=torch.float32)
     except (TypeError, RuntimeError):
-        return (lambda x, y: torch.mm(x, y).float(),
-                "torch.mm on bf16 operands (its output rounds to bf16; "
-                "this torch's mm takes no out_dtype)")
-    return (lambda x, y: torch.mm(x, y, out_dtype=torch.float32),
-            "torch.mm(bf16, bf16, out_dtype=torch.float32)")
+        return (lambda x, y: product(x, y).float(),
+                f"torch.{name} on bf16 operands (its output rounds to bf16; "
+                f"this torch's {name} takes no out_dtype)")
+    return (lambda x, y: product(x, y, out_dtype=torch.float32),
+            f"torch.{name}(bf16, bf16, out_dtype=torch.float32)")
 
 
 def bf16_matmul_chain(mm, frames, folded, affines):
@@ -4593,6 +4629,859 @@ def interop_phase(K, cli, cli_train, cli_results) -> tuple[dict, dict]:
     return res, counts
 
 
+# ------------------------------------------------------------ phase 16
+AXIS_CONFIGS = (1, 2, 150)         # K5f, K5b and the tail pair
+ENCODER_CONFIGS = (1, 2, 10, 150)  # encoder_chain
+VAL_ROWS = 8 * 41 * 25             # a val batch of 8 items, one config
+AXIS_K5 = FUSED_KERNELS[:4]        # the chain's kernels with a config axis
+REMAT_STACKED_STEPS = 20
+SMALL_SWEEP_CONFIGS = 10           # phase 16's bf16 and glove-encoding sweeps
+
+
+def device_ms_whole(fn, launches: float, n: int = 20, tries: int = 5):
+    """Device milliseconds per call of ``fn`` from a profiler trace of
+    ``n`` calls in which every one of its ``launches`` kernel launches a
+    call was recorded: a trace now and then drops records (in one run at
+    C=150, 4 of an ``encoder_chain`` call's 30), so up to ``tries`` traces
+    are taken. Returns (ms, traces that dropped records); ms is None when
+    every trace dropped some."""
+    for i in range(tries):
+        ms, per_call = device_per_call(fn, n)
+        if per_call == launches:
+            return ms, i
+    return None, tries
+
+
+def k5_stacked(C: int, N: int, K_in: int, F: int, seed: int, dev):
+    """C configs' dense-block inputs at the chain's widths, drawn on the
+    card: ReLU outputs as input (C, N, K_in), the previous block's (C, 5,
+    K_in) statistics, Linear-scaled weights in ``StackedLinear``'s layout
+    (C, F, K_in) as the chain takes them, ``.transpose(1, 2)``, the
+    vectors, the gradient from above, one pair of seed words and one keep
+    in the sweep's range (rates 0.4-0.6) a config."""
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=g, device=dev)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    x = n(C, N, K_in).clamp_min_(0.0)
+    mean, var = 0.2 + 0.4 * u(C, K_in), 0.2 + 0.3 * u(C, K_in)
+    rstd = torch.rsqrt(var + 1e-5)
+    a = (0.8 + 0.4 * u(C, K_in)) * rstd
+    in_stats = torch.stack([mean, var, rstd, a, 0.1 * n(C, K_in) - mean * a],
+                           1)
+    w = ((2.0 * u(C, F, K_in) - 1.0) / np.sqrt(K_in)).transpose(1, 2)
+    b, gamma, beta = 0.1 * n(C, F), 0.8 + 0.4 * u(C, F), 0.1 * n(C, F)
+    dz = 0.01 * n(C, N, F)
+    seeds = torch.randint(-2**31, 2**31, (C, 2), dtype=torch.int32,
+                          generator=g, device=dev)
+    keep = 0.4 + 0.2 * u(C)
+    return x, w, b, gamma, beta, in_stats, dz, seeds, keep
+
+
+def k5_axis_case(TF, C, N, K_in, inner, bf16, dev):
+    """One config-axis case of the chain's four kernels: the block's
+    forward and backward (block 0: 768 inputs, no affine, no dropout; an
+    inner block: affine + drawn dropout) and the tail pair on its output,
+    each beside its plain version. Returns the inputs, the kernels'
+    outputs and the plain versions'."""
+    x, w, b, gamma, beta, in_stats, dz, seeds, keep = k5_stacked(
+        C, N, K_in, 512, 1000 * C + N + K_in, dev)
+    if bf16:
+        x, w, dz = (t.to(torch.bfloat16) for t in (x, w, dz))
+    kw = dict(seed=seeds, keep=keep, drop_block=3) if inner else {}
+    ins = in_stats if inner else None
+    td = dict(seed=seeds, keep=keep, drop_block=6)
+    r_p, st_p = TF.dense_block_fwd_reference(x, w, b, gamma, beta, ins, **kw)
+    dzf = dz.float()
+    sums = torch.stack([dzf.sum(1), (dzf * (r_p.float() - st_p[:, :1])
+                                     * st_p[:, 2:3]).sum(1)], 1)
+    args = dict(x=x, w=w, b=b, gamma=gamma, beta=beta, ins=ins, dz=dz,
+                sums=sums, r=r_p, st=st_p, kw=kw, td=td, seeds=seeds,
+                keep=keep)
+
+    def kernels():
+        return (TF.dense_block_fwd(x, w, b, gamma, beta, ins, **kw),
+                TF.dense_block_bwd(dz, r_p, x, w, st_p, sums, ins, **kw),
+                TF.chain_tail_fwd(r_p, st_p, **td),
+                TF.chain_tail_bwd(dz, r_p, st_p, **td))
+
+    plain = (TF.dense_block_fwd_reference(x, w, b, gamma, beta, ins, **kw),
+             TF.dense_block_bwd_reference(dz, r_p, x, w, st_p, sums, ins,
+                                          **kw),
+             TF.chain_tail_fwd_reference(r_p, st_p, **td),
+             TF.chain_tail_bwd_reference(dz, r_p, st_p, **td))
+    return args, kernels, plain
+
+
+def hold_k5_axis(got, plain, bf16: bool) -> dict:
+    """The config-axis kernels against their plain versions at the
+    single-config rows' tolerances: f32 r rtol 1e-5, the rest rtol 1e-4
+    (atol 1e-5 x max); bf16 r and dx within one bf16 ulp, the rest as
+    f32 but the statistics at phase 14's rtol 1e-3, atol 1e-3 x max (a
+    bf16 flip of r moves them); the tail's h and dz bit for bit, its sums
+    within one f32 ulp.
+    Returns the max abs errors by kernel."""
+    (r, st), bwd, h, (tz, ts) = got
+    (r_p, st_p), bwd_p, h_p, (tz_p, ts_p) = plain
+    if bf16:
+        within_one_bf16_ulp(r, r_p)
+        within_one_bf16_ulp(bwd[0], bwd_p[0])
+        fwd_err = max(max_abs(r, r_p), close(st, st_p, 1e-3, 1e-3))
+        bwd_err = max([max_abs(bwd[0], bwd_p[0])]
+                      + [close(g, v, 1e-4, 1e-5)
+                         for g, v in zip(bwd[1:], bwd_p[1:]) if v is not None])
+    else:
+        fwd_err = max(close(r, r_p, 1e-5, 1e-5), close(st, st_p, 1e-4, 1e-5))
+        bwd_err = max(close(g, v, 1e-4, 1e-5) for g, v in zip(bwd, bwd_p)
+                      if v is not None)
+    if not (torch.equal(h, h_p) and torch.equal(tz, tz_p)):
+        raise AssertionError("the config-axis tail's h or dz is not "
+                             "bit-equal to its plain version")
+    within_one_ulp(ts, ts_p)
+    return {"dense_block_fwd": fwd_err, "dense_block_bwd": bwd_err,
+            "chain_tail_fwd": 0.0, "chain_tail_bwd": max_abs(ts, ts_p)}
+
+
+def k5_singles_equal(TF, a, got) -> bool:
+    """Every config's outputs in a config-axis launch against a launch of
+    each kernel on that config alone, bit for bit."""
+    (r, st), bwd, h, (tz, ts) = got
+    same = []
+    for c in range(a["x"].shape[0]):
+        kw = dict(a["kw"])
+        td = dict(a["td"], seed=a["seeds"][c], keep=a["keep"][c:c + 1])
+        if kw:
+            kw.update(seed=a["seeds"][c], keep=a["keep"][c:c + 1])
+        ins = None if a["ins"] is None else a["ins"][c]
+        r1, st1 = TF.dense_block_fwd(a["x"][c], a["w"][c], a["b"][c],
+                                     a["gamma"][c], a["beta"][c], ins, **kw)
+        b1 = TF.dense_block_bwd(a["dz"][c], a["r"][c], a["x"][c], a["w"][c],
+                                a["st"][c], a["sums"][c], ins, **kw)
+        h1 = TF.chain_tail_fwd(a["r"][c], a["st"][c], **td)
+        tz1, ts1 = TF.chain_tail_bwd(a["dz"][c], a["r"][c], a["st"][c], **td)
+        same += [torch.equal(r[c], r1), torch.equal(st[c], st1),
+                 torch.equal(h[c], h1), torch.equal(tz[c], tz1),
+                 torch.equal(ts[c], ts1)]
+        same += [torch.equal(g[c], v) for g, v in zip(bwd, b1)
+                 if v is not None]
+    return all(same)
+
+
+def check_k5_config_axis(TF, dev) -> dict:
+    """Phase 16, part 1a: K5f, K5b and the tail pair at their config axis
+    against their plain versions at C=1, 2 and 150, N=328 (bs 8 x 41) and
+    a ragged 123, block 0 (768 -> 512) and an inner dropped block (512 ->
+    512), f32 and bf16 (:func:`hold_k5_axis`); a rerun bit-identical;
+    every config of the C=2 and C=150 launches bit-equal to a launch on
+    that config alone (N=328, inner block). Then each kernel timed at
+    C=150, N=328, the inner block, f32 and bf16: CUDA events per call,
+    profiler device time per launch (:func:`device_ms_whole`), its plain
+    version, the bound (3xTF32 or bf16 products on the tensor cores, the
+    bytes) and, by CUDA events, the stacked eager step's batched GEMMs
+    beside it (``torch.baddbmm`` of the forward; the backward's two
+    ``torch.bmm``): not the same function, so not ``library_ms``. Returns
+    the eight ``kernels`` entries."""
+    errs: dict = {}
+    singles: dict = {}
+    for bf16 in (False, True):
+        suffix = "_bf16" if bf16 else ""
+        for C in AXIS_CONFIGS:
+            for N in (328, 123):
+                for K_in, inner in ((768, False), (512, True)):
+                    a, kernels, plain = k5_axis_case(TF, C, N, K_in, inner,
+                                                     bf16, dev)
+                    got = kernels()
+                    case = f"C={C} N={N} K={K_in}"
+                    for name, err in hold_k5_axis(got, plain, bf16).items():
+                        errs.setdefault(name + suffix, {})[case] = err
+                    again = kernels()
+                    flat = [t for part in (got, again) for grp in part
+                            for t in (grp if isinstance(grp, tuple) else
+                                      (grp,)) if t is not None]
+                    half = len(flat) // 2
+                    if not all(torch.equal(p, q) for p, q in
+                               zip(flat[:half], flat[half:])):
+                        raise AssertionError(f"config-axis K5 not "
+                                             f"bit-identical on a rerun at "
+                                             f"{case}{suffix}")
+                    if C > 1 and N == 328 and inner:
+                        if not k5_singles_equal(TF, a, got):
+                            raise AssertionError(
+                                f"a config of the C={C} launch differs from "
+                                f"its single-config launch{suffix}")
+                        singles[f"C={C}{suffix}"] = "bit-equal, every config"
+                    del a, kernels, plain, got, again, flat
+    log(f"[config axis] K5f, K5b and the tail pair against their plain "
+        f"versions: {json.dumps(errs)}; reruns bit-identical; single-config "
+        f"launches: {json.dumps(singles)}")
+
+    entries = {}
+    C, N, K_in, F = 150, 328, 512, 512
+    for bf16 in (False, True):
+        suffix = "_bf16" if bf16 else ""
+        a, kernels, _ = k5_axis_case(TF, C, N, K_in, True, bf16, dev)
+        (r, st), (dx, dw, db, osums), h, (tz, ts) = kernels()
+        x, w, dz, sums, kw, td = (a[k] for k in ("x", "w", "dz", "sums",
+                                                   "kw", "td"))
+        small = nbytes(a["b"], a["gamma"], a["beta"], a["ins"], a["seeds"],
+                       a["keep"])
+        macs = float(C) * N * K_in * F
+        peak, products = ((PEAK_BF16_FLOPS, 1) if bf16
+                          else (PEAK_TF32_FLOPS, 3))
+        wt = w.transpose(1, 2)
+        specs = {
+            "dense_block_fwd": (
+                lambda: TF.dense_block_fwd(x, w, a["b"], a["gamma"],
+                                           a["beta"], a["ins"], **kw),
+                lambda: TF.dense_block_fwd_reference(
+                    x, w, a["b"], a["gamma"], a["beta"], a["ins"], **kw),
+                bound_ms(nbytes(x, w, r, st) + small, products * 2 * macs,
+                         peak),
+                lambda: torch.baddbmm(a["b"].unsqueeze(1).to(x.dtype), x, w),
+                "torch.baddbmm(b, x, W): the stacked eager step's dense "
+                "layer, without the input's affine and dropout, the ReLU "
+                "and the column statistics"),
+            "dense_block_bwd": (
+                lambda: TF.dense_block_bwd(dz, a["r"], x, w, a["st"], sums,
+                                           a["ins"], **kw),
+                lambda: TF.dense_block_bwd_reference(
+                    dz, a["r"], x, w, a["st"], sums, a["ins"], **kw),
+                bound_ms(nbytes(dz, a["r"], x, w, a["st"], sums, dx, dw, db,
+                                osums) + small, products * 4 * macs, peak),
+                lambda: (torch.bmm(dz, wt), torch.bmm(x.transpose(1, 2), dz)),
+                "torch.bmm(dy, W^T) and torch.bmm(h^T, dy): the stacked eager "
+                "step's two GEMMs of the layer, without the BatchNorm "
+                "backward, the input's affine and dropout, db and the "
+                "lower block's sums"),
+            "chain_tail_fwd": (
+                lambda: TF.chain_tail_fwd(a["r"], a["st"], **td),
+                lambda: TF.chain_tail_fwd_reference(a["r"], a["st"], **td),
+                bound_ms(nbytes(a["r"], a["st"], h, a["seeds"], a["keep"]),
+                         0.0), None, None),
+            "chain_tail_bwd": (
+                lambda: TF.chain_tail_bwd(dz, a["r"], a["st"], **td),
+                lambda: TF.chain_tail_bwd_reference(dz, a["r"], a["st"],
+                                                    **td),
+                bound_ms(nbytes(dz, a["r"], a["st"], tz, ts, a["seeds"],
+                                a["keep"]), 0.0), None, None)}
+        with torch.no_grad():
+            for name, (kernel, plain, (bd, by), eager, note) in specs.items():
+                full = name + suffix
+                entry = dict(
+                    name=f"{full}@C{C}", kernel=full, route="cuda",
+                    source=SOURCES[full], replaces=REPLACES[full],
+                    configs=C,
+                    shape=(f"C={C} configs x N={N} rows, {K_in}->{F}, "
+                           "affine + dropout at each config's rate "
+                           "(0.4-0.6) on the input" if "block" in name else
+                           f"C={C} configs x N={N} rows, F={F}, each "
+                           "config's dropout of block 6"),
+                    max_abs_err=max(errs[full].values()),
+                    max_abs_err_parts=errs[full],
+                    tolerance=(
+                        "h and dz bit for bit, the sums within one f32 ulp"
+                        if "tail" in name else
+                        "r and dx within one bf16 ulp, the statistics rtol "
+                        "1e-3, atol 1e-3 x max, the rest rtol 1e-4, atol "
+                        "1e-5 x max" if bf16 else
+                        "r rtol 1e-5, the rest rtol 1e-4, atol 1e-5 x max"),
+                    single_config_launches="every config bit-equal at C=2 "
+                                           "and C=150",
+                    ms=time_ms(kernel, 50, 3),
+                    plain_ms=time_ms(plain, 3, 1),
+                    bound_ms=bd, bound_by=by, library_ms=None,
+                    library_note=("no single PyTorch call computes it"
+                                  + ("" if eager is None else
+                                     "; the stacked eager layer's batched "
+                                     "GEMMs are timed beside it")))
+                entry["device_ms"], entry["traces_with_dropped_records"] = \
+                    device_ms_whole(kernel, 1)
+                if eager is not None:
+                    # CUDA events: the cuBLAS calls' own kernel counts vary
+                    entry.update(eager_bmm_ms=time_ms(eager, 50, 3),
+                                 eager_bmm_note=note)
+                entries[full] = entry
+        del a, kernels
+    log(f"[config axis] K5 family at C={C}, N={N}, {K_in}->{F}, ms and "
+        f"device ms a launch: " + json.dumps(
+            {k: [e["ms"], e["device_ms"], e["bound_ms"], e.get("eager_bmm_ms")]
+             for k, e in entries.items()}))
+    return entries
+
+
+def baddbmm_chain(frames, folded, bmm=None):
+    """The stacked eager val's form of a stacked folded chain: one batched
+    GEMM per layer for all C configs (``torch.baddbmm`` with the bias,
+    ReLU in place; a bf16 fold through ``bmm`` on bf16 operands with f32
+    output), the head's norm and the class scores: the same function as
+    ``encoder_chain`` at its config axis, the library yardstick."""
+    *ws, gt = folded
+    if bmm is None:
+        h = frames
+        for j in range(0, len(ws) - 2, 2):
+            h = torch.baddbmm(ws[j + 1].unsqueeze(1), h, ws[j]).relu_()
+        e = torch.baddbmm(ws[-1].unsqueeze(1), h, ws[-2])
+        e = e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+        return torch.bmm(e, gt)
+    h = frames.to(torch.bfloat16)
+    for j in range(0, len(ws) - 2, 2):
+        h = bmm(h, ws[j]).add_(ws[j + 1].unsqueeze(1)).relu_().to(
+            torch.bfloat16)
+    e = bmm(h, ws[-2]).add_(ws[-1].unsqueeze(1))
+    e = e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+    return bmm(e.to(torch.bfloat16), gt)
+
+
+def check_encoder_config_axis(K, trainer, dev) -> dict:
+    """Phase 16, part 1b: ``encoder_chain`` at its config axis on a
+    stacked fold of 150 configs (``fold_encoder_params`` of a
+    ``StackedEMGNet`` from the sweep's init, running statistics drawn away
+    from the identity), 8,200 rows a config (a val batch of 8 items), at
+    C=1, 2, 10 and 150, f32 and bf16: both tilings bit-equal to each other
+    and to a rerun, against the plain version (f32 rtol 2e-4, atol 2e-5;
+    bf16 atol 0.05), every config bit-equal to a call on its own fold, and
+    at C=2 both against float64 (bf16: no farther than the plain version,
+    phase 13's ratios). Timed at C=150 (the large tiling, as
+    ``encoder_regime`` picks for 8,200 rows): CUDA events, device time per
+    launch, the plain version, the ``baddbmm`` chain (``library_ms``: the
+    same function) and the bound. Returns the two ``kernels`` entries."""
+    from contrastiveprosthetics_torch.models.stacked import (
+        StackedContrastiveModel,
+    )
+
+    C_max = max(ENCODER_CONFIGS)
+    model = StackedContrastiveModel.from_models(
+        [trainer._model(trainer.generator(900 + c))
+         for c in range(C_max)]).eval()
+    g = torch.Generator(dev).manual_seed(16)
+    with torch.no_grad():
+        for bn in model.emg_net.norms():
+            bn.running_mean.normal_(0.0, 0.2, generator=g)
+            bn.running_var.uniform_(0.5, 2.0, generator=g)
+    torch.cuda.synchronize()
+    frames = torch.randn(C_max, VAL_ROWS, 12, generator=g, device=dev)
+    bmm, bmm_name = mm_f32_out(torch.bmm)
+    entries, summary = {}, {}
+    for dtype, name in ((torch.float32, "encoder_chain"),
+                        (torch.bfloat16, "encoder_chain_bf16")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fold = K.fold_encoder_params(model.emg_net, model.encode_classes(),
+                                     dtype=dtype)
+        torch.cuda.synchronize()
+        fold_ms = (time.perf_counter() - t0) * 1e3
+        errs, vs_f64 = {}, {}
+        for C in ENCODER_CONFIGS:
+            fc, fr = tuple(x[:C] for x in fold), frames[:C]
+            plan = K.encoder_plan(fc)
+            outs = [K.encoder_chain(fr, plan, regime) for regime in (0, 1)]
+            again = K.encoder_chain(fr, plan, 1)
+            if not (torch.equal(outs[0], outs[1])
+                    and torch.equal(outs[1], again)):
+                raise AssertionError(f"{name} at C={C}: the tilings or a "
+                                     "rerun differ")
+            want = K.fused_encoder_logits_reference(fr, fc)
+            if dtype == torch.float32:
+                torch.testing.assert_close(outs[1], want, rtol=2e-4,
+                                           atol=2e-5)
+            elif max_abs(outs[1], want) > BF16_ATOL:
+                raise AssertionError(f"{name} at C={C}: "
+                                     f"{max_abs(outs[1], want)} from its "
+                                     "plain version")
+            errs[f"C={C}"] = max_abs(outs[1], want)
+            for c in range(C):
+                one = K.encoder_chain(fr[c], K.encoder_plan(
+                    tuple(x[c] for x in fc)), 1)
+                if not torch.equal(one, outs[1][c]):
+                    raise AssertionError(f"{name}: config {c} of C={C} "
+                                         "differs from a call on its fold")
+            if C == 2:
+                f64 = (tuple(x.double() for x in fc) if dtype == torch.float32
+                       else f64_operands(fc))
+                ref = K.fused_encoder_logits_reference(fr.double(), f64)
+                k_err = (outs[1].double() - ref).abs()
+                p_err = (want.double() - ref).abs()
+                vs_f64 = dict(kernel_max=float(k_err.max()),
+                              kernel_mean=float(k_err.mean()),
+                              plain_max=float(p_err.max()),
+                              plain_mean=float(p_err.mean()))
+                if dtype == torch.bfloat16 and (
+                        vs_f64["kernel_mean"] > BF16_F64_MEAN
+                        * vs_f64["plain_mean"]
+                        or vs_f64["kernel_max"] > BF16_F64_MAX
+                        * vs_f64["plain_max"]):
+                    raise AssertionError(f"{name} farther from float64 than "
+                                         f"its plain version: {vs_f64}")
+                del ref, k_err, p_err, f64
+            del outs, again, want
+        C = C_max
+        plan = K.encoder_plan(fold)
+        regime = K.encoder_regime(VAL_ROWS, dtype)
+        out = K.encoder_chain(frames, plan, regime)
+        per_call = plan.n_hidden + 1
+        device_ms, dropped = device_ms_whole(
+            lambda: K.encoder_chain(frames, plan, regime), per_call, 3)
+        if dtype == torch.float32:
+            b = encoder_bounds(tuple(x[0] for x in fold), C * VAL_ROWS,
+                               (frames, out, *fold))
+            library = lambda: baddbmm_chain(frames, fold)  # noqa: E731
+            lib_name = "torch.baddbmm chain (the stacked eager val's form)"
+        else:
+            b = encoder_bf16_bounds(tuple(x[0] for x in fold), C * VAL_ROWS,
+                                    (frames, out, *fold))
+            library = lambda: baddbmm_chain(frames, fold, bmm)  # noqa: E731
+            lib_name = f"a {bmm_name} chain"
+        entries[name] = dict(
+            name=f"{name}@C{C}", kernel=name, route="cuda",
+            source=SOURCES[name], replaces=REPLACES[name], configs=C,
+            shape=f"C={C} configs x {VAL_ROWS} rows (a val batch of 8 items "
+                  f"each), stacked fold, no affines, regime {regime}",
+            max_abs_err=max(errs.values()), max_abs_err_by_C=errs,
+            max_abs_err_vs_f64_at_C2=vs_f64,
+            tolerance=("rtol 2e-4 atol 2e-5 against the plain version"
+                       if dtype == torch.float32 else
+                       "atol 0.05 against the plain version, no farther from "
+                       "float64 (phase 13's ratios)"),
+            single_config_calls="every config bit-equal at C=2, 10 and 150",
+            ms=time_ms(lambda: K.encoder_chain(frames, plan, regime), 3, 1),
+            device_ms=device_ms, device_launches_per_call=per_call,
+            device_ms_per_launch=(None if device_ms is None
+                                  else device_ms / per_call),
+            traces_with_dropped_records=dropped,
+            plain_ms=time_ms(lambda: K.fused_encoder_logits_reference(
+                frames, fold), 2, 1),
+            library_ms=time_ms(library, 3, 1), library_name=lib_name,
+            fold_ms=fold_ms, **b)
+        summary[name] = [entries[name][k] for k in ("ms", "device_ms",
+                                                    "bound_ms", "plain_ms",
+                                                    "library_ms", "fold_ms")]
+        del fold, plan, out
+        torch.cuda.empty_cache()
+    log(f"[config axis] encoder_chain at C=1, 2, 10, 150 x {VAL_ROWS} rows: "
+        f"both tilings and reruns bit-equal, every config bit-equal to its "
+        f"own call; at C={C_max} [ms, device ms, bound, plain, baddbmm "
+        f"chain, fold ms]: {json.dumps(summary)}")
+    del model, frames
+    return entries
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (cuDNN's convolutions among them;
+    the trainer's ``f32_convolutions`` context leaves cuDNN's own flag
+    off), for runs that must repeat bit for bit. Warnings only where an
+    operation has none."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def same_state(a, b) -> bool:
+    """Two train states hold the same parameters, buffers and Adam
+    chains, bit for bit."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k])
+                                         for k in sa):
+        return False
+    return all(x.count == y.count and all(
+        torch.equal(u, v) for u, v in zip(x.mu + x.nu, y.mu + y.nu))
+        for x, y in ((a.opt_emg, b.opt_emg), (a.opt_glove, b.opt_glove)))
+
+
+def remat_check(K, trainer) -> dict:
+    """Phase 16, part 2: ``Trainer(remat=True)`` on phase 7's store, bs 8:
+    one epoch (225 steps) eager and fused, f32 and bf16, and 20 stacked
+    steps of the 150 sampled configs eager and fused, each with remat off
+    and on from the same seeds, dropout on, under deterministic
+    algorithms: parameters, running statistics, both Adam chains, the
+    losses and accuracies and the dropout generator's state bit-equal.
+    The forward's kernels launch twice a step with remat (K5f 14, the
+    tail's forward 2, K1f 2), the backward's once (K5b 7, the tail's
+    backward 1, K1b 1); without remat 7/7/1/1 and K1 1/1, by the
+    wrappers' counts. ms per step (CUDA events) and the peak of
+    ``torch.cuda.max_memory_allocated`` beside remat off: reported, not
+    compared."""
+    from contrastiveprosthetics_torch.data.sampler import (
+        epoch_batches,
+        task_permutations,
+    )
+    from contrastiveprosthetics_torch.train import crossval, engine
+
+    hyper = engine.Hyper.single(*CANONICAL)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    res = {}
+
+    def timed(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        start.record()
+        out = run()
+        end.record()
+        torch.cuda.synchronize()
+        return (out, start.elapsed_time(end),
+                torch.cuda.max_memory_allocated() / 1e9,
+                dict(K.launch_counts))
+
+    def want_counts(fused, bf16, remat, steps):
+        if not fused:
+            return {k: 0 for k in AXIS_K5}
+        sfx = "_bf16" if bf16 else ""
+        n = 2 if remat else 1
+        return {"dense_block_fwd" + sfx: 7 * n * steps,
+                "dense_block_bwd" + sfx: 7 * steps,
+                "chain_tail_fwd" + sfx: n * steps,
+                "chain_tail_bwd" + sfx: steps,
+                "contrastive_loss_fwd": n * steps,
+                "contrastive_loss_bwd": steps}
+
+    with deterministic():
+        for path, fused, dtype in (("eager", False, "float32"),
+                                   ("fused", True, "float32"),
+                                   ("eager_bf16", False, "bfloat16"),
+                                   ("fused_bf16", True, "bfloat16")):
+            runs = {}
+            for remat in (False, True):
+                tr = engine.Trainer(trainer.cfg, trainer.store, adabn=False,
+                                    batch_size=8, use_fused_train=fused,
+                                    compute_dtype=dtype, remat=remat)
+                state = tr.init_state(tr.generator(70))
+                gen = tr.generator(71)
+                v = tr.view_train
+                emg_rand = task_permutations(gen, v.n_tasks, v.D)
+                batches, tail = epoch_batches(gen, v.D, 8)
+                steps = batches.shape[0] + (1 if tail.numel() else 0)
+                out, ms, peak, counts = timed(
+                    lambda: tr.train_epoch_from_indices(
+                        state, emg_rand, batches, tail, hyper, 1.0, 1.0,
+                        gen))
+                want = want_counts(fused, dtype == "bfloat16", remat, steps)
+                if any(counts[k] != n for k, n in want.items()):
+                    raise AssertionError(f"{path} remat={remat}: launches "
+                                         f"{counts}, want {want}")
+                runs[remat] = (state, out, gen.get_state(), ms / steps, peak)
+            (s0, o0, g0, ms0, p0), (s1, o1, g1, ms1, p1) = runs[False], \
+                runs[True]
+            if not (same_state(s0, s1) and torch.equal(o0[0], o1[0])
+                    and torch.equal(o0[1], o1[1]) and torch.equal(g0, g1)):
+                raise AssertionError(f"{path}: remat is not bit-equal to the "
+                                     "stored forward")
+            res[path] = dict(steps=steps, ms_per_step=ms0,
+                             ms_per_step_remat=ms1, peak_gb=p0,
+                             peak_gb_remat=p1, bit_equal=True)
+            del runs, s0, s1
+
+        hypers = crossval.sample_hyperparams(SWEEP_CONFIGS, seed=42)
+        n = REMAT_STACKED_STEPS
+        for path, fused in (("stacked_eager", False), ("stacked_fused", True)):
+            runs = {}
+            for remat in (False, True):
+                tr = engine.Trainer(trainer.cfg, trainer.store, adabn=False,
+                                    batch_size=8, use_fused_train=fused,
+                                    remat=remat)
+                inputs = sweep_inputs(tr, hypers, seed=16)
+                out, ms, peak, counts = timed(
+                    lambda: run_sweep_steps(tr, inputs, 0, n))
+                want = want_counts(fused, False, remat, n)
+                if any(counts[k] != c for k, c in want.items()):
+                    raise AssertionError(f"{path} remat={remat}: launches "
+                                         f"{counts}, want {want}")
+                runs[remat] = (inputs[0], out, inputs[4].get_state(), ms / n,
+                               peak)
+                del inputs
+            (s0, o0, g0, ms0, p0), (s1, o1, g1, ms1, p1) = runs[False], \
+                runs[True]
+            if not (same_state(s0, s1) and torch.equal(o0[0], o1[0])
+                    and torch.equal(o0[1], o1[1]) and torch.equal(g0, g1)):
+                raise AssertionError(f"{path}: remat is not bit-equal to the "
+                                     "stored forward")
+            res[path] = dict(configs=SWEEP_CONFIGS, steps=n, ms_per_step=ms0,
+                             ms_per_step_remat=ms1, peak_gb=p0,
+                             peak_gb_remat=p1, bit_equal=True)
+            del runs, s0, s1
+    torch.cuda.empty_cache()
+    log(f"[remat] bit-equal to remat off (parameters, statistics, Adam, "
+        f"losses, generator): {json.dumps(res)}")
+    return res
+
+
+def fused_sweep_check(K, trainer, eager=None) -> dict:
+    """Phase 16, parts 3 and 4: ``cross_validate`` of go.sh's 150 configs x
+    1 epoch on the fused chain and the fused encoder, in turns with the
+    eager sweep (``eager``: phase 9's run of it, its ``sweep`` results;
+    None: run it here after the fused one): configs/s and ms per stacked
+    step; per
+    stacked fused step 7 K5f, 7 K5b, 1 of each tail kernel and K1 once,
+    ``encoder_chain`` 10 times per val batch, none of them on the eager
+    sweep (K1 aside); traces of 10 stacked fused steps at C=2 and C=150
+    (device time, idle share; the wrappers' launches per step equal at
+    both); a 3-config chunk at dropout 0 fused against eager (val losses
+    at rtol 1e-3, the voted accuracies within one vote: the CPU tests'
+    tolerances); the bf16 and the glove-encoding fused sweeps of 10
+    configs; the sweep's val of 150 configs on the fused encoder against
+    the unfused one from one index draw (losses rtol 1e-4, accuracies
+    within 3 votes a config), both timed. Returns the results with the
+    launch counts of the main-path sweeps."""
+    from contrastiveprosthetics_torch.data.sampler import (
+        stacked_epoch_batches_padded,
+    )
+    from contrastiveprosthetics_torch.train import crossval, engine
+
+    cfg, store = trainer.cfg, trainer.store
+    n = SWEEP_CONFIGS
+    hypers = crossval.sample_hyperparams(n, seed=42)
+    fused = engine.Trainer(cfg, store, adabn=False, batch_size=8,
+                           use_fused_train=True, use_fused_encoder=True)
+    v, vv = fused.view_train, fused.view_val
+    steps = -(-v.D // 8)
+    val_batches = -(-vv.D // 8)
+    windows = 8 * v.n_tasks
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    res, counts = {}, {}
+
+    def sweep(tr, hy, name):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        start.record()
+        values = crossval.cross_validate(tr, hy, SWEEP_EPOCHS, seed=42,
+                                         verbose=False)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        C = len(hy.lr_emg)
+        counts[name] = dict(K.launch_counts)
+        best = float(np.nanmax(values[:, 1]))
+        if best <= 0.1:
+            raise AssertionError(f"{name}: best val accuracy {best}")
+        res[name] = dict(configs=C, sweep_ms=ms, configs_per_s=C / ms * 1e3,
+                         windows_per_s=C * steps * windows / ms * 1e3,
+                         ms_per_stacked_step_all_in=ms / steps,
+                         peak_device_memory_gb=torch.cuda.max_memory_allocated()
+                         / 1e9, best_val_acc=best,
+                         finite=int(np.isfinite(values).all(1).sum()))
+        return values
+
+    def hold(name, bf16, encoder):
+        sfx = "_bf16" if bf16 else ""
+        got = counts[name]
+        want = {"dense_block_fwd" + sfx: 7 * steps,
+                "dense_block_bwd" + sfx: 7 * steps,
+                "chain_tail_fwd" + sfx: steps, "chain_tail_bwd" + sfx: steps,
+                "contrastive_loss_fwd": steps, "contrastive_loss_bwd": steps,
+                "encoder_chain" + sfx: 10 * val_batches if encoder else 0}
+        if any(got[k] != c for k, c in want.items()):
+            raise AssertionError(f"{name} launches {got}, want {want}")
+
+    sweep(fused, hypers, "fused")
+    if eager is None:
+        sweep(trainer, hypers, "eager")
+    else:
+        res["eager"] = dict(
+            {k: eager[k] for k in ("configs", "sweep_ms", "configs_per_s",
+                                   "windows_per_s", "best_val_acc",
+                                   "ms_per_stacked_step_all_in",
+                                   "peak_device_memory_gb", "finite")},
+            run="phase 9's cross_validate, before this phase's fused one")
+        counts["eager"] = eager["launches"]
+    hold("fused", False, True)
+    if any(counts["eager"][k] for k in (*AXIS_K5, "encoder_chain")):
+        raise AssertionError(f"the eager sweep launched fused kernels: "
+                             f"{counts['eager']}")
+    res["fused_over_eager_configs_per_s"] = (res["fused"]["configs_per_s"]
+                                             / res["eager"]["configs_per_s"])
+    log(f"[sweep fused] cross_validate of {n} configs x {SWEEP_EPOCHS} epoch, "
+        f"fused and eager: "
+        f"{json.dumps({k: res[k] for k in ('fused', 'eager')})}"
+        f"; launches {json.dumps(counts['fused'])}")
+
+    traces = {}
+    for C in (2, n):
+        tr = sweep_trace(K, fused, hypers, C, repeats=1)
+        per = tr["wrapper_launches_per_step"]
+        want = dict(dense_block_fwd=7.0, dense_block_bwd=7.0,
+                    chain_tail_fwd=1.0, chain_tail_bwd=1.0)
+        if any(per[k] != c for k, c in want.items()):
+            raise AssertionError(f"fused launches per stacked step at C={C}: "
+                                 f"{per}")
+        traces[str(C)] = tr
+    if traces["2"]["launches_per_step"] != traces[str(n)]["launches_per_step"]:
+        raise AssertionError("host launch calls per stacked fused step "
+                             "differ with C: " + json.dumps(
+                                 {k: t["launches_per_step"]
+                                  for k, t in traces.items()}))
+    res["traces"] = traces
+    log(f"[sweep fused] traces of {SWEEP_TRACE_STEPS} stacked fused steps: "
+        + json.dumps({k: {f: t[f] for f in (
+            "wall_ms_per_step_traced", "device_ms_per_step",
+            "device_idle_share", "launches_per_step",
+            "wrapper_launches_per_step", "device_ms_by_family")}
+            for k, t in traces.items()}))
+
+    # dropout 0: the fused and the eager chunk, the same seeds
+    h0 = engine.Hyper(*[np.asarray(col, np.float32)
+                        for col in zip(*SWEEP_STEP_HYPERS)])
+    out = {}
+    for name, kw in (("eager", {}), ("fused", dict(use_fused_train=True,
+                                                   use_fused_encoder=True))):
+        tr = engine.Trainer(cfg, store, adabn=False, batch_size=64, **kw)
+        out[name] = [x.cpu().numpy() for x in tr.sweep_chunk(
+            h0, [tr.generator(160 + c) for c in range(3)], [1.0], [1.0],
+            None)]
+    vote = 1.0 / (vv.D * vv.n_tasks)
+    np.testing.assert_allclose(out["fused"][0], out["eager"][0], rtol=1e-3)
+    np.testing.assert_allclose(out["fused"][1], out["eager"][1],
+                               atol=vote + 1e-6)
+    res["dropout0"] = dict(val_loss_fused=out["fused"][0].tolist(),
+                           val_loss_eager=out["eager"][0].tolist(),
+                           val_acc_fused=out["fused"][1].tolist(),
+                           val_acc_eager=out["eager"][1].tolist(),
+                           batch_size=64)
+
+    # the bf16 and glove-encoding fused sweeps of 10 configs
+    small = crossval.sample_hyperparams(SMALL_SWEEP_CONFIGS, seed=42)
+    bf16 = engine.Trainer(cfg, store, adabn=False, batch_size=8,
+                          use_fused_train=True, use_fused_encoder=True,
+                          compute_dtype="bfloat16")
+    sweep(bf16, small, "fused_bf16")
+    hold("fused_bf16", True, True)
+    glove = engine.Trainer(cfg, store, adabn=False, batch_size=8,
+                           use_fused_train=True, glove_encoding=True)
+    sweep(glove, small, "fused_glove_encoding")
+    hold("fused_glove_encoding", False, False)
+    log("[sweep fused] 10-config fused sweeps: " + json.dumps(
+        {k: res[k] for k in ("fused_bf16", "fused_glove_encoding")}))
+
+    # the sweep's val on the fused encoder against the unfused val, on a
+    # chunk after 10 stacked fused steps
+    inputs = sweep_inputs(fused, hypers, 17)
+    run_sweep_steps(fused, inputs, 0, 10)
+    state = inputs[0]
+    del inputs
+    gens = [fused.generator(170 + c) for c in range(n)]
+    emg_rand, _ = fused._stacked_permutations(gens, vv)
+    idx = (emg_rand, *stacked_epoch_batches_padded(gens, vv.D, 8))
+    vals, ms = {}, {}
+    for name, tr in (("fused", fused), ("unfused", trainer)):
+        K.reset_launch_counts()
+        vals[name] = [x.cpu().numpy() for x in tr.sweep_evaluate_from_indices(
+            state, vv, *idx)]
+        counts["val_" + name] = K.launch_counts["encoder_chain"]
+        ms[name] = time_ms(lambda tr=tr: tr.sweep_evaluate_from_indices(
+            state, vv, *idx), 2, 0)
+    if (counts["val_fused"] != 10 * val_batches
+            or counts["val_unfused"] != 0):
+        raise AssertionError(f"val launches of encoder_chain: fused "
+                             f"{counts['val_fused']}, unfused "
+                             f"{counts['val_unfused']}")
+    np.testing.assert_allclose(vals["fused"][0], vals["unfused"][0],
+                               rtol=1e-4)
+    acc_diff = np.abs(vals["fused"][1] - vals["unfused"][1])
+    if float(acc_diff.max()) > 3 * vote + 1e-6:
+        raise AssertionError(f"fused val accuracy {float(acc_diff.max())} "
+                             "from the unfused one")
+    res["val"] = dict(configs=n, batches=val_batches, ms_fused=ms["fused"],
+                      ms_unfused=ms["unfused"],
+                      encoder_chain_launches=counts["val_fused"],
+                      max_loss_rel_diff=float(np.max(np.abs(
+                          vals["fused"][0] / vals["unfused"][0] - 1))),
+                      acc_max_diff=float(acc_diff.max()),
+                      configs_acc_differ=int((acc_diff > 0).sum()))
+    log(f"[sweep fused] the sweep's val of {n} configs: {json.dumps(res['val'])}")
+    del state, gens
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def go_fused_twin() -> dict:
+    """Phase 16, part 4: ``scripts/go_torch.sh --synthetic --fused_train on
+    --fused_encoder --crossval_size 150 --final_epochs 1`` in its own
+    process on a data directory with no cached crossval: go.sh's
+    150-config sweep on the fused chain and the fused encoder, the final
+    train and the test. Its test numbers and seconds."""
+    with tempfile.TemporaryDirectory() as tmp:
+        shim = os.path.join(tmp, "bin")
+        os.makedirs(shim)
+        with open(os.path.join(shim, "python"), "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(os.path.join(shim, "python"), 0o755)
+        data = os.path.join(tmp, "data")
+        out, seconds = run_twin("go_torch.sh", [
+            "--synthetic", "--fused_train", "on", "--fused_encoder",
+            "--crossval_size", str(SWEEP_CONFIGS), "--final_epochs",
+            str(TWIN_EPOCHS), "--data_dir", data, "--checkpoint_dir", data],
+            shim)
+        if "no cached crossval found" not in out:
+            raise AssertionError("the fused go twin did not run the sweep")
+        values = np.load(os.path.join(data, "cross_val_values.npy"))
+        if values.shape != (SWEEP_CONFIGS, 2):
+            raise AssertionError(f"the fused go twin's sweep wrote "
+                                 f"{values.shape}")
+        numbers = test_numbers(out, "the fused go twin")
+    log(f"[sweep fused] go_torch.sh --synthetic --fused_train on "
+        f"--fused_encoder --crossval_size {SWEEP_CONFIGS} --final_epochs "
+        f"{TWIN_EPOCHS}: {seconds:.1f} s in its own process, test {numbers}")
+    return dict(seconds=seconds, test_numbers=numbers,
+                best_val_acc=float(np.nanmax(values[:, 1])))
+
+
+def sweep_fused_phase(K, TF, trainer, dev,
+                      eager_sweep=None) -> tuple[dict, dict]:
+    """Phase 16, the crossval sweep on the fused chain and the fused
+    encoder, and ``Trainer(remat=True)``, on phase 7's store at full
+    width: the config-axis kernels (:func:`check_k5_config_axis`,
+    :func:`check_encoder_config_axis`), remat (:func:`remat_check`), the
+    fused sweep and its val (:func:`fused_sweep_check`, in turns with
+    phase 9's eager sweep, ``eager_sweep``) and the fused go
+    twin (:func:`go_fused_twin`). Returns the ``sweep_fused`` results and
+    the ten ``kernels`` entries, each with its launches on this phase's
+    main paths (the 150-config fused sweep; the bf16 ones' the 10-config
+    bf16 sweep)."""
+    t_phase = time.perf_counter()
+    parts = {}
+    t0 = time.perf_counter()
+    entries = check_k5_config_axis(TF, dev)
+    entries.update(check_encoder_config_axis(K, trainer, dev))
+    parts["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    remat = remat_check(K, trainer)
+    parts["remat"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sweeps, counts = fused_sweep_check(K, trainer, eager_sweep)
+    parts["sweeps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    twin = go_fused_twin()
+    parts["go_twin"] = time.perf_counter() - t0
+    for kernel, entry in entries.items():
+        path = "fused_bf16" if kernel.endswith("_bf16") else "fused"
+        n = counts[path][kernel]
+        if not n:
+            raise AssertionError(f"{kernel} never launched on the {path} "
+                                 "sweep")
+        entry.update(launches=n, launches_by_path={f"sweep_{path}": n},
+                     kernel_ms=entry["ms"],
+                     peaks={"tf32_flops": PEAK_TF32_FLOPS,
+                            "bf16_flops": PEAK_BF16_FLOPS,
+                            "bytes_per_s": PEAK_BYTES_PER_S})
+    phase_s = time.perf_counter() - t_phase
+    log(f"[sweep fused] phase 16 took {phase_s:.1f} s: {json.dumps(parts)}")
+    return dict(remat=remat, sweeps=sweeps, go_twin=twin, phase_s=phase_s,
+                parts_s=parts), entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -4911,6 +5800,10 @@ def main() -> int:
     interop_res, interop_counts = interop_phase(K, cli, cli_train,
                                                 cli_results)
 
+    # ----- 16. the sweep on the fused chain and the fused encoder, remat
+    sweep_fused_res, axis_entries = sweep_fused_phase(K, TF, trainer, dev,
+                                                      sweep_res["sweep"])
+
     for name, entry in entries.items():
         if name in FUSED_KERNELS:
             by_path = {"fused_train": fused_counts[name],
@@ -4961,9 +5854,11 @@ def main() -> int:
     print(json.dumps({"bf16_serve": bf16_res}))
     print(json.dumps({"bf16_train": bf16_train_res}))
     print(json.dumps({"interop": interop_res}))
+    print(json.dumps({"sweep_fused": sweep_fused_res}))
     print(card)
     print(json.dumps({"kernels": list(entries.values()) + eval_entries
-                      + [bf16_entry] + list(bf16_train_entries.values())}))
+                      + [bf16_entry] + list(bf16_train_entries.values())
+                      + list(axis_entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -33,10 +33,13 @@ in bf16. ``--profile`` traces the whole run with ``torch.profiler``
 (CPU and CUDA activities on the card, the CPU alone on the CPU) and
 writes a Chrome trace under ``$TMPDIR/cptorch_trace`` (``/tmp`` by
 default), as the JAX CLI traces to ``/tmp/cptpu_trace``.
+``--fused_train on`` and ``--fused_encoder`` hold for the sweep too: its
+stacked steps run the fused chain at its config axis and its validation
+the fused encoder, one ``encoder_chain`` call a batch for the chunk.
 ``--spmd_crossval`` runs the sweep unsharded on one device, as the JAX
 CLI does with one device visible; with more than one CUDA device it
-exits, not ported yet, as do the sweep on the fused chain or with the
-fused encoder's validation, and a ``--prng_impl`` other than ``auto``.
+exits, not ported yet. A ``--prng_impl`` other than ``auto`` exits with
+its reason.
 """
 from __future__ import annotations
 
@@ -265,19 +268,6 @@ def main(argv=None) -> int:
         print("no cached crossval found — running the sweep")
         crossval_load = False
     sweep = not crossval_load and args.crossval_size >= 1
-    if sweep and args.fused_train == "on" and not args.prediction:
-        raise SystemExit(NOT_PORTED.format(
-            what="the crossval sweep on the fused training chain", item=11,
-            hint="the fused chain's kernels take no config axis yet; pass "
-                 "--fused_train auto or off for the sweep"))
-    if (sweep and args.fused_encoder and not args.no_adabn
-            and not args.prediction and not args.glove_encoding):
-        raise SystemExit(NOT_PORTED.format(
-            what="the crossval sweep's validation on the fused encoder "
-                 "(--fused_encoder)", item=12,
-            hint="encoder_chain takes no config axis yet; drop "
-                 "--fused_encoder for the sweep, or pass --crossval_load "
-                 "with a cached sweep or --crossval_size 0"))
     if args.load_model:
         checkpoint_file(args.checkpoint_dir)
     device = select_device(args.platform)

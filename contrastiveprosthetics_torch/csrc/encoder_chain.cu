@@ -69,6 +69,21 @@
 // The first layer's K = 12 is zero-filled to 16. The banded conv fold's
 // zero blocks are multiplied like any other weights; skipping them is
 // later work.
+//
+// The config axis (the crossval sweep's validation, the JAX package's
+// jax.vmap of fused_encoder_logits over C configs' folds): one call runs C
+// chains, each on its own M rows. Every array holds the C configs' one
+// after another, so config c's activations are rows c*M .. c*M + M - 1 of a
+// (C*M, width) matrix and its weights rows c*K .. c*K + K - 1 of a (C*K, N)
+// one. Every layer's and the head's grid takes one more dimension over
+// configs (the small tiling's z, the large tiling's and the head's y); a
+// CTA addresses its config's rows and weights from its config's first,
+// and tiles, chunks and sums are as at C = 1, so config c's scores are
+// bit-equal to a call on its chain alone and C = 1 is that call. The large
+// tilings keep their config's input and weight pointers in shared memory,
+// read where a k-tile's copies are issued: held in registers through the k
+// loop, they spilled the bf16 tiling at its 128 registers. Per-session
+// affines (the batched engine) take C = 1.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -151,6 +166,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int col0 = nt * kBN;
   const int k_tiles = (K + kBK - 1) / kBK;
   const int k_chunks = (K + 7) / 8;
+  // this config's input rows and weights, read where the copies are issued
+  __shared__ const float* volatile cfg_h;
+  __shared__ const float* volatile cfg_w;
+  if (tid == 0) {
+    cfg_h = h + (long long)blockIdx.y * M * K;
+    cfg_w = w + (long long)blockIdx.y * K * N;
+  }
+  __syncthreads();
 
   auto load_a_tile = [&](int kt, int stage) {
     float* As = smem + stage * kStageFloats;
@@ -162,7 +185,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const long long gm = row0 + m;
       const int gk = k0 + kc;
       const bool ok = gm < M && gk < K;
-      cp_async16(As + m * kAS + kc, ok ? h + gm * K + gk : h, ok);
+      cp_async16(As + m * kAS + kc, ok ? cfg_h + gm * K + gk : h, ok);
     }
   };
   auto load_b_tile = [&](int kt, int stage) {
@@ -174,7 +197,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const int kr = id / (kBN / 4), nc = (id % (kBN / 4)) * 4;
       const int gk = k0 + kr, gn = col0 + nc;
       const bool ok = gk < K && gn < N;
-      cp_async16(Bs + kr * kBS + nc, ok ? w + (long long)gk * N + gn : w, ok);
+      cp_async16(Bs + kr * kBS + nc, ok ? cfg_w + (long long)gk * N + gn : w,
+                 ok);
     }
   };
 
@@ -264,8 +288,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const int gn = col0 + nc;
     if (gm < M && gn < N) {
       const float4 v = *reinterpret_cast<const float4*>(Cs + m * kCS + nc);
-      *reinterpret_cast<float4*>(out + gm * N + gn) =
-          finish4(v, b, a, c, gm, gn, N, S);
+      *reinterpret_cast<float4*>(out + ((long long)blockIdx.y * M + gm) * N +
+                                 gn) =
+          finish4(v, b + (long long)blockIdx.y * N, a, c, gm, gn, N, S);
     }
   }
 }
@@ -290,7 +315,11 @@ __global__ void __launch_bounds__(32) encoder_layer_small_kernel(
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
   const int col0 = blockIdx.x * kSN;
+  // the tile's first row, in the config and over all configs; the config's
+  // first weight row
   const long long row0 = (long long)blockIdx.y * kSM;
+  const long long grow0 = (long long)blockIdx.z * M + row0;
+  const int wrow0 = blockIdx.z * K;
   const int rows = (int)min((long long)kSM, M - row0);
   const int k_chunks = (K + 7) / 8;
   const int lda = small_a_stride(K);
@@ -302,8 +331,8 @@ __global__ void __launch_bounds__(32) encoder_layer_small_kernel(
   for (int i = lane; i < k_chunks * 8 * 2; i += 32) {
     const int k = i / 2, n = col0 + (i % 2) * 4;
     const bool ok = k < K && n < N;
-    cp_async16(Bs + k * kSN + (i % 2) * 4, ok ? w + (long long)k * N + n : w,
-               ok);
+    cp_async16(Bs + k * kSN + (i % 2) * 4,
+               ok ? w + (long long)(wrow0 + k) * N + n : w, ok);
   }
   cp_async_commit();
   wait_for_input();
@@ -315,7 +344,7 @@ __global__ void __launch_bounds__(32) encoder_layer_small_kernel(
     for (int i = lane; i < rows * per_row; i += 32) {
       const int r = i / per_row, k = k_lo + (i % per_row) * 4;
       const bool ok = k < K;
-      cp_async16(As + r * lda + k, ok ? h + (row0 + r) * K + k : h, ok);
+      cp_async16(As + r * lda + k, ok ? h + (grow0 + r) * K + k : h, ok);
     }
     cp_async_commit();
   }
@@ -356,8 +385,8 @@ __global__ void __launch_bounds__(32) encoder_layer_small_kernel(
   if (r < rows && n < N) {
     const float4 v = even ? make_float4(d[0], d[1], p0, p1)
                           : make_float4(p2, p3, d[2], d[3]);
-    *reinterpret_cast<float4*>(out + (row0 + r) * N + n) =
-        finish4(v, b, a, c, row0 + r, n, N, S);
+    *reinterpret_cast<float4*>(out + (grow0 + r) * N + n) =
+        finish4(v, b + (long long)blockIdx.z * N, a, c, row0 + r, n, N, S);
   }
 }
 
@@ -368,6 +397,12 @@ __global__ void __launch_bounds__(256) encoder_head_kernel(
     const float* __restrict__ h, const float* __restrict__ wh,
     const float* __restrict__ bh, const float* __restrict__ gt,
     float* __restrict__ out, int M, int K, int E, int C) {
+  // this config's head and class embeddings; its rows follow the configs'
+  // before it
+  const long long grow0 = (long long)blockIdx.y * M;
+  wh += blockIdx.y * (long long)K * E;
+  bh += blockIdx.y * (long long)E;
+  gt += blockIdx.y * (long long)E * C;
   // Wh transposed to (E, K), so the lanes' consecutive k hit consecutive
   // banks | Gt (E, C); E % 4 == 0, so a float4 of Wh lies in one row
   extern __shared__ __align__(16) float head_smem[];
@@ -395,7 +430,7 @@ __global__ void __launch_bounds__(256) encoder_head_kernel(
     for (int j = 0; j < kMaxE; ++j) e[j] = 0.0f;
 #pragma unroll 4
     for (int k = lane; k < K; k += 32) {
-      const float x = h[r * K + k];
+      const float x = h[(grow0 + r) * K + k];
 #pragma unroll
       for (int j = 0; j < kMaxE; ++j)
         if (j < E) e[j] = fmaf(x, wht_s[j * K + k], e[j]);
@@ -418,7 +453,7 @@ __global__ void __launch_bounds__(256) encoder_head_kernel(
 #pragma unroll
       for (int j = 0; j < kMaxE; ++j)
         if (j < E) acc = fmaf(e[j], gt_s[j * C + cls], acc);
-      out[r * C + cls] = acc;
+      out[(grow0 + r) * C + cls] = acc;
     }
   }
 }
@@ -542,6 +577,14 @@ __global__ void __launch_bounds__(kThreads, sizeof(In) == 4 ? 1 : kMinBlocks)
   const int col0 = nt * kBN;
   const int k_tiles = (K + kHBK - 1) / kHBK;
   const int k_chunks = (K + 15) / 16;
+  // this config's input rows and weights, read where the copies are issued
+  __shared__ const In* volatile cfg_h;
+  __shared__ const uint16_t* volatile cfg_w;
+  if (tid == 0) {
+    cfg_h = h + (long long)blockIdx.y * M * K;
+    cfg_w = w + (long long)blockIdx.y * K * N;
+  }
+  __syncthreads();
 
   auto load_a_tile = [&](int kt, int stage) {
     In* As = reinterpret_cast<In*>(base + stage * L::kStageBytes);
@@ -554,7 +597,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(In) == 4 ? 1 : kMinBlocks)
       const long long gm = row0 + m;
       const int gk = k0 + kc;
       const bool ok = gm < M && gk < K;
-      cp_async16(As + m * L::kAS + kc, ok ? h + gm * K + gk : h, ok);
+      cp_async16(As + m * L::kAS + kc, ok ? cfg_h + gm * K + gk : h, ok);
     }
   };
   auto load_b_tile = [&](int kt, int stage) {
@@ -567,7 +610,8 @@ __global__ void __launch_bounds__(kThreads, sizeof(In) == 4 ? 1 : kMinBlocks)
       const int kr = id / (kBN / 8), nc = (id % (kBN / 8)) * 8;
       const int gk = k0 + kr, gn = col0 + nc;
       const bool ok = gk < K && gn < N;
-      cp_async16(Bs + kr * kHBS + nc, ok ? w + (long long)gk * N + gn : w, ok);
+      cp_async16(Bs + kr * kHBS + nc, ok ? cfg_w + (long long)gk * N + gn : w,
+                 ok);
     }
   };
 
@@ -652,7 +696,9 @@ __global__ void __launch_bounds__(kThreads, sizeof(In) == 4 ? 1 : kMinBlocks)
     const int gn = col0 + nc;
     if (gm < M && gn < N) {
       const float4 v = *reinterpret_cast<const float4*>(Cs + m * kCS + nc);
-      store4_bf16(out + gm * N + gn, finish4(v, b, a, c, gm, gn, N, S));
+      store4_bf16(out + ((long long)blockIdx.y * M + gm) * N + gn,
+                  finish4(v, b + (long long)blockIdx.y * N, a, c, gm, gn, N,
+                          S));
     }
   }
 }
@@ -680,7 +726,11 @@ __global__ void __launch_bounds__(32) encoder_layer_small_bf16_kernel(
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
   const int col0 = blockIdx.x * kSN;
+  // the tile's first row, in the config and over all configs; the config's
+  // first weight row
   const long long row0 = (long long)blockIdx.y * kSM;
+  const long long grow0 = (long long)blockIdx.z * M + row0;
+  const int wrow0 = blockIdx.z * K;
   const int rows = (int)min((long long)kSM, M - row0);
   const int k_chunks = (K + 15) / 16;
   const int lda = small_bf16_a_stride<In>(K);
@@ -693,7 +743,8 @@ __global__ void __launch_bounds__(32) encoder_layer_small_bf16_kernel(
   // the previous layer is done, in kGroups commit groups along K
   for (int k = lane; k < k_chunks * 16; k += 32) {
     const bool ok = k < K;
-    cp_async16(Bs + k * kSN, ok ? w + (long long)k * N + col0 : w, ok);
+    cp_async16(Bs + k * kSN, ok ? w + (long long)(wrow0 + k) * N + col0 : w,
+               ok);
   }
   cp_async_commit();
   wait_for_input();
@@ -705,7 +756,7 @@ __global__ void __launch_bounds__(32) encoder_layer_small_bf16_kernel(
     for (int i = lane; i < rows * per_row; i += 32) {
       const int r = i / per_row, k = k_lo + (i % per_row) * kVec;
       const bool ok = k < K;
-      cp_async16(As + r * lda + k, ok ? h + (row0 + r) * K + k : h, ok);
+      cp_async16(As + r * lda + k, ok ? h + (grow0 + r) * K + k : h, ok);
     }
     cp_async_commit();
   }
@@ -745,8 +796,9 @@ __global__ void __launch_bounds__(32) encoder_layer_small_bf16_kernel(
   if (r < rows && n < N) {
     const float4 v = even ? make_float4(d[0], d[1], p0, p1)
                           : make_float4(p2, p3, d[2], d[3]);
-    store4_bf16(out + (row0 + r) * N + n,
-                finish4(v, b, a, c, row0 + r, n, N, S));
+    store4_bf16(out + (grow0 + r) * N + n,
+                finish4(v, b + (long long)blockIdx.z * N, a, c, row0 + r, n,
+                        N, S));
   }
 }
 
@@ -757,6 +809,12 @@ __global__ void __launch_bounds__(256) encoder_head_bf16_kernel(
     const uint16_t* __restrict__ h, const uint16_t* __restrict__ wh,
     const float* __restrict__ bh, const uint16_t* __restrict__ gt,
     float* __restrict__ out, int M, int K, int E, int C) {
+  // this config's head and class embeddings; its rows follow the configs'
+  // before it
+  const long long grow0 = (long long)blockIdx.y * M;
+  wh += blockIdx.y * (long long)K * E;
+  bh += blockIdx.y * (long long)E;
+  gt += blockIdx.y * (long long)E * C;
   // Wh transposed to (E, K) and Gt (E, C), both in f32 (exact)
   extern __shared__ __align__(16) float head_smem[];
   float* wht_s = head_smem;
@@ -777,7 +835,7 @@ __global__ void __launch_bounds__(256) encoder_head_bf16_kernel(
     for (int j = 0; j < kMaxE; ++j) e[j] = 0.0f;
 #pragma unroll 4
     for (int k = lane; k < K; k += 32) {
-      const float x = bf16_to_f32(h[r * K + k]);
+      const float x = bf16_to_f32(h[(grow0 + r) * K + k]);
 #pragma unroll
       for (int j = 0; j < kMaxE; ++j)
         if (j < E) e[j] = fmaf(x, wht_s[j * K + k], e[j]);
@@ -800,7 +858,7 @@ __global__ void __launch_bounds__(256) encoder_head_bf16_kernel(
 #pragma unroll
       for (int j = 0; j < kMaxE; ++j)
         if (j < E) acc = fmaf(e[j], gt_s[j * C + cls], acc);
-      out[r * C + cls] = acc;
+      out[(grow0 + r) * C + cls] = acc;
     }
   }
 }
@@ -810,7 +868,7 @@ template <typename In>
 cudaError_t bf16_layer(const In* h, const uint16_t* w, const float* b,
                        const float* a, const float* c, uint16_t* out, int M,
                        int K, int N, int S, int regime, int tiles_per_tick,
-                       int ticks, cudaStream_t stream) {
+                       int ticks, int n_cfg, cudaStream_t stream) {
   static size_t small_ok = 0, large_ok = 0;
   cudaError_t err;
   if (regime == 0) {
@@ -818,7 +876,7 @@ cudaError_t bf16_layer(const In* h, const uint16_t* w, const float* b,
     err = allow_smem((const void*)encoder_layer_small_bf16_kernel<In>, smem,
                      &small_ok);
     if (err != cudaSuccess) return err;
-    const dim3 grid((N + kSN - 1) / kSN, (M + kSM - 1) / kSM);
+    const dim3 grid((N + kSN - 1) / kSN, (M + kSM - 1) / kSM, n_cfg);
     err = launch(encoder_layer_small_bf16_kernel<In>, grid, 32, smem, stream,
                  h, w, b, a, c, out, M, K, N, S);
   } else {
@@ -828,9 +886,9 @@ cudaError_t bf16_layer(const In* h, const uint16_t* w, const float* b,
     if (err != cudaSuccess) return err;
     const long long blocks =
         (long long)((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-    err = launch(encoder_layer_large_bf16_kernel<In>, dim3((unsigned)blocks),
-                 kThreads, smem, stream, h, w, b, a, c, out, M, K, N, S,
-                 tiles_per_tick, ticks);
+    err = launch(encoder_layer_large_bf16_kernel<In>,
+                 dim3((unsigned)blocks, n_cfg), kThreads, smem, stream, h, w,
+                 b, a, c, out, M, K, N, S, tiles_per_tick, ticks);
   }
   if (err == cudaSuccess) err = cudaGetLastError();
   return err;
@@ -838,24 +896,37 @@ cudaError_t bf16_layer(const In* h, const uint16_t* w, const float* b,
 
 size_t head_bf16_allowed = 0;
 
+// The head's CTAs of one config: a warp a row, at most 132 x 8 CTAs in all
+// (grid-stride over the rest)
+unsigned head_blocks(int M, int n_cfg) {
+  const int threads = 256, rows_per_block = threads / 32;
+  long long blocks = ((long long)M + rows_per_block - 1) / rows_per_block;
+  long long cap = 132 * 8 / n_cfg;
+  if (cap < 1) cap = 1;
+  return (unsigned)(blocks < cap ? blocks : cap);
+}
+
 }  // namespace
 
 // The whole chain in one call. `layers`: per hidden layer j, the pointers
 // w_j (K_j, N_j), b_j (N_j), a_j, c_j (S, N_j) or null, null; then Wh (K,
 // E), bh (E), Gt (E, C). `widths`: K_0, N_0 .. N_{n_hidden-1}, E, C, all
 // hidden widths multiples of 4 and every pointer 16-byte aligned.
-// `scratch` holds 2 x M x max(N_j) floats. `regime` 0 runs the small-row
-// tiling, 1 the large one. Returns the first launch's cudaError_t that is
-// not cudaSuccess.
+// `scratch` holds 2 x n_cfg x M x max(N_j) floats. `regime` 0 runs the
+// small-row tiling, 1 the large one. n_cfg configs (the config axis
+// above): frames (n_cfg, M, K_0), each weight, bias and Gt the configs' one
+// after another, scores (n_cfg, M, C); no affines unless n_cfg is 1.
+// Returns the first launch's cudaError_t that is not cudaSuccess.
 extern "C" int encoder_chain_launch(const void* const* layers,
                                     const int* widths, int n_hidden,
                                     const float* frames, float* scratch,
-                                    float* scores, int M, int S, int regime,
-                                    void* stream_ptr) {
+                                    float* scores, int M, int n_cfg, int S,
+                                    int regime, void* stream_ptr) {
   const cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (M <= 0) return (int)cudaSuccess;
   const bool affine = layers[2] != nullptr;
-  if (S < 1 || (affine && M % S) || (regime != 0 && regime != 1))
+  if (S < 1 || (affine && M % S) || (regime != 0 && regime != 1) ||
+      n_cfg < 1 || n_cfg > 65535 || (affine && n_cfg != 1))
     return (int)cudaErrorInvalidValue;
   long long max_n = 0;
   for (int j = 0; j < n_hidden; ++j) {
@@ -877,14 +948,14 @@ extern "C" int encoder_chain_launch(const void* const* layers,
     const float* b = static_cast<const float*>(layers[4 * j + 1]);
     const float* a = static_cast<const float*>(layers[4 * j + 2]);
     const float* c = static_cast<const float*>(layers[4 * j + 3]);
-    float* out = scratch + (size_t)(j & 1) * (size_t)M * (size_t)max_n;
+    float* out = scratch + (size_t)(j & 1) * n_cfg * (size_t)M * max_n;
     cudaError_t err;
     if (regime == 0) {
       const size_t smem = small_smem(K);
       err = allow_smem((const void*)encoder_layer_small_kernel, smem,
                        &small_allowed);
       if (err != cudaSuccess) return (int)err;
-      const dim3 grid((N + kSN - 1) / kSN, (M + kSM - 1) / kSM);
+      const dim3 grid((N + kSN - 1) / kSN, (M + kSM - 1) / kSM, n_cfg);
       err = launch(encoder_layer_small_kernel, grid, 32, smem, stream, h, w,
                    b, a, c, out, M, K, N, S);
     } else {
@@ -893,7 +964,7 @@ extern "C" int encoder_chain_launch(const void* const* layers,
       if (err != cudaSuccess) return (int)err;
       const long long blocks =
           (long long)((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-      err = launch(encoder_layer_large_kernel, dim3((unsigned)blocks),
+      err = launch(encoder_layer_large_kernel, dim3((unsigned)blocks, n_cfg),
                    kThreads, kLargeSmem, stream, h, w, b, a, c, out, M, K, N,
                    S, tiles_per_tick, ticks);
     }
@@ -912,29 +983,27 @@ extern "C" int encoder_chain_launch(const void* const* layers,
   cudaError_t err =
       allow_smem((const void*)encoder_head_kernel, smem, &head_allowed);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 256, rows_per_block = threads / 32;
-  long long blocks = ((long long)M + rows_per_block - 1) / rows_per_block;
-  if (blocks > 132 * 8) blocks = 132 * 8;  // grid-stride over the rest
-  err = launch(encoder_head_kernel, dim3((unsigned)blocks), threads, smem,
-               stream, h, wh, bh, gt, scores, M, K, E, C);
+  err = launch(encoder_head_kernel, dim3(head_blocks(M, n_cfg), n_cfg), 256,
+               smem, stream, h, wh, bh, gt, scores, M, K, E, C);
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }
 
 // The bf16 variant (see "bf16 variant" above): the same table, but every
-// w_j, Wh and Gt bf16 (uint16_t bits) and `scratch` 2 x M x max(N_j) bf16;
-// frames, biases, affines and scores f32. K_0 a multiple of 4, every other
-// width a multiple of 8. Returns as encoder_chain_launch.
+// w_j, Wh and Gt bf16 (uint16_t bits) and `scratch` 2 x n_cfg x M x
+// max(N_j) bf16; frames, biases, affines and scores f32. K_0 a multiple of
+// 4, every other width a multiple of 8. Returns as encoder_chain_launch.
 extern "C" int encoder_chain_bf16_launch(const void* const* layers,
                                          const int* widths, int n_hidden,
                                          const float* frames,
                                          void* scratch_ptr, float* scores,
-                                         int M, int S, int regime,
+                                         int M, int n_cfg, int S, int regime,
                                          void* stream_ptr) {
   const cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (M <= 0) return (int)cudaSuccess;
   const bool affine = layers[2] != nullptr;
-  if (S < 1 || (affine && M % S) || (regime != 0 && regime != 1))
+  if (S < 1 || (affine && M % S) || (regime != 0 && regime != 1) ||
+      n_cfg < 1 || n_cfg > 65535 || (affine && n_cfg != 1))
     return (int)cudaErrorInvalidValue;
   long long max_n = 0;
   for (int j = 0; j < n_hidden; ++j) {
@@ -956,12 +1025,12 @@ extern "C" int encoder_chain_bf16_launch(const void* const* layers,
     const float* b = static_cast<const float*>(layers[4 * j + 1]);
     const float* a = static_cast<const float*>(layers[4 * j + 2]);
     const float* c = static_cast<const float*>(layers[4 * j + 3]);
-    uint16_t* out = scratch + (size_t)(j & 1) * (size_t)M * (size_t)max_n;
+    uint16_t* out = scratch + (size_t)(j & 1) * n_cfg * (size_t)M * max_n;
     const cudaError_t err =
         j == 0 ? bf16_layer(frames, w, b, a, c, out, M, K, N, S, regime,
-                            tiles_per_tick, ticks, stream)
+                            tiles_per_tick, ticks, n_cfg, stream)
                : bf16_layer(h, w, b, a, c, out, M, K, N, S, regime,
-                            tiles_per_tick, ticks, stream);
+                            tiles_per_tick, ticks, n_cfg, stream);
     if (err != cudaSuccess) return (int)err;
     h = out;
   }
@@ -976,11 +1045,8 @@ extern "C" int encoder_chain_bf16_launch(const void* const* layers,
   cudaError_t err = allow_smem((const void*)encoder_head_bf16_kernel, smem,
                                &head_bf16_allowed);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 256, rows_per_block = threads / 32;
-  long long blocks = ((long long)M + rows_per_block - 1) / rows_per_block;
-  if (blocks > 132 * 8) blocks = 132 * 8;  // grid-stride over the rest
-  err = launch(encoder_head_bf16_kernel, dim3((unsigned)blocks), threads,
-               smem, stream, h, wh, bh, gt, scores, M, K, E, C);
+  err = launch(encoder_head_bf16_kernel, dim3(head_blocks(M, n_cfg), n_cfg),
+               256, smem, stream, h, wh, bh, gt, scores, M, K, E, C);
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

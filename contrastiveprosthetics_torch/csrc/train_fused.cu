@@ -111,6 +111,16 @@
 // sums (2, F) rows sum dz, sum dz xhat; partial (row tiles, 2, width)
 // scratch; tickets one uint32 per column strip, 0 at launch.
 //
+// The config axis (the crossval sweep's stacked step, the JAX package's
+// jax.vmap of fused_emg_embed over C configs): every kernel takes C and a
+// grid dimension over configs (K5f's z, the others' y). Every array holds
+// the C configs' arrays one after another (x (C, N, K), W (C, K, F) in
+// either layout, stats (C, 5, F), seeds (C, 2), keep (C,), partials and
+// tickets one set a config), and a CTA first moves its pointers to its own
+// config's. Nothing else changes: config c's tiles, sum orders and Philox
+// counters are the single-config kernel's, so its outputs are bit-equal to
+// a launch on config c alone, and C = 1 is that launch.
+//
 // bf16 variants (the JAX chain's compute_dtype=bfloat16, ChainCfg.dtype
 // :127, rounding points :203-236, :266-324, the tail :593-601, :624-638):
 // the same templates instantiated on the stored element type bf16 (its 16
@@ -256,6 +266,16 @@ struct Dropout {
   const float* mask;
   int block;
 };
+
+// config c's dropout: its seed words, its keep and its mask (of
+// mask_stride elements a config)
+__device__ __forceinline__ Dropout config_dropout(Dropout d, int c,
+                                                  size_t mask_stride) {
+  if (d.seed) d.seed += 2 * (size_t)c;
+  if (d.keep) d.keep += c;
+  if (d.mask) d.mask += (size_t)c * mask_stride;
+  return d;
+}
 
 // The same, read once per CTA.
 struct Drop {
@@ -735,6 +755,27 @@ struct FwdArgs {
   float eps;
 };
 
+// config c's arrays: its row tiles' partials and its column strips'
+// tickets follow the configs before it
+template <class E>
+__device__ __forceinline__ FwdArgs<E> config_fwd(FwdArgs<E> p, int c,
+                                                 int row_tiles,
+                                                 int col_strips) {
+  const size_t K = p.K, F = p.F, nk = (size_t)p.N * K;
+  p.x += c * nk;
+  p.w += c * K * F;
+  p.b += c * F;
+  p.gamma += c * F;
+  p.beta += c * F;
+  if (p.in_stats) p.in_stats += c * 5 * K;
+  p.d = config_dropout(p.d, c, nk);
+  p.r += c * (size_t)p.N * F;
+  p.partial += c * (size_t)row_tiles * 2 * F;
+  p.tickets += (size_t)c * col_strips;
+  p.stats += c * 5 * F;
+  return p;
+}
+
 // WROW: w is a row-major (K, F); else the transpose of a Linear weight
 // (F, K), contiguous along k. A slot holds the f32 tiles of h and W, then
 // in bf16 the raw tiles of x and W that their copies fill.
@@ -769,7 +810,8 @@ struct FwdLayout {
 
 template <class G, bool WROW, class E>
 __global__ void __launch_bounds__(G::kThreads)
-    dense_block_fwd_kernel(const FwdArgs<E> p) {
+    dense_block_fwd_kernel(const FwdArgs<E> args) {
+  const FwdArgs<E> p = config_fwd(args, blockIdx.z, gridDim.x, gridDim.y);
   using L = FwdLayout<G, WROW, E>;
   using A = typename L::A;
   using B = typename L::B;
@@ -896,6 +938,30 @@ struct BwdArgs {
   int N, K, F;
   int n_dgrad;  // CTAs of the dgrad role, first in the grid
 };
+
+// config c's arrays (GD the dgrad tiling, which sizes the partials and the
+// tickets of the lower block's sums)
+template <class GD, class E>
+__device__ __forceinline__ BwdArgs<E> config_bwd(BwdArgs<E> p, int c) {
+  const size_t N = p.N, K = p.K, F = p.F;
+  p.dz += c * N * F;
+  p.r += c * N * F;
+  p.x += c * N * K;
+  p.w += c * K * F;
+  p.stats += c * 5 * F;
+  p.sums += c * 2 * F;
+  if (p.in_stats) p.in_stats += c * 5 * K;
+  p.d = config_dropout(p.d, c, N * K);
+  p.dx += c * N * K;
+  p.dw += c * K * F;
+  p.db += c * F;
+  if (p.out_sums) {
+    p.out_sums += c * 2 * K;
+    p.partial += c * (size_t)((p.N + GD::BM - 1) / GD::BM) * 2 * K;
+  }
+  p.tickets += (size_t)c * ((p.K + GD::BN - 1) / GD::BN);
+  return p;
+}
 
 // f32: dz (dy in place), r, W. bf16: the f32 tiles of dy and W, then the
 // raw tiles of dz, r and W.
@@ -1204,8 +1270,9 @@ __device__ __forceinline__ void wgrad_tile(const BwdArgs<E>& p, int wid) {
 
 template <class GD, class GW, bool WROW, class E>
 __global__ void __launch_bounds__(GD::kThreads)
-    dense_block_bwd_kernel(const BwdArgs<E> p) {
+    dense_block_bwd_kernel(const BwdArgs<E> args) {
   static_assert(GD::kThreads == GW::kThreads, "one block size per launch");
+  const BwdArgs<E> p = config_bwd<GD>(args, blockIdx.y);
   if ((int)blockIdx.x < p.n_dgrad)
     dgrad_tile<GD, WROW, E>(p, blockIdx.x);
   else
@@ -1231,8 +1298,13 @@ __device__ __forceinline__ int row_ctas(int F) {
 template <class E>
 __global__ void __launch_bounds__(kRowThreads)
     chain_tail_fwd_kernel(const E* __restrict__ x,
-                          const float* __restrict__ stats, const Dropout d,
-                          E* __restrict__ h, int F) {
+                          const float* __restrict__ stats, const Dropout dc,
+                          E* __restrict__ h, int N, int F) {
+  const size_t cfg = blockIdx.y, nf = (size_t)N * F;  // its config's arrays
+  x += cfg * nf;
+  h += cfg * nf;
+  stats += cfg * 5 * F;
+  const Dropout d = config_dropout(dc, (int)cfg, nf);
   const int per_row = row_ctas(F);
   const int n = blockIdx.x / per_row;
   const int k = ((blockIdx.x % per_row) * kRowThreads + threadIdx.x) * 4;
@@ -1263,9 +1335,16 @@ static_assert(kTailSlots % kTailGroups == 0,
 template <class E>
 __global__ void __launch_bounds__(kTailThreads)
     chain_tail_bwd_kernel(const E* __restrict__ dh, const E* __restrict__ r,
-                          const float* __restrict__ stats, const Dropout d,
+                          const float* __restrict__ stats, const Dropout dc,
                           E* __restrict__ dz, float* __restrict__ sums,
                           int N, int F) {
+  const size_t cfg = blockIdx.y, nf = (size_t)N * F;  // its config's arrays
+  dh += cfg * nf;
+  r += cfg * nf;
+  dz += cfg * nf;
+  stats += cfg * 5 * F;
+  sums += cfg * 2 * F;
+  const Dropout d = config_dropout(dc, (int)cfg, nf);
   // [sum][slot * kTailQuads + quad], then [group][sum * kTailQuads + quad]
   __shared__ double part[8][kTailThreads];
   __shared__ double group_part[kTailGroups][8 * kTailQuads];
@@ -1407,18 +1486,18 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
 }
 
 template <class G, bool WROW, class E>
-int launch_fwd(const FwdArgs<E>& a, cudaStream_t stream) {
+int launch_fwd(const FwdArgs<E>& a, int C, cudaStream_t stream) {
   const size_t smem = FwdLayout<G, WROW, E>::bytes(a.K);
   const auto kernel = dense_block_fwd_kernel<G, WROW, E>;
   cudaError_t err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(cdiv(a.N, G::BM), cdiv(a.F, G::BN));
+  const dim3 grid(cdiv(a.N, G::BM), cdiv(a.F, G::BN), C);
   kernel<<<grid, G::kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <class GD, class GW, bool WROW, class E>
-int launch_bwd(BwdArgs<E> a, cudaStream_t stream) {
+int launch_bwd(BwdArgs<E> a, int C, cudaStream_t stream) {
   a.n_dgrad = cdiv(a.N, GD::BM) * cdiv(a.K, GD::BN);
   const int n_wgrad = cdiv(a.K, GW::BM) * cdiv(a.F, GW::BN);
   const size_t smem_d = DgradLayout<GD, WROW, E>::bytes(a.F);
@@ -1427,12 +1506,15 @@ int launch_bwd(BwdArgs<E> a, cudaStream_t stream) {
   const auto kernel = dense_block_bwd_kernel<GD, GW, WROW, E>;
   cudaError_t err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<a.n_dgrad + n_wgrad, GD::kThreads, smem, stream>>>(a);
+  kernel<<<dim3(a.n_dgrad + n_wgrad, C), GD::kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Rows of an (N, F) array the kernels index in 32 bits: N * F < 2^31.
 bool too_large(int N, int F) { return (long long)N * F > INT_MAX; }
+
+// configs: the grid's z (K5f) or y dimension
+bool bad_configs(int C) { return C < 1 || C > 65535; }
 
 // One thread per (row, 4-column group): the CTAs of the N rows.
 int row_grid(int N, int F) { return N * cdiv(cdiv(F, 4), kRowThreads); }
@@ -1447,10 +1529,12 @@ template <class E>
 int fwd_entry(const E* x, const E* w, const float* b, const float* gamma,
               const float* beta, const float* in_stats, const int* seed,
               const float* keep, const float* mask, E* r, float* partial,
-              unsigned* tickets, float* stats, int N, int K, int F, int wsk,
-              int wsn, int drop_block, int tiling, float eps, void* stream) {
+              unsigned* tickets, float* stats, int C, int N, int K, int F,
+              int wsk, int wsn, int drop_block, int tiling, float eps,
+              void* stream) {
   const int wrow = weight_layout(K, F, wsk, wsn);
-  if (N < 1 || K < 1 || F < 1 || ragged<E>(K) || ragged<E>(F) || wrow < 0 ||
+  if (bad_configs(C) || N < 1 || K < 1 || F < 1 || ragged<E>(K) ||
+      ragged<E>(F) || wrow < 0 ||
       bad_dropout(seed, keep, mask) || misaligned(x) || misaligned(w) ||
       misaligned(b) || misaligned(in_stats) || misaligned(mask) ||
       misaligned(r))
@@ -1460,10 +1544,10 @@ int fwd_entry(const E* x, const E* w, const float* b, const float* gamma,
                      r, partial, tickets, stats, N, K, F, eps};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (tiling * 2 + wrow) {
-    case 0: return launch_fwd<FwdTile0, false>(a, s);
-    case 1: return launch_fwd<FwdTile0, true>(a, s);
-    case 2: return launch_fwd<FwdTile1, false>(a, s);
-    case 3: return launch_fwd<FwdTile1, true>(a, s);
+    case 0: return launch_fwd<FwdTile0, false>(a, C, s);
+    case 1: return launch_fwd<FwdTile0, true>(a, C, s);
+    case 2: return launch_fwd<FwdTile1, false>(a, C, s);
+    case 3: return launch_fwd<FwdTile1, true>(a, C, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1473,10 +1557,11 @@ int bwd_entry(const E* dz, const E* r, const E* x, const E* w,
               const float* stats, const float* sums, const float* in_stats,
               const int* seed, const float* keep, const float* mask, E* dx,
               float* dw, float* db, float* out_sums, float* partial,
-              unsigned* tickets, int N, int K, int F, int wsk, int wsn,
-              int drop_block, int tiling, void* stream) {
+              unsigned* tickets, int C, int N, int K, int F, int wsk,
+              int wsn, int drop_block, int tiling, void* stream) {
   const int wrow = weight_layout(K, F, wsk, wsn);
-  if (N < 1 || K < 1 || F < 1 || ragged<E>(K) || ragged<E>(F) || wrow < 0 ||
+  if (bad_configs(C) || N < 1 || K < 1 || F < 1 || ragged<E>(K) ||
+      ragged<E>(F) || wrow < 0 ||
       bad_dropout(seed, keep, mask) ||
       (in_stats == nullptr) != (out_sums == nullptr) || misaligned(dz) ||
       misaligned(r) || misaligned(x) || misaligned(w) || misaligned(in_stats) ||
@@ -1487,38 +1572,38 @@ int bwd_entry(const E* dz, const E* r, const E* x, const E* w,
                      dx, dw, db, out_sums, partial, tickets, N, K, F, 0};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (tiling * 2 + wrow) {
-    case 0: return launch_bwd<DgradTile0, WgradTile0, false>(a, s);
-    case 1: return launch_bwd<DgradTile0, WgradTile0, true>(a, s);
-    case 2: return launch_bwd<DgradTile1, WgradTile1, false>(a, s);
-    case 3: return launch_bwd<DgradTile1, WgradTile1, true>(a, s);
+    case 0: return launch_bwd<DgradTile0, WgradTile0, false>(a, C, s);
+    case 1: return launch_bwd<DgradTile0, WgradTile0, true>(a, C, s);
+    case 2: return launch_bwd<DgradTile1, WgradTile1, false>(a, C, s);
+    case 3: return launch_bwd<DgradTile1, WgradTile1, true>(a, C, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <class E>
 int tail_fwd_entry(const E* x, const float* stats, const int* seed,
-                   const float* keep, const float* mask, E* h, int N, int F,
-                   int drop_block, void* stream) {
-  if (N < 1 || F < 1 || F % 4 || too_large(N, F) ||
+                   const float* keep, const float* mask, E* h, int C, int N,
+                   int F, int drop_block, void* stream) {
+  if (bad_configs(C) || N < 1 || F < 1 || F % 4 || too_large(N, F) ||
       bad_dropout(seed, keep, mask) || misaligned(x) || misaligned(stats) ||
       misaligned(mask) || misaligned(h))
     return (int)cudaErrorInvalidValue;
-  chain_tail_fwd_kernel<E><<<row_grid(N, F), kRowThreads, 0,
+  chain_tail_fwd_kernel<E><<<dim3(row_grid(N, F), C), kRowThreads, 0,
                              (cudaStream_t)stream>>>(
-      x, stats, Dropout{seed, keep, mask, drop_block}, h, F);
+      x, stats, Dropout{seed, keep, mask, drop_block}, h, N, F);
   return (int)cudaGetLastError();
 }
 
 template <class E>
 int tail_bwd_entry(const E* dh, const E* r, const float* stats,
                    const int* seed, const float* keep, const float* mask,
-                   E* dz, float* sums, int N, int F, int drop_block,
+                   E* dz, float* sums, int C, int N, int F, int drop_block,
                    void* stream) {
-  if (N < 1 || F < 1 || F % 4 || too_large(N, F) ||
+  if (bad_configs(C) || N < 1 || F < 1 || F % 4 || too_large(N, F) ||
       bad_dropout(seed, keep, mask) || misaligned(dh) || misaligned(r) ||
       misaligned(stats) || misaligned(mask) || misaligned(dz))
     return (int)cudaErrorInvalidValue;
-  chain_tail_bwd_kernel<E><<<cdiv(F, kTailCols), kTailThreads, 0,
+  chain_tail_bwd_kernel<E><<<dim3(cdiv(F, kTailCols), C), kTailThreads, 0,
                              (cudaStream_t)stream>>>(
       dh, r, stats, Dropout{seed, keep, mask, drop_block}, dz, sums, N, F);
   return (int)cudaGetLastError();
@@ -1526,17 +1611,19 @@ int tail_bwd_entry(const E* dh, const E* r, const float* stats,
 
 }  // namespace
 
-// `tiling` 0 or 1 picks FwdTile0 or FwdTile1. The _bf16 launchers take x,
-// w and r (K5b: dz, r, x, w and dx; the tails: x and h, dh, r and dz) as
-// bf16 bits, K and F multiples of 8; everything else as the f32 ones.
+// C configs' arrays one after another (the config axis above; C = 1 is one
+// config). `tiling` 0 or 1 picks FwdTile0 or FwdTile1. The _bf16 launchers
+// take x, w and r (K5b: dz, r, x, w and dx; the tails: x and h, dh, r and
+// dz) as bf16 bits, K and F multiples of 8; everything else as the f32
+// ones.
 extern "C" int dense_block_fwd_launch(
     const float* x, const float* w, const float* b, const float* gamma,
     const float* beta, const float* in_stats, const int* seed,
     const float* keep, const float* mask, float* r, float* partial,
-    unsigned* tickets, float* stats, int N, int K, int F, int wsk, int wsn,
-    int drop_block, int tiling, float eps, void* stream) {
+    unsigned* tickets, float* stats, int C, int N, int K, int F, int wsk,
+    int wsn, int drop_block, int tiling, float eps, void* stream) {
   return fwd_entry(x, w, b, gamma, beta, in_stats, seed, keep, mask, r,
-                   partial, tickets, stats, N, K, F, wsk, wsn, drop_block,
+                   partial, tickets, stats, C, N, K, F, wsk, wsn, drop_block,
                    tiling, eps, stream);
 }
 
@@ -1544,10 +1631,10 @@ extern "C" int dense_block_fwd_bf16_launch(
     const bf16_t* x, const bf16_t* w, const float* b, const float* gamma,
     const float* beta, const float* in_stats, const int* seed,
     const float* keep, const float* mask, bf16_t* r, float* partial,
-    unsigned* tickets, float* stats, int N, int K, int F, int wsk, int wsn,
-    int drop_block, int tiling, float eps, void* stream) {
+    unsigned* tickets, float* stats, int C, int N, int K, int F, int wsk,
+    int wsn, int drop_block, int tiling, float eps, void* stream) {
   return fwd_entry(x, w, b, gamma, beta, in_stats, seed, keep, mask, r,
-                   partial, tickets, stats, N, K, F, wsk, wsn, drop_block,
+                   partial, tickets, stats, C, N, K, F, wsk, wsn, drop_block,
                    tiling, eps, stream);
 }
 
@@ -1557,10 +1644,10 @@ extern "C" int dense_block_bwd_launch(
     const float* stats, const float* sums, const float* in_stats,
     const int* seed, const float* keep, const float* mask, float* dx,
     float* dw, float* db, float* out_sums, float* partial, unsigned* tickets,
-    int N, int K, int F, int wsk, int wsn, int drop_block, int tiling,
+    int C, int N, int K, int F, int wsk, int wsn, int drop_block, int tiling,
     void* stream) {
   return bwd_entry(dz, r, x, w, stats, sums, in_stats, seed, keep, mask, dx,
-                   dw, db, out_sums, partial, tickets, N, K, F, wsk, wsn,
+                   dw, db, out_sums, partial, tickets, C, N, K, F, wsk, wsn,
                    drop_block, tiling, stream);
 }
 
@@ -1569,10 +1656,10 @@ extern "C" int dense_block_bwd_bf16_launch(
     const float* stats, const float* sums, const float* in_stats,
     const int* seed, const float* keep, const float* mask, bf16_t* dx,
     float* dw, float* db, float* out_sums, float* partial, unsigned* tickets,
-    int N, int K, int F, int wsk, int wsn, int drop_block, int tiling,
+    int C, int N, int K, int F, int wsk, int wsn, int drop_block, int tiling,
     void* stream) {
   return bwd_entry(dz, r, x, w, stats, sums, in_stats, seed, keep, mask, dx,
-                   dw, db, out_sums, partial, tickets, N, K, F, wsk, wsn,
+                   dw, db, out_sums, partial, tickets, C, N, K, F, wsk, wsn,
                    drop_block, tiling, stream);
 }
 
@@ -1580,19 +1667,20 @@ extern "C" int dense_block_bwd_bf16_launch(
 // dropout of block `drop_block`'s output (seed and keep, or mask and keep).
 extern "C" int chain_tail_fwd_launch(const float* x, const float* stats,
                                      const int* seed, const float* keep,
-                                     const float* mask, float* h, int N,
-                                     int F, int drop_block, void* stream) {
-  return tail_fwd_entry(x, stats, seed, keep, mask, h, N, F, drop_block,
+                                     const float* mask, float* h, int C,
+                                     int N, int F, int drop_block,
+                                     void* stream) {
+  return tail_fwd_entry(x, stats, seed, keep, mask, h, C, N, F, drop_block,
                         stream);
 }
 
 extern "C" int chain_tail_fwd_bf16_launch(const bf16_t* x,
                                           const float* stats, const int* seed,
                                           const float* keep,
-                                          const float* mask, bf16_t* h, int N,
-                                          int F, int drop_block,
+                                          const float* mask, bf16_t* h,
+                                          int C, int N, int F, int drop_block,
                                           void* stream) {
-  return tail_fwd_entry(x, stats, seed, keep, mask, h, N, F, drop_block,
+  return tail_fwd_entry(x, stats, seed, keep, mask, h, C, N, F, drop_block,
                         stream);
 }
 
@@ -1601,9 +1689,9 @@ extern "C" int chain_tail_fwd_bf16_launch(const bf16_t* x,
 extern "C" int chain_tail_bwd_launch(const float* dh, const float* r,
                                      const float* stats, const int* seed,
                                      const float* keep, const float* mask,
-                                     float* dz, float* sums, int N, int F,
-                                     int drop_block, void* stream) {
-  return tail_bwd_entry(dh, r, stats, seed, keep, mask, dz, sums, N, F,
+                                     float* dz, float* sums, int C, int N,
+                                     int F, int drop_block, void* stream) {
+  return tail_bwd_entry(dh, r, stats, seed, keep, mask, dz, sums, C, N, F,
                         drop_block, stream);
 }
 
@@ -1611,9 +1699,9 @@ extern "C" int chain_tail_bwd_bf16_launch(const bf16_t* dh, const bf16_t* r,
                                           const float* stats, const int* seed,
                                           const float* keep,
                                           const float* mask, bf16_t* dz,
-                                          float* sums, int N, int F,
+                                          float* sums, int C, int N, int F,
                                           int drop_block, void* stream) {
-  return tail_bwd_entry(dh, r, stats, seed, keep, mask, dz, sums, N, F,
+  return tail_bwd_entry(dh, r, stats, seed, keep, mask, dz, sums, C, N, F,
                         drop_block, stream);
 }
 

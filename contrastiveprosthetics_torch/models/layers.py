@@ -15,6 +15,12 @@ the JAX package's flax BatchNorm does (``models/layers.py:91-113``):
   ``mutable=["batch_stats"]`` does; a calibration pass (``collect``)
   leaves them to its caller.
 
+Inside :func:`deferred_running_stats` a train-mode forward records its
+new running statistics instead of writing them, and its caller writes them
+once (:func:`write_running`): a rematerialized step's forward runs twice,
+and flax's momentum must apply once, as JAX's step returns the statistics
+beside its loss (``engine.py:373,389-390``).
+
 ``AdaBN`` (reference ``models.py:17-35``) wraps a stat-less BatchNorm in a
 ``.bn`` submodule and always normalizes with the current batch.
 
@@ -30,6 +36,7 @@ normalizes in f32 from a bf16 input and returns bf16 (flax 0.12.3's
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -37,6 +44,41 @@ import torch.nn.functional as F
 from torch import nn
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+# the (buffer, new value) pairs of the innermost deferred_running_stats,
+# or None: running statistics are written as they are computed
+_deferred: list | None = None
+
+
+@contextlib.contextmanager
+def deferred_running_stats():
+    """Within it, a train-mode BatchNorm (single or stacked) and the fused
+    chain append ``(buffer, new value)`` pairs of their running statistics
+    to the yielded list instead of writing them; the buffers are left as
+    they were (a train-mode forward never reads them)."""
+    global _deferred
+    outer, _deferred = _deferred, []
+    try:
+        yield _deferred
+    finally:
+        _deferred = outer
+
+
+@torch.no_grad()
+def set_running(buffers, values) -> None:
+    """Write new running statistics into their buffers (one foreach copy),
+    or record them inside :func:`deferred_running_stats`."""
+    if _deferred is not None:
+        _deferred.extend(zip(buffers, values))
+    else:
+        torch._foreach_copy_(list(buffers), list(values))
+
+
+@torch.no_grad()
+def write_running(pairs) -> None:
+    """Write the pairs a :func:`deferred_running_stats` recorded."""
+    for buffer, value in pairs:
+        buffer.copy_(value)
 
 
 class BatchNorm(nn.Module):
@@ -92,10 +134,10 @@ class BatchNorm(nn.Module):
                 collect.append((mean, var))
             elif self.training and self.track_running_stats:
                 with torch.no_grad():
-                    self.running_mean.copy_(
-                        update_running(self.running_mean, mean))
-                    self.running_var.copy_(
-                        update_running(self.running_var, var))
+                    set_running(
+                        (self.running_mean, self.running_var),
+                        (update_running(self.running_mean, mean),
+                         update_running(self.running_var, var)))
             return self.normalize(x, mean, var)
         return self.normalize(x, self.running_mean, self.running_var)
 

@@ -58,6 +58,7 @@ from contrastiveprosthetics_torch.models.glove_net import tower_mode
 from contrastiveprosthetics_torch.models.layers import (
     at_least_f32,
     low_product,
+    set_running,
     update_running,
 )
 
@@ -166,27 +167,39 @@ class StackedBatchNorm(nn.Module):
                                  torch.zeros(C, dtype=torch.int64,
                                              device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _dims(self):
+        """The axes the statistics take and a (C, F) vector's shape over
+        the input."""
         C, F = self.weight.shape
         if self.conv:  # statistics over rows and positions
-            dims, shape = (1, 2), (C, 1, 1, F)
-        else:          # statistics over rows
-            dims, shape = (1,), (C, 1, F)
-        if self.training or not self.track_running_stats:
-            var, mean = torch.var_mean(at_least_f32(x), dim=dims,
-                                       correction=0)
-            if self.training and self.track_running_stats:
-                with torch.no_grad():
-                    self.running_mean.copy_(
-                        update_running(self.running_mean, mean))
-                    self.running_var.copy_(
-                        update_running(self.running_var, var))
-        else:
-            mean, var = self.running_mean, self.running_var
+            return (1, 2), (C, 1, 1, F)
+        return (1,), (C, 1, F)  # statistics over rows
+
+    def batch_stats(self, x: torch.Tensor):
+        """Per (config, channel) (mean, biased var), (C, F) each, in f32."""
+        var, mean = torch.var_mean(at_least_f32(x), dim=self._dims()[0],
+                                   correction=0)
+        return mean, var
+
+    def normalize(self, x, mean, var) -> torch.Tensor:
+        """In f32, returned in ``x``'s dtype (``layers.BatchNorm``)."""
+        shape = self._dims()[1]
         mul = torch.rsqrt(var + self.eps) * self.weight
-        # a bf16 x: in f32, returned in bf16 (layers.BatchNorm.normalize)
         return ((x - mean.view(shape)) * mul.view(shape)
                 + self.bias.view(shape)).to(x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training or not self.track_running_stats:
+            mean, var = self.batch_stats(x)
+            if self.training and self.track_running_stats:
+                with torch.no_grad():
+                    set_running(
+                        (self.running_mean, self.running_var),
+                        (update_running(self.running_mean, mean),
+                         update_running(self.running_var, var)))
+        else:
+            mean, var = self.running_mean, self.running_var
+        return self.normalize(x, mean, var)
 
 
 class StackedAdaBN(nn.Module):
@@ -258,6 +271,11 @@ class StackedEMGNet(nn.Module):
         else:
             self.last = nn.Sequential(
                 StackedLinear(C, hidden, d_e, bias=False, **lin))
+
+    def norms(self) -> list[StackedBatchNorm]:
+        """Every BatchNorm in forward order (an AdaBN's inner one), as
+        ``EMGNet.norms``."""
+        return [m for m in self.modules() if isinstance(m, StackedBatchNorm)]
 
     def forward(self, frames: torch.Tensor, dropout: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -396,6 +414,13 @@ class StackedContrastiveModel(nn.Module):
         """The two trained parameter groups, as ``ContrastiveModel.towers``."""
         return {"emg_net": nn.Sequential() if self.glove else self.emg_net,
                 "glove_net": self.glove_net.trained()}
+
+    def encode_classes(self) -> torch.Tensor:
+        """(C, n_classes, d_e) normalized one-hot class embeddings, each
+        config's ``ContrastiveModel.encode_classes()`` (what the fused
+        encoder folds)."""
+        return l2_normalize(self.glove_net(torch.arange(
+            self.glove_net.n_classes, device=self.logit_scale.device)))
 
     def _class_rows(self, B: int, T: int, glove: torch.Tensor | None = None,
                     dp_glove: torch.Tensor | None = None,

@@ -58,6 +58,7 @@ import weakref
 import torch
 
 from contrastiveprosthetics_torch.config import INGEST_PRESCALE
+from contrastiveprosthetics_torch.models.stacked import StackedLinear
 from contrastiveprosthetics_torch.ops import _build
 
 NEG = torch.finfo(torch.float32).min  # the mask value of stream.py:268
@@ -82,50 +83,73 @@ def reset_launch_counts() -> None:
 CHAIN_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _vecmat(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``c @ w`` of a vector and a matrix, or of each config's ((C, K) by
+    (C, K, N)) one config at a time, so that a config's fold has the bits
+    of its own."""
+    if c.dim() == 1:
+        return c @ w
+    return torch.stack([ci @ wi for ci, wi in zip(c, w)])
+
+
+def _tile(t: torch.Tensor, P: int) -> torch.Tensor:
+    """A (.., F) vector repeated P times along its last axis."""
+    return t.repeat(*[1] * (t.dim() - 1), P)
+
+
 @torch.no_grad()
 def _fold_chain(emg_net, bn_affine, class_emb,
                 dtype) -> tuple[torch.Tensor, ...]:
     """EMGNet weights + a ``bn_affine(i) -> (a, c)`` policy -> the flat
     (A0, d0, ..., Ah, dh, Gt) chain; each BN affine goes into the next
     layer's weights (``pallas_ops.py:280-323``), in f32; then the weights
-    and Gt are cast to ``dtype``. Biases are 1-D f32."""
+    and Gt are cast to ``dtype``. Biases are 1-D f32. A ``StackedEMGNet``
+    of C configs (its parameters with a leading config axis, and
+    ``class_emb`` (C, n_classes, d_e)) folds each config as one would,
+    stacked: weights (C, K, N), biases (C, N), Gt (C, d_e, n_classes)."""
     if dtype not in CHAIN_DTYPES:
         raise ValueError(f"fold dtype {dtype}: want one of {CHAIN_DTYPES}")
     conv1, conv2 = emg_net.conv_emg[0], emg_net.conv_emg[3]
     # only the middle kernel row touches the 1x12 image
-    k1 = conv1.weight[:, 0, 1, :].T              # (3, F)
-    k2 = conv2.weight[:, :, 1, :].permute(2, 1, 0)  # (3, F_in, F_out)
-    F = k1.shape[1]
+    k1 = conv1.weight[..., 0, 1, :].transpose(-1, -2)  # (3, F)
+    # (3, F_in, F_out)
+    k2 = conv2.weight[..., 1, :].movedim(-1, -3).transpose(-1, -2)
+    lead = k1.shape[:-2]
+    F = k1.shape[-1]
     P = emg_net.emg_dim
-    m1 = k1.new_zeros((P, P * F))
-    m2 = k2.new_zeros((P * F, P * F))
+    m1 = k1.new_zeros((*lead, P, P * F))
+    m2 = k2.new_zeros((*lead, P * F, P * F))
     for p in range(P):
         for kw in range(3):
             ps = p + kw - 1  # source position (SAME padding)
             if 0 <= ps < P:
-                m1[ps, p * F:(p + 1) * F] = k1[kw]
-                m2[ps * F:(ps + 1) * F, p * F:(p + 1) * F] = k2[kw]
+                m1[..., ps, p * F:(p + 1) * F] = k1[..., kw, :]
+                m2[..., ps * F:(ps + 1) * F, p * F:(p + 1) * F] = \
+                    k2[..., kw, :, :]
 
-    layers = [(m1, conv1.bias.repeat(P))]
-    a, c = (t.repeat(P) for t in bn_affine(0))
-    layers.append((a[:, None] * m2, conv2.bias.repeat(P) + c @ m2))
-    a, c = (t.repeat(P) for t in bn_affine(1))
-    lin = [m for m in emg_net.linear if isinstance(m, torch.nn.Linear)]
+    layers = [(m1, _tile(conv1.bias, P))]
+    a, c = (_tile(t, P) for t in bn_affine(0))
+    layers.append((a[..., :, None] * m2,
+                   _tile(conv2.bias, P) + _vecmat(c, m2)))
+    a, c = (_tile(t, P) for t in bn_affine(1))
+    lin = [m for m in emg_net.linear
+           if isinstance(m, (torch.nn.Linear, StackedLinear))]
     for i, m in enumerate(lin):
         if i == 0:  # un-permute the reference's channel-major c*P+p input
-            w = (m.weight.reshape(-1, F, P).permute(2, 1, 0)
-                 .reshape(P * F, -1))  # (in, out), position-major p*F+c
+            # (in, out), position-major p*F+c
+            w = (m.weight.unflatten(-1, (F, P)).movedim(-3, -1)
+                 .transpose(-3, -2).flatten(-3, -2))
         else:
-            w = m.weight.T
-        layers.append((a[:, None] * w, m.bias + c @ w))
+            w = m.weight.transpose(-1, -2)
+        layers.append((a[..., :, None] * w, m.bias + _vecmat(c, w)))
         a, c = bn_affine(i + 2)
-    wh = emg_net.last[0].weight.T
-    layers.append((a[:, None] * wh, c @ wh))
+    wh = emg_net.last[0].weight.transpose(-1, -2)
+    layers.append((a[..., :, None] * wh, _vecmat(c, wh)))
     flat = []
     for w, b in layers:
         flat += [w.float().to(dtype).contiguous(), b.float().contiguous()]
     # Gt: (d_e, n_classes)
-    flat.append(class_emb.T.float().to(dtype).contiguous())
+    flat.append(class_emb.transpose(-1, -2).float().to(dtype).contiguous())
     return tuple(flat)
 
 
@@ -133,7 +157,9 @@ def fold_encoder_params(emg_net, class_emb, *, eps: float = 1e-5,
                         dtype: torch.dtype = torch.float32):
     """EMGNet (running statistics absorbed) + normalized class embeddings
     -> the chain :func:`fused_encoder_logits` takes, its weights in
-    ``dtype`` (``pallas_ops.py:326-351``)."""
+    ``dtype`` (``pallas_ops.py:326-351``). A ``StackedEMGNet`` and (C,
+    n_classes, d_e) class embeddings give each config's chain stacked on
+    a leading axis, config c's bit-equal to the fold of config c alone."""
     norms = emg_net.norms()
 
     def bn_affine(i):
@@ -206,17 +232,17 @@ _SIGNATURES = {
                              3, 4, False),
     "contrastive_loss_bwd": ("contrastive_loss", "contrastive_loss_bwd_launch",
                              5, 4, False),
-    "dense_block_fwd": ("train_fused", "dense_block_fwd_launch", 13, 7, True),
-    "dense_block_bwd": ("train_fused", "dense_block_bwd_launch", 16, 7, False),
-    "chain_tail_fwd": ("train_fused", "chain_tail_fwd_launch", 6, 3, False),
-    "chain_tail_bwd": ("train_fused", "chain_tail_bwd_launch", 8, 3, False),
+    "dense_block_fwd": ("train_fused", "dense_block_fwd_launch", 13, 8, True),
+    "dense_block_bwd": ("train_fused", "dense_block_bwd_launch", 16, 8, False),
+    "chain_tail_fwd": ("train_fused", "chain_tail_fwd_launch", 6, 4, False),
+    "chain_tail_bwd": ("train_fused", "chain_tail_bwd_launch", 8, 4, False),
     "dense_block_fwd_bf16": ("train_fused", "dense_block_fwd_bf16_launch", 13,
-                             7, True),
+                             8, True),
     "dense_block_bwd_bf16": ("train_fused", "dense_block_bwd_bf16_launch", 16,
-                             7, False),
-    "chain_tail_fwd_bf16": ("train_fused", "chain_tail_fwd_bf16_launch", 6, 3,
+                             8, False),
+    "chain_tail_fwd_bf16": ("train_fused", "chain_tail_fwd_bf16_launch", 6, 4,
                             False),
-    "chain_tail_bwd_bf16": ("train_fused", "chain_tail_bwd_bf16_launch", 8, 3,
+    "chain_tail_bwd_bf16": ("train_fused", "chain_tail_bwd_bf16_launch", 8, 4,
                             False),
     "dropout_masks": ("train_fused", "dropout_masks_launch", 3, 3, False),
     "philox_check": ("train_fused", "philox_check_launch", 4, 1, False),
@@ -235,7 +261,7 @@ def _fn(name: str):
             fn = getattr(_build.load("encoder_chain"), name + "_launch")
             fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p),
                             ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-                           + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p])
         else:
             library, symbol, n_ptr, n_int, has_float = _SIGNATURES[name]
@@ -468,16 +494,18 @@ def fused_encoder_logits_reference(frames, folded, affines=None):
     each hidden layer's ReLU. On a bf16 fold each dot rounds its
     activations to bf16 (:func:`_dot`); bias, ReLU, affine and the norm of
     ``e`` stay in the frames' precision (f32, or float64 given float64
-    frames and biases)."""
+    frames and biases). A stacked fold of C configs (``fold_encoder_params``
+    of a ``StackedEMGNet``) takes (C, N, emg_dim) frames, each config's
+    through its own chain, and gives (C, N, n_classes)."""
     *ws, gt = folded
     h = frames
     for j in range(0, len(ws) - 2, 2):
-        h = torch.relu(_dot(h, ws[j]) + ws[j + 1])
+        h = torch.relu(_dot(h, ws[j]) + ws[j + 1].unsqueeze(-2))
         if affines is not None:
             a, c = affines[j], affines[j + 1]
             S = a.shape[0]
             h = (h.view(-1, S, h.shape[1]) * a + c).view(-1, h.shape[1])
-    e = _dot(h, ws[-2]) + ws[-1]
+    e = _dot(h, ws[-2]) + ws[-1].unsqueeze(-2)
     e = e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
     return _dot(e, gt)
 
@@ -492,6 +520,7 @@ ENCODER_SMALL_ROWS = 640
 ENCODER_SMALL_ROWS_BF16 = 384
 ENCODER_MAX_K = 2048  # the small tiling stages a 16-row A and K x 8 of W
 ENCODER_MAX_E = 32    # the head's embedding width held per lane
+ENCODER_MAX_C = 65535  # configs: a grid dimension
 
 
 def encoder_regime(M: int, dtype: torch.dtype = torch.float32) -> int:
@@ -506,11 +535,13 @@ class EncoderPlan:
     """A folded chain (and per-session affines) checked once for the
     ``encoder_chain`` kernels, with its launch table: the layer pointers and
     widths as ctypes arrays, and the chain's dtype (f32 or bf16), which
-    picks the kernel variant. Holds its tensors by weak reference."""
+    picks the kernel variant; ``configs`` () for one chain, (C,) for a
+    stacked fold of C. Holds its tensors by weak reference."""
 
-    def __init__(self, folded, affines, device, tensors, widths):
+    def __init__(self, folded, affines, device, tensors, widths, configs=()):
         self.refs = tuple(weakref.ref(t) for t in (*folded, *(affines or ())))
         self.device = device
+        self.configs = tuple(configs)
         self.dtype = folded[0].dtype
         self.n_hidden = len(widths) - 3
         self.S = affines[0].shape[0] if affines is not None else 1
@@ -541,7 +572,8 @@ def encoder_plan(folded, affines=None) -> EncoderPlan:
     rows of 16 bytes), a pointer that is not 16-byte aligned, K above
     ``ENCODER_MAX_K`` or E above ``ENCODER_MAX_E``. A chain's weights and
     Gt are all f32 or all bf16 (the dtype of the first weight); its
-    biases and affines are f32 in both."""
+    biases and affines are f32 in both. A stacked fold of C configs has
+    every tensor with a leading axis of C, and no affines."""
     *ws, gt = folded
     n_hidden = (len(ws) - 2) // 2
     if len(ws) % 2 or n_hidden < 1:
@@ -549,13 +581,17 @@ def encoder_plan(folded, affines=None) -> EncoderPlan:
                          "per hidden layer, Wh, bh and Gt")
     if affines is not None and len(affines) != 2 * n_hidden:
         raise ValueError(f"{len(affines)} affines for {n_hidden} layers")
+    lead = tuple(ws[0].shape[:-2])
+    if lead and (affines is not None or not 1 <= lead[0] <= ENCODER_MAX_C):
+        raise ValueError(f"a stacked fold of {lead[0]} configs: the kernels "
+                         f"take 1 to {ENCODER_MAX_C} and no affines")
     dev = gt.device
     wt = ws[0].dtype
     if wt not in CHAIN_DTYPES:
         raise ValueError(f"w0: dtype {wt}, want one of {CHAIN_DTYPES}")
     vec = 8 if wt == torch.bfloat16 else 4  # elements in 16 bytes
     S = affines[0].shape[0] if affines is not None else 1
-    K = ws[0].shape[0]
+    K = ws[0].shape[-2]
     widths, tensors = [K], []
     for j in range(n_hidden):
         w, b = ws[2 * j], ws[2 * j + 1]
@@ -565,8 +601,8 @@ def encoder_plan(folded, affines=None) -> EncoderPlan:
             raise ValueError(f"layer {j}: K={K}, N={N}; the kernels take "
                              f"multiples of {vec} (the frames' K: of 4) and "
                              f"K <= {ENCODER_MAX_K}")
-        _expect_aligned(f"w{j}", w, (K, N), dev, wt)
-        _expect_aligned(f"b{j}", b, (N,), dev)
+        _expect_aligned(f"w{j}", w, (*lead, K, N), dev, wt)
+        _expect_aligned(f"b{j}", b, (*lead, N), dev)
         a = c = None
         if affines is not None:
             a, c = affines[2 * j], affines[2 * j + 1]
@@ -580,11 +616,11 @@ def encoder_plan(folded, affines=None) -> EncoderPlan:
     if E > ENCODER_MAX_E or E % 4:
         raise ValueError(f"embedding width {E}: the head takes multiples of "
                          f"4 up to {ENCODER_MAX_E}")
-    _expect_aligned("wh", wh, (K, E), dev, wt)
-    _expect("bh", bh, (E,), torch.float32, dev)
-    _expect("gt", gt, (E, C), wt, dev)
+    _expect_aligned("wh", wh, (*lead, K, E), dev, wt)
+    _expect("bh", bh, (*lead, E), torch.float32, dev)
+    _expect("gt", gt, (*lead, E, C), wt, dev)
     return EncoderPlan(folded, affines, dev, tensors + [wh, bh, gt],
-                       widths + [E, C])
+                       widths + [E, C], lead)
 
 
 _plans: dict = {}
@@ -605,22 +641,27 @@ def encoder_chain(frames, plan: EncoderPlan, regime: int) -> torch.Tensor:
     """One ``encoder_chain_launch`` call on ``frames`` (M, K_0) f32, or
     ``encoder_chain_bf16_launch`` for a bf16 plan: every layer launch and
     the head launch, in the tiling ``regime``. The bf16 variant keeps the
-    activations between layers in a bf16 scratch."""
-    M = frames.shape[0]
-    _expect_aligned("frames", frames, (M, plan.widths[0]), plan.device)
+    activations between layers in a bf16 scratch. A stacked plan of C
+    configs takes (C, M, K_0) frames and gives (C, M, n_classes), each
+    layer and the head one launch for all C."""
+    lead = plan.configs
+    M = frames.shape[-2]
+    _expect_aligned("frames", frames, (*lead, M, plan.widths[0]),
+                    plan.device)
     if M % plan.S:
         raise ValueError(f"{M} rows are not whole ticks of {plan.S} sessions")
-    scores = torch.empty((M, plan.widths[-1]), dtype=torch.float32,
+    scores = torch.empty((*lead, M, plan.widths[-1]), dtype=torch.float32,
                          device=plan.device)
     if M == 0:
         return scores
     name = ("encoder_chain_bf16" if plan.dtype == torch.bfloat16
             else "encoder_chain")
-    scratch = torch.empty((2, M, plan.max_n), dtype=plan.dtype,
+    C = lead[0] if lead else 1
+    scratch = torch.empty((2, C, M, plan.max_n), dtype=plan.dtype,
                           device=plan.device)
     rc = _fn(name)(plan.table, plan.dims, plan.n_hidden, frames.data_ptr(),
-                   scratch.data_ptr(), scores.data_ptr(), M, plan.S, regime,
-                   _stream(plan.device))
+                   scratch.data_ptr(), scores.data_ptr(), M, C, plan.S,
+                   regime, _stream(plan.device))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     launch_counts[name] += plan.n_hidden + 1
@@ -631,13 +672,14 @@ def fused_encoder_logits(frames, folded, affines=None):
     """The ``encoder_chain`` kernels (see
     :func:`fused_encoder_logits_reference`): one host call launches one
     tensor-core layer kernel per hidden layer and the head, in the tiling
-    :func:`encoder_regime` picks from the row count; 3xTF32 on an f32
-    chain, one bf16 pass on a bf16 chain."""
+    :func:`encoder_regime` picks from the row count (a config's, on a
+    stacked fold); 3xTF32 on an f32 chain, one bf16 pass on a bf16
+    chain."""
     if frames.device.type == "cpu":
         return fused_encoder_logits_reference(frames, folded, affines)
     plan = _plan_for(folded, affines)
     return encoder_chain(frames, plan,
-                         encoder_regime(frames.shape[0], plan.dtype))
+                         encoder_regime(frames.shape[-2], plan.dtype))
 
 
 # --------------------------------------------------------------- vote_scan

@@ -33,6 +33,15 @@ the backward redraws the forward's bits and ``dropout_masks`` replays
 them. ``mask_mode="input"`` feeds explicit masks through the same kernels
 instead, for the tests.
 
+The config axis (the crossval sweep's stacked step, the JAX package's
+``jax.vmap`` of ``fused_emg_embed``): every kernel wrapper and plain
+version also takes C configs at once, each array with a leading axis of C
+(x (C, N, K), w (C, K, F), statistics (C, 5, F), seeds (C, 2), ``keep``
+(C,), one rate a config), and launches once for all of them; config c's
+outputs are bit-equal to a call on config c alone. The chain
+(:func:`fused_dense_chain`) and :func:`fused_emg_embed` take a
+``StackedEMGNet`` the same way.
+
 Every wrapper has its plain PyTorch version beside it (``*_reference``).
 Given CPU tensors a wrapper runs the plain version; given CUDA tensors it
 launches its kernel or raises. Launches count in
@@ -62,11 +71,13 @@ import torch
 
 from contrastiveprosthetics_torch.models.layers import (
     COMPUTE_DTYPES,
-    AdaBN,
-    BatchNorm,
     at_least_f32,
     bf16_values,
     low_precision,
+)
+from contrastiveprosthetics_torch.models.stacked import (
+    StackedEMGNet,
+    StackedLinear,
 )
 from contrastiveprosthetics_torch.ops import kernels as K
 
@@ -124,24 +135,28 @@ def mask_bits(seed: torch.Tensor, n_rows: int, width: int,
               block: int) -> torch.Tensor:
     """(n_rows, width) int64: the 32 random bits of each element of block
     ``block``'s mask. Key = the two seed words, counter = (column // 4,
-    row, block, 0); one Philox call covers four neighbouring columns."""
+    row, block, 0); one Philox call covers four neighbouring columns.
+    Seeds (C, 2) give (C, n_rows, width), config c's from its words."""
     dev = seed.device
     words = seed.to(torch.int64) & U32
+    lead = words.shape[:-1]
     groups = -(-width // 4)
     c0 = torch.arange(groups, device=dev, dtype=torch.int64)[None, :]
     c1 = torch.arange(n_rows, device=dev, dtype=torch.int64)[:, None]
     c2 = torch.full((1, 1), block, device=dev, dtype=torch.int64)
     out = philox4x32_10((c0, c1, c2, torch.zeros_like(c2)),
-                        (words[0], words[1]))
+                        (words[..., 0, None, None], words[..., 1, None, None]))
     bits = torch.stack(torch.broadcast_tensors(*out), dim=-1)
-    return bits.reshape(n_rows, 4 * groups)[:, :width]
+    return bits.reshape(*lead, n_rows, 4 * groups)[..., :width]
 
 
 def dropout_masks_reference(seed, keep, n_rows: int, width: int,
                             block: int) -> torch.Tensor:
     """Plain version of ``dropout_masks``: block ``block``'s {0,1} f32 mask,
-    (n_rows, width)."""
-    thr = keep_threshold(keep).to(seed.device).reshape(())
+    (n_rows, width); or each config's, (C, n_rows, width), for seeds (C,
+    2) and ``keep`` (C,)."""
+    thr = keep_threshold(keep).to(seed.device).reshape(
+        *seed.shape[:-1], 1, 1)
     return (mask_bits(seed, n_rows, width, block) <= thr).to(torch.float32)
 
 
@@ -182,11 +197,26 @@ def philox_check(counters: torch.Tensor, keys: torch.Tensor):
 
 
 # ------------------------------------------------------- one dense block
+# The plain versions take one config's arrays, or C configs' with a leading
+# axis; a (.., F) vector or a statistics row broadcasts over the rows as
+# (1, F) or (C, 1, F).
 def _col_sum(t: torch.Tensor) -> torch.Tensor:
-    """Column sums taken in f64 and rounded once: the CPU's sequential sum
-    over thousands of rows would lose digits that XLA's pairwise sums and
-    the kernels' per-tile sums keep."""
-    return t.sum(0, dtype=torch.float64).to(torch.float32)
+    """Column sums over the rows taken in f64 and rounded once (to f32; a
+    float64 input's stay float64): the CPU's sequential sum over thousands
+    of rows would lose digits that XLA's pairwise sums and the kernels'
+    per-tile sums keep."""
+    return t.sum(-2, dtype=torch.float64).to(
+        torch.promote_types(t.dtype, torch.float32))
+
+
+def _stat(stats: torch.Tensor, i: int) -> torch.Tensor:
+    """Row ``i`` of (.., 5, F) statistics as a row over the rows."""
+    return stats[..., i:i + 1, :]
+
+
+def _keep_rows(keep: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``keep`` (1,) or (C,) as a factor over x's (.., N, K)."""
+    return keep if x.dim() == 2 else keep.view(-1, 1, 1)
 
 
 def _kept(shape, seed, keep, mask, drop_block):
@@ -195,7 +225,7 @@ def _kept(shape, seed, keep, mask, drop_block):
     if keep is None:
         return None
     if mask is None:
-        mask = dropout_masks_reference(seed, keep, *shape, drop_block)
+        mask = dropout_masks_reference(seed, keep, *shape[-2:], drop_block)
     return mask > 0
 
 
@@ -203,11 +233,11 @@ def _block_input(x, in_stats, seed, keep, mask, drop_block):
     """h = dropout(a x + c): the previous block's BatchNorm affine
     (``in_stats`` rows 3, 4) and dropout, as the kernels apply them on
     load. Returns h and the kept elements (None without dropout)."""
-    z = x if in_stats is None else x * in_stats[3] + in_stats[4]
+    z = x if in_stats is None else x * _stat(in_stats, 3) + _stat(in_stats, 4)
     kept = _kept(x.shape, seed, keep, mask, drop_block)
     if kept is None:
         return z, None
-    return torch.where(kept, z / keep, 0.0), kept
+    return torch.where(kept, z / _keep_rows(keep, x), 0.0), kept
 
 
 def dense_block_fwd_reference(x, w, b, gamma, beta, in_stats=None, *,
@@ -220,7 +250,8 @@ def dense_block_fwd_reference(x, w, b, gamma, beta, in_stats=None, *,
     the previous block's (5, K) statistics, whose affine (rows 3, 4) is
     applied to ``x``; dropout on the input when ``keep`` is given, with
     ``mask`` or the bits of block ``drop_block`` drawn from ``seed``.
-    Returns r (N, F) and stats (5, F): mean, var, rstd, a, c.
+    Returns r (N, F) and stats (5, F): mean, var, rstd, a, c. Or each of
+    them with a leading axis of C configs.
 
     bf16 ``x`` and ``w`` (``_fwd_block_kernel`` with ``cdtype`` bf16): h
     computed in f32 and rounded to bf16, f32 sums of the exact products,
@@ -231,16 +262,16 @@ def dense_block_fwd_reference(x, w, b, gamma, beta, in_stats=None, *,
                         drop_block)
     if low:
         h, w = bf16_values(h), w.float()
-    r = torch.relu(h @ w + b)
+    r = torch.relu(h @ w + b.unsqueeze(-2))
     if low:
         r = r.to(BF16)
     rf = at_least_f32(r)
-    n = rf.new_tensor(float(r.shape[0]))  # a tensor: exact division on CUDA
+    n = rf.new_tensor(float(r.shape[-2]))  # a tensor: exact division on CUDA
     mean = _col_sum(rf) / n
     var = torch.clamp(_col_sum(rf * rf) / n - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + eps)
     a = gamma * rstd
-    return r, torch.stack([mean, var, rstd, a, beta - mean * a])
+    return r, torch.stack([mean, var, rstd, a, beta - mean * a], -2)
 
 
 def dense_block_bwd_reference(dz, r, x, w, stats, sums, in_stats=None, *,
@@ -264,35 +295,50 @@ def dense_block_bwd_reference(dz, r, x, w, stats, sums, in_stats=None, *,
     in f32 and the lower block's sums are taken from that f32 dh, which is
     returned rounded to bf16 as dx."""
     low = dz.dtype == BF16
-    mean, _, rstd, a, _ = stats
-    inv_n = 1.0 / stats.new_tensor(float(dz.shape[0]))
+    mean, rstd, a = (_stat(stats, i) for i in (0, 2, 3))
+    inv_n = 1.0 / stats.new_tensor(float(dz.shape[-2]))
     rf, xf = at_least_f32(r), at_least_f32(x)
     xn = (rf - mean) * rstd
-    t = at_least_f32(dz) - sums[0] * inv_n - xn * (sums[1] * inv_n)
+    t = (at_least_f32(dz) - _stat(sums, 0) * inv_n
+         - xn * (_stat(sums, 1) * inv_n))
     dy = torch.where(rf > 0, a * t, 0.0)
     h, kept = _block_input(xf, in_stats, seed, keep, mask, drop_block)
     dyc = dy
     if low:
         dyc, h, w = bf16_values(dy), bf16_values(h), w.float()
-    dx = dyc @ w.T
+    dx = dyc @ w.transpose(-1, -2)
     if kept is not None:
-        dx = torch.where(kept, dx / keep, 0.0)
-    dw = torch.empty_like(w, dtype=dy.dtype).copy_(h.T @ dyc)
+        dx = torch.where(kept, dx / _keep_rows(keep, dx), 0.0)
+    dw = torch.empty_like(w, dtype=dy.dtype).copy_(h.transpose(-1, -2) @ dyc)
     out_sums = None
     if in_stats is not None:
-        xn_in = (xf - in_stats[0]) * in_stats[2]
-        out_sums = torch.stack([_col_sum(dx), _col_sum(dx * xn_in)])
+        xn_in = (xf - _stat(in_stats, 0)) * _stat(in_stats, 2)
+        out_sums = torch.stack([_col_sum(dx), _col_sum(dx * xn_in)], -2)
     return dx.to(dz.dtype) if low else dx, dw, _col_sum(dy), out_sums
 
 
 def _check_weight(w, shape, dtype, dev):
-    """``w`` may be row-major or the transpose of a row-major tensor (a
-    Linear weight's ``.T``); returns its element strides."""
+    """``w`` (K, F), or (C, K, F) with configs K * F elements apart: each
+    config's row-major or the transpose of a row-major tensor (a Linear
+    weight's ``.T``, a ``StackedLinear`` weight's ``.transpose(1, 2)``);
+    returns the element strides within a config."""
     if tuple(w.shape) != tuple(shape) or w.dtype != dtype or w.device != dev:
         K._expect("w", w, shape, dtype, dev)
-    if not (w.is_contiguous() or w.T.is_contiguous()):
+    Kw, F = shape[-2:]
+    sk, sn = w.stride()[-2:]
+    if (sk, sn) not in ((F, 1), (1, Kw)) or (w.dim() == 3 and w.shape[0] > 1
+                                             and w.stride(0) != Kw * F):
         raise ValueError("w: neither contiguous nor a contiguous transpose")
-    return w.stride()
+    return sk, sn
+
+
+def _configs(x: torch.Tensor, name: str) -> tuple:
+    """The leading config axis of ``x``: () for one config's (N, K), (C,)
+    for C configs' (C, N, K)."""
+    if x.dim() not in (2, 3):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, want (N, K) or "
+                         "(C, N, K)")
+    return tuple(x.shape[:-2])
 
 
 def _kernel_dtype(t: torch.Tensor) -> torch.dtype:
@@ -324,26 +370,29 @@ def _check_tiled(K_in: int, F: int, tiling: int, *tensors,
             raise ValueError("an input is not 16-byte aligned")
 
 
-def _check_dropout(seed, keep, mask, shape, dev):
+def _check_dropout(seed, keep, mask, shape, dev, lead=()):
+    """One config's seed (2,) and keep (1,), or C configs' (C, 2) and
+    (C,); the mask (.., N, K) as the input."""
     if keep is None:
         if seed is not None or mask is not None:
             raise ValueError("seed or mask given without keep")
         return
-    K._expect("keep", keep, (1,), torch.float32, dev)
+    K._expect("keep", keep, lead or (1,), torch.float32, dev)
     if mask is not None:
-        K._expect("mask", mask, shape, torch.float32, dev)
+        K._expect("mask", mask, (*lead, *shape), torch.float32, dev)
     elif seed is None:
         raise ValueError("dropout needs a seed or a mask")
     else:
-        K._expect("seed", seed, (2,), torch.int32, dev)
+        K._expect("seed", seed, (*lead, 2), torch.int32, dev)
 
 
 _tickets: dict = {}
 
 
 def _zeroed_tickets(dev: torch.device, n: int) -> torch.Tensor:
-    """One zeroed int32 counter per column strip. The kernels reset each
-    counter they use, so one buffer serves every launch on the stream."""
+    """One zeroed int32 counter per column strip of each config. The
+    kernels reset each counter they use, so one buffer serves every launch
+    on the stream."""
     t = _tickets.get(dev)
     if t is None or t.numel() < n:
         t = _tickets[dev] = torch.zeros(max(n, 64), dtype=torch.int32,
@@ -357,37 +406,38 @@ def dense_block_fwd(x, w, b, gamma, beta, in_stats=None, *, seed=None,
     """The ``dense_block_fwd`` kernel (K5f), or ``dense_block_fwd_bf16``
     for bf16 ``x`` and ``w``; see :func:`dense_block_fwd_reference`.
     ``tiling`` picks one of the kernel's two tilings (for tests and
-    timing); both give the same r."""
+    timing); both give the same r. C configs' arrays (a leading axis)
+    run in one launch."""
     if x.device.type == "cpu":
         return dense_block_fwd_reference(
             x, w, b, gamma, beta, in_stats, seed=seed, keep=keep, mask=mask,
             drop_block=drop_block, eps=eps)
     dev = x.device
-    if x.dim() != 2:
-        raise ValueError(f"x: shape {tuple(x.shape)}, want (N, K)")
-    N, Kw = x.shape
+    lead = _configs(x, "x")
+    C = lead[0] if lead else 1
+    N, Kw = x.shape[-2:]
     F = w.shape[-1]
     dtype = _kernel_dtype(x)
-    K._expect("x", x, (N, Kw), dtype, dev)
-    wsk, wsn = _check_weight(w, (Kw, F), dtype, dev)
+    K._expect("x", x, (*lead, N, Kw), dtype, dev)
+    wsk, wsn = _check_weight(w, (*lead, Kw, F), dtype, dev)
     for name, t in (("b", b), ("gamma", gamma), ("beta", beta)):
-        K._expect(name, t, (F,), torch.float32, dev)
+        K._expect(name, t, (*lead, F), torch.float32, dev)
     if in_stats is not None:
-        K._expect("in_stats", in_stats, (5, Kw), torch.float32, dev)
-    _check_dropout(seed, keep, mask, (N, Kw), dev)
+        K._expect("in_stats", in_stats, (*lead, 5, Kw), torch.float32, dev)
+    _check_dropout(seed, keep, mask, (N, Kw), dev, lead)
     _check_tiled(Kw, F, tiling, x, w, b, in_stats, mask, dtype=dtype)
-    r = torch.empty((N, F), dtype=dtype, device=dev)
-    stats = torch.empty((5, F), dtype=torch.float32, device=dev)
+    r = torch.empty((*lead, N, F), dtype=dtype, device=dev)
+    stats = torch.empty((*lead, 5, F), dtype=torch.float32, device=dev)
     bm, bn = FWD_TILES[tiling]
-    partial = torch.empty((-(-N // bm), 2, F), dtype=torch.float32,
+    partial = torch.empty((C, -(-N // bm), 2, F), dtype=torch.float32,
                           device=dev)
-    tickets = _zeroed_tickets(dev, -(-F // bn))
+    tickets = _zeroed_tickets(dev, C * -(-F // bn))
     name = _variant("dense_block_fwd", dtype)
     K._launch(name, name, K._ptr(x), K._ptr(w),
               K._ptr(b), K._ptr(gamma), K._ptr(beta), K._ptr(in_stats),
               K._ptr(seed), K._ptr(keep), K._ptr(mask), K._ptr(r),
-              K._ptr(partial), K._ptr(tickets), K._ptr(stats), N, Kw, F, wsk,
-              wsn, drop_block, tiling, eps, K._stream(dev))
+              K._ptr(partial), K._ptr(tickets), K._ptr(stats), C, N, Kw, F,
+              wsk, wsn, drop_block, tiling, eps, K._stream(dev))
     return r, stats
 
 
@@ -398,42 +448,46 @@ def dense_block_bwd(dz, r, x, w, stats, sums, in_stats=None, *, seed=None,
     launch, or ``dense_block_bwd_bf16`` for bf16 ``dz``, ``r``, ``x`` and
     ``w`` (dW and db f32 either way); see
     :func:`dense_block_bwd_reference`. ``tiling`` as for
-    :func:`dense_block_fwd`."""
+    :func:`dense_block_fwd`; C configs as there."""
     if dz.device.type == "cpu":
         return dense_block_bwd_reference(
             dz, r, x, w, stats, sums, in_stats, seed=seed, keep=keep,
             mask=mask, drop_block=drop_block)
     dev = dz.device
-    if dz.dim() != 2 or x.dim() != 2:
-        raise ValueError("dz and x must be (N, F) and (N, K)")
-    N, F = dz.shape
-    Kw = x.shape[1]
+    lead = _configs(dz, "dz")
+    if x.dim() != dz.dim():
+        raise ValueError("dz and x must be (N, F) and (N, K), or (C, N, F) "
+                         "and (C, N, K)")
+    C = lead[0] if lead else 1
+    N, F = dz.shape[-2:]
+    Kw = x.shape[-1]
     dtype = _kernel_dtype(dz)
-    K._expect("dz", dz, (N, F), dtype, dev)
-    K._expect("r", r, (N, F), dtype, dev)
-    K._expect("x", x, (N, Kw), dtype, dev)
-    wsk, wsn = _check_weight(w, (Kw, F), dtype, dev)
-    K._expect("stats", stats, (5, F), torch.float32, dev)
-    K._expect("sums", sums, (2, F), torch.float32, dev)
+    K._expect("dz", dz, (*lead, N, F), dtype, dev)
+    K._expect("r", r, (*lead, N, F), dtype, dev)
+    K._expect("x", x, (*lead, N, Kw), dtype, dev)
+    wsk, wsn = _check_weight(w, (*lead, Kw, F), dtype, dev)
+    K._expect("stats", stats, (*lead, 5, F), torch.float32, dev)
+    K._expect("sums", sums, (*lead, 2, F), torch.float32, dev)
     if in_stats is not None:
-        K._expect("in_stats", in_stats, (5, Kw), torch.float32, dev)
-    _check_dropout(seed, keep, mask, (N, Kw), dev)
+        K._expect("in_stats", in_stats, (*lead, 5, Kw), torch.float32, dev)
+    _check_dropout(seed, keep, mask, (N, Kw), dev, lead)
     _check_tiled(Kw, F, tiling, dz, r, x, w, in_stats, mask, dtype=dtype)
-    dx = torch.empty((N, Kw), dtype=dtype, device=dev)
+    dx = torch.empty((*lead, N, Kw), dtype=dtype, device=dev)
     dw = torch.empty_like(w, dtype=torch.float32)  # the strides of w
-    db = torch.empty((F,), dtype=torch.float32, device=dev)
+    db = torch.empty((*lead, F), dtype=torch.float32, device=dev)
     out_sums = partial = None
     if in_stats is not None:
-        out_sums = torch.empty((2, Kw), dtype=torch.float32, device=dev)
-        partial = torch.empty((-(-N // DGRAD_TILES[tiling][0]), 2, Kw),
+        out_sums = torch.empty((*lead, 2, Kw), dtype=torch.float32,
+                               device=dev)
+        partial = torch.empty((C, -(-N // DGRAD_TILES[tiling][0]), 2, Kw),
                               dtype=torch.float32, device=dev)
-    tickets = _zeroed_tickets(dev, -(-Kw // DGRAD_TILES[tiling][1]))
+    tickets = _zeroed_tickets(dev, C * -(-Kw // DGRAD_TILES[tiling][1]))
     name = _variant("dense_block_bwd", dtype)
     K._launch(name, name, K._ptr(dz), K._ptr(r),
               K._ptr(x), K._ptr(w), K._ptr(stats), K._ptr(sums),
               K._ptr(in_stats), K._ptr(seed), K._ptr(keep), K._ptr(mask),
               K._ptr(dx), K._ptr(dw), K._ptr(db), K._ptr(out_sums),
-              K._ptr(partial), K._ptr(tickets), N, Kw, F, wsk, wsn,
+              K._ptr(partial), K._ptr(tickets), C, N, Kw, F, wsk, wsn,
               drop_block, tiling, K._stream(dev))
     return dx, dw, db, out_sums
 
@@ -460,31 +514,33 @@ def chain_tail_bwd_reference(dh, r, stats, *, seed=None, keep=None,
     f32 values, then dz rounded once to bf16."""
     kept = _kept(dh.shape, seed, keep, mask, drop_block)
     g = at_least_f32(dh)
-    dz = g if kept is None else torch.where(kept, g / keep, 0.0)
-    xn = (at_least_f32(r) - stats[0]) * stats[2]
-    return dz.to(dh.dtype), torch.stack([_col_sum(dz), _col_sum(dz * xn)])
+    dz = g if kept is None else torch.where(kept, g / _keep_rows(keep, g),
+                                            0.0)
+    xn = (at_least_f32(r) - _stat(stats, 0)) * _stat(stats, 2)
+    return dz.to(dh.dtype), torch.stack([_col_sum(dz), _col_sum(dz * xn)],
+                                        -2)
 
 
 def _check_tail(stats, seed, keep, mask, **arrays):
-    """What the tail kernels take: ``arrays`` (N, F) of one dtype (f32, or
-    bf16 for the ``_bf16`` variants) with F % 4 == 0, (5, F) f32
-    statistics, 16-byte aligned arrays. Returns (N, F)."""
+    """What the tail kernels take: ``arrays`` (N, F), or (C, N, F), of one
+    dtype (f32, or bf16 for the ``_bf16`` variants) with F % 4 == 0, (..,
+    5, F) f32 statistics, 16-byte aligned arrays. Returns (C, N, F), C 1
+    for one config's."""
     name, t = next(iter(arrays.items()))
-    if t.dim() != 2:
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, want (N, F)")
-    N, F = t.shape
+    lead = _configs(t, name)
+    N, F = t.shape[-2:]
     dev = t.device
     dtype = _kernel_dtype(t)
     for name, a in arrays.items():
-        K._expect(name, a, (N, F), dtype, dev)
-    K._expect("stats", stats, (5, F), torch.float32, dev)
-    _check_dropout(seed, keep, mask, (N, F), dev)
+        K._expect(name, a, (*lead, N, F), dtype, dev)
+    K._expect("stats", stats, (*lead, 5, F), torch.float32, dev)
+    _check_dropout(seed, keep, mask, (N, F), dev, lead)
     if F % 4:
         raise ValueError(f"width {F}: the tail kernels take multiples of 4")
     for a in (*arrays.values(), stats, mask):
         if a is not None and a.data_ptr() % 16:
             raise ValueError("an input is not 16-byte aligned")
-    return N, F
+    return (lead[0] if lead else 1), N, F
 
 
 def chain_tail_fwd(x, stats, *, seed=None, keep=None, mask=None,
@@ -495,11 +551,11 @@ def chain_tail_fwd(x, stats, *, seed=None, keep=None, mask=None,
     if x.device.type == "cpu":
         return chain_tail_fwd_reference(x, stats, seed=seed, keep=keep,
                                         mask=mask, drop_block=drop_block)
-    N, F = _check_tail(stats, seed, keep, mask, x=x)
+    C, N, F = _check_tail(stats, seed, keep, mask, x=x)
     h = torch.empty_like(x)
     name = _variant("chain_tail_fwd", x.dtype)
     K._launch(name, name, K._ptr(x), K._ptr(stats),
-              K._ptr(seed), K._ptr(keep), K._ptr(mask), K._ptr(h), N, F,
+              K._ptr(seed), K._ptr(keep), K._ptr(mask), K._ptr(h), C, N, F,
               drop_block, K._stream(x.device))
     return h
 
@@ -513,13 +569,14 @@ def chain_tail_bwd(dh, r, stats, *, seed=None, keep=None, mask=None,
     if dh.device.type == "cpu":
         return chain_tail_bwd_reference(dh, r, stats, seed=seed, keep=keep,
                                         mask=mask, drop_block=drop_block)
-    N, F = _check_tail(stats, seed, keep, mask, dh=dh, r=r)
+    C, N, F = _check_tail(stats, seed, keep, mask, dh=dh, r=r)
     dz = torch.empty_like(dh)
-    sums = torch.empty((2, F), dtype=torch.float32, device=dh.device)
+    sums = torch.empty((*dh.shape[:-2], 2, F), dtype=torch.float32,
+                       device=dh.device)
     name = _variant("chain_tail_bwd", dh.dtype)
     K._launch(name, name, K._ptr(dh), K._ptr(r),
               K._ptr(stats), K._ptr(seed), K._ptr(keep), K._ptr(mask),
-              K._ptr(dz), K._ptr(sums), N, F, drop_block,
+              K._ptr(dz), K._ptr(sums), C, N, F, drop_block,
               K._stream(dh.device))
     return dz, sums
 
@@ -561,8 +618,8 @@ class _FusedDenseChain(torch.autograd.Function):
             stats.append(st)
             x, in_stats = r, st
         h = chain_tail_fwd(x, in_stats, **chain.dropout(L, seed, keep, masks))
-        means = torch.stack([s[0] for s in stats])
-        variances = torch.stack([s[1] for s in stats])
+        means = torch.stack([s[..., 0, :] for s in stats], -2)
+        variances = torch.stack([s[..., 1, :] for s in stats], -2)
         ctx.chain = chain
         ctx.save_for_backward(x0, seed, keep, *ws, *rs, *stats, *masks)
         ctx.mark_non_differentiable(means, variances)
@@ -580,7 +637,7 @@ class _FusedDenseChain(torch.autograd.Function):
                                   **chain.dropout(L, seed, keep, masks))
         dws, dbs, dgammas, dbetas = ([None] * L for _ in range(4))
         for i in range(L - 1, -1, -1):
-            dbetas[i], dgammas[i] = sums[0], sums[1]
+            dbetas[i], dgammas[i] = sums[..., 0, :], sums[..., 1, :]
             dz, dws[i], dbs[i], sums = dense_block_bwd(
                 dz, rs[i], x0 if i == 0 else rs[i - 1], ws[i], stats[i],
                 sums, None if i == 0 else stats[i - 1],
@@ -606,8 +663,16 @@ def fused_dense_chain(x0, ws, bs, gammas, betas, seeds, rate, *,
 
     Returns ``(h_L, means (L, F), variances (L, F))``: h_L in the compute
     dtype, the statistics f32, for the running averages, taking no
-    gradient."""
-    _kernel_dtype(x0)
+    gradient.
+
+    C configs at once: ``x0`` (C, N, D0), ``ws`` (C, D_in, F) (a
+    ``StackedLinear`` weight's ``.transpose(1, 2)``), the vectors (C, F),
+    ``seeds`` (C, 2), ``rate`` a (C,) f32 tensor, the masks (C, N, F);
+    every kernel launches once for all of them, and the statistics come
+    back (C, L, F). On the CPU a float64 chain runs too (the plain versions
+    in float64, for checks against float64 evaluations)."""
+    if x0.dtype != torch.float64 or x0.device.type != "cpu":
+        _kernel_dtype(x0)
     if mask_mode not in ("prng", "input"):
         raise ValueError(f"mask_mode must be 'prng' or 'input', not "
                          f"{mask_mode!r}")
@@ -621,9 +686,12 @@ def fused_dense_chain(x0, ws, bs, gammas, betas, seeds, rate, *,
         seeds = None
     elif seeds is None:
         raise ValueError("mask_mode='prng' needs the step's seed words")
-    # a fill kernel, not a host-to-device copy: no sync
-    keep = torch.full((1,), 1.0 - rate, dtype=torch.float32,
-                      device=x0.device)
+    if x0.dim() == 3:  # one keep a config, in f32 as the eager tower's
+        keep = (1.0 - rate.to(torch.float32)).contiguous()
+    else:
+        # a fill kernel, not a host-to-device copy: no sync
+        keep = torch.full((1,), 1.0 - rate, dtype=torch.float32,
+                          device=x0.device)
     return _FusedDenseChain.apply(chain, seeds, keep, masks, x0, *ws, *bs,
                                   *gammas, *betas)
 
@@ -672,8 +740,37 @@ def dense_chain_reference(x0, ws, bs, gammas, betas, masks, keep, *,
 
 
 # ---------------------------------------------- the whole EMG encoder
-def _norm(module) -> BatchNorm:
-    return module.bn if isinstance(module, AdaBN) else module
+def _norm(module):
+    """The BatchNorm of a BatchNorm or AdaBN, single or stacked."""
+    return getattr(module, "bn", module)
+
+
+def _conv_stack(emg_net, frames):
+    """The conv stack in train mode with batch statistics, as the eager
+    tower runs it: the flattened input of the first dense block, (rows,
+    F*P) channel-major (c*P+p, the reference's flatten), and each
+    BatchNorm's batch (mean, var). A ``StackedEMGNet`` takes (C, rows,
+    P) frames, runs its channels-last convolutions and gives (C, rows,
+    F*P) in the same channel-major order, so its first dense weight is
+    used as it is."""
+    stacked = isinstance(emg_net, StackedEMGNet)
+    dtype = emg_net.dtype
+    low = dtype != torch.float32
+    conv = emg_net.conv_emg
+    x = (frames.unsqueeze(-1) if stacked
+         else frames.reshape(-1, 1, 1, emg_net.emg_dim))
+    batch = []
+    for c, bn in ((conv[0], conv[2]), (conv[3], conv[5])):
+        # StackedConv rounds a bf16 tower's product itself
+        x = torch.relu(low_precision(c, x, dtype) if low and not stacked
+                       else c(x))
+        bn = _norm(bn)
+        mean, var = bn.batch_stats(x)
+        x = bn.normalize(x, mean, var)
+        batch.append((mean, var))
+    if stacked:  # (C, rows, P, F) -> (C, rows, F*P)
+        return x.transpose(2, 3).flatten(2), batch
+    return x.flatten(1), batch
 
 
 def fused_emg_embed(emg_net, frames, rate, seeds, *, mask_mode: str = "prng",
@@ -686,35 +783,38 @@ def fused_emg_embed(emg_net, frames, rate, seeds, *, mask_mode: str = "prng",
     ``low_precision`` and its BatchNorms in bf16, as the eager tower does
     (JAX ``:874-888,902-903``), and the chain in bf16.
 
+    A ``StackedEMGNet`` of C configs (the sweep; the JAX ``jax.vmap`` of
+    this function) takes (C, rows, emg_dim) frames, ``rate`` (C,) and
+    ``seeds`` (C, 2): its convolutions and head as its eager forward runs
+    them, the chain at its config axis, one launch a kernel for all C.
+
     Returns ``(embeddings (rows, d_e) f32, new running statistics)``: for a
     plain-BatchNorm model one (mean, var) pair per BatchNorm in forward
     order, moved toward the batch's with flax's momentum; None for
-    AdaBN."""
+    AdaBN. Stacked: (C, rows, d_e) and (C, F) statistics."""
     dtype = emg_net.dtype
     low = dtype != torch.float32
-    conv = emg_net.conv_emg
-    x = frames.reshape(-1, 1, 1, emg_net.emg_dim)
-    batch = []
-    for c, bn in ((conv[0], conv[2]), (conv[3], conv[5])):
-        x = torch.relu(low_precision(c, x, dtype) if low else c(x))
-        bn = _norm(bn)
-        mean, var = bn.batch_stats(x)
-        x = bn.normalize(x, mean, var)
-        batch.append((mean, var))
-    x0 = x.flatten(1)  # channel-major c*P+p, the reference's flatten
-    lins = [m for m in emg_net.linear if isinstance(m, torch.nn.Linear)]
+    stacked = isinstance(emg_net, StackedEMGNet)
+    x0, batch = _conv_stack(emg_net, frames)
+    lins = [m for m in emg_net.linear
+            if isinstance(m, (torch.nn.Linear, StackedLinear))]
     norms = [_norm(m) for m in emg_net.norms()]
     h, means, variances = fused_dense_chain(
-        x0, [m.weight.T for m in lins], [m.bias for m in lins],
+        x0, [m.weight.transpose(-1, -2) for m in lins],
+        [m.bias for m in lins],
         [bn.weight for bn in norms[2:]], [bn.bias for bn in norms[2:]],
         seeds, rate, mask_mode=mask_mode, ext_masks=ext_masks,
         eps=norms[2].eps)
     head = emg_net.last[0]
-    e = at_least_f32(low_precision(head, h, dtype)) if low \
-        else h @ head.weight.T
+    if stacked:
+        e = at_least_f32(head(h))
+    elif low:
+        e = at_least_f32(low_precision(head, h, dtype))
+    else:
+        e = h @ head.weight.T
     if not norms[0].track_running_stats:
         return e, None
-    batch += list(zip(means, variances))
+    batch += list(zip(means.unbind(-2), variances.unbind(-2)))
     with torch.no_grad():
         old = [t for bn in norms for t in (bn.running_mean, bn.running_var)]
         new = torch._foreach_mul(old, MOMENTUM)

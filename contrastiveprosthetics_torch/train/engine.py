@@ -16,6 +16,18 @@ kernels on CUDA), as the JAX package's flag of that name does
 per step, drawn from the same generator; they differ from the eager
 path's masks, equally valid. At rate 0 both paths compute the same step.
 
+``Trainer(remat=True)`` recomputes the step's forward in its backward
+instead of keeping its activations, as the JAX package's field of that
+name puts ``jax.checkpoint`` over the loss (``engine.py:168,396-410``):
+the loss is ``torch.utils.checkpoint.checkpoint``-ed, eager or fused,
+single or stacked. Its results are bit-equal to the stored forward's: the
+recomputed forward redraws the same dropout bits (each explicit generator
+set back to its state at the forward's start, then to where it stood), and
+the running statistics move once, written after the backward (the first
+forward's, ``layers.deferred_running_stats``). The forward's kernels (K1f,
+K5f and the chain's tail forward) launch twice a step, the backward's
+once.
+
 Modes (``Trainer(prediction=, glove=, glove_encoding=)``, the JAX
 package's switches): the contrastive default with the one-hot class
 encoder; ``glove_encoding``, contrastive with class embeddings from an MLP
@@ -45,8 +57,11 @@ its config axis, (C, N, T, d). Config c's init and index
 matrices come from its own generator, so they do not depend on the chunk
 width; each dropout layer draws the whole chunk's masks at once from a
 chunk generator, so, as in JAX, a config's masks depend on its chunk.
-The sweep runs the eager tower only (the fused chain takes no config
-axis yet).
+With ``use_fused_train`` the stacked step runs the fused chain at its
+config axis (``fused_emg_embed`` on the ``StackedEMGNet``: the K5 kernels
+and the tail pair launch once a step for all C, each config's Philox seed
+words drawn from the chunk generator), as the JAX sweep vmaps its fused
+step (``engine.py:315-357,586-590``).
 
 ``Trainer(use_fused_encoder=True)`` runs the voted evaluation's encoder
 through the ``encoder_chain`` kernels (``ops/kernels.py``), as the JAX
@@ -55,9 +70,10 @@ package's flag of that name runs ``fused_encoder_logits``
 evaluation into one chain of GEMMs, with the running statistics absorbed,
 and one chain call per batch. Only plain BatchNorm with all the classes
 in the split folds so; an explicit request on another config warns and
-runs the unfused path, as in JAX. The sweep's validation would need the
-chain once per config, which the kernels cannot take yet, so a sweep on a
-trainer that asks for it raises.
+runs the unfused path, as in JAX. The sweep's validation folds the chunk's
+C configs once per pass (``fold_encoder_params`` on the stacked tower) and
+runs one ``encoder_chain`` call per batch for all of them, at its config
+axis.
 
 Precision: the forward and backward run in f32 with cuDNN's TF32
 convolutions off (``device.f32_convolutions``, as calibration does);
@@ -82,6 +98,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from contrastiveprosthetics_torch.config import Config
 from contrastiveprosthetics_torch.data.sampler import (
@@ -108,6 +125,11 @@ from contrastiveprosthetics_torch.models.clip import (
     l2_penalty,
 )
 from contrastiveprosthetics_torch.models.glove_net import tower_mode
+from contrastiveprosthetics_torch.models.layers import (
+    deferred_running_stats,
+    set_running,
+    write_running,
+)
 from contrastiveprosthetics_torch.models.stacked import (
     StackedContrastiveModel,
     stacked_l2_penalty,
@@ -264,6 +286,43 @@ def adam_step_(params, grads, state: AdamState, lr: float | torch.Tensor,
         torch._foreach_copy_(state.mu, mu)
 
 
+def rematerialized(forward, generator: torch.Generator | None):
+    """``forward()`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward. The explicit ``generator``
+    the forward draws from (None: none) is set back to its state at the
+    forward's start for the recompute, then to where it stood, so the
+    recompute draws the forward's bits and the next draw is the one it
+    would be without remat (``preserve_rng_state`` covers only the global
+    generators). Running statistics are recorded, not written
+    (``layers.deferred_running_stats``): returns ``(forward's outputs,
+    the first forward's (buffer, value) pairs)`` for the caller to write
+    after the backward."""
+    gens = [] if generator is None else [generator]
+    start: list = []
+    records: list = []  # one list of pairs a run of the forward
+
+    def region():
+        replay = bool(records)
+        if replay:  # the recompute, inside the backward
+            now = [g.get_state() for g in gens]
+            for g, st in zip(gens, start):
+                g.set_state(st)
+        else:
+            start.extend(g.get_state() for g in gens)
+        try:
+            with deferred_running_stats() as pending:
+                records.append(pending)
+                return forward()
+        finally:
+            if replay:
+                for g, st in zip(gens, now):
+                    g.set_state(st)
+
+    out = torch.utils.checkpoint.checkpoint(region, use_reentrant=False,
+                                            preserve_rng_state=False)
+    return out, records[0]
+
+
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and BatchNorm running statistics, f32; the
@@ -324,6 +383,9 @@ class Trainer:
     # Adam's first moment stored in "float32" or "bfloat16" (optax's
     # mu_dtype); the second stays f32
     adam_mu_dtype: str = "float32"
+    # recompute the step's forward in its backward (jax.checkpoint over the
+    # loss); off, as in the JAX package
+    remat: bool = False
 
     def __post_init__(self):
         for name in ("compute_dtype", "adam_mu_dtype"):
@@ -380,41 +442,53 @@ class Trainer:
             [self._model(g) for g in generators]), self.mu_dtype)
 
     # ------------------------------------------------------------- train step
-    def _embed_fused(self, model: ContrastiveModel, emg_b, dp_emg: float,
+    def _embed_fused(self, model: ContrastiveModel, emg_b, dp_emg,
                      generator: torch.Generator | None, ext_masks,
-                     glove_b=None, dp_glove: float = 0.0):
+                     glove_b=None, dp_glove=0.0):
         """``model.embed`` with the EMG tower's dense stack on the fused
         chain and the class tower through ``model.embed_glove`` (the JAX
         ``engine.py:315-357``); a plain-BatchNorm model's running
         statistics move as in the eager forward, the glove MLP's too.
-        ``ext_masks``: explicit dropout masks of the chain (the tests)."""
-        B, T = emg_b.shape[:2]
+        ``ext_masks``: explicit dropout masks of the chain (the tests).
+
+        A stacked model (C configs, ``emg_b`` (C, B, T, emg_dim), the
+        rates (C,) tensors) runs the chain at its config axis with one
+        pair of seed words a config; with no ``generator`` it drops
+        nothing, as the eager stacked tower."""
+        stacked = isinstance(model, StackedContrastiveModel)
+        lead = emg_b.shape[:1] if stacked else ()
+        B, T = emg_b.shape[-3:-1]
         seeds = None
         if ext_masks is None:
             if generator is not None:
-                seeds = torch.randint(-2**31, 2**31, (2,), dtype=torch.int32,
-                                      generator=generator,
+                seeds = torch.randint(-2**31, 2**31, (*lead, 2),
+                                      dtype=torch.int32, generator=generator,
                                       device=self.device)
-            elif dp_emg == 0.0:  # every mask keeps everything
-                seeds = torch.zeros(2, dtype=torch.int32, device=self.device)
+            elif stacked or dp_emg == 0.0:  # every mask keeps everything
+                seeds = torch.zeros((*lead, 2), dtype=torch.int32,
+                                    device=self.device)
+                if stacked:
+                    dp_emg = torch.zeros_like(dp_emg)
             else:
                 raise ValueError("dropout at a nonzero rate needs an explicit "
                                  "torch.Generator for its mask")
         e, stats = fused_emg_embed(
-            model.emg_net, emg_b.reshape(-1, emg_b.shape[-1]), dp_emg, seeds,
-            mask_mode="prng" if ext_masks is None else "input",
+            model.emg_net, emg_b.reshape(*lead, -1, emg_b.shape[-1]), dp_emg,
+            seeds, mask_mode="prng" if ext_masks is None else "input",
             ext_masks=ext_masks or ())
         if stats is not None:
-            with torch.no_grad():
-                torch._foreach_copy_(
-                    [t for bn in model.emg_net.norms()
-                     for t in (bn.running_mean, bn.running_var)],
-                    [t for mv in stats for t in mv])
-        if glove_b is None:
+            set_running([t for bn in model.emg_net.norms()
+                         for t in (bn.running_mean, bn.running_var)],
+                        [t for mv in stats for t in mv])
+        if stacked:
+            g = l2_normalize(model._class_rows(B, T, glove_b, dp_glove,
+                                               generator))
+            g = g.reshape(*lead, B, T, -1)
+        elif glove_b is None:
             g = l2_normalize(model._class_rows(B, T).reshape(B, T, -1))
         else:
             g = model.embed_glove(glove_b, dp_glove, generator)
-        return l2_normalize(e.reshape(B, T, -1)), g
+        return l2_normalize(e.reshape(*lead, B, T, -1)), g
 
     def loss_and_grads(self, state: TrainState, emg_b: torch.Tensor,
                        hyper: Hyper, generator: torch.Generator | None,
@@ -434,7 +508,10 @@ class Trainer:
         accuracy are (C,), and the gradients are those of the sum over
         configs of each config's total, so each config gets its own and
         K1's backward one upstream 1 per config. With no ``generator`` the
-        stacked model drops nothing (every rate must be 0)."""
+        stacked model drops nothing (every rate must be 0).
+
+        With ``remat`` the forward runs again inside the backward (see the
+        module docstring); the results are the same bits."""
         if state.model.dtype != self.dtype:
             # the step runs in the model's dtype: a state of the other one
             # would train in a dtype this trainer was not built for
@@ -443,16 +520,12 @@ class Trainer:
                              f"{self.compute_dtype!r}")
         model = state.model.train()
         stacked = isinstance(model, StackedContrastiveModel)
-        if stacked and self.use_fused_train:
-            raise ValueError(
-                "the crossval sweep runs on the eager tower only: the fused "
-                "training chain takes no config axis yet (ROADMAP.md, queue "
-                "1 item 11)")
         l2 = stacked_l2_penalty if stacked else l2_penalty
         towers = model.towers()
         params = {k: list(t.parameters()) for k, t in towers.items()}
         B, T = emg_b.shape[-3:-1]
-        with f32_convolutions():
+
+        def forward():
             if self.prediction:
                 scores = model(emg_b, hyper.dp_emg, generator, glove_b,
                                hyper.dp_glove)
@@ -473,8 +546,18 @@ class Trainer:
             total = (loss
                      + hyper.reg_emg * l2(towers["emg_net"])
                      + hyper.reg_glove * l2(towers["glove_net"]))
+            return total, loss, acc
+
+        with f32_convolutions():
+            if self.remat:
+                (total, loss, acc), running = rematerialized(forward,
+                                                             generator)
+            else:
+                total, loss, acc = forward()
             flat = torch.autograd.grad(
                 total.sum(), params["emg_net"] + params["glove_net"])
+        if self.remat:
+            write_running(running)
         n = len(params["emg_net"])
         grads = {"emg_net": list(flat[:n]), "glove_net": list(flat[n:])}
         return loss.detach(), acc, grads
@@ -731,13 +814,6 @@ class Trainer:
             logits=torch.cat(logits_all))
 
     # ----------------------------------------------------------------- sweep
-    def _check_sweep_encoder(self) -> None:
-        if self._fused_encoder_on(self.view_val.n_tasks):
-            raise NotImplementedError(
-                "the sweep's validation on the fused encoder: encoder_chain "
-                "takes no config axis yet (ROADMAP.md, queue 1 item 12); "
-                "use a Trainer without use_fused_encoder for the sweep")
-
     def sweep_epoch_from_indices(self, state: TrainState, emg_rand, batches,
                                  tail, hyper: Hyper, lr_emg_factor: float,
                                  lr_glove_factor: float,
@@ -778,12 +854,19 @@ class Trainer:
         n_tasks, D), padded ``batches`` and ``weights`` (C, n_batches,
         bs), ``inverse`` (C, D) and ``glove_rand`` (C, n_tasks, D_glove),
         each config's as :meth:`evaluate_from_indices` takes them. Returns
-        (C,) mean losses and (C,) voted accuracies on the device."""
-        self._check_sweep_encoder()
+        (C,) mean losses and (C,) voted accuracies on the device. With the
+        fused encoder the chunk is folded once (every config's chain,
+        stacked) and each batch's (C, bs*T*W) frames go through one
+        ``encoder_chain`` call, in (item, task, frame) row order per
+        config, as :meth:`evaluate_from_indices` runs one config's."""
         model = state.model.eval()
         W = self.cfg.prediction_window_size
         T = view.n_tasks
         C, _, bs = batches.shape
+        folded = None
+        if self._fused_encoder_on(T):
+            folded = fold_encoder_params(model.emg_net, model.encode_classes(),
+                                         dtype=model.dtype)
         loss_sums, voted = [], []
         with f32_convolutions():
             for items, w in zip(batches.unbind(1), weights.unbind(1)):
@@ -800,7 +883,13 @@ class Trainer:
                     voted.append((votes == torch.arange(
                         T, device=votes.device)).float().mean(-1))
                     continue
-                logits = model(emg_b, glove=glove_b)    # (C, bs*W, T, T)
+                if folded is None:
+                    logits = model(emg_b, glove=glove_b)  # (C, bs*W, T, T)
+                else:
+                    scores = fused_encoder_logits(
+                        emg_b.reshape(C, -1, emg_b.shape[-1]), folded)
+                    logits = scores.reshape(C, bs, T, W, T).transpose(2, 3) \
+                        .reshape(C, bs * W, T, T)
                 item_loss = symmetric_contrastive_loss_per_item(
                     logits).reshape(C, bs, W).mean(dim=-1)
                 res = vote_from_logits(logits.reshape(-1, T, T), window=W,
@@ -819,7 +908,6 @@ class Trainer:
         store's device (init, epochs and val draw from it in turn), and
         ``generator`` the chunk's dropout masks. Returns (C,) val losses and
         accuracies on the device."""
-        self._check_sweep_encoder()
         rates = [hyper.dp_glove] if self.reads_glove else []
         if not (self.prediction and self.glove):
             rates.append(hyper.dp_emg)

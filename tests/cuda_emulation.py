@@ -179,38 +179,39 @@ void emu_run(Kernel kernel, dim3 grid, int threads, size_t smem,
              unsigned cluster, Args... args) {
   gridDim = grid;
   blockDim = dim3(threads);
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx0 = 0; bx0 < grid.x; bx0 += cluster) {
-      std::barrier<> cluster_bar(threads * cluster);
-      EmuCluster cl{&cluster_bar, {}};
-      std::vector<std::vector<float>> mem(cluster,
-                                          std::vector<float>(smem / 4 + 4, NAN));
-      std::vector<std::unique_ptr<std::barrier<>>> blocks, bars;
-      std::vector<std::vector<Warp>> warps(cluster,
-                                           std::vector<Warp>((threads + 31) / 32));
-      for (unsigned r = 0; r < cluster; ++r) {
-        cl.smem.push_back(mem[r].data());
-        blocks.emplace_back(new std::barrier<>(threads));
-        for (auto& w : warps[r]) {
-          bars.emplace_back(new std::barrier<>(32));
-          w.bar = bars.back().get();
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx0 = 0; bx0 < grid.x; bx0 += cluster) {
+        std::barrier<> cluster_bar(threads * cluster);
+        EmuCluster cl{&cluster_bar, {}};
+        std::vector<std::vector<float>> mem(cluster,
+                                            std::vector<float>(smem / 4 + 4, NAN));
+        std::vector<std::unique_ptr<std::barrier<>>> blocks, bars;
+        std::vector<std::vector<Warp>> warps(cluster,
+                                             std::vector<Warp>((threads + 31) / 32));
+        for (unsigned r = 0; r < cluster; ++r) {
+          cl.smem.push_back(mem[r].data());
+          blocks.emplace_back(new std::barrier<>(threads));
+          for (auto& w : warps[r]) {
+            bars.emplace_back(new std::barrier<>(32));
+            w.bar = bars.back().get();
+          }
         }
+        std::vector<std::thread> ts;
+        for (unsigned r = 0; r < cluster; ++r)
+          for (int t = 0; t < threads; ++t)
+            ts.emplace_back([&, r, t] {
+              threadIdx = dim3(t);
+              blockIdx = dim3(bx0 + r, by, bz);
+              g_block = blocks[r].get();
+              g_warps = &warps[r];
+              emu_smem = mem[r].data();
+              g_cluster = &cl;
+              g_rank = r;
+              kernel(args...);
+            });
+        for (auto& th : ts) th.join();
       }
-      std::vector<std::thread> ts;
-      for (unsigned r = 0; r < cluster; ++r)
-        for (int t = 0; t < threads; ++t)
-          ts.emplace_back([&, r, t] {
-            threadIdx = dim3(t);
-            blockIdx = dim3(bx0 + r, by);
-            g_block = blocks[r].get();
-            g_warps = &warps[r];
-            emu_smem = mem[r].data();
-            g_cluster = &cl;
-            g_rank = r;
-            kernel(args...);
-          });
-      for (auto& th : ts) th.join();
-    }
 }
 
 template <class Kernel, class... Args>

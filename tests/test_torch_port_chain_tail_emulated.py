@@ -28,8 +28,8 @@ def lib(tmp_path_factory):
     if cuda_emulation.compiler() is None:
         pytest.skip("needs a host C++ compiler to emulate the kernels")
     lib = cuda_emulation.build("train_fused", tmp_path_factory.mktemp("emu"))
-    lib.chain_tail_fwd_launch.argtypes = [P] * 6 + [I] * 3 + [P]
-    lib.chain_tail_bwd_launch.argtypes = [P] * 8 + [I] * 3 + [P]
+    lib.chain_tail_fwd_launch.argtypes = [P] * 6 + [I] * 4 + [P]
+    lib.chain_tail_bwd_launch.argtypes = [P] * 8 + [I] * 4 + [P]
     lib.dropout_masks_launch.argtypes = [P] * 3 + [I] * 3 + [P]
     return lib
 
@@ -59,24 +59,28 @@ def _case(N, F, seed):
 
 
 def _fwd(lib, x, stats, drop):
-    N, F = x.shape
-    h = torch.full((N, F), float("nan"))
+    """The tail forward through the emulation; C configs' (C, N, F)
+    arrays as one launch."""
+    C = x.shape[0] if x.dim() == 3 else 1
+    N, F = x.shape[-2:]
+    h = torch.full(x.shape, float("nan"))
     rc = lib.chain_tail_fwd_launch(
         _ptr(x), _ptr(stats), _ptr(drop.get("seed")), _ptr(drop.get("keep")),
-        _ptr(drop.get("mask")), _ptr(h), N, F, drop.get("drop_block", -1),
+        _ptr(drop.get("mask")), _ptr(h), C, N, F, drop.get("drop_block", -1),
         None)
     assert rc == 0
     return h
 
 
 def _bwd(lib, dh, r, stats, drop):
-    N, F = dh.shape
-    dz = torch.full((N, F), float("nan"))
-    sums = torch.full((2, F), float("nan"))
+    C = dh.shape[0] if dh.dim() == 3 else 1
+    N, F = dh.shape[-2:]
+    dz = torch.full(dh.shape, float("nan"))
+    sums = torch.full((*dh.shape[:-2], 2, F), float("nan"))
     rc = lib.chain_tail_bwd_launch(
         _ptr(dh), _ptr(r), _ptr(stats), _ptr(drop.get("seed")),
         _ptr(drop.get("keep")), _ptr(drop.get("mask")), _ptr(dz), _ptr(sums),
-        N, F, drop.get("drop_block", -1), None)
+        C, N, F, drop.get("drop_block", -1), None)
     assert rc == 0
     return dz, sums
 
@@ -161,13 +165,14 @@ def test_emulated_tail_launchers_refuse_what_they_cannot_take(lib):
 
     def fwd(x, F, seed_, keep_):
         return lib.chain_tail_fwd_launch(_ptr(x), _ptr(stats), _ptr(seed_),
-                                         _ptr(keep_), None, _ptr(h), 8, F, 6,
-                                         None)
+                                         _ptr(keep_), None, _ptr(h), 1, 8, F,
+                                         6, None)
 
     def bwd(x, F):
         return lib.chain_tail_bwd_launch(_ptr(dh), _ptr(x), _ptr(stats),
                                          _ptr(seed), _ptr(keep), None,
-                                         _ptr(h), _ptr(stats), 8, F, 6, None)
+                                         _ptr(h), _ptr(stats), 1, 8, F, 6,
+                                         None)
 
     assert fwd(r, 62, seed, keep) != 0
     assert fwd(odd, 64, seed, keep) != 0
@@ -225,3 +230,28 @@ def test_cpu_chain_saves_no_mask_in_prng_mode(mode):
         g = torch.autograd.grad((h * h).sum(), [x0, *ws])
         gi = torch.autograd.grad((hi * hi).sum(), [x0, *ws])
         assert all(torch.equal(a, b) for a, b in zip(g, gi))
+
+
+def test_emulated_tail_config_axis_is_each_configs_launch(lib):
+    """3 configs' tails in one launch each way (the grid's config
+    dimension), each its own statistics, seed words and keep: h, dz and
+    the sums of config c bit-equal to a launch on config c alone; h and
+    dz bit-equal to the config-axis plain versions, the sums within one
+    f32 ulp."""
+    C, N, F = 3, 37, 36
+    cases = [_case(N, F, 20 + c) for c in range(C)]
+    r, stats, dh, seed = (torch.stack([c[j] for c in cases])
+                          for j in range(4))
+    keep = torch.tensor([0.5, 0.7, 1.0])
+    drop = dict(seed=seed, keep=keep, drop_block=6)
+    h = _fwd(lib, r, stats, drop)
+    dz, sums = _bwd(lib, dh, r, stats, drop)
+    for c in range(C):
+        one = dict(seed=seed[c], keep=keep[c:c + 1], drop_block=6)
+        assert torch.equal(h[c], _fwd(lib, r[c], stats[c], one))
+        dz1, sums1 = _bwd(lib, dh[c], r[c], stats[c], one)
+        assert torch.equal(dz[c], dz1) and torch.equal(sums[c], sums1)
+    assert torch.equal(h, TF.chain_tail_fwd_reference(r, stats, **drop))
+    dz_p, sums_p = TF.chain_tail_bwd_reference(dh, r, stats, **drop)
+    assert torch.equal(dz, dz_p)
+    assert_within_one_ulp(sums, sums_p)

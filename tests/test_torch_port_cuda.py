@@ -698,7 +698,7 @@ def test_train_fused_wrappers_reject_bad_inputs(cuda):
         TF.dropout_masks(seed.long(), keep, 40, 512, 3)
     with pytest.raises(ValueError, match="on cpu"):
         TF.dropout_masks(seed, keep.cpu(), 40, 512, 3)
-    with pytest.raises(ValueError, match="float32 only"):
+    with pytest.raises(ValueError, match="the kernels take"):
         TF.fused_dense_chain(x.half(), [w], [b], [gamma], [beta], seed, 0.0)
     with pytest.raises(ValueError, match="multiples of 4"):
         TF.dense_block_fwd(x[:, :510].contiguous(), w[:510], b, gamma, beta)
@@ -869,3 +869,101 @@ def test_bf16_chain_kernels_match_plain_and_launch(cuda, N):
     for a, b in zip(got, want):
         assert a.dtype == torch.float32
         assert float((a - b).norm() / b.norm()) <= 0.1
+
+
+# ------------------------------------------------------- the config axis
+def _stacked_block(C, N, K_in, F, device, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(C, N, K_in, generator=g, device=device).clamp_min_(0)
+    w = ((torch.rand(C, F, K_in, generator=g, device=device) * 2 - 1)
+         / np.sqrt(K_in)).transpose(1, 2)
+    vec = [torch.randn(C, F, generator=g, device=device) * 0.1
+           for _ in range(3)]
+    mean = torch.rand(C, K_in, generator=g, device=device) * 0.4 + 0.2
+    var = torch.rand(C, K_in, generator=g, device=device) * 0.3 + 0.2
+    rstd = torch.rsqrt(var + 1e-5)
+    in_stats = torch.stack([mean, var, rstd, rstd, 0.1 - mean * rstd], 1)
+    dz = torch.randn(C, N, F, generator=g, device=device) * 0.01
+    seeds = torch.randint(-2**31, 2**31, (C, 2), dtype=torch.int32,
+                          generator=g, device=device)
+    keep = torch.rand(C, generator=g, device=device) * 0.2 + 0.4
+    return x, w, vec, in_stats, dz, seeds, keep
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C,N", [(2, 328), (5, 123)])
+def test_config_axis_chain_kernels_are_each_configs_launch(cuda, C, N, bf16):
+    """K5f, K5b and the tail pair on C configs in one launch each: config
+    c bit-equal to a launch on config c alone; the whole against the
+    config-axis plain versions (f32 r rtol 1e-5, the rest rtol 1e-4; bf16
+    r and dx within 0.05, as JAX's bf16 tolerance; the tail's h and dz bit
+    for bit)."""
+    x, w, (b, gamma, beta), in_stats, dz, seeds, keep = _stacked_block(
+        C, N, 512, 512, cuda, N + C)
+    if bf16:
+        x, w, dz = (a.to(torch.bfloat16) for a in (x, w, dz))
+    kw = dict(seed=seeds, keep=keep, drop_block=3)
+    r, st = TF.dense_block_fwd(x, w, b, gamma, beta, in_stats, **kw)
+    sums = torch.stack([dz.float().sum(1), dz.float().sum(1) * 0.5], 1)
+    bwd = TF.dense_block_bwd(dz, r, x, w, st, sums, in_stats, **kw)
+    td = dict(seed=seeds, keep=keep, drop_block=6)
+    h = TF.chain_tail_fwd(r, st, **td)
+    tz, ts = TF.chain_tail_bwd(dz, r, st, **td)
+    for c in range(C):
+        one = dict(seed=seeds[c], keep=keep[c:c + 1], drop_block=3)
+        r1, st1 = TF.dense_block_fwd(x[c], w[c], b[c], gamma[c], beta[c],
+                                     in_stats[c], **one)
+        assert torch.equal(r[c], r1) and torch.equal(st[c], st1)
+        b1 = TF.dense_block_bwd(dz[c], r[c], x[c], w[c], st[c], sums[c],
+                                in_stats[c], **one)
+        assert all(torch.equal(g[c], v) for g, v in zip(bwd, b1))
+        one["drop_block"] = 6
+        assert torch.equal(h[c], TF.chain_tail_fwd(r[c], st[c], **one))
+        tz1, ts1 = TF.chain_tail_bwd(dz[c], r[c], st[c], **one)
+        assert torch.equal(tz[c], tz1) and torch.equal(ts[c], ts1)
+    r_p, st_p = TF.dense_block_fwd_reference(x, w, b, gamma, beta, in_stats,
+                                             **kw)
+    bwd_p = TF.dense_block_bwd_reference(dz, r, x, w, st, sums, in_stats,
+                                         **kw)
+    low = dict(rtol=0.05, atol=0.05)
+    torch.testing.assert_close(r.float(), r_p.float(),
+                               **(low if bf16 else dict(rtol=1e-5,
+                                                        atol=1e-5)))
+    torch.testing.assert_close(st, st_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(bwd[0].float(), bwd_p[0].float(),
+                               **(low if bf16 else dict(rtol=1e-4,
+                                                        atol=1e-6)))
+    for g, v in zip(bwd[1:], bwd_p[1:]):
+        torch.testing.assert_close(g, v, rtol=1e-4,
+                                   atol=1e-5 * float(v.abs().max()))
+    assert torch.equal(h, TF.chain_tail_fwd_reference(r, st, **td))
+    assert torch.equal(tz, TF.chain_tail_bwd_reference(dz, r, st, **td)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_config_axis_encoder_chain_is_each_configs_call(cuda, dtype):
+    """``encoder_chain`` on a stacked fold of 3 configs, 8,200 rows each:
+    both tilings bit-equal, config c bit-equal to a call on its fold, the
+    whole within the plain version's tolerance (f32 rtol 2e-4, atol 2e-5;
+    bf16 atol 0.05)."""
+    from contrastiveprosthetics_torch.models.stacked import (
+        StackedContrastiveModel,
+    )
+
+    models = [ContrastiveModel(generator=torch.Generator().manual_seed(c))
+              for c in range(3)]
+    model = StackedContrastiveModel.from_models(models).to(cuda).eval()
+    folded = K.fold_encoder_params(model.emg_net, model.encode_classes(),
+                                   dtype=dtype)
+    frames = torch.randn(3, 8200, 12, device=cuda)
+    plan = K.encoder_plan(folded)
+    got = K.encoder_chain(frames, plan, 1)
+    assert torch.equal(got, K.encoder_chain(frames, plan, 0))
+    for c in range(3):
+        one = K.fused_encoder_logits(frames[c], [a[c] for a in folded])
+        assert torch.equal(got[c], one)
+    want = K.fused_encoder_logits_reference(frames, folded)
+    tol = (dict(rtol=0, atol=0.05) if dtype == torch.bfloat16
+           else SCORE_TOL)
+    torch.testing.assert_close(got, want, **tol)

@@ -180,10 +180,12 @@ def launch(tmp_path_factory):
         pytest.skip("needs a host C++ compiler to emulate the kernels")
     lib = cuda_emulation.build("encoder_chain",
                                tmp_path_factory.mktemp("emu"))
-    fn = lib.encoder_chain_bf16_launch
-    fn.argtypes = ([ctypes.POINTER(P), ctypes.POINTER(I), I] + [P] * 3
-                   + [I] * 3 + [P])
-    fn.restype = I
+    fn = bf16_fn = lib.encoder_chain_bf16_launch
+    f32_fn = lib.encoder_chain_launch
+    for f in (f32_fn, bf16_fn):
+        f.argtypes = ([ctypes.POINTER(P), ctypes.POINTER(I), I] + [P] * 3
+                      + [I] * 4 + [P])
+        f.restype = I
 
     def run(frames, folded, affines, regime):
         plan = K.encoder_plan(folded, affines)
@@ -191,7 +193,7 @@ def launch(tmp_path_factory):
         scratch = torch.full((2, M, plan.max_n), float("nan"), dtype=BF16)
         scores = torch.full((M, plan.widths[-1]), float("nan"))
         rc = fn(plan.table, plan.dims, plan.n_hidden, frames.data_ptr(),
-                scratch.data_ptr(), scores.data_ptr(), M, plan.S, regime,
+                scratch.data_ptr(), scores.data_ptr(), M, 1, plan.S, regime,
                 None)
         assert rc == 0
         # layer j writes its (M, N_j) rows densely into buffer j % 2
@@ -199,6 +201,24 @@ def launch(tmp_path_factory):
         last = scratch[(plan.n_hidden - 1) % 2].reshape(-1)[:M * N]
         return scores, last.view(M, N)
 
+    def stacked(frames, folded, regime):
+        """Scores of a call on (M, 12) frames and one chain, or on (C, M,
+        12) frames and a stacked fold, through the f32 launcher or the
+        bf16 one as the chain's dtype says."""
+        plan = K.encoder_plan(folded)
+        C = plan.configs[0] if plan.configs else 1
+        M = frames.shape[-2]
+        scratch = torch.full((2, C, M, plan.max_n), float("nan"),
+                             dtype=plan.dtype)
+        scores = torch.full((*plan.configs, M, plan.widths[-1]),
+                            float("nan"))
+        fn = f32_fn if plan.dtype == torch.float32 else bf16_fn
+        assert fn(plan.table, plan.dims, plan.n_hidden, frames.data_ptr(),
+                  scratch.data_ptr(), scores.data_ptr(), M, C, plan.S,
+                  regime, None) == 0
+        return scores
+
+    run.stacked = stacked
     return run
 
 
@@ -266,6 +286,30 @@ def test_emulated_rows_have_the_same_bits_in_both_tilings_and_at_any_m(
     for got in (full_small, part_small, part_large):
         assert torch.equal(got.view(torch.int32),
                            full_large[:len(got)].view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,regime", [(21, 0), (150, 1)])
+def test_emulated_config_axis_is_each_configs_call(launch, M, regime, dtype):
+    """3 configs' chains (stacked folds, no affines) in one call of
+    ``encoder_chain_launch`` or its bf16 variant, every layer and the head
+    one launch with the grid's config dimension: config c's scores
+    bit-equal to a call on its fold alone, and the whole within the
+    plain version's tolerance of its config-axis plain version."""
+    chains = [small_chain(WIDTHS, S=1, seed=30 + c)[0] for c in range(3)]
+    if dtype == torch.float32:
+        chains = [tuple(a.float() for a in ch) for ch in chains]
+    folded = tuple(torch.stack(parts) for parts in zip(*chains))
+    frames = torch.from_numpy(np.random.default_rng(M).standard_normal(
+        (3, M, 12)).astype(np.float32) * 2)
+    got = launch.stacked(frames, folded, regime)
+    assert got.shape == (3, M, 41)
+    for c in range(3):
+        one = launch.stacked(frames[c], chains[c], regime)
+        assert torch.equal(got[c].view(torch.int32), one.view(torch.int32))
+    want = K.fused_encoder_logits_reference(frames, folded)
+    tol = ATOL if dtype == BF16 else 2e-5
+    assert float((got - want).abs().max()) < tol
 
 
 # ------------------------------------------------------ host-side logic

@@ -255,13 +255,13 @@ def test_fused_encoder_on_an_ineligible_config_warns_as_jax(data):
     assert torch.equal(got.logits, want.logits)
 
 
-def test_the_sweep_with_the_fused_encoder_raises_and_names_the_roadmap(data):
-    port, _ = trainers(data, fused=True)
+def test_the_sweep_with_the_fused_encoder_on_adabn_warns_and_runs_unfused(
+        data):
+    """AdaBN is ineligible for the fused encoder: the sweep's validation
+    warns and runs unfused (the eligible sweep runs the kernels:
+    ``test_torch_port_sweep_fused.py``)."""
     hyper = Hyper(*[np.full(2, v, np.float32) for v in
                     (1e-3, 1e-6, 0.0, 1e-3, 1e-6, 0.0)])
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        port.sweep_chunk(hyper, [port.generator(i) for i in range(2)], [1.0],
-                         [1.0], None)
     adabn, _ = trainers(data, adabn=True, fused=True)
     with pytest.warns(UserWarning, match="ineligible"):
         loss, acc = adabn.sweep_chunk(
@@ -451,13 +451,6 @@ def test_cli_round_trip_on_cpu(small_cli, tmp_path, capsys):
     assert "FAIL" not in capsys.readouterr().out
     perturb("perturbed", c, str(tmp_path / "D"))
     assert cli_parity.main([str(tmp_path / "D"), "--ref", a]) == 1
-
-
-def test_cli_fused_encoder_with_a_sweep_is_not_ported(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md, queue 1 item 12"):
-        cli_train.main(["--crossval_size", "3", "--fused_encoder",
-                        "--no_adabn", "--platform", "cpu", "--data_dir",
-                        str(tmp_path)])
 
 
 def test_cli_results_rejects_unported_modes(tmp_path):

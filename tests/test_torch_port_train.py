@@ -604,15 +604,13 @@ def refuse_stores(args, cfg, device):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--crossval_size", "3", "--fused_train", "on"],
-    ["--crossval_size", "3", "--spmd_crossval"],
-    ["--glove_encoding", "--crossval_size", "3", "--fused_train", "on"],
-    ["--bf16", "--crossval_size", "3", "--fused_train", "on"]])
+    pytest.param(["--crossval_size", "3", "--spmd_crossval"], id="argv1")])
 def test_cli_unported_requests_name_the_roadmap(tmp_path, monkeypatch, argv):
-    """Each exits NOT_PORTED before a store is built; ``--spmd_crossval``
-    only where the JAX CLI would shard, more than one device visible (on
-    one device or the CPU it runs unsharded:
-    ``test_cli_spmd_crossval_runs_unsharded_on_one_device``)."""
+    """Each exits NOT_PORTED before a store is built: ``--spmd_crossval``
+    where the JAX CLI would shard, more than one device visible (on one
+    device or the CPU it runs unsharded:
+    ``test_cli_spmd_crossval_runs_unsharded_on_one_device``). The sweep
+    on the fused chain runs (``test_torch_port_sweep_fused.py``)."""
     platform = "cpu"
     if "--spmd_crossval" in argv:
         two_cuda_devices(monkeypatch)

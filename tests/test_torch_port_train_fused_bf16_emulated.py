@@ -36,10 +36,10 @@ def lib(tmp_path_factory):
     if cuda_emulation.compiler() is None:
         pytest.skip("needs a host C++ compiler to emulate the kernels")
     lib = cuda_emulation.build("train_fused", tmp_path_factory.mktemp("emu"))
-    lib.dense_block_fwd_bf16_launch.argtypes = [P] * 13 + [I] * 7 + [F32, P]
-    lib.dense_block_bwd_bf16_launch.argtypes = [P] * 16 + [I] * 7 + [P]
-    lib.chain_tail_fwd_bf16_launch.argtypes = [P] * 6 + [I] * 3 + [P]
-    lib.chain_tail_bwd_bf16_launch.argtypes = [P] * 8 + [I] * 3 + [P]
+    lib.dense_block_fwd_bf16_launch.argtypes = [P] * 13 + [I] * 8 + [F32, P]
+    lib.dense_block_bwd_bf16_launch.argtypes = [P] * 16 + [I] * 8 + [P]
+    lib.chain_tail_fwd_bf16_launch.argtypes = [P] * 6 + [I] * 4 + [P]
+    lib.chain_tail_bwd_bf16_launch.argtypes = [P] * 8 + [I] * 4 + [P]
     return lib
 
 
@@ -72,40 +72,46 @@ def _case(N, K, F, seed):
 
 
 def _fwd(lib, x, w, b, gamma, beta, in_stats, drop, tiling):
-    N, K = x.shape
-    F = w.shape[1]
-    r = torch.full((N, F), float("nan"), dtype=BF16)
-    stats = torch.full((5, F), float("nan"))
+    """The bf16 K5f through the emulation; C configs' arrays (a leading
+    axis) as one launch."""
+    lead = x.shape[:-2]
+    C = lead[0] if lead else 1
+    N, K = x.shape[-2:]
+    F = w.shape[-1]
+    r = torch.full((*lead, N, F), float("nan"), dtype=BF16)
+    stats = torch.full((*lead, 5, F), float("nan"))
     bm, bn = TF.FWD_TILES[tiling]
-    partial = torch.empty((-(-N // bm), 2, F))
-    tickets = torch.zeros(-(-F // bn), dtype=torch.int32)
+    partial = torch.empty((C, -(-N // bm), 2, F))
+    tickets = torch.zeros(C * -(-F // bn), dtype=torch.int32)
     rc = lib.dense_block_fwd_bf16_launch(
         _ptr(x), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta), _ptr(in_stats),
         _ptr(drop.get("seed")), _ptr(drop.get("keep")), _ptr(drop.get("mask")),
-        _ptr(r), _ptr(partial), _ptr(tickets), _ptr(stats), N, K, F,
-        *w.stride(), drop.get("drop_block", -1), tiling, 1e-5, None)
+        _ptr(r), _ptr(partial), _ptr(tickets), _ptr(stats), C, N, K, F,
+        *w.stride()[-2:], drop.get("drop_block", -1), tiling, 1e-5, None)
     assert rc == 0 and not tickets.any()
     return r, stats
 
 
 def _bwd(lib, dz, r, x, w, stats, sums, in_stats, drop, tiling):
-    N, F = dz.shape
-    K = x.shape[1]
-    dx = torch.full((N, K), float("nan"), dtype=BF16)
+    lead = dz.shape[:-2]
+    C = lead[0] if lead else 1
+    N, F = dz.shape[-2:]
+    K = x.shape[-1]
+    dx = torch.full((*lead, N, K), float("nan"), dtype=BF16)
     dw = torch.full_like(w, float("nan"), dtype=torch.float32)
-    db = torch.full((F,), float("nan"))
+    db = torch.full((*lead, F), float("nan"))
     out_sums = partial = None
     bm, _ = TF.DGRAD_TILES[tiling]
     if in_stats is not None:
-        out_sums = torch.full((2, K), float("nan"))
-        partial = torch.empty((-(-N // bm), 2, K))
-    tickets = torch.zeros(-(-K // TF.DGRAD_TILES[tiling][1]),
+        out_sums = torch.full((*lead, 2, K), float("nan"))
+        partial = torch.empty((C, -(-N // bm), 2, K))
+    tickets = torch.zeros(C * -(-K // TF.DGRAD_TILES[tiling][1]),
                           dtype=torch.int32)
     rc = lib.dense_block_bwd_bf16_launch(
         _ptr(dz), _ptr(r), _ptr(x), _ptr(w), _ptr(stats), _ptr(sums),
         _ptr(in_stats), _ptr(drop.get("seed")), _ptr(drop.get("keep")),
         _ptr(drop.get("mask")), _ptr(dx), _ptr(dw), _ptr(db), _ptr(out_sums),
-        _ptr(partial), _ptr(tickets), N, K, F, *w.stride(),
+        _ptr(partial), _ptr(tickets), C, N, K, F, *w.stride()[-2:],
         drop.get("drop_block", -1), tiling, None)
     assert rc == 0 and not tickets.any()
     return dx, dw, db, out_sums
@@ -270,14 +276,14 @@ def test_emulated_bf16_tail_matches_plain(lib, N, F, form):
     h = torch.full((N, F), float("nan"), dtype=BF16)
     assert lib.chain_tail_fwd_bf16_launch(
         _ptr(r), _ptr(stats), _ptr(drop.get("seed")), _ptr(keep),
-        _ptr(drop.get("mask")), _ptr(h), N, F, drop.get("drop_block", -1),
+        _ptr(drop.get("mask")), _ptr(h), 1, N, F, drop.get("drop_block", -1),
         None) == 0
     assert torch.equal(h, TF.chain_tail_fwd_reference(r, stats, **drop))
     dz = torch.full((N, F), float("nan"), dtype=BF16)
     sums = torch.full((2, F), float("nan"))
     assert lib.chain_tail_bwd_bf16_launch(
         _ptr(dh), _ptr(r), _ptr(stats), _ptr(drop.get("seed")), _ptr(keep),
-        _ptr(drop.get("mask")), _ptr(dz), _ptr(sums), N, F,
+        _ptr(drop.get("mask")), _ptr(dz), _ptr(sums), 1, N, F,
         drop.get("drop_block", -1), None) == 0
     dz_p, sums_p = TF.chain_tail_bwd_reference(dh, r, stats, **drop)
     assert torch.equal(dz, dz_p)
@@ -300,8 +306,58 @@ def test_emulated_bf16_launchers_refuse_widths_a_copy_cannot_take(lib):
         return lib.dense_block_fwd_bf16_launch(
             _ptr(x), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta), None, None,
             None, None, _ptr(r), _ptr(partial), _ptr(tickets), _ptr(stats),
-            8, K, 32, 32, 1, -1, 0, 1e-5, None)
+            1, 8, K, 32, 32, 1, -1, 0, 1e-5, None)
 
     assert launch(36) != 0
     assert torch.isnan(r.float()).all()
     assert launch(40) == 0 and not torch.isnan(r.float()).any()
+
+
+def test_emulated_bf16_config_axis_is_each_configs_launch(lib):
+    """2 configs of the bf16 K5f, K5b and tail pair in one launch each
+    (the grid's config dimension), each its own operands, seed words and
+    keep: every output of config c bit-equal to a launch on config c
+    alone."""
+    C, N, Kw, F = 2, 33, 40, 48
+    cases = [_case(N, Kw, F, 200 + c) for c in range(C)]
+    x, w, in_stats, dz, seed = (torch.stack([c[j] for c in cases])
+                                for j in (0, 1, 3, 4, 5))
+    b, gamma, beta = (torch.stack([c[2][j] for c in cases])
+                      for j in range(3))
+    keep = torch.tensor([0.5, 0.75])
+    drop = dict(seed=seed, keep=keep, drop_block=1)
+    r, stats = _fwd(lib, x, w, b, gamma, beta, in_stats, drop, 0)
+    sums = torch.stack([dz.float().sum(1), dz.float().sum(1) * 0.5], 1)
+    got = _bwd(lib, dz, r, x, w, stats, sums, in_stats, drop, 0)
+    h = torch.full(r.shape, float("nan"), dtype=BF16)
+    tdz = torch.full(r.shape, float("nan"), dtype=BF16)
+    tsums = torch.full((C, 2, F), float("nan"))
+    tdrop = dict(seed=seed, keep=keep, drop_block=6)
+    assert lib.chain_tail_fwd_bf16_launch(
+        _ptr(r), _ptr(stats), _ptr(seed), _ptr(keep), None, _ptr(h), C, N, F,
+        6, None) == 0
+    assert lib.chain_tail_bwd_bf16_launch(
+        _ptr(r), _ptr(r), _ptr(stats), _ptr(seed), _ptr(keep), None,
+        _ptr(tdz), _ptr(tsums), C, N, F, 6, None) == 0
+    assert torch.equal(h, TF.chain_tail_fwd_reference(r, stats, **tdrop))
+    for c in range(C):
+        one = dict(seed=seed[c], keep=keep[c:c + 1], drop_block=1)
+        r1, st1 = _fwd(lib, x[c], w[c], b[c], gamma[c], beta[c], in_stats[c],
+                       one, 0)
+        assert torch.equal(r[c], r1) and torch.equal(stats[c], st1)
+        want = _bwd(lib, dz[c], r[c], x[c], w[c], stats[c], sums[c],
+                    in_stats[c], one, 0)
+        for g, v in zip(got, want, strict=True):
+            assert torch.equal(g[c], v)
+        h1 = torch.full((N, F), float("nan"), dtype=BF16)
+        dz1 = torch.full((N, F), float("nan"), dtype=BF16)
+        s1 = torch.full((2, F), float("nan"))
+        assert lib.chain_tail_fwd_bf16_launch(
+            _ptr(r[c]), _ptr(stats[c]), _ptr(seed[c]), _ptr(keep[c:c + 1]),
+            None, _ptr(h1), 1, N, F, 6, None) == 0
+        assert lib.chain_tail_bwd_bf16_launch(
+            _ptr(r[c]), _ptr(r[c]), _ptr(stats[c]), _ptr(seed[c]),
+            _ptr(keep[c:c + 1]), None, _ptr(dz1), _ptr(s1), 1, N, F, 6,
+            None) == 0
+        assert torch.equal(h[c], h1) and torch.equal(tdz[c], dz1)
+        assert torch.equal(tsums[c], s1)

@@ -28,8 +28,8 @@ def lib(tmp_path_factory):
     if cuda_emulation.compiler() is None:
         pytest.skip("needs a host C++ compiler to emulate the kernels")
     lib = cuda_emulation.build("train_fused", tmp_path_factory.mktemp("emu"))
-    lib.dense_block_fwd_launch.argtypes = [P] * 13 + [I] * 7 + [F32, P]
-    lib.dense_block_bwd_launch.argtypes = [P] * 16 + [I] * 7 + [P]
+    lib.dense_block_fwd_launch.argtypes = [P] * 13 + [I] * 8 + [F32, P]
+    lib.dense_block_bwd_launch.argtypes = [P] * 16 + [I] * 8 + [P]
     return lib
 
 
@@ -60,40 +60,45 @@ def _case(N, K, F, seed):
 
 def _fwd(lib, x, w, b, gamma, beta, in_stats, drop, tiling):
     """K5f through the emulation; ``drop`` the wrapper's dropout keywords.
-    The ticket counters must come back zeroed."""
-    N, K = x.shape
-    F = w.shape[1]
-    r = torch.full((N, F), float("nan"))
-    stats = torch.full((5, F), float("nan"))
+    The ticket counters must come back zeroed. C configs' arrays (a
+    leading axis) run as one launch."""
+    lead = x.shape[:-2]
+    C = lead[0] if lead else 1
+    N, K = x.shape[-2:]
+    F = w.shape[-1]
+    r = torch.full((*lead, N, F), float("nan"))
+    stats = torch.full((*lead, 5, F), float("nan"))
     bm, bn = TF.FWD_TILES[tiling]
-    partial = torch.empty((-(-N // bm), 2, F))
-    tickets = torch.zeros(-(-F // bn), dtype=torch.int32)
+    partial = torch.empty((C, -(-N // bm), 2, F))
+    tickets = torch.zeros(C * -(-F // bn), dtype=torch.int32)
     rc = lib.dense_block_fwd_launch(
         _ptr(x), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta), _ptr(in_stats),
         _ptr(drop.get("seed")), _ptr(drop.get("keep")), _ptr(drop.get("mask")),
-        _ptr(r), _ptr(partial), _ptr(tickets), _ptr(stats), N, K, F,
-        *w.stride(), drop.get("drop_block", -1), tiling, 1e-5, None)
+        _ptr(r), _ptr(partial), _ptr(tickets), _ptr(stats), C, N, K, F,
+        *w.stride()[-2:], drop.get("drop_block", -1), tiling, 1e-5, None)
     assert rc == 0 and not tickets.any()
     return r, stats
 
 
 def _bwd(lib, dz, r, x, w, stats, sums, in_stats, drop, tiling):
-    N, F = dz.shape
-    K = x.shape[1]
-    dx = torch.full((N, K), float("nan"))
+    lead = dz.shape[:-2]
+    C = lead[0] if lead else 1
+    N, F = dz.shape[-2:]
+    K = x.shape[-1]
+    dx = torch.full((*lead, N, K), float("nan"))
     dw = torch.full_like(w, float("nan"))
-    db = torch.full((F,), float("nan"))
+    db = torch.full((*lead, F), float("nan"))
     out_sums = partial = None
     bm, bn = TF.DGRAD_TILES[tiling]
     if in_stats is not None:
-        out_sums = torch.full((2, K), float("nan"))
-        partial = torch.empty((-(-N // bm), 2, K))
-    tickets = torch.zeros(-(-K // bn), dtype=torch.int32)
+        out_sums = torch.full((*lead, 2, K), float("nan"))
+        partial = torch.empty((C, -(-N // bm), 2, K))
+    tickets = torch.zeros(C * -(-K // bn), dtype=torch.int32)
     rc = lib.dense_block_bwd_launch(
         _ptr(dz), _ptr(r), _ptr(x), _ptr(w), _ptr(stats), _ptr(sums),
         _ptr(in_stats), _ptr(drop.get("seed")), _ptr(drop.get("keep")),
         _ptr(drop.get("mask")), _ptr(dx), _ptr(dw), _ptr(db), _ptr(out_sums),
-        _ptr(partial), _ptr(tickets), N, K, F, *w.stride(),
+        _ptr(partial), _ptr(tickets), C, N, K, F, *w.stride()[-2:],
         drop.get("drop_block", -1), tiling, None)
     assert rc == 0 and not tickets.any()
     return dx, dw, db, out_sums
@@ -188,10 +193,63 @@ def test_emulated_launchers_refuse_what_the_copies_cannot_take(lib):
         return lib.dense_block_fwd_launch(
             _ptr(xv), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta), None, None,
             None, None, _ptr(r), _ptr(partial), _ptr(tickets), _ptr(stats),
-            8, K, 32, wsk, wsn, -1, 0, 1e-5, None)
+            1, 8, K, 32, wsk, wsn, -1, 0, 1e-5, None)
 
     assert launch(x, 62, 32, 1) != 0
     assert launch(odd, 64, 32, 1) != 0
     assert launch(x, 64, 2, 1) != 0
     assert torch.isnan(r).all()
     assert launch(x, 64, 32, 1) == 0 and not torch.isnan(r).any()
+
+
+def _stacked_case(C, N, K, F, linear):
+    """C configs' arrays of :func:`_case` (each config its own draw) with
+    a leading axis, W (C, K, F) row-major or a ``StackedLinear`` weight's
+    ``.transpose(1, 2)``; each config its own seed words and keep."""
+    cases = [_case(N, K, F, 100 + c) for c in range(C)]
+    x = torch.stack([c[0] for c in cases])
+    w = torch.stack([c[1] for c in cases])
+    if linear:
+        w = w.transpose(1, 2).contiguous().transpose(1, 2)
+    vecs = [torch.stack([c[2][j] for c in cases]) for j in range(3)]
+    in_stats = torch.stack([c[3] for c in cases])
+    dz = torch.stack([c[4] for c in cases])
+    seed = torch.stack([c[5] for c in cases])
+    keep = torch.linspace(0.5, 0.8, C)
+    return x, w, vecs, in_stats, dz, seed, keep
+
+
+@pytest.mark.parametrize("N,K,F,tiling,linear", [(17, 64, 32, 0, True),
+                                                 (40, 36, 44, 1, False)])
+def test_emulated_config_axis_is_each_configs_launch(lib, N, K, F, tiling,
+                                                     linear):
+    """3 configs in one launch (the grid's config dimension), each its own
+    weights, statistics, seed words and keep: every output of config c
+    bit-equal to a launch on config c alone, the tickets back at 0, and
+    the whole against the config-axis plain versions at the card's
+    tolerances."""
+    C = 3
+    x, w, (b, gamma, beta), in_stats, dz, seed, keep = _stacked_case(
+        C, N, K, F, linear)
+    drop = dict(seed=seed, keep=keep, drop_block=2)
+    r, stats = _fwd(lib, x, w, b, gamma, beta, in_stats, drop, tiling)
+    sums = torch.stack([dz.sum(1), dz.sum(1) * 0.5], 1)
+    got = _bwd(lib, dz, r, x, w, stats, sums, in_stats, drop, tiling)
+    for c in range(C):
+        one = dict(seed=seed[c], keep=keep[c:c + 1], drop_block=2)
+        r1, st1 = _fwd(lib, x[c], w[c], b[c], gamma[c], beta[c], in_stats[c],
+                       one, tiling)
+        assert torch.equal(r[c], r1) and torch.equal(stats[c], st1)
+        want = _bwd(lib, dz[c], r[c], x[c], w[c], stats[c], sums[c],
+                    in_stats[c], one, tiling)
+        for g, v in zip(got, want, strict=True):
+            assert torch.equal(g[c], v)
+    r_p, stats_p = TF.dense_block_fwd_reference(x, w, b, gamma, beta,
+                                                in_stats, **drop)
+    _close(r, r_p, 1e-5)
+    _close(stats, stats_p, 1e-4)
+    want = TF.dense_block_bwd_reference(dz, r, x, w, stats, sums, in_stats,
+                                        **drop)
+    for g, v in zip(got, want, strict=True):
+        _close(g, v, 1e-4)
+    assert got[1].stride() == w.stride()
