@@ -218,7 +218,7 @@ made with numpy from a seed:
    fold of 150 configs, 8,200 rows a config, at C=1, 2, 10 and 150, both
    tilings, f32 and bf16, against its plain version, float64 at C=2 and
    each config's own call, timed at C=150 beside the ``baddbmm`` chain
-   (``library_ms``); ``Trainer(remat=True)``: one epoch eager and fused,
+   (``library_ms``); ``Trainer(remat=True)``: 75 steps (cut from an epoch) eager and fused,
    f32 and bf16, and 20 stacked steps of 150 configs eager and fused,
    bit-equal to remat off under deterministic algorithms, ms a step and
    peak memory beside it; ``cross_validate`` of 150 configs x 1 epoch on
@@ -228,7 +228,26 @@ made with numpy from a seed:
    and glove-encoding fused sweeps of 10 configs, the sweep's val of 150
    configs fused against unfused; ``scripts/go_torch.sh --synthetic
    --fused_train on --fused_encoder --crossval_size 150 --final_epochs
-   1`` in its own process.
+   1`` in its own process;
+17. the parallel layer (``parallel/``): (a) a world of one rank over NCCL
+   in this process, at full width: ``make_sharded_train_step`` on a (1,
+   1) mesh, ``cross_validate(mesh=)`` of 4 configs x 1 epoch and
+   ``BatchedStreamingEngine(mesh=)`` at 32,768 sessions x 25 ticks, each
+   bit-equal to its unsharded twin and timed beside it in turns; (b) one
+   spawned group of 4 ranks over gloo on the one card (NCCL refuses two
+   ranks on one device; gloo is asked for here): the dp=2 step (ranks
+   0-1) and the dp=2 x mp=2 step (all four) against the unsharded step on
+   the card at JAX's bounds, K1f/K1b once a step on each rank at N=4; the
+   config-sharded sweep of 8 configs x 1 epoch over 2 ranks (cut from
+   go.sh's 150 for time), eager and on the fused chain and encoder,
+   bit-equal to the unsharded sweep at chunk 4, 7 K5f, 7 K5b and one of
+   each tail kernel a stacked step on each rank; session-sharded serving
+   of 32,768 sessions x 25 ticks over 2 ranks, f32 and bf16, preds and
+   votes equal to the unsharded engine's, each rank's kernels launched on
+   its shard; ``cptorch-train --spmd_crossval --crossval_size 4`` and
+   ``cptorch-serve --spmd --demo --sessions 8 --replay`` in a 2-rank
+   group, writing the unsharded commands' files. Its times are per rank
+   on one shared card, not scaling numbers.
 
 Launch counts are reset just before the calibration, phases 3, 4, 7's and
 8's ``train_loop``, 9's ``cross_validate``, 10's test and val passes,
@@ -253,7 +272,10 @@ kernels as its depth says on the fused run and never in phases 1-13; in
 7 K5b and one of each tail kernel a fused step (with remat: 14 K5f, 2
 tail forwards and 2 K1f a step, the backward's as without), per stacked
 fused step whatever C is, ``encoder_chain`` 10 times a val batch of the
-fused sweep, none of them on the eager sweep.
+fused sweep, none of them on the eager sweep; in 17, reset before each
+sharded run on each rank, each K1 kernel once a sharded step, 7 K5f, 7
+K5b and one of each tail kernel a stacked step of the fused sweep on
+each rank (none eager), and the serve kernels on each rank's shard.
 TF32
 is off throughout
 (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -262,8 +284,8 @@ in full f32 (``encoder_chain``, K5f and K5b run 3xTF32 by their own
 instructions, whatever the flags). Any failure raises and the exit code
 is not 0. The last lines are ``{"single", "batched"}``, ``{"train"}``,
 ``{"fused_train"}``, ``{"sweep"}``, ``{"eval"}``, ``{"ingest"}``,
-``{"modes"}``, ``{"bf16_serve"}``, ``{"bf16_train"}``, ``{"interop"}``
-and ``{"sweep_fused"}`` JSON lines, the
+``{"modes"}``, ``{"bf16_serve"}``, ``{"bf16_train"}``, ``{"interop"}``,
+``{"sweep_fused"}`` and ``{"parallel"}`` JSON lines, the
 card
 line from nvidia-smi, one
 ``{"kernels": [...]}`` JSON line, and
@@ -4635,6 +4657,7 @@ ENCODER_CONFIGS = (1, 2, 10, 150)  # encoder_chain
 VAL_ROWS = 8 * 41 * 25             # a val batch of 8 items, one config
 AXIS_K5 = FUSED_KERNELS[:4]        # the chain's kernels with a config axis
 REMAT_STACKED_STEPS = 20
+REMAT_STEPS = 75  # a single model's remat run: cut from an epoch (225)
 SMALL_SWEEP_CONFIGS = 10           # phase 16's bf16 and glove-encoding sweeps
 
 
@@ -5100,7 +5123,8 @@ def same_state(a, b) -> bool:
 
 def remat_check(K, trainer) -> dict:
     """Phase 16, part 2: ``Trainer(remat=True)`` on phase 7's store, bs 8:
-    one epoch (225 steps) eager and fused, f32 and bf16, and 20 stacked
+    75 steps (a third of an epoch, cut for the script's time) eager and
+    fused, f32 and bf16, and 20 stacked
     steps of the 150 sampled configs eager and fused, each with remat off
     and on from the same seeds, dropout on, under deterministic
     algorithms: parameters, running statistics, both Adam chains, the
@@ -5161,7 +5185,8 @@ def remat_check(K, trainer) -> dict:
                 v = tr.view_train
                 emg_rand = task_permutations(gen, v.n_tasks, v.D)
                 batches, tail = epoch_batches(gen, v.D, 8)
-                steps = batches.shape[0] + (1 if tail.numel() else 0)
+                batches, tail = batches[:REMAT_STEPS], tail[:0]
+                steps = batches.shape[0]
                 out, ms, peak, counts = timed(
                     lambda: tr.train_epoch_from_indices(
                         state, emg_rand, batches, tail, hyper, 1.0, 1.0,
@@ -5482,7 +5507,478 @@ def sweep_fused_phase(K, TF, trainer, dev,
                 parts_s=parts), entries
 
 
+# ------------------------------------------------------------ phase 17
+PARALLEL_RANKS = 4      # one gloo group on the one card: dp=2 x mp=2
+PARALLEL_STEPS = 10     # timed steps a path a turn (a rank's gloo step)
+WORLD1_TURNS, WORLD1_STEPS = 6, 50  # the world-1 step, sharded and not
+PARALLEL_CONFIGS = 8    # the config-sharded sweep (cut from go.sh's 150)
+PARALLEL_CHUNK = 4      # one chunk a rank over 2 ranks
+WORLD1_CONFIGS = 4      # the world-1 sweep
+CLI_SPMD_CONFIGS = 4    # cptorch-train --spmd_crossval --crossval_size
+# JAX's bounds of a sharded step against the unsharded one
+# (tests/test_parallel.py:98-117): the loss within rtol 1e-4; more than
+# 98 % of each parameter within rtol 5e-3, atol 1e-5, all within 2.5 lr
+STEP_LOSS_RTOL, STEP_CLOSE_SHARE = 1e-4, 0.98
+
+
+def parallel_inputs(trainer, seed: int = 7):
+    """A global train batch of 8 items and the step's hyperparameters
+    (the canonical ones: dropout 0.5), the same on every rank."""
+    from contrastiveprosthetics_torch.data.sampler import (
+        gather_train_batch,
+        task_permutations,
+    )
+    from contrastiveprosthetics_torch.train.engine import Hyper
+
+    v = trainer.view_train
+    gen = trainer.generator(seed)
+    emg_rand = task_permutations(gen, v.n_tasks, v.D)
+    items = torch.randperm(v.D, generator=gen, device=trainer.device)[:8]
+    return gather_train_batch(v.emg_flat, emg_rand, items), \
+        Hyper.single(*CANONICAL)
+
+
+def held_to_jax_bounds(got, want, loss_got, loss_want, lr: float) -> dict:
+    """A gathered sharded state against the unsharded one at JAX's bounds;
+    raises where they fail. The worst share of close elements and the
+    largest difference."""
+    if abs(loss_got - loss_want) > STEP_LOSS_RTOL * abs(loss_want):
+        raise AssertionError(f"sharded loss {loss_got} vs {loss_want}")
+    worst_share, worst_abs = 1.0, 0.0
+    sg, sw = got.model.state_dict(), want.model.state_dict()
+    for name, b in sw.items():
+        if not b.is_floating_point():
+            continue
+        a = sg[name]
+        share = float(torch.isclose(a, b, rtol=5e-3, atol=1e-5).float()
+                      .mean())
+        diff = float((a - b).abs().max())
+        if share <= STEP_CLOSE_SHARE or diff > 2.5 * lr:
+            raise AssertionError(f"sharded step: {name} {share:.4f} close, "
+                                 f"largest difference {diff}")
+        worst_share, worst_abs = min(worst_share, share), max(worst_abs, diff)
+    return dict(worst_close_share=worst_share, max_abs_diff=worst_abs)
+
+
+def parallel_world1(K, trainer, dev, batched_args) -> tuple[dict, dict]:
+    """Phase 17 (a): a world of one rank over NCCL in this process, at
+    full width: ``make_sharded_train_step`` on a (1, 1) mesh,
+    ``cross_validate(mesh=)`` of 4 configs x 1 epoch and
+    ``BatchedStreamingEngine(mesh=)`` at 32,768 sessions x 25 ticks, each
+    bit-equal to its unsharded twin and timed beside it in turns (the
+    sharded code's collectives and slicing at world 1). The results and
+    each kernel's launches in the sharded runs."""
+    import torch.distributed as dist
+
+    from contrastiveprosthetics_torch.config import DEFAULT_CONFIG as cfg
+    from contrastiveprosthetics_torch.parallel.mesh import (
+        gather_state,
+        make_mesh,
+    )
+    from contrastiveprosthetics_torch.parallel.spmd import (
+        make_sharded_train_step,
+    )
+    from contrastiveprosthetics_torch.serve.stream import (
+        BatchedStreamingEngine,
+    )
+    from contrastiveprosthetics_torch.train.crossval import (
+        cross_validate,
+        sample_hyperparams,
+    )
+
+    res, counts = {}, dict.fromkeys(K.launch_counts, 0)
+
+    def tally():
+        for name, n in K.launch_counts.items():
+            counts[name] += n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, 1)
+            emg_b, hyper = parallel_inputs(trainer)
+            step, place = make_sharded_train_step(trainer, mesh)
+            with deterministic():
+                plain = trainer.init_state(trainer.generator(0))
+                sharded = place(trainer.init_state(trainer.generator(0)))
+                lp, ap = trainer._sgd_step(plain, emg_b, hyper, 1e-3, 1e-3,
+                                           trainer.generator(1))
+                K.reset_launch_counts()
+                ls, as_ = step(sharded, emg_b, hyper, 1e-3, 1e-3,
+                               trainer.generator(1))
+                torch.cuda.synchronize()
+                step_counts = {k: K.launch_counts[k] for k in TRAIN_KERNELS}
+                tally()
+                if step_counts != dict.fromkeys(TRAIN_KERNELS, 1):
+                    raise AssertionError(f"world-1 step launches "
+                                         f"{step_counts}")
+                whole = gather_state(sharded, mesh)
+                if not (torch.equal(lp, ls) and torch.equal(ap, as_)
+                        and same_state(plain, whole)):
+                    raise AssertionError("the world-1 sharded step is not "
+                                         "the unsharded step bit for bit")
+            gen_p, gen_s = trainer.generator(2), trainer.generator(2)
+            turns = {"unsharded": [], "sharded": []}
+            for _ in range(WORLD1_TURNS):
+                turns["unsharded"].append(time_ms(lambda: trainer._sgd_step(
+                    plain, emg_b, hyper, 1e-3, 1e-3, gen_p),
+                    reps=WORLD1_STEPS))
+                turns["sharded"].append(time_ms(lambda: step(
+                    sharded, emg_b, hyper, 1e-3, 1e-3, gen_s),
+                    reps=WORLD1_STEPS))
+            med = {k: float(np.median(v)) for k, v in turns.items()}
+            res["step"] = dict(bit_equal=True, ms_per_step=turns,
+                               median_ms=med, sharded_minus_unsharded_ms=(
+                                   med["sharded"] - med["unsharded"]),
+                               launches=step_counts)
+
+            hypers = sample_hyperparams(WORLD1_CONFIGS, seed=42)
+            sweep = {}
+            with deterministic():
+                for name in ("unsharded", "sharded"):
+                    K.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    v = cross_validate(trainer, hypers, epochs=1, seed=42,
+                                       verbose=False, mesh=(
+                                           mesh if name == "sharded"
+                                           else None))
+                    seconds = time.perf_counter() - t0
+                    if name == "sharded":
+                        tally()
+                    sweep.setdefault(name, []).append((v, seconds))
+            values = [v for runs in sweep.values() for v, _ in runs]
+            if not all(np.array_equal(values[0], v, equal_nan=True)
+                       for v in values):
+                raise AssertionError("the world-1 sharded sweep differs "
+                                     "from the unsharded one")
+            res["sweep"] = dict(configs=WORLD1_CONFIGS, bit_equal=True,
+                                seconds={k: [t for _, t in r]
+                                         for k, r in sweep.items()})
+
+            model, mean, std, blocks_t, masks_t = batched_args
+            S = blocks_t.shape[1]
+            engines = {"unsharded": BatchedStreamingEngine(
+                           cfg, model, mean, std, n_sessions=S),
+                       "sharded": BatchedStreamingEngine(
+                           cfg, model, mean, std, n_sessions=S, mesh=mesh)}
+            outs, serve_ms = {}, {k: [] for k in engines}
+            for name, eng in engines.items():
+                K.reset_launch_counts()
+                _, p, v = eng.steps(eng.init_carries(), blocks_t, masks_t)
+                _, p1, v1, sc = eng.step(eng.init_carries(), blocks_t[0],
+                                         masks_t)
+                torch.cuda.synchronize()
+                if name == "sharded":
+                    serve_counts = {k: K.launch_counts[k]
+                                    for k in SERVE_KERNELS}
+                    tally()
+                outs[name] = (p, v, p1, v1, sc)
+            if not all(torch.equal(a, b) for a, b in zip(outs["sharded"],
+                                                         outs["unsharded"])):
+                raise AssertionError("the world-1 sharded engine's preds, "
+                                     "votes or scores differ")
+            if min(serve_counts.values()) < 1:
+                raise AssertionError(f"world-1 serve launches {serve_counts}")
+            for _ in range(2):
+                for name, eng in engines.items():
+                    serve_ms[name].append(time_ms(lambda: eng.steps(
+                        eng.init_carries(), blocks_t, masks_t), reps=3))
+            res["serve"] = dict(sessions=S, ticks=blocks_t.shape[0],
+                                bit_equal=True, steps_ms=serve_ms,
+                                launches=serve_counts)
+        finally:
+            dist.destroy_process_group()
+    log(f"[parallel] world 1 over NCCL: step, {WORLD1_CONFIGS}-config sweep "
+        f"and {res['serve']['sessions']}-session serving bit-equal to "
+        f"unsharded; {json.dumps(res)}")
+    return res, counts
+
+
+def rank_step(K, trainer, mesh, rank: int) -> dict:
+    """A rank's sharded step of phase 17 (b) on ``mesh``, held (rank 0)
+    against the unsharded step on the card at JAX's bounds; its K1
+    launches and its time a step."""
+    from contrastiveprosthetics_torch.parallel.mesh import gather_state
+    from contrastiveprosthetics_torch.parallel.spmd import (
+        make_sharded_train_step,
+    )
+
+    emg_b, hyper = parallel_inputs(trainer)
+    step, place = make_sharded_train_step(trainer, mesh)
+    sharded = place(trainer.init_state(trainer.generator(0)))
+    K.reset_launch_counts()
+    loss, _ = step(sharded, emg_b, hyper, 1e-3, 1e-3, trainer.generator(1))
+    torch.cuda.synchronize()
+    launches = {k: K.launch_counts[k] for k in TRAIN_KERNELS}
+    if launches != dict.fromkeys(TRAIN_KERNELS, 1):
+        raise AssertionError(f"rank {rank}: K1 launches {launches}")
+    whole = gather_state(sharded, mesh)
+    out = dict(launches=launches, k1_items=emg_b.shape[0] // mesh.n_dp)
+    if rank == 0:
+        plain = trainer.init_state(trainer.generator(0))
+        lp, _ = trainer._sgd_step(plain, emg_b, hyper, 1e-3, 1e-3,
+                                  trainer.generator(1))
+        out["vs_unsharded"] = held_to_jax_bounds(whole, plain, float(loss),
+                                                 float(lp), 1e-3)
+    gen = trainer.generator(2)
+    out["ms_per_step"] = time_ms(lambda: step(sharded, emg_b, hyper, 1e-3,
+                                              1e-3, gen), reps=PARALLEL_STEPS)
+    return out
+
+
+def rank_sweep(K, cfg, store, mesh, rank: int) -> dict:
+    """A rank's config-sharded sweeps of phase 17 (b), eager and on the
+    fused chain (and the fused encoder), each its chunk of 4 configs;
+    then the unsharded sweep of the same 8 configs, the two ranks at once
+    (rank 0 the eager one, rank 1 the fused one), bit-equal; the launches
+    a stacked step."""
+    from contrastiveprosthetics_torch.train import engine
+    from contrastiveprosthetics_torch.train.crossval import (
+        cross_validate,
+        sample_hyperparams,
+    )
+
+    hypers = sample_hyperparams(PARALLEL_CONFIGS, seed=42)
+    out, got, trainers = {}, {}, {}
+    with deterministic():
+        for path, fused in (("eager", False), ("fused", True)):
+            tr = trainers[path] = engine.Trainer(
+                cfg, store, adabn=False, batch_size=8,
+                use_fused_train=fused, use_fused_encoder=fused)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            got[path] = cross_validate(tr, hypers, epochs=1, seed=42,
+                                       chunk=PARALLEL_CHUNK, verbose=False,
+                                       mesh=mesh)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(K.launch_counts)
+            steps = -(-tr.view_train.D // tr.batch_size)
+            want = dict(dense_block_fwd=7 * steps, dense_block_bwd=7 * steps,
+                        chain_tail_fwd=steps, chain_tail_bwd=steps) if fused \
+                else dict.fromkeys(FUSED_KERNELS, 0)
+            want.update(contrastive_loss_fwd=steps, contrastive_loss_bwd=steps)
+            if any(launches[k] != n for k, n in want.items()) or (
+                    fused != bool(launches["encoder_chain"])):
+                raise AssertionError(f"rank {rank} {path} sweep launches "
+                                     f"{launches}, want {want}")
+            out[path] = dict(seconds=seconds, launches=launches,
+                             stacked_steps=steps, configs=PARALLEL_CHUNK)
+        path = "eager" if rank == 0 else "fused"
+        plain = cross_validate(trainers[path], hypers, epochs=1, seed=42,
+                               chunk=PARALLEL_CHUNK, verbose=False)
+    if not np.array_equal(got[path], plain, equal_nan=True):
+        raise AssertionError(f"the {path} config-sharded sweep differs from "
+                             "the unsharded one")
+    out[path]["bit_equal"] = True
+    return out
+
+
+def rank_serve(K, cfg, mesh, rank: int) -> dict:
+    """A rank's session-sharded serving of phase 17 (b): 32,768 sessions x
+    25 ticks over 2 ranks, f32 and bf16; then the unsharded engine, the two
+    ranks at once (rank 0 f32, rank 1 bf16), preds and votes equal; the
+    launches on the rank's shard and its ms a call."""
+    from contrastiveprosthetics_torch.models.clip import ContrastiveModel
+    from contrastiveprosthetics_torch.serve.stream import (
+        BatchedStreamingEngine,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    mean = rng.normal(0.0, 0.1, cfg.emg_dim).astype(np.float32)
+    std = rng.uniform(0.8, 1.2, cfg.emg_dim).astype(np.float32)
+    g = torch.Generator(dev).manual_seed(3)
+    blocks = torch.randn((TICKS, SESSIONS, cfg.factor, cfg.emg_dim),
+                         generator=g, device=dev) * 200
+    masks = torch.rand((SESSIONS, cfg.max_tasks), generator=g,
+                       device=dev) < 0.5
+    masks[:, 0] = True
+    out, got, models = {}, {}, {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        models[name] = ContrastiveModel(
+            generator=torch.Generator().manual_seed(0), dtype=dtype).to(dev)
+        eng = BatchedStreamingEngine(cfg, models[name], mean, std, SESSIONS,
+                                     mesh=mesh)
+        K.reset_launch_counts()
+        _, preds, votes = eng.steps(eng.init_carries(), blocks, masks)
+        torch.cuda.synchronize()
+        got[name] = (preds, votes)
+        launches = {k: n for k, n in K.launch_counts.items() if n}
+        enc = "encoder_chain_bf16" if name == "bf16" else "encoder_chain"
+        if not all(launches.get(k) for k in ("dsp_frames", enc,
+                                             "vote_scan")):
+            raise AssertionError(f"rank {rank} {name} serve launches "
+                                 f"{launches}")
+        out[name] = dict(launches=launches, sessions_a_rank=eng.hi - eng.lo,
+                         steps_ms=time_ms(lambda: eng.steps(
+                             eng.init_carries(), blocks, masks), reps=3))
+        del eng
+    name = "f32" if rank == 0 else "bf16"
+    plain = BatchedStreamingEngine(cfg, models[name], mean, std, SESSIONS)
+    _, p, v = plain.steps(plain.init_carries(), blocks, masks)
+    if not (torch.equal(p, got[name][0]) and torch.equal(v, got[name][1])):
+        raise AssertionError(f"{name} session-sharded preds or votes differ "
+                             "from the unsharded")
+    out[name]["equal"] = True
+    return out
+
+
+def rank_clis(rank: int, path: str, tmp: str) -> dict:
+    """Phase 17 (b)'s CLIs in a 2-rank group: ``cptorch-train
+    --spmd_crossval`` and ``cptorch-serve --spmd --replay`` on both
+    ranks; then, the group gone, rank 0 runs the unsharded commands and
+    holds the files against the sharded ones'."""
+    import torch.distributed as dist
+
+    from contrastiveprosthetics_torch.cli import serve as cli_serve
+    from contrastiveprosthetics_torch.cli import train as cli_train
+
+    def train_args(d):
+        return ["--synthetic", "--crossval_size", str(CLI_SPMD_CONFIGS),
+                "--crossval_chunk", str(CLI_SPMD_CONFIGS // 2),
+                "--final_epochs", "1", "--no_adabn", "--no_verbose",
+                "--data_dir", d, "--checkpoint_dir", d]
+
+    def serve_args(d):
+        return ["--demo", "--sessions", "8", "--replay", "--quiet", "--out",
+                os.path.join(d, "serve.npz")]
+
+    sharded, plain = os.path.join(tmp, "sharded"), os.path.join(tmp, "plain")
+    dist.init_process_group("gloo", init_method=f"file://{path}", rank=rank,
+                            world_size=2)
+    t0 = time.perf_counter()
+    try:
+        with deterministic():
+            out = run_captured(cli_train.main, [*train_args(sharded),
+                                                "--spmd_crossval"])
+            out += run_captured(cli_serve.main, [*serve_args(sharded),
+                                                 "--spmd"])
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t0
+    if rank:
+        return dict(seconds=seconds)
+    for line in ("crossval sharded over", "sessions sharded over"):
+        if line not in out:
+            raise AssertionError(f"no '{line}' line")
+    with deterministic():
+        run_captured(cli_train.main, train_args(plain))
+        run_captured(cli_serve.main, serve_args(plain))
+    for name in ("cross_val_values.npy", "cross_val_keys.npy"):
+        if not np.array_equal(np.load(os.path.join(sharded, name)),
+                              np.load(os.path.join(plain, name)),
+                              equal_nan=True):
+            raise AssertionError(f"--spmd_crossval wrote another {name}")
+    a, b = (torch.load(os.path.join(d, "contrastive.pt"), map_location="cpu")
+            for d in (sharded, plain))
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("--spmd_crossval's checkpoint differs")
+    with np.load(os.path.join(sharded, "serve.npz")) as x, \
+            np.load(os.path.join(plain, "serve.npz")) as y:
+        if not all(np.array_equal(x[k], y[k]) for k in ("preds", "votes")):
+            raise AssertionError("cptorch-serve --spmd wrote other preds")
+    return dict(seconds=seconds, equal=True)
+
+
+def parallel_rank(rank: int, world: int, tmp: str) -> None:
+    """Phase 17 (b), one rank of the gloo group on the one card: the dp=2
+    step (ranks 0-1) and the dp=2 x mp=2 step (all four), the
+    config-sharded sweeps and session-sharded serving (ranks 0-1), then
+    the CLIs in a 2-rank group. Writes its results to
+    ``tmp/rank<r>.json``."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from contrastiveprosthetics_torch.config import DEFAULT_CONFIG as cfg
+    from contrastiveprosthetics_torch.data.store import DeviceStore
+    from contrastiveprosthetics_torch.data.synthetic import (
+        make_processed_dataset,
+    )
+    from contrastiveprosthetics_torch.ops import kernels as K
+    from contrastiveprosthetics_torch.parallel.mesh import make_mesh
+    from contrastiveprosthetics_torch.train import engine
+
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
+                            rank=rank, world_size=world)
+    res = {"start_s": time.perf_counter() - t0}
+    store = DeviceStore(cfg, *make_processed_dataset(cfg),
+                        device=torch.device("cuda"))
+    trainer = engine.Trainer(cfg, store, adabn=False, batch_size=8)
+    pair, square = make_mesh(2, 1), make_mesh(2, 2)
+    parts = {}
+    for key, mesh in (("dp2", pair), ("dp2_mp2", square)):
+        t0 = time.perf_counter()
+        if mesh.active:
+            res[key] = rank_step(K, trainer, mesh, rank)
+        parts[key] = time.perf_counter() - t0
+    if pair.active:
+        t0 = time.perf_counter()
+        res["sweep"] = rank_sweep(K, cfg, store, pair, rank)
+        parts["sweep"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["serve"] = rank_serve(K, cfg, pair, rank)
+        parts["serve"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    if rank < 2:
+        t0 = time.perf_counter()
+        res["cli"] = rank_clis(rank, f"{tmp}/rdv_cli", tmp)
+        parts["cli"] = time.perf_counter() - t0
+    res["parts_s"] = parts
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def parallel_phase(K, trainer, dev, batched_args) -> tuple[dict, dict]:
+    """Phase 17, the parallel layer on the one card: (a) world 1 over NCCL
+    in this process, bit-equal to the unsharded paths; (b) one spawned
+    group of 4 ranks over gloo on the card (NCCL refuses two ranks on one
+    device; gloo is asked for here, never a fallback). Returns the
+    ``parallel`` results and each kernel's launches on the sharded paths
+    (every rank's summed). The times are per rank on one shared card, not
+    scaling numbers."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    world1, counts = parallel_world1(K, trainer, dev, batched_args)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(parallel_rank, args=(PARALLEL_RANKS, tmp),
+                 nprocs=PARALLEL_RANKS)
+        ranks = []
+        for r in range(PARALLEL_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    group_s = time.perf_counter() - t0
+    for r in ranks:
+        for part in ("dp2", "dp2_mp2"):
+            for k, n in r.get(part, {}).get("launches", {}).items():
+                counts[k] += n
+        for path in r.get("sweep", {}).values():
+            for k, n in path["launches"].items():
+                counts[k] += n
+        for dtype in r.get("serve", {}).values():
+            for k, n in dtype["launches"].items():
+                counts[k] += n
+    res = dict(
+        note="per-rank times on one shared card (4 ranks, gloo on the "
+             "card), not scaling numbers; world 1 over NCCL",
+        world1=world1, ranks=ranks, group_s=group_s,
+        phase_s=time.perf_counter() - t_phase)
+    log(f"[parallel] 4-rank gloo group on the card in {group_s:.1f} s: "
+        f"dp2 and dp2 x mp2 steps at JAX's bounds, the {PARALLEL_CONFIGS}-"
+        f"config sweep bit-equal eager and fused, {SESSIONS} sessions f32 "
+        f"and bf16 equal, the CLIs' files equal; phase 17 took "
+        f"{res['phase_s']:.1f} s")
+    return res, counts
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
@@ -5804,6 +6300,12 @@ def main() -> int:
     sweep_fused_res, axis_entries = sweep_fused_phase(K, TF, trainer, dev,
                                                       sweep_res["sweep"])
 
+    # ------------------------------------------- 17. the parallel layer
+    parallel_res, parallel_counts = parallel_phase(
+        K, trainer, dev, (model, mean, std,
+                          torch.as_tensor(batch_blocks, device=dev),
+                          torch.as_tensor(masks, device=dev)))
+
     for name, entry in entries.items():
         if name in FUSED_KERNELS:
             by_path = {"fused_train": fused_counts[name],
@@ -5838,6 +6340,7 @@ def main() -> int:
                 "step": per_launch(single_res["step_trace"], name),
                 "steps": per_launch(steps_trace_1, name),
                 "batched": per_launch(steps_trace, name)}
+        by_path["parallel"] = parallel_counts[name]
         entry.update(name=name, source=SOURCES[name], replaces=REPLACES[name],
                      kernel_ms=entry["ms"], launches=sum(by_path.values()),
                      launches_by_path=by_path,
@@ -5855,6 +6358,11 @@ def main() -> int:
     print(json.dumps({"bf16_train": bf16_train_res}))
     print(json.dumps({"interop": interop_res}))
     print(json.dumps({"sweep_fused": sweep_fused_res}))
+    bf16_entry["launches_by_path"]["parallel"] = parallel_counts[
+        "encoder_chain_bf16"]
+    bf16_entry["launches"] += parallel_counts["encoder_chain_bf16"]
+    print(json.dumps({"parallel": parallel_res}))
+    log(f"[done] phases 1-17 took {time.perf_counter() - t_script:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(entries.values()) + eval_entries
                       + [bf16_entry] + list(bf16_train_entries.values())

@@ -28,20 +28,32 @@ Inputs:
 
 The JAX CLI's ``--fused_encoder`` is taken as a no-op (on CUDA every tick
 already runs ``encoder_chain``); ``--no_fused_encoder`` exits, since no
-other encoder path serves on the card. ``--spmd`` serves unsharded on one
-device, as the JAX CLI does unless more than one device is visible and
-the session count divides by theirs; there it exits, not ported yet.
+other encoder path serves on the card. ``--spmd`` shards the sessions
+of the batched engine over ranks (``BatchedStreamingEngine(mesh=)``), as
+the JAX CLI does where more than one device is visible and the session
+count divides by theirs: over the ranks of an initialized default
+process group (torchrun, or a caller's group), else over one NCCL rank
+per visible CUDA device, which the CLI starts itself; otherwise it serves
+unsharded and says so. Under a group rank 0 alone prints the results and
+writes ``--out``.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from contrastiveprosthetics_torch.cli.train import run_unsharded
+from contrastiveprosthetics_torch.cli.train import (
+    launcher_group,
+    rank0,
+    spawn_ranks,
+    spmd_ranks,
+)
 from contrastiveprosthetics_torch.config import DEFAULT_CONFIG as cfg
 from contrastiveprosthetics_torch.device import add_platform_flag, select_device
 
@@ -96,6 +108,7 @@ def _sync(device: torch.device) -> None:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if args.no_fused_encoder:
         raise SystemExit(
@@ -103,9 +116,26 @@ def main(argv=None) -> int:
             "encoder_chain kernel on the folded weights (ops/kernels.py), "
             "and no unfused one to switch to; drop the flag")
     device = select_device(args.platform)
+    with launcher_group(device, asked=args.spmd):
+        return serve(args, argv, device)
+
+
+def serve(args, argv, device) -> int:
+    """The run after the flags' checks, on ``device``: ``--spmd``'s ranks
+    (``cli/train.py::spmd_ranks``), the model, the recording, the
+    engine, the ticks and the report."""
+    mesh = None
     if args.spmd:
-        run_unsharded("--spmd", "the sessions served", device,
-                      sessions=args.sessions)
+        n = spmd_ranks("--spmd", "the sessions served", device,
+                       sessions=args.sessions)
+        if n > 1 and not dist.is_initialized():
+            return spawn_ranks(main, argv, n)
+        if n > 1:
+            from contrastiveprosthetics_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(n_dp=n)
+            if rank0():
+                print(f"sessions sharded over {mesh} ({dist.get_backend()})")
 
     from contrastiveprosthetics_torch.models.clip import ContrastiveModel
     from contrastiveprosthetics_torch.models.convert import (
@@ -219,7 +249,7 @@ def main(argv=None) -> int:
                 preds[0, i] = int(p)
     else:
         engine = BatchedStreamingEngine(cfg, model, emg_mean, emg_std,
-                                        n_sessions=S)
+                                        n_sessions=S, mesh=mesh)
         if calib is not None:
             if calib.ndim == 2:
                 calib = np.broadcast_to(calib, (S,) + calib.shape)
@@ -244,6 +274,8 @@ def main(argv=None) -> int:
                 lat.append(time.perf_counter() - t0)
                 preds[:, i] = p.cpu().numpy()
     _sync(device)
+    if not rank0():
+        return 0
 
     budget = 1000.0 * cfg.factor / cfg.hz
     if args.replay:

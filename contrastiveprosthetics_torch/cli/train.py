@@ -36,25 +36,29 @@ default), as the JAX CLI traces to ``/tmp/cptpu_trace``.
 ``--fused_train on`` and ``--fused_encoder`` hold for the sweep too: its
 stacked steps run the fused chain at its config axis and its validation
 the fused encoder, one ``encoder_chain`` call a batch for the chunk.
-``--spmd_crossval`` runs the sweep unsharded on one device, as the JAX
-CLI does with one device visible; with more than one CUDA device it
-exits, not ported yet. A ``--prng_impl`` other than ``auto`` exits with
-its reason.
+``--spmd_crossval`` shards the sweep's configs over ranks
+(``train/crossval.py``, ``cross_validate(mesh=)``), as the JAX CLI does
+over more than one device: over the ranks of an initialized default
+process group (torchrun, or a caller's group), else with more than one
+CUDA device visible over one NCCL rank per device, which the CLI starts
+itself; with one device it runs unsharded and says so. Under a group,
+rank 0 alone runs the final train and writes the caches, the checkpoint
+and the artifacts. A ``--prng_impl`` other than ``auto`` exits with its
+reason.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import os
+import sys
 import tempfile
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from contrastiveprosthetics_torch.device import add_platform_flag, select_device
-
-NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
-              "(ROADMAP.md, queue 1 item {item}); {hint}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -141,22 +145,82 @@ def reject_conflicts(args) -> None:
                          "CLI): drop one of the two")
 
 
-def run_unsharded(flag: str, what: str, device, sessions: int | None = None
-                  ) -> None:
-    """``--spmd_crossval`` and ``--spmd``: the JAX CLIs shard only over
-    more than one visible device (of ``sessions`` dividing by the count,
-    for ``--spmd``), and otherwise run unsharded. So does the port, which
-    says so; where JAX would shard, it exits (not ported yet)."""
+@contextlib.contextmanager
+def launcher_group(device, asked: bool):
+    """Where a flag ``asked`` for sharding, under a launcher such as
+    torchrun (``WORLD_SIZE`` above 1 in the environment) with no group
+    yet: the launcher's group for the run, NCCL on CUDA (the rank's
+    ``LOCAL_RANK`` device), gloo on the CPU. Otherwise no group: each
+    process runs the whole command."""
+    if (not asked or dist.is_initialized()
+            or int(os.environ.get("WORLD_SIZE", "1")) < 2):
+        yield
+        return
     import torch
 
-    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method="env://")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_ranks(flag: str, what: str, device, sessions: int | None = None
+               ) -> int:
+    """How many ranks ``--spmd_crossval`` and ``--spmd`` shard over, as
+    the JAX CLIs shard only over more than one device (of ``sessions``
+    dividing by the count, for ``--spmd``): the initialized default
+    group's ranks, else the visible CUDA devices. 1: unsharded, which it
+    says."""
+    import torch
+
+    if dist.is_initialized():
+        n, where = dist.get_world_size(), "rank"
+    else:
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+        where = f"{device.type} device"
     if n > 1 and (sessions is None or sessions % n == 0):
-        raise SystemExit(NOT_PORTED.format(
-            what=f"{flag} ({what} sharded over {n} CUDA devices)", item=8,
-            hint="drop the flag, or make one device visible "
-                 "(CUDA_VISIBLE_DEVICES): it then runs unsharded"))
-    print(f"{flag}: {n} {device.type} device{'s' if n > 1 else ''} "
-          f"visible, {what} unsharded")
+        return n
+    print(f"{flag}: {n} {where}{'s' if n > 1 else ''} visible, {what} "
+          "unsharded")
+    return 1
+
+
+def rank0() -> bool:
+    """Whether this process writes the outputs: rank 0 of a group, or no
+    group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def spawn_ranks(entry, argv, n: int) -> int:
+    """``entry(argv)`` in ``n`` processes, one NCCL rank per CUDA device,
+    joined by a ``file://`` rendezvous in a temporary directory. The
+    kernels are built first, so that the ranks load them and never race
+    on the build directory."""
+    import torch.multiprocessing as mp
+
+    from contrastiveprosthetics_torch.ops import _build
+
+    _build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank, args=(entry, argv, n, os.path.join(tmp, "rdv")),
+                 nprocs=n)
+    return 0
+
+
+def _rank(rank: int, entry, argv, n: int, path: str) -> None:
+    import torch
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{path}", rank=rank,
+                            world_size=n)
+    try:
+        entry(argv)
+    finally:
+        dist.destroy_process_group()
 
 
 def trace_dir() -> str:
@@ -252,6 +316,7 @@ def report_per_subject(trainer, state, hyper, out_dir=None, pooled=None):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     reject_conflicts(args)
     if args.prng_impl != "auto":
@@ -271,15 +336,34 @@ def main(argv=None) -> int:
     if args.load_model:
         checkpoint_file(args.checkpoint_dir)
     device = select_device(args.platform)
+    with launcher_group(device, asked=args.spmd_crossval and sweep):
+        return sharded_main(args, argv, device, crossval_load, sweep)
+
+
+def sharded_main(args, argv, device, crossval_load: bool, sweep: bool
+                 ) -> int:
+    """``--spmd_crossval``'s ranks (see :func:`spmd_ranks`), then the
+    run."""
+    mesh = None
     if args.spmd_crossval and sweep:
-        run_unsharded("--spmd_crossval", "the sweep's configs", device)
+        n = spmd_ranks("--spmd_crossval", "the sweep's configs", device)
+        if n > 1 and not dist.is_initialized():
+            return spawn_ranks(main, argv, n)
+        if n > 1:
+            from contrastiveprosthetics_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(n_dp=n)
+            if rank0():
+                print(f"crossval sharded over {mesh} "
+                      f"({dist.get_backend()})")
     with profiled(args.profile, device):
-        return run(args, device, crossval_load, sweep)
+        return run(args, device, crossval_load, sweep, mesh)
 
 
-def run(args, device, crossval_load: bool, sweep: bool) -> int:
+def run(args, device, crossval_load: bool, sweep: bool, mesh=None) -> int:
     """The run after the flags' checks: store, hyperparameters, the final
-    train and the test."""
+    train and the test. ``mesh``: the sweep's, shared by every rank; the
+    ranks other than 0 stop after the sweep."""
     from contrastiveprosthetics_torch.config import DEFAULT_CONFIG, compat_config
     from contrastiveprosthetics_torch.train.crossval import (
         best_config,
@@ -316,10 +400,15 @@ def run(args, device, crossval_load: bool, sweep: bool) -> int:
         t0 = time.time()
         values = cross_validate(trainer, hypers, epochs=args.crossval_epochs,
                                 seed=args.seed, chunk=args.crossval_chunk,
-                                save_dir=args.data_dir, id_=args.crossval_id)
+                                save_dir=args.data_dir, id_=args.crossval_id,
+                                verbose=rank0(), mesh=mesh)
+        if not rank0():
+            return 0
         print(f"crossval: {args.crossval_size} configs in "
               f"{time.time() - t0:.1f}s")
         keys = keys_array(hypers, trainer.d_e)
+    if not rank0():
+        return 0
     best_key = best_config(values, keys)
     print(f"Best combination: {best_key}")
     _, hyper = hyper_from_key(best_key)

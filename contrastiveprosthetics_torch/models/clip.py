@@ -22,6 +22,7 @@ from torch import nn
 from contrastiveprosthetics_torch.models.emg_net import EMGNet
 from contrastiveprosthetics_torch.models.glove_net import GLOVENet, tower_mode
 from contrastiveprosthetics_torch.models.layers import torch_default_init_
+from contrastiveprosthetics_torch.parallel.collectives import reduce_from
 
 
 def l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -36,10 +37,19 @@ def l2_penalty(module: nn.Module) -> torch.Tensor:
     ``EMGNet.l2``/``GLOVENet.l2``, models.py:344-349,467-472). Biases and
     BatchNorm parameters are left out; the selection is by module type,
     because the port's BatchNorm weights are named like any other. An
-    empty module (an idle tower) has penalty 0, as JAX's ``l2_penalty({})``."""
-    norms = [torch.linalg.vector_norm(m.weight) for m in module.modules()
+    empty module (an idle tower) has penalty 0, as JAX's ``l2_penalty({})``.
+    A weight sharded over mp (``EMGNet.shard_dense``) counts the norm of
+    the whole weight: its squares summed over the mp group."""
+    norms = [_weight_norm(m) for m in module.modules()
              if isinstance(m, (nn.Conv2d, nn.Linear))]
     return torch.stack(norms).sum() if norms else torch.zeros(())
+
+
+def _weight_norm(m: nn.Module) -> torch.Tensor:
+    shard = m.__dict__.get("shard")
+    if shard is None:
+        return torch.linalg.vector_norm(m.weight)
+    return reduce_from((m.weight * m.weight).sum(), shard[-1].mp_group).sqrt()
 
 
 class ContrastiveModel(nn.Module):

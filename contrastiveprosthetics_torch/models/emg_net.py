@@ -17,10 +17,23 @@ trains at any rate.
 (``models/emg_net.py:37-66``): parameters and running statistics stay
 f32, each Conv2d and Linear runs through ``layers.low_precision``, the
 BatchNorms take bf16 in and give bf16 out, and the output returns to f32.
+
+Under an mp mesh (:meth:`EMGNet.shard_dense`, called by
+``parallel/mesh.py::shard_state``) the dense stack and the head run in
+tensor-parallel form, as GSPMD partitions the JAX package's step by its
+rule (``parallel/mesh.py``): each ``nn.Linear`` the rule shards holds its
+block of the weight (its bias stays whole). A column-parallel layer gives
+this rank's block of the output features; ReLU, BatchNorm (per feature:
+local apart from the dp sums) and dropout act on them locally. A
+row-parallel layer takes the matching block of the input features (its
+own slice of a whole input, with no collective) and its partial product
+is summed over mp before its bias, which is added once. The conv stack
+stays whole, as JAX's rule leaves it.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as nnf
 from torch import nn
 
 from contrastiveprosthetics_torch.models.layers import (
@@ -32,9 +45,18 @@ from contrastiveprosthetics_torch.models.layers import (
     low_precision,
     make_norm,
 )
+from contrastiveprosthetics_torch.parallel.collectives import (
+    copy_to,
+    gather_rows,
+    local_slice,
+    reduce_from,
+)
 
 
 class EMGNet(nn.Module):
+    # the mesh of a tensor-parallel dense stack (shard_dense), or None
+    mesh = None
+
     def __init__(self, d_e: int = 16, emg_dim: int = 12, adabn: bool = False,
                  n_linear: int = 7, hidden: int = 512,
                  conv_features: int = 64, prediction: bool = False,
@@ -74,6 +96,80 @@ class EMGNet(nn.Module):
             self.last = nn.Sequential(
                 nn.Linear(hidden, d_e, bias=False, device=device))
 
+    def _dense(self) -> tuple[nn.Module, ...]:
+        return (*self.linear, *self.last)
+
+    def shard_dense(self, mesh, hidden: int) -> dict[int, tuple]:
+        """Narrow each dense weight the mp rule shards to this rank's
+        block and mark the BatchNorms and dropouts that then act on
+        sharded features, in place. Returns ``{id(narrowed weight):
+        m.shard}``, ``m.shard`` being (dim, lo, hi, whole size, mesh)."""
+        from contrastiveprosthetics_torch.parallel.mesh import (
+            local_range,
+            param_spec,
+        )
+
+        cols, index = None, 0  # the features [lo, hi) x holds, or None
+        shards = {}
+        for m in self._dense():
+            if isinstance(m, nn.Linear):
+                dim = getattr(param_spec(tuple(m.weight.shape), index,
+                                         hidden)[1], "dim", None)
+                index += 1
+                if dim is None and cols is None:
+                    continue
+                n = m.weight.shape[dim if dim is not None else 1]
+                lo, hi = local_range(n, mesh.n_mp, mesh.mp_rank)
+                if dim != 1 and cols is not None:
+                    raise ValueError(f"dense layer {index - 1} takes "
+                                     "sharded features but is not "
+                                     "row-parallel")
+                m.shard = (dim, lo, hi, n, mesh)
+                m.weight = nn.Parameter(
+                    m.weight.detach().narrow(dim, lo, hi - lo).clone())
+                shards[id(m.weight)] = m.shard
+                cols = (lo, hi, n) if dim == 0 else None
+            elif isinstance(m, (BatchNorm, AdaBN)):
+                getattr(m, "bn", m).cols = cols and cols[:2]
+            elif isinstance(m, RateDropout):
+                m.cols = cols and (cols[2], cols[0], cols[1])
+        if cols is not None:
+            raise ValueError("the head leaves sharded features")
+        self.mesh = mesh
+        return shards
+
+    def gather_dense(self) -> dict[int, tuple]:
+        """The inverse of :meth:`shard_dense`: each sharded weight gathered
+        whole over mp (bit for bit) and the marks taken off. Returns
+        ``{id(whole weight): its former m.shard}``."""
+        out = {}
+        for m in self._dense():
+            if isinstance(m, nn.Linear) and "shard" in m.__dict__:
+                shard = m.__dict__.pop("shard")
+                dim, lo, _, n, mesh = shard
+                m.weight = nn.Parameter(gather_rows(m.weight.detach(), lo, n,
+                                                    mesh.mp_group, dim))
+                out[id(m.weight)] = shard
+        self.__dict__.pop("mesh", None)
+        return out
+
+    def _parallel_linear(self, m: nn.Linear, x: torch.Tensor):
+        """A dense layer under mp: column-parallel (this rank's output
+        features), row-parallel (summed over mp, then the bias) or whole."""
+        shard = m.__dict__.get("shard")
+        if shard is None:
+            return m(x)
+        dim, lo, hi, n, mesh = shard
+        group = mesh.mp_group
+        if dim == 0:
+            bias = None if m.bias is None else local_slice(m.bias, lo, hi,
+                                                           group)
+            return nnf.linear(copy_to(x, group), m.weight, bias)
+        if x.shape[-1] == n:  # a whole input: this rank's features of it
+            x = copy_to(x, group)[:, lo:hi]
+        y = reduce_from(nnf.linear(x, m.weight), group)
+        return y if m.bias is None else y + m.bias
+
     def norms(self) -> list[nn.Module]:
         """The BatchNorm layers in forward order (2 conv + n_linear, and
         the prediction head's)."""
@@ -90,6 +186,10 @@ class EMGNet(nn.Module):
         ``generator``."""
         x = frames.reshape(-1, 1, 1, self.emg_dim)
         low = self.dtype != torch.float32
+        if low and self.mesh is not None:
+            raise NotImplementedError(
+                "a bf16 tower in tensor-parallel form is not ported to the "
+                "PyTorch package yet (ROADMAP.md, queue 1 item 14)")
         for m in (*self.conv_emg, *self.linear, *self.last):
             if isinstance(m, (BatchNorm, AdaBN)):
                 x = m(x, collect)
@@ -97,6 +197,8 @@ class EMGNet(nn.Module):
                 x = m(x, dropout, generator)
             elif low and isinstance(m, (nn.Conv2d, nn.Linear)):
                 x = low_precision(m, x, self.dtype)
+            elif self.mesh is not None and isinstance(m, nn.Linear):
+                x = self._parallel_linear(m, x)
             else:
                 x = m(x)
         return at_least_f32(x)

@@ -27,6 +27,18 @@ beside its loss (``engine.py:373,389-390``).
 ``RateDropout`` takes its rate as a call argument and its keep mask from
 the caller's generator (the JAX package's ``models/layers.py:116-127``).
 
+Under a mesh (``parallel/mesh.py``; the JAX package's sharded
+``_sgd_step``, where GSPMD computes every statistic of the global batch)
+a BatchNorm's batch statistics are those of the global batch: the count
+and the sum all-reduced over dp give the mean, then the sum of ``(x -
+mean)^2`` all-reduced gives the biased variance, the two passes of
+``torch.var_mean``; its running statistics move once, identically on
+every rank. On a tensor-parallel layer's sharded features it normalizes
+its own features ``cols`` with its slice of the replicated affine. A
+dropout layer draws the masks of the global batch from the step's
+generator and keeps its own rows (``rows``) and features (``cols``), so a
+sharded step drops what the unsharded one drops.
+
 A bfloat16 tower (``EMGNet(dtype=torch.bfloat16)``) rounds where flax's
 ``dtype=bfloat16`` layers do, with parameters and running statistics in
 f32 (the JAX package's ``models/layers.py:47-113``): :func:`low_precision`
@@ -42,6 +54,12 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from contrastiveprosthetics_torch.parallel.collectives import (
+    all_reduce_sum,
+    gather_rows,
+    local_slice,
+)
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -84,6 +102,11 @@ def write_running(pairs) -> None:
 class BatchNorm(nn.Module):
     """BatchNorm over the channel axis (dim 1) of (N, C) or (N, C, H, W)."""
 
+    # set by parallel.mesh.shard_state: the Mesh (global batch statistics
+    # over dp) and the features [lo, hi) of a sharded input
+    mesh = None
+    cols: tuple[int, int] | None = None
+
     def __init__(self, num_features: int, eps: float = 1e-5,
                  track_running_stats: bool = True, device=None):
         super().__init__()
@@ -112,15 +135,34 @@ class BatchNorm(nn.Module):
         Welford pass keeps both within f32 roundoff of the exact
         statistics."""
         dims = [0] + list(range(2, x.dim()))
-        var, mean = torch.var_mean(at_least_f32(x), dim=dims, correction=0)
-        return mean, var
+        xf = at_least_f32(x)
+        if self.mesh is None or self.mesh.n_dp == 1:
+            var, mean = torch.var_mean(xf, dim=dims, correction=0)
+            return mean, var
+        group = self.mesh.dp_group
+        sums = all_reduce_sum(torch.cat([
+            xf.sum(dims), xf.new_full((1,), xf.numel() // xf.shape[1])]),
+            group)
+        mean = sums[:-1] / sums[-1]
+        dev = xf - mean.view(self._shape(x))
+        return mean, all_reduce_sum((dev * dev).sum(dims), group) / sums[-1]
+
+    def _local(self, *tensors):
+        """``tensors`` (the affine or the running statistics), sliced to
+        this rank's features where the input is sharded."""
+        if self.cols is None:
+            return tensors
+        lo, hi = self.cols
+        return tuple(local_slice(t, lo, hi, self.mesh.mp_group)
+                     for t in tensors)
 
     def normalize(self, x, mean, var) -> torch.Tensor:
         """In f32 (a bf16 ``x`` promotes), returned in ``x``'s dtype."""
         shape = self._shape(x)
-        mul = torch.rsqrt(var + self.eps) * self.weight
+        weight, bias = self._local(self.weight, self.bias)
+        mul = torch.rsqrt(var + self.eps) * weight
         return ((x - mean.view(shape)) * mul.view(shape)
-                + self.bias.view(shape)).to(x.dtype)
+                + bias.view(shape)).to(x.dtype)
 
     def forward(self, x: torch.Tensor, collect: list | None = None):
         """Batch statistics in train mode or without running stats,
@@ -134,12 +176,18 @@ class BatchNorm(nn.Module):
                 collect.append((mean, var))
             elif self.training and self.track_running_stats:
                 with torch.no_grad():
+                    b_mean, b_var = mean, var
+                    if self.cols is not None:  # every feature's, over mp
+                        b_mean, b_var = gather_rows(
+                            torch.stack([mean, var]), self.cols[0],
+                            self.num_features, self.mesh.mp_group, 1)
                     set_running(
                         (self.running_mean, self.running_var),
-                        (update_running(self.running_mean, mean),
-                         update_running(self.running_var, var)))
+                        (update_running(self.running_mean, b_mean),
+                         update_running(self.running_var, b_var)))
             return self.normalize(x, mean, var)
-        return self.normalize(x, self.running_mean, self.running_var)
+        return self.normalize(x, *self._local(self.running_mean,
+                                               self.running_var))
 
 
 class AdaBN(nn.Module):
@@ -161,6 +209,12 @@ class RateDropout(nn.Module):
     kept ones by ``1 / (1 - rate)``. The identity at rate 0 and in eval
     mode."""
 
+    # set under a mesh (parallel/mesh.py): the global batch's item count
+    # and this rank's items (n, lo, hi), and the features (F, lo, hi) of a
+    # sharded input
+    rows: tuple[int, int, int] | None = None
+    cols: tuple[int, int, int] | None = None
+
     def forward(self, x: torch.Tensor, rate: float = 0.0,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         if not self.training or rate == 0.0:
@@ -169,8 +223,21 @@ class RateDropout(nn.Module):
             raise ValueError("dropout at a nonzero rate needs an explicit "
                              "torch.Generator for its mask")
         keep = 1.0 - rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-        return torch.where(mask, x / keep, 0.0)
+        return torch.where(self._keep(x, keep, generator), x / keep, 0.0)
+
+    def _keep(self, x, keep, generator) -> torch.Tensor:
+        """The keep mask of ``x``: drawn at ``x``'s shape, or under a mesh
+        at the global batch's (n * rows-per-item, F) and sliced to this
+        rank's rows and features."""
+        if self.rows is None and self.cols is None:
+            return torch.rand(x.shape, generator=generator,
+                              device=x.device) < keep
+        n, lo, hi = self.rows or (1, 0, 1)
+        k = x.shape[0] // (hi - lo)  # rows an item
+        F, c0, c1 = self.cols or (x.shape[1], 0, x.shape[1])
+        mask = torch.rand((n * k, F), generator=generator,
+                          device=x.device) < keep
+        return mask[lo * k:hi * k, c0:c1]
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:

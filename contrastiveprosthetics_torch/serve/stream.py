@@ -21,8 +21,12 @@ chains, which run ``encoder_chain``'s bf16 variant, and calibrates through
 its bf16 tower; the DSP, the affines and the vote stay f32, as in the JAX
 tick, where only the dots take the folds' dtype.
 
-Left out against the JAX engines: the mesh (session axis over chips), and
-the TPU's VMEM session-block census and its compile probe.
+``BatchedStreamingEngine(mesh=)`` shards the session axis over the
+mesh's dp ranks (JAX ``serve/stream.py:396-441``): each rank holds its
+block of sessions (DSP carries, vote windows, BN affines), takes every
+session's blocks and subset masks, runs the tick's kernels on its own
+rows and returns every session's outputs, gathered. Left out against the
+JAX engines: the TPU's VMEM session-block census and its compile probe.
 """
 from __future__ import annotations
 
@@ -46,6 +50,8 @@ from contrastiveprosthetics_torch.ops.kernels import (
     tick_chain,
 )
 from contrastiveprosthetics_torch.ops.signal import butter_bandpass_sos
+from contrastiveprosthetics_torch.parallel.collectives import gather_rows
+from contrastiveprosthetics_torch.parallel.mesh import local_range
 
 
 @torch.no_grad()
@@ -216,17 +222,33 @@ class BatchedStreamingEngine:
     """``n_sessions`` prosthesis users served together: shared encoder
     weights, per-session BatchNorm statistics (each calibrated by
     :meth:`calibrate_session`), per-session DSP state, vote window and
-    grasp-subset mask."""
+    grasp-subset mask.
+
+    ``mesh``: a ``parallel/mesh.py::Mesh``; its dp ranks each serve
+    ``n_sessions / n_dp`` sessions, ``[lo, hi)`` (``n_sessions`` must
+    divide by dp). Its carries are that block's; :meth:`step` and
+    :meth:`steps` take every session's blocks and masks and return every
+    session's outputs; each session is calibrated by the rank that holds
+    it. Every rank of the mesh calls each method."""
 
     def __init__(self, cfg: Config, model: ContrastiveModel,
-                 emg_mean: np.ndarray, emg_std: np.ndarray, n_sessions: int):
+                 emg_mean: np.ndarray, emg_std: np.ndarray, n_sessions: int,
+                 mesh=None):
         self.n_sessions = n_sessions
         self.cfg = cfg
+        self.mesh = mesh
+        self.lo, self.hi = 0, n_sessions
+        if mesh is not None:
+            if n_sessions % mesh.n_dp:
+                raise ValueError(f"n_sessions={n_sessions} must divide by "
+                                 f"the mesh's dp size {mesh.n_dp}")
+            self.lo, self.hi = local_range(n_sessions, mesh.n_dp,
+                                           mesh.dp_rank)
         self._single = StreamingEngine(cfg, model, emg_mean, emg_std)
         emg_net = self._single.model.emg_net
         self._shared = fold_encoder_params_shared(
             emg_net, self._single._class_emb, dtype=self._single.model.dtype)
-        S = n_sessions
+        S = self.hi - self.lo
         self._stats = [(bn.running_mean.expand(S, -1).clone(),
                         bn.running_var.expand(S, -1).clone())
                        for bn in emg_net.norms()]
@@ -234,14 +256,19 @@ class BatchedStreamingEngine:
         self._affines_dirty = False
 
     def init_carries(self) -> StreamCarry:
+        """The carries of this rank's sessions (all of them unsharded)."""
         one = self._single.init_carry()
-        return StreamCarry(*(x.expand((self.n_sessions,) + x.shape).clone()
+        return StreamCarry(*(x.expand((self.hi - self.lo,) + x.shape).clone()
                              for x in one))
 
     def calibrate_session(self, i: int, raw_recording) -> None:
         """Re-estimate session ``i``'s BN statistics from its own
         calibration recording; the affines are re-derived once, lazily, by
-        the next tick."""
+        the next tick. Under a mesh the rank holding session ``i`` does
+        it, and the others return."""
+        if not self.lo <= i < self.hi:
+            return
+        i -= self.lo
         frames = self._single.preprocess_recording(raw_recording)
         current = [(mean[i], var[i]) for mean, var in self._stats]
         new = recalibrate_batch_stats(self._single.model, frames, current)
@@ -265,25 +292,37 @@ class BatchedStreamingEngine:
         return self._affines
 
     def _args(self, subset_masks):
-        """The tick chain's arguments after the blocks."""
+        """The tick chain's arguments after the blocks, for this rank's
+        sessions."""
         single = self._single
         masks = single._mask(subset_masks, (self.n_sessions, single.n_classes))
-        return (masks, single._sos, single._mean, single._std, self._shared,
-                self.session_affines())
+        return (masks[self.lo:self.hi], single._sos, single._mean,
+                single._std, self._shared, self.session_affines())
+
+    def _gathered(self, dim: int, *parts):
+        """Every session's outputs from each rank's ``parts``, along
+        ``dim`` (as they are unsharded)."""
+        if self.mesh is None:
+            return parts
+        return tuple(gather_rows(p, self.lo, self.n_sessions,
+                                 self.mesh.dp_group, dim) for p in parts)
 
     def step(self, carries: StreamCarry, raw_blocks, subset_masks=None):
         """One tick of every session: ``raw_blocks`` (S, factor, emg_dim),
         ``subset_masks`` (S, n_classes) bool or None. Returns (carries,
         preds (S,), votes (S,), masked scores (S, n_classes))."""
         carry, preds, vote_preds, masked = tick_chain(
-            *carries, self._single._tensor(raw_blocks)[None],
+            *carries, self._single._tensor(raw_blocks[self.lo:self.hi])[None],
             *self._args(subset_masks))
-        return StreamCarry(*carry), preds[0], vote_preds[0], masked[0]
+        return (StreamCarry(*carry),
+                *self._gathered(0, preds[0], vote_preds[0], masked[0]))
 
     def steps(self, carries: StreamCarry, raw_blocks_seq, subset_masks=None):
         """``(K, S, factor, emg_dim)`` blocks in one call. Returns
         (carries, preds (K, S), votes (K, S))."""
         carry, preds, vote_preds = fused_tick_chain_batched(
-            *carries, self._single._tensor(raw_blocks_seq),
+            *carries,
+            self._single._tensor(raw_blocks_seq[:, self.lo:self.hi]),
             *self._args(subset_masks))
-        return StreamCarry(*carry), preds, vote_preds
+        return (StreamCarry(*carry),
+                *self._gathered(1, preds, vote_preds))

@@ -10,6 +10,12 @@ not once per config. ``chunk`` bounds the card's memory.
 The sampler draws from numpy (seed 42 by default), so both packages get
 the same configs. The keys and values ``.npy`` files keep the reference's
 layout.
+
+The chunks run through ``parallel/spmd.py::make_sharded_crossval_run``,
+with or without a mesh. ``cross_validate(mesh=)`` shards the configs over
+the mesh's dp ranks: each rank trains whole chunks, round robin, with
+the generators it gives them unsharded, so the sharded sweep equals the
+unsharded one at the same chunk width, bit for bit.
 """
 from __future__ import annotations
 
@@ -17,6 +23,9 @@ import os
 
 import numpy as np
 
+from contrastiveprosthetics_torch.parallel.spmd import (
+    make_sharded_crossval_run,
+)
 from contrastiveprosthetics_torch.train.engine import Hyper, Trainer
 from contrastiveprosthetics_torch.train.schedules import schedule_factors
 
@@ -66,10 +75,11 @@ def best_config(values: np.ndarray, keys: np.ndarray) -> np.ndarray:
     return keys[int(np.nanargmax(values[:, 1]))]
 
 
-def resolve_chunk(n: int) -> int:
+def resolve_chunk(n: int, n_dp: int = 1) -> int:
     """The default sweep-chunk width: ``DEFAULT_SWEEP_CHUNK`` configs,
-    capped at the number of configs."""
-    return min(n, DEFAULT_SWEEP_CHUNK)
+    capped at the number of configs and, over ``n_dp`` ranks, at an even
+    share of them, so that every rank gets a chunk."""
+    return min(n, DEFAULT_SWEEP_CHUNK, -(-n // n_dp))
 
 
 def config_seed(seed: int, index: int, stream: int = 0) -> int:
@@ -81,7 +91,8 @@ def config_seed(seed: int, index: int, stream: int = 0) -> int:
 
 def cross_validate(trainer: Trainer, hypers: Hyper, epochs: int, seed: int,
                    chunk: int | None = None, save_dir: str | None = None,
-                   verbose: bool = True, id_: str = "") -> np.ndarray:
+                   verbose: bool = True, id_: str = "",
+                   mesh=None) -> np.ndarray:
     """Train every config of ``hypers`` (the sampler's (n,) arrays) for
     ``epochs`` epochs without annealing, in chunks of ``chunk`` configs,
     and return the (n, 2) f64 values (val loss, voted val accuracy) per
@@ -90,32 +101,31 @@ def cross_validate(trainer: Trainer, hypers: Hyper, epochs: int, seed: int,
     from (``seed``, i), so they do not depend on the chunk width; each
     chunk's dropout masks come from a generator seeded from (``seed``, its
     first config). ``save_dir``: write ``cross_val_values{id_}.npy`` and
-    ``cross_val_keys{id_}.npy`` there (train.py:157-166)."""
+    ``cross_val_keys{id_}.npy`` there (train.py:157-166).
+
+    ``mesh``: a ``parallel/mesh.py::Mesh`` whose dp ranks share the
+    chunks (see the module docstring); every rank of it calls this and
+    gets every config's values; the mesh's first rank alone prints and
+    writes the files."""
     n = len(np.asarray(hypers.lr_emg))
     if n < 1:
         raise ValueError(
             "cross_validate needs at least one config (the CLI maps "
             "--crossval_size 0 to the canonical hyperparameters instead)")
-    chunk = resolve_chunk(n) if chunk is None else chunk
+    n_dp = 1 if mesh is None else mesh.n_dp
+    chunk = resolve_chunk(n, n_dp) if chunk is None else chunk
     if chunk < 1:
         raise ValueError(f"the sweep's chunk must be at least 1 config, "
                          f"got {chunk}")
     emg_f, glove_f = schedule_factors(
         epochs, annealing=False,
         compat_shared_steplr=trainer.cfg.compat_shared_steplr)
-    pending = []  # the host reads the values once, after every chunk
-    for start in range(0, n, chunk):
-        rows = slice(start, min(start + chunk, n))
-        h = Hyper(*[np.asarray(x)[rows] for x in hypers])
-        generators = [trainer.generator(config_seed(seed, i))
-                      for i in range(rows.start, rows.stop)]
-        pending.append((rows, trainer.sweep_chunk(
-            h, generators, emg_f, glove_f,
-            trainer.generator(config_seed(seed, start, stream=1)))))
-    values = np.empty((n, 2), dtype=np.float64)
-    for rows, (loss, acc) in pending:
-        values[rows, 0] = loss.cpu().numpy()
-        values[rows, 1] = acc.cpu().numpy()
+    run_fn, place = make_sharded_crossval_run(trainer, mesh)
+    # one read of the device's values, after every chunk
+    values = run_fn(place(hypers, seed, chunk), n, emg_f, glove_f
+                    ).cpu().numpy().astype(np.float64)
+    if mesh is not None and (mesh.dp_rank or mesh.mp_rank):
+        return values
     if verbose:
         print(f"crossval [{n}/{n}]: best acc {np.nanmax(values[:, 1]):.4f}")
     if save_dir is not None:
@@ -124,3 +134,15 @@ def cross_validate(trainer: Trainer, hypers: Hyper, epochs: int, seed: int,
         np.save(os.path.join(save_dir, f"cross_val_keys{id_}.npy"),
                 keys_array(hypers, trainer.d_e))
     return values
+
+
+def chunk_inputs(trainer: Trainer, hypers: Hyper, seed: int,
+                 rows: slice):
+    """The chunk of configs ``rows``: its (C,) hyperparameters, one
+    generator a config seeded from (``seed``, config) and the dropout
+    generator seeded from (``seed``, its first config)."""
+    h = Hyper(*[np.asarray(x)[rows] for x in hypers])
+    generators = [trainer.generator(config_seed(seed, i))
+                  for i in range(rows.start, rows.stop)]
+    return h, generators, trainer.generator(config_seed(seed, rows.start,
+                                                         stream=1))

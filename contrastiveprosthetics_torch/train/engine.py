@@ -89,6 +89,20 @@ another dtype than the trainer's; an evaluation takes the dtype of the
 model it is given (a checkpoint carries none: the CLI loads it in the
 trainer's). ``adam_mu_dtype="bfloat16"`` stores Adam's first
 moment in bf16 (``engine.py:146-155``), as optax's ``mu_dtype``.
+
+Under a mesh (``loss_and_grads``/``_sgd_step`` with ``mesh=``, as
+``parallel/spmd.py::make_sharded_train_step`` calls them on a state from
+``parallel/mesh.py::shard_state``) a step is the JAX package's sharded
+``_sgd_step`` (``engine.py:392-428``, partitioned by GSPMD), with its
+collectives written out: every rank is given the global batch and runs
+its own items (dp); K1f/K1b run on them, the local mean loss scaled by
+``N_local / N`` (so K1b's upstream is too) and summed over dp, and the
+correct count summed; BatchNorm takes the global batch's statistics;
+each dropout layer draws the global batch's masks from the step's
+generator and keeps its own rows; the L2 penalty of a weight sharded over
+mp is the whole weight's; the gradients are summed over dp and both Adam
+chains run on the shards. The eager tower only: the fused chain, remat
+and bf16 under a mesh raise (ROADMAP.md, queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -140,6 +154,11 @@ from contrastiveprosthetics_torch.ops.kernels import (
     fused_encoder_logits,
 )
 from contrastiveprosthetics_torch.ops.train_fused import fused_emg_embed
+from contrastiveprosthetics_torch.parallel.collectives import sum_flat
+from contrastiveprosthetics_torch.parallel.mesh import (
+    local_range,
+    set_batch_rows,
+)
 from contrastiveprosthetics_torch.train.loss import (
     majority_vote,
     prediction_accuracy,
@@ -490,9 +509,30 @@ class Trainer:
             g = model.embed_glove(glove_b, dp_glove, generator)
         return l2_normalize(e.reshape(*lead, B, T, -1)), g
 
+    def _sharded_batch(self, state: TrainState, mesh, emg_b, glove_b):
+        """This rank's items of the global batch under ``mesh``, its
+        dropout layers set to keep them, and their share of the batch."""
+        if (self.use_fused_train or self.remat
+                or self.dtype != torch.float32
+                or isinstance(state.model, StackedContrastiveModel)):
+            raise NotImplementedError(
+                "the sharded step runs one f32 model on the eager tower; "
+                "the fused chain, remat and bf16 under a mesh are not "
+                "ported to the PyTorch package yet (ROADMAP.md, queue 1 "
+                "item 14)")
+        B = emg_b.shape[0]
+        lo, hi = local_range(B, mesh.n_dp, mesh.dp_rank)
+        if hi == lo:
+            raise ValueError(f"a batch of {B} items leaves dp rank "
+                             f"{mesh.dp_rank} of {mesh.n_dp} none")
+        set_batch_rows(state.model, (B, lo, hi))
+        return (emg_b[lo:hi], None if glove_b is None else glove_b[lo:hi],
+                (hi - lo) / B)
+
     def loss_and_grads(self, state: TrainState, emg_b: torch.Tensor,
                        hyper: Hyper, generator: torch.Generator | None,
-                       ext_masks=None, glove_b: torch.Tensor | None = None):
+                       ext_masks=None, glove_b: torch.Tensor | None = None,
+                       mesh=None):
         """Forward (train mode: batch statistics, which also move the
         running ones), the loss plus ``reg * l2`` of each tower, and the
         gradients of that total. The loss is the fused contrastive loss,
@@ -511,7 +551,13 @@ class Trainer:
         stacked model drops nothing (every rate must be 0).
 
         With ``remat`` the forward runs again inside the backward (see the
-        module docstring); the results are the same bits."""
+        module docstring); the results are the same bits.
+
+        Under ``mesh`` (a state of ``parallel/mesh.py::shard_state``) the
+        step is sharded (see the module docstring): ``emg_b`` and
+        ``glove_b`` are the global batch, every rank's the same, and the
+        loss, the accuracy and the gradients of this rank's shards come
+        back as the unsharded step's."""
         if state.model.dtype != self.dtype:
             # the step runs in the model's dtype: a state of the other one
             # would train in a dtype this trainer was not built for
@@ -523,6 +569,11 @@ class Trainer:
         l2 = stacked_l2_penalty if stacked else l2_penalty
         towers = model.towers()
         params = {k: list(t.parameters()) for k, t in towers.items()}
+        share, n_dp, emg_b_rows = 1.0, 1, emg_b.shape[-3]
+        if mesh is not None:
+            emg_b, glove_b, share = self._sharded_batch(state, mesh, emg_b,
+                                                        glove_b)
+            n_dp = mesh.n_dp
         B, T = emg_b.shape[-3:-1]
 
         def forward():
@@ -532,6 +583,8 @@ class Trainer:
                 labels = torch.arange(T, device=scores.device).repeat(B)
                 loss = prediction_loss(scores, labels)
                 acc = prediction_accuracy(scores, labels)
+                if mesh is not None:  # the rows right, a count
+                    acc = (scores.argmax(-1) == labels).sum().to(loss.dtype)
             else:
                 if self.use_fused_train:
                     e, g = self._embed_fused(model, emg_b, hyper.dp_emg,
@@ -542,11 +595,14 @@ class Trainer:
                                        glove_b, hyper.dp_glove)
                 loss, correct = fused_contrastive_loss(e.contiguous(),
                                                        g.contiguous())
-                acc = correct / (B * T)
-            total = (loss
-                     + hyper.reg_emg * l2(towers["emg_net"])
-                     + hyper.reg_glove * l2(towers["glove_net"]))
-            return total, loss, acc
+                acc = correct / (B * T) if mesh is None else correct
+            penalty = (hyper.reg_emg * l2(towers["emg_net"])
+                       + hyper.reg_glove * l2(towers["glove_net"]))
+            if mesh is None:
+                return loss + penalty, loss, acc
+            # this rank's share of the global mean, the penalty once over dp
+            loss = loss * share
+            return loss + penalty / n_dp, loss, acc
 
         with f32_convolutions():
             if self.remat:
@@ -558,20 +614,26 @@ class Trainer:
                 total.sum(), params["emg_net"] + params["glove_net"])
         if self.remat:
             write_running(running)
+        loss = loss.detach()
+        if mesh is not None:
+            flat = sum_flat(flat, mesh.dp_group)
+            loss, hits = sum_flat((loss, acc.detach()), mesh.dp_group)
+            acc = hits / (emg_b_rows * T)
         n = len(params["emg_net"])
         grads = {"emg_net": list(flat[:n]), "glove_net": list(flat[n:])}
-        return loss.detach(), acc, grads
+        return loss, acc, grads
 
     def _sgd_step(self, state: TrainState, emg_b, hyper: Hyper,
                   lr_emg: float | torch.Tensor, lr_glove: float | torch.Tensor,
                   generator: torch.Generator | None, ext_masks=None,
-                  glove_b: torch.Tensor | None = None):
+                  glove_b: torch.Tensor | None = None, mesh=None):
         """One optimization step: forward, loss + L2, backward, then the
         two Adam updates. Returns (loss, accuracy) on the device. On a
         stacked state (see :meth:`loss_and_grads`) it is one step of every
-        config, with (C,) lr tensors."""
+        config, with (C,) lr tensors; under ``mesh`` one sharded step,
+        each rank's Adam chains on its shards."""
         loss, acc, grads = self.loss_and_grads(state, emg_b, hyper, generator,
-                                               ext_masks, glove_b)
+                                               ext_masks, glove_b, mesh)
         towers = state.model.towers()
         adam_step_(towers["emg_net"].parameters(), grads["emg_net"],
                    state.opt_emg, lr_emg)
@@ -908,6 +970,16 @@ class Trainer:
         store's device (init, epochs and val draw from it in turn), and
         ``generator`` the chunk's dropout masks. Returns (C,) val losses and
         accuracies on the device."""
+        state, h = self.sweep_start(hyper, generators, generator)
+        for f_e, f_g in zip(emg_factors, glove_factors):
+            self.sweep_epoch(state, h, generators, f_e, f_g, generator)
+        return self.sweep_validate(state, generators)
+
+    def sweep_start(self, hyper: Hyper, generators,
+                    generator: torch.Generator | None):
+        """A chunk's stacked initial state, config c's drawn from
+        ``generators[c]``, and its ``hyper`` as (C,) f32 tensors on the
+        device (:meth:`sweep_chunk`)."""
         rates = [hyper.dp_glove] if self.reads_glove else []
         if not (self.prediction and self.glove):
             rates.append(hyper.dp_emg)
@@ -915,16 +987,27 @@ class Trainer:
             raise ValueError("dropout at a nonzero rate needs an explicit "
                              "torch.Generator for its masks")
         state = self.init_sweep_state(generators)
-        h = Hyper(*[torch.as_tensor(np.asarray(x, np.float32),
-                                    device=self.device) for x in hyper])
+        return state, Hyper(*[torch.as_tensor(np.asarray(x, np.float32),
+                                              device=self.device)
+                              for x in hyper])
+
+    def sweep_epoch(self, state: TrainState, hyper: Hyper, generators,
+                    lr_emg_factor: float, lr_glove_factor: float,
+                    generator: torch.Generator | None):
+        """One epoch of a chunk (:meth:`sweep_chunk`): each config's index
+        matrices from its generator, the dropout masks from ``generator``.
+        Returns the (C, steps) losses and accuracies on the device."""
         v = self.view_train
-        for f_e, f_g in zip(emg_factors, glove_factors):
-            emg_rand, glove_rand = self._stacked_permutations(generators, v)
-            batches, tail = stacked_epoch_batches(generators, v.D,
-                                                  self.batch_size)
-            self.sweep_epoch_from_indices(state, emg_rand, batches, tail, h,
-                                          float(f_e), float(f_g), generator,
-                                          glove_rand)
+        emg_rand, glove_rand = self._stacked_permutations(generators, v)
+        batches, tail = stacked_epoch_batches(generators, v.D,
+                                              self.batch_size)
+        return self.sweep_epoch_from_indices(
+            state, emg_rand, batches, tail, hyper, float(lr_emg_factor),
+            float(lr_glove_factor), generator, glove_rand)
+
+    def sweep_validate(self, state: TrainState, generators):
+        """A chunk's voted validation (:meth:`sweep_chunk`): (C,) losses and
+        accuracies on the device."""
         v = self.view_val
         emg_rand, glove_rand = self._stacked_permutations(generators, v)
         return self.sweep_evaluate_from_indices(

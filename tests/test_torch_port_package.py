@@ -118,23 +118,15 @@ def test_cli_default_platform_needs_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,match", [
-    ("--spmd", r"queue 1 item 8\)"),
     ("--no_fused_encoder", "one encoder path")])
 def test_cli_serve_jax_flags_exit_with_their_reason(monkeypatch, flag,
                                                     match):
-    """The JAX serve CLI's flags that the port does not run exit, naming
-    the ROADMAP item or the reason, before any CUDA work:
-    ``--no_fused_encoder`` always, ``--spmd`` where the JAX CLI would
-    shard (two CUDA devices visible, the sessions divisible by two; on
-    one device it serves unsharded:
-    ``test_cli_serve_spmd_serves_unsharded_on_one_device``)."""
-    platform = "cpu"
-    if flag == "--spmd":
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-        platform = "cuda"
+    """The JAX serve CLI's flag that the port does not run exits with its
+    reason, before any CUDA work: ``--no_fused_encoder`` always. (``--spmd``
+    shards: ``test_torch_port_parallel.py``; on one device it serves
+    unsharded: ``test_cli_serve_spmd_serves_unsharded_on_one_device``.)"""
     with pytest.raises(SystemExit, match=match):
-        port_serve.main(["--demo", "--platform", platform, "--quiet",
+        port_serve.main(["--demo", "--platform", "cpu", "--quiet",
                          "--sessions", "4", flag])
 
 

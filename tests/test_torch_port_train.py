@@ -592,35 +592,6 @@ def test_cli_train_on_cpu_writes_a_reference_checkpoint(tmp_path, monkeypatch,
                 if isinstance(m, torch.nn.Linear)]) == 7
 
 
-def two_cuda_devices(monkeypatch) -> None:
-    """A machine with two visible CUDA devices, as far as the CLIs' checks
-    before any CUDA call can tell."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-
-
-def refuse_stores(args, cfg, device):
-    raise AssertionError("a store was built")
-
-
-@pytest.mark.parametrize("argv", [
-    pytest.param(["--crossval_size", "3", "--spmd_crossval"], id="argv1")])
-def test_cli_unported_requests_name_the_roadmap(tmp_path, monkeypatch, argv):
-    """Each exits NOT_PORTED before a store is built: ``--spmd_crossval``
-    where the JAX CLI would shard, more than one device visible (on one
-    device or the CPU it runs unsharded:
-    ``test_cli_spmd_crossval_runs_unsharded_on_one_device``). The sweep
-    on the fused chain runs (``test_torch_port_sweep_fused.py``)."""
-    platform = "cpu"
-    if "--spmd_crossval" in argv:
-        two_cuda_devices(monkeypatch)
-        platform = "cuda"
-    monkeypatch.setattr(cli_train, "build_store", refuse_stores)
-    with pytest.raises(SystemExit, match="ROADMAP.md, queue 1 item"):
-        cli_train.main([*argv, "--platform", platform, "--data_dir",
-                        str(tmp_path)])
-
-
 @pytest.fixture()
 def small_train_cli(monkeypatch, tmp_path):
     """``cptorch-train`` on a one-person store at small width."""
