@@ -218,7 +218,7 @@ made with numpy from a seed:
    fold of 150 configs, 8,200 rows a config, at C=1, 2, 10 and 150, both
    tilings, f32 and bf16, against its plain version, float64 at C=2 and
    each config's own call, timed at C=150 beside the ``baddbmm`` chain
-   (``library_ms``); ``Trainer(remat=True)``: 75 steps (cut from an epoch) eager and fused,
+   (``library_ms``); ``Trainer(remat=True)``: 45 steps (cut from an epoch) eager and fused,
    f32 and bf16, and 20 stacked steps of 150 configs eager and fused,
    bit-equal to remat off under deterministic algorithms, ms a step and
    peak memory beside it; ``cross_validate`` of 150 configs x 1 epoch on
@@ -231,16 +231,25 @@ made with numpy from a seed:
    1`` in its own process;
 17. the parallel layer (``parallel/``): (a) a world of one rank over NCCL
    in this process, at full width: ``make_sharded_train_step`` on a (1,
-   1) mesh, ``cross_validate(mesh=)`` of 4 configs x 1 epoch and
+   1) mesh, eager f32 and then fused, remat (eager and fused) and bf16
+   (eager and fused), each with its twin's launches and no dp mode of a
+   kernel, ``cross_validate(mesh=)`` of 2 configs x 1 epoch and
    ``BatchedStreamingEngine(mesh=)`` at 32,768 sessions x 25 ticks, each
-   bit-equal to its unsharded twin and timed beside it in turns; (b) one
+   bit-equal to its unsharded twin and timed beside it in turns; (c) K5f,
+   K5b and the tail pair, f32 and bf16, in a dp rank's modes (Philox row
+   base, K5f's sums-only end and ``finish_stats``, K5b's n_total) at
+   N=164 and 82 against their plain versions and the whole batch's rows,
+   timed; (b) one
    spawned group of 4 ranks over gloo on the one card (NCCL refuses two
    ranks on one device; gloo is asked for here): the dp=2 step (ranks
    0-1) and the dp=2 x mp=2 step (all four) against the unsharded step on
    the card at JAX's bounds, K1f/K1b once a step on each rank at N=4; the
-   config-sharded sweep of 8 configs x 1 epoch over 2 ranks (cut from
+   fused f32 and bf16 steps at dp=2 x mp=2 and dp=4 (all sums-only K5f,
+   K5b given n_total, the row-based launches), f32 at JAX's bounds, bf16
+   within the eager/fused bf16 spread; the
+   config-sharded sweep of 4 configs x 1 epoch over 2 ranks (cut from
    go.sh's 150 for time), eager and on the fused chain and encoder,
-   bit-equal to the unsharded sweep at chunk 4, 7 K5f, 7 K5b and one of
+   bit-equal to the unsharded sweep at chunk 2, 7 K5f, 7 K5b and one of
    each tail kernel a stacked step on each rank; session-sharded serving
    of 32,768 sessions x 25 ticks over 2 ranks, f32 and bf16, preds and
    votes equal to the unsharded engine's, each rank's kernels launched on
@@ -4657,7 +4666,7 @@ ENCODER_CONFIGS = (1, 2, 10, 150)  # encoder_chain
 VAL_ROWS = 8 * 41 * 25             # a val batch of 8 items, one config
 AXIS_K5 = FUSED_KERNELS[:4]        # the chain's kernels with a config axis
 REMAT_STACKED_STEPS = 20
-REMAT_STEPS = 75  # a single model's remat run: cut from an epoch (225)
+REMAT_STEPS = 45  # a single model's remat run: cut from an epoch (225)
 SMALL_SWEEP_CONFIGS = 10           # phase 16's bf16 and glove-encoding sweeps
 
 
@@ -5123,7 +5132,7 @@ def same_state(a, b) -> bool:
 
 def remat_check(K, trainer) -> dict:
     """Phase 16, part 2: ``Trainer(remat=True)`` on phase 7's store, bs 8:
-    75 steps (a third of an epoch, cut for the script's time) eager and
+    45 steps (a fifth of an epoch, cut for the script's time) eager and
     fused, f32 and bf16, and 20 stacked
     steps of the 150 sampled configs eager and fused, each with remat off
     and on from the same seeds, dropout on, under deterministic
@@ -5511,14 +5520,33 @@ def sweep_fused_phase(K, TF, trainer, dev,
 PARALLEL_RANKS = 4      # one gloo group on the one card: dp=2 x mp=2
 PARALLEL_STEPS = 10     # timed steps a path a turn (a rank's gloo step)
 WORLD1_TURNS, WORLD1_STEPS = 6, 50  # the world-1 step, sharded and not
-PARALLEL_CONFIGS = 8    # the config-sharded sweep (cut from go.sh's 150)
-PARALLEL_CHUNK = 4      # one chunk a rank over 2 ranks
-WORLD1_CONFIGS = 4      # the world-1 sweep
+PARALLEL_CONFIGS = 4    # the config-sharded sweep (cut from go.sh's 150)
+PARALLEL_CHUNK = 2      # one chunk a rank over 2 ranks
+WORLD1_CONFIGS = 2      # the world-1 sweep
 CLI_SPMD_CONFIGS = 4    # cptorch-train --spmd_crossval --crossval_size
 # JAX's bounds of a sharded step against the unsharded one
 # (tests/test_parallel.py:98-117): the loss within rtol 1e-4; more than
 # 98 % of each parameter within rtol 5e-3, atol 1e-5, all within 2.5 lr
 STEP_LOSS_RTOL, STEP_CLOSE_SHARE = 1e-4, 0.98
+# the sharded step's other paths at world 1, each beside its unsharded twin
+WORLD1_PATHS = (("fused", dict(use_fused_train=True)),
+                ("remat_eager", dict(remat=True)),
+                ("remat_fused", dict(use_fused_train=True, remat=True)),
+                ("bf16_eager", dict(compute_dtype="bfloat16")),
+                ("bf16_fused", dict(use_fused_train=True,
+                                    compute_dtype="bfloat16")))
+WORLD1_PATH_TURNS, WORLD1_PATH_STEPS = 2, 20
+# a dp rank's rows [lo, 328) of the step's batch: dp=2's second rank (164
+# rows, as at dp2 x mp2) and dp=4's last (82 rows)
+DP_RANK_ROWS = ((164, "fused_dp2_mp2"), (246, "fused_dp4"))
+# the bf16 step's bounds (tests/test_torch_port_train_bf16.py's): the
+# loss within 1e-2; the EMG tower's gradient no farther (relative 2-norm)
+# from the reference's than the spread of two valid bf16 orders of the same
+# step, here the unsharded eager step's from the unsharded fused step's (as
+# the CPU tests hold the port against JAX's two bf16 paths), and each
+# gradient no farther than BF16_STEP_RATIO times its own spread (the card's
+# bf16 chain test's factor against the plain chain) or BF16_STEP_FLOOR
+BF16_STEP_LOSS, BF16_STEP_RATIO, BF16_STEP_FLOOR = 1e-2, 1.25, 1e-3
 
 
 def parallel_inputs(trainer, seed: int = 7):
@@ -5560,10 +5588,303 @@ def held_to_jax_bounds(got, want, loss_got, loss_want, lr: float) -> dict:
     return dict(worst_close_share=worst_share, max_abs_diff=worst_abs)
 
 
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def held_to_bf16_bounds(got: dict, want: dict, spread: dict,
+                        loss_got: float, loss_want: float) -> dict:
+    """A sharded bf16 step's gradients (by name, gathered) against the
+    unsharded step's ``want`` at the bf16 step's bounds, ``spread`` the
+    gradients of another valid bf16 order of the unsharded step; raises
+    where they fail. The loss difference, and the largest ratio of a
+    gradient's (or the EMG tower's) distance to its spread's."""
+    emg = [n for n in want if n.startswith("emg_net.")]
+
+    def whole(g):
+        return torch.cat([g[n].flatten() for n in emg])
+
+    pairs = {n: (rel_l2(got[n], w), rel_l2(spread[n], w))
+             for n, w in want.items()}
+    ratio = max(d / max(sp, BF16_STEP_FLOOR) for d, sp in pairs.values())
+    tower = (rel_l2(whole(got), whole(want)),
+             rel_l2(whole(spread), whole(want)))
+    loss = abs(loss_got - loss_want)
+    if (loss > BF16_STEP_LOSS or ratio > BF16_STEP_RATIO
+            or tower[0] > tower[1]):
+        raise AssertionError(f"sharded bf16 step: loss {loss}, the EMG "
+                             f"tower {tower}, gradients against their "
+                             f"spread {json.dumps(pairs)}")
+    return dict(loss_abs_diff=loss, max_ratio_to_spread=ratio,
+                emg_rel_l2=tower[0], emg_spread_rel_l2=tower[1],
+                max_grad_rel_l2=max(d for d, _ in pairs.values()))
+
+
+def world1_paths(K, trainer, mesh, emg_b, hyper, tally) -> dict:
+    """Phase 17 (a), the sharded step's other paths at world 1 over NCCL,
+    full width: the fused chain, remat (eager and fused) and bf16 (eager
+    and fused), each sharded step bit-equal to its unsharded twin under
+    deterministic algorithms (the gathered state, both Adam chains, loss
+    and accuracy), with the twin's launches (K5f 7, K5b 7, the tail pair
+    and K1 once; the forward's twice under remat) and no dp mode of a
+    kernel (no sums-only, row-base or n_total launch); then timed in turns
+    beside the twin (CUDA events, ``WORLD1_PATH_STEPS`` steps a turn)."""
+    from contrastiveprosthetics_torch.parallel.mesh import gather_state
+    from contrastiveprosthetics_torch.parallel.spmd import (
+        make_sharded_train_step,
+    )
+    from contrastiveprosthetics_torch.train import engine
+
+    out = {}
+    for path, kw in WORLD1_PATHS:
+        tr = engine.Trainer(trainer.cfg, trainer.store, adabn=False,
+                            batch_size=8, **kw)
+        step, place = make_sharded_train_step(tr, mesh)
+        n = 2 if tr.remat else 1
+        sfx = "_bf16" if tr.dtype == torch.bfloat16 else ""
+        want = dict(contrastive_loss_fwd=n, contrastive_loss_bwd=1)
+        if tr.use_fused_train:
+            want.update({"dense_block_fwd" + sfx: 7 * n,
+                         "dense_block_bwd" + sfx: 7,
+                         "chain_tail_fwd" + sfx: n,
+                         "chain_tail_bwd" + sfx: 1})
+        with deterministic():
+            plain = tr.init_state(tr.generator(0))
+            sharded = place(tr.init_state(tr.generator(0)))
+            K.reset_launch_counts()
+            lp, ap = tr._sgd_step(plain, emg_b, hyper, 1e-3, 1e-3,
+                                  tr.generator(1))
+            torch.cuda.synchronize()
+            twin = {k: c for k, c in K.launch_counts.items() if c}
+            K.reset_launch_counts()
+            ls, as_ = step(sharded, emg_b, hyper, 1e-3, 1e-3,
+                           tr.generator(1))
+            torch.cuda.synchronize()
+            got = {k: c for k, c in K.launch_counts.items() if c}
+            modes = dict(K.mode_counts)
+            tally()
+            if got != twin or got != want or any(modes.values()):
+                raise AssertionError(f"world-1 {path} step launches {got} "
+                                     f"(modes {modes}), twin {twin}, want "
+                                     f"{want}")
+            if not (torch.equal(lp, ls) and torch.equal(ap, as_)
+                    and same_state(plain, gather_state(sharded, mesh))):
+                raise AssertionError(f"the world-1 sharded {path} step is "
+                                     "not its unsharded twin bit for bit")
+        gen_p, gen_s = tr.generator(2), tr.generator(2)
+        turns = {"unsharded": [], "sharded": []}
+        for _ in range(WORLD1_PATH_TURNS):
+            turns["unsharded"].append(time_ms(lambda: tr._sgd_step(
+                plain, emg_b, hyper, 1e-3, 1e-3, gen_p),
+                reps=WORLD1_PATH_STEPS))
+            turns["sharded"].append(time_ms(lambda: step(
+                sharded, emg_b, hyper, 1e-3, 1e-3, gen_s),
+                reps=WORLD1_PATH_STEPS))
+        med = {k: float(np.median(v)) for k, v in turns.items()}
+        out[path] = dict(bit_equal=True, launches=got, ms_per_step=turns,
+                         median_ms=med, sharded_minus_unsharded_ms=(
+                             med["sharded"] - med["unsharded"]))
+        del plain, sharded
+    log(f"[parallel] world 1: the fused, remat and bf16 sharded steps "
+        f"bit-equal to their twins, the twins' launches, no dp mode; "
+        f"{json.dumps(out)}")
+    return out
+
+
+def finished_like(got: torch.Tensor, want: torch.Tensor) -> int:
+    """``finish_stats`` of K5f's sums against K5f's own finish, the same
+    correctly rounded operations in the same order: raises unless mean,
+    var, rstd and a lie within one f32 ulp and c = beta - mean a within
+    one ulp plus what a one-ulp a moves it by; returns how many elements
+    are not bit-equal."""
+    within_one_ulp(got[:4], want[:4])
+    a_ulp = torch.nextafter(want[3].abs(), torch.full_like(
+        want[3], float("inf"))) - want[3].abs()
+    c_ulp = torch.nextafter(want[4].abs(), torch.full_like(
+        want[4], float("inf"))) - want[4].abs()
+    if not bool(((got[4] - want[4]).abs()
+                 <= c_ulp + want[0].abs() * a_ulp).all()):
+        raise AssertionError(f"finish_stats' c off: max abs error "
+                             f"{max_abs(got[4], want[4])}")
+    return int((got != want).sum())
+
+
+def dp_rank_case(TF, lo: int, bf16: bool, dev):
+    """An inner block of the chain at full width (512 -> 512, affine and
+    dropout 0.5 of block 3 on its input; the tail's of block 6) on the
+    step's 328 rows, its kernels' outputs on the whole batch, and the
+    inputs of a dp rank's launches on rows [lo, 328) at row base lo."""
+    N, K_in, F = 328, 512, 512
+    x, w, b, gamma, beta, ins, dz, seeds, _ = (
+        t[0] for t in k5_stacked(1, N, K_in, F, 1900 + lo, dev))
+    keep = torch.full((1,), 0.5, device=dev)
+    if bf16:
+        x, w, dz = (t.to(torch.bfloat16) for t in (x, w, dz))
+    whole = dict(seed=seeds, keep=keep, drop_block=3)
+    r, stats = TF.dense_block_fwd(x, w, b, gamma, beta, ins, **whole)
+    rf, dzf = r.float(), dz.float()
+    sums = torch.stack([dzf.sum(0), (dzf * (rf - stats[0])
+                                     * stats[2]).sum(0)]).contiguous()
+    return dict(N=N, lo=lo, x=x, w=w, b=b, gamma=gamma, beta=beta, ins=ins,
+                dz=dz, seed=seeds, keep=keep, whole=whole, r=r, stats=stats,
+                sums=sums, part=dict(whole, row_base=lo),
+                tail=dict(seed=seeds, keep=keep, drop_block=6))
+
+
+def check_dp_kernels(TF, dev) -> dict:
+    """Phase 17 (c): K5f, K5b and the tail pair (f32 and bf16) in a dp
+    rank's modes at full width, on rows [lo, 328) of the step's batch for
+    lo in 164 and 246 (:func:`dp_rank_case`). K5f's sums-only end gives
+    the one-shot r bit for bit and, on the whole batch at row base 0, sums
+    whose ``finish_stats`` lies within one f32 ulp of the one-shot
+    statistics (:func:`finished_like`; the count of elements not
+    bit-equal is reported); the
+    rank's r, K5b's dx (given the whole batch's sums and n_total 328), the
+    tail's h and dz and ``dropout_masks`` at the row base are those rows
+    of the whole batch's launches bit for bit; each held to its plain
+    version at the existing tolerances (f32 r rtol 1e-5, bf16 r and dx
+    within one bf16 ulp, the sums, dW, db and lower sums rtol 1e-4, atol
+    1e-5 x max, bf16 sums rtol 1e-3, atol 1e-3 x max; the tail's h and dz
+    bit for bit, its sums within one f32 ulp). Then each kernel timed at
+    the rank's shape: CUDA events, profiler device time a launch, its
+    plain version, its bound. Returns the sixteen ``kernels`` entries
+    (launches filled in by :func:`parallel_phase`)."""
+    entries, report = {}, {}
+    for bf16 in (False, True):
+        sfx = "_bf16" if bf16 else ""
+        for lo, _ in DP_RANK_ROWS:
+            c = dp_rank_case(TF, lo, bf16, dev)
+            N, n = c["N"], c["N"] - lo
+            x, w, dz, r, stats, sums = (c[k] for k in ("x", "w", "dz", "r",
+                                                       "stats", "sums"))
+            vecs = (c["b"], c["gamma"], c["beta"], c["ins"])
+            whole, part, tail = c["whole"], c["part"], c["tail"]
+            r_all, sums_all = TF.dense_block_fwd(x, w, *vecs, sums_only=True,
+                                                 **whole)
+            off = finished_like(TF.finish_stats(sums_all, c["gamma"],
+                                                c["beta"], N), stats)
+            xl, dzl, rl = x[lo:], dz[lo:], r[lo:]
+            r_lo, sums_lo = TF.dense_block_fwd(xl, w, *vecs, sums_only=True,
+                                               **part)
+            bwd = TF.dense_block_bwd(dzl, rl, xl, w, stats, sums, c["ins"],
+                                     n_total=N, **part)
+            h_lo = TF.chain_tail_fwd(rl, stats, row_base=lo, **tail)
+            tz, ts = TF.chain_tail_bwd(dzl, rl, stats, row_base=lo, **tail)
+            masks = TF.dropout_masks(c["seed"], c["keep"], n, 512, 6,
+                                     row_base=lo)
+            rows_equal = (
+                torch.equal(r_all, r) and torch.equal(r_lo, r[lo:])
+                and torch.equal(bwd[0], TF.dense_block_bwd(
+                    dz, r, x, w, stats, sums, c["ins"], **whole)[0][lo:])
+                and torch.equal(h_lo, TF.chain_tail_fwd(r, stats,
+                                                        **tail)[lo:])
+                and torch.equal(tz, TF.chain_tail_bwd(dz, r, stats,
+                                                      **tail)[0][lo:])
+                and torch.equal(masks, TF.dropout_masks(
+                    c["seed"], c["keep"], N, 512, 6)[lo:]))
+            if not rows_equal:
+                raise AssertionError(f"a dp rank's rows at row base {lo} "
+                                     f"are not the whole batch's{sfx}")
+            r_p, sums_p = TF.dense_block_fwd_reference(
+                xl, w, *vecs, sums_only=True, **part)
+            bwd_p = TF.dense_block_bwd_reference(dzl, rl, xl, w, stats, sums,
+                                                 c["ins"], n_total=N, **part)
+            if bf16:
+                within_one_bf16_ulp(r_lo, r_p)
+                within_one_bf16_ulp(bwd[0], bwd_p[0])
+                fwd_err = max(max_abs(r_lo, r_p),
+                              close(sums_lo, sums_p, 1e-3, 1e-3))
+                dx_err = max_abs(bwd[0], bwd_p[0])
+            else:
+                fwd_err = max(close(r_lo, r_p, 1e-5, 1e-5),
+                              close(sums_lo, sums_p, 1e-4, 1e-5))
+                dx_err = close(bwd[0], bwd_p[0], 1e-4, 1e-5)
+            bwd_err = max([dx_err] + [close(g, v, 1e-4, 1e-5)
+                                      for g, v in zip(bwd[1:], bwd_p[1:])])
+            if not (torch.equal(h_lo, TF.chain_tail_fwd_reference(
+                    rl, stats, row_base=lo, **tail))
+                    and torch.equal(masks, TF.dropout_masks_reference(
+                        c["seed"], c["keep"], n, 512, 6, lo))):
+                raise AssertionError(f"the tail's h or the masks at row base "
+                                     f"{lo} differ from the plain{sfx}")
+            tz_p, ts_p = TF.chain_tail_bwd_reference(dzl, rl, stats,
+                                                     row_base=lo, **tail)
+            if not torch.equal(tz, tz_p):
+                raise AssertionError(f"the tail's dz at row base {lo} "
+                                     f"differs from the plain{sfx}")
+            within_one_ulp(ts, ts_p)
+            report[f"N={n}{sfx}"] = dict(
+                finish_stats_not_bit_equal=off, rows_bit_equal=True,
+                fwd_err=fwd_err, bwd_err=bwd_err,
+                tail_sums_err=max_abs(ts, ts_p))
+            macs = float(n) * 512 * 512
+            peak, products = ((PEAK_BF16_FLOPS, 1) if bf16
+                              else (PEAK_TF32_FLOPS, 3))
+            small = nbytes(*vecs, c["seed"], c["keep"])
+            specs = {
+                "dense_block_fwd" + sfx: (
+                    "sums-only end",
+                    lambda: TF.dense_block_fwd(xl, w, *vecs, sums_only=True,
+                                               **part),
+                    lambda: TF.dense_block_fwd_reference(
+                        xl, w, *vecs, sums_only=True, **part),
+                    bound_ms(nbytes(xl, w, r_lo, sums_lo) + small,
+                             products * 2 * macs, peak), fwd_err),
+                "dense_block_bwd" + sfx: (
+                    "n_total 328, the global sums",
+                    lambda: TF.dense_block_bwd(dzl, rl, xl, w, stats, sums,
+                                               c["ins"], n_total=N, **part),
+                    lambda: TF.dense_block_bwd_reference(
+                        dzl, rl, xl, w, stats, sums, c["ins"], n_total=N,
+                        **part),
+                    bound_ms(nbytes(dzl, rl, xl, w, stats, sums, *bwd)
+                             + small, products * 4 * macs, peak), bwd_err),
+                "chain_tail_fwd" + sfx: (
+                    "dropout of block 6",
+                    lambda: TF.chain_tail_fwd(rl, stats, row_base=lo,
+                                              **tail),
+                    lambda: TF.chain_tail_fwd_reference(
+                        rl, stats, row_base=lo, **tail),
+                    bound_ms(nbytes(rl, stats, h_lo, c["seed"], c["keep"]),
+                             0.0), 0.0),
+                "chain_tail_bwd" + sfx: (
+                    "dropout of block 6, the top BatchNorm's sums",
+                    lambda: TF.chain_tail_bwd(dzl, rl, stats, row_base=lo,
+                                              **tail),
+                    lambda: TF.chain_tail_bwd_reference(
+                        dzl, rl, stats, row_base=lo, **tail),
+                    bound_ms(nbytes(dzl, rl, stats, tz, ts, c["seed"],
+                                    c["keep"]), 0.0), max_abs(ts, ts_p))}
+            with torch.no_grad():
+                for kernel, (mode, fn, plain, (bd, by), err) in specs.items():
+                    entry = dict(
+                        name=f"{kernel}@dp_rank_N{n}", kernel=kernel,
+                        route="cuda", source=SOURCES[kernel],
+                        replaces=REPLACES[kernel],
+                        shape=(f"a dp rank's N={n} of 328 rows at row base "
+                               f"{lo}, " + ("512->512, affine + dropout 0.5 "
+                                            "on the input, " if "block" in
+                                            kernel else "F=512, ") + mode),
+                        max_abs_err=err, ms=time_ms(fn, 50, 3),
+                        plain_ms=time_ms(plain, 3, 1), bound_ms=bd,
+                        bound_by=by, library_ms=None,
+                        library_note="no single PyTorch call computes it")
+                    entry["device_ms"], entry["traces_with_dropped_records"]                         = device_ms_whole(fn, 1, n=10)
+                    entries[(kernel, lo)] = entry
+            del c, specs
+    log(f"[parallel] dp-rank kernel modes held to their plain versions and "
+        f"to the whole batch's rows: {json.dumps(report)}; timed: "
+        + json.dumps({e["name"]: [e["ms"], e["device_ms"], e["bound_ms"]]
+                      for e in entries.values()}))
+    return entries
+
+
 def parallel_world1(K, trainer, dev, batched_args) -> tuple[dict, dict]:
     """Phase 17 (a): a world of one rank over NCCL in this process, at
-    full width: ``make_sharded_train_step`` on a (1, 1) mesh,
-    ``cross_validate(mesh=)`` of 4 configs x 1 epoch and
+    full width: ``make_sharded_train_step`` on a (1, 1) mesh (the eager
+    f32 step, then its other paths, :func:`world1_paths`),
+    ``cross_validate(mesh=)`` of 2 configs x 1 epoch and
     ``BatchedStreamingEngine(mesh=)`` at 32,768 sessions x 25 ticks, each
     bit-equal to its unsharded twin and timed beside it in turns (the
     sharded code's collectives and slicing at world 1). The results and
@@ -5632,6 +5953,8 @@ def parallel_world1(K, trainer, dev, batched_args) -> tuple[dict, dict]:
                                median_ms=med, sharded_minus_unsharded_ms=(
                                    med["sharded"] - med["unsharded"]),
                                launches=step_counts)
+            res["paths"] = world1_paths(K, trainer, mesh, emg_b, hyper,
+                                        tally)
 
             hypers = sample_hyperparams(WORLD1_CONFIGS, seed=42)
             sweep = {}
@@ -5727,10 +6050,89 @@ def rank_step(K, trainer, mesh, rank: int) -> dict:
     return out
 
 
+def rank_fused_step(K, trainer, mesh, rank: int, bf16: bool) -> dict:
+    """A rank's fused step of phase 17 (b) on ``mesh`` (dp2 x mp2 or dp4),
+    f32 or bf16: its launches (K5f 7, all sums-only, K5b 7, all given
+    n_total, the tail pair and K1 once; the row-based launches, 8 a step,
+    on the ranks whose rows start past row 0) and, on rank 0, the step
+    held to the unsharded fused step on the card: f32 at JAX's bounds
+    (:func:`held_to_jax_bounds`) at the canonical dropout 0.5, bf16 its
+    gradients at dropout 0 at the bf16 step's (:func:`held_to_bf16_bounds`,
+    against the spread of the unsharded eager bf16 step's); its ms a
+    step."""
+    from contrastiveprosthetics_torch.parallel.mesh import (
+        gather_grads,
+        gather_state,
+        local_range,
+    )
+    from contrastiveprosthetics_torch.parallel.spmd import (
+        make_sharded_train_step,
+    )
+    from contrastiveprosthetics_torch.train import engine
+
+    tr = engine.Trainer(trainer.cfg, trainer.store, adabn=False, batch_size=8,
+                        use_fused_train=True,
+                        compute_dtype="bfloat16" if bf16 else "float32")
+    emg_b, hyper = parallel_inputs(tr)
+    step, place = make_sharded_train_step(tr, mesh)
+    sharded = place(tr.init_state(tr.generator(0)))
+    if bf16:  # at dropout 0: the eager step's masks are other draws
+        hyper = engine.Hyper.single(*(0.0 if i in (2, 5) else v
+                                      for i, v in enumerate(CANONICAL)))
+    K.reset_launch_counts()
+    if bf16:
+        loss, _, grads = tr.loss_and_grads(sharded, emg_b, hyper,
+                                           tr.generator(1), mesh=mesh)
+    else:
+        loss, _ = step(sharded, emg_b, hyper, 1e-3, 1e-3, tr.generator(1))
+    torch.cuda.synchronize()
+    launches = {k: c for k, c in K.launch_counts.items() if c}
+    modes = dict(K.mode_counts)
+    sfx = "_bf16" if bf16 else ""
+    lo, hi = local_range(emg_b.shape[0], mesh.n_dp, mesh.dp_rank)
+    want = {"dense_block_fwd" + sfx: 7, "dense_block_bwd" + sfx: 7,
+            "chain_tail_fwd" + sfx: 1, "chain_tail_bwd" + sfx: 1,
+            "contrastive_loss_fwd": 1, "contrastive_loss_bwd": 1}
+    want_modes = dict.fromkeys(K.mode_counts, 0)
+    want_modes.update({"dense_block_fwd" + sfx + "_sums": 7, "n_total": 7,
+                       "row_base": 8 if lo else 0})
+    if launches != want or modes != want_modes:
+        raise AssertionError(f"rank {rank} fused{sfx} step launches "
+                             f"{launches}, modes {modes}; want {want}, "
+                             f"{want_modes}")
+    out = dict(launches=launches, modes=modes, rows=(hi - lo) * 41)
+    if bf16:
+        got = gather_grads(sharded.model, grads)
+    else:
+        whole = gather_state(sharded, mesh)
+    if rank == 0:
+        plain = tr.init_state(tr.generator(0))
+        if bf16:
+            lp, _, pg = tr.loss_and_grads(plain, emg_b, hyper,
+                                          tr.generator(1))
+            eager = engine.Trainer(tr.cfg, tr.store, adabn=False,
+                                   batch_size=8, compute_dtype="bfloat16")
+            _, _, eg = eager.loss_and_grads(plain, emg_b, hyper,
+                                            tr.generator(1))
+            out["vs_unsharded"] = held_to_bf16_bounds(
+                got, gather_grads(plain.model, pg),
+                gather_grads(plain.model, eg), float(loss), float(lp))
+        else:
+            lp, _ = tr._sgd_step(plain, emg_b, hyper, 1e-3, 1e-3,
+                                 tr.generator(1))
+            out["vs_unsharded"] = held_to_jax_bounds(whole, plain,
+                                                     float(loss), float(lp),
+                                                     1e-3)
+    gen = tr.generator(2)
+    out["ms_per_step"] = time_ms(lambda: step(sharded, emg_b, hyper, 1e-3,
+                                              1e-3, gen), reps=PARALLEL_STEPS)
+    return out
+
+
 def rank_sweep(K, cfg, store, mesh, rank: int) -> dict:
     """A rank's config-sharded sweeps of phase 17 (b), eager and on the
-    fused chain (and the fused encoder), each its chunk of 4 configs;
-    then the unsharded sweep of the same 8 configs, the two ranks at once
+    fused chain (and the fused encoder), each its chunk of 2 configs;
+    then the unsharded sweep of the same 4 configs, the two ranks at once
     (rank 0 the eager one, rank 1 the fused one), bit-equal; the launches
     a stacked step."""
     from contrastiveprosthetics_torch.train import engine
@@ -5884,7 +6286,8 @@ def rank_clis(rank: int, path: str, tmp: str) -> dict:
 
 def parallel_rank(rank: int, world: int, tmp: str) -> None:
     """Phase 17 (b), one rank of the gloo group on the one card: the dp=2
-    step (ranks 0-1) and the dp=2 x mp=2 step (all four), the
+    step (ranks 0-1) and the dp=2 x mp=2 step (all four), the fused
+    chain's f32 and bf16 steps at dp=2 x mp=2 and dp=4 (all four), the
     config-sharded sweeps and session-sharded serving (ranks 0-1), then
     the CLIs in a 2-rank group. Writes its results to
     ``tmp/rank<r>.json``."""
@@ -5909,12 +6312,18 @@ def parallel_rank(rank: int, world: int, tmp: str) -> None:
     store = DeviceStore(cfg, *make_processed_dataset(cfg),
                         device=torch.device("cuda"))
     trainer = engine.Trainer(cfg, store, adabn=False, batch_size=8)
-    pair, square = make_mesh(2, 1), make_mesh(2, 2)
+    pair, square, quad = make_mesh(2, 1), make_mesh(2, 2), make_mesh(4, 1)
     parts = {}
     for key, mesh in (("dp2", pair), ("dp2_mp2", square)):
         t0 = time.perf_counter()
         if mesh.active:
             res[key] = rank_step(K, trainer, mesh, rank)
+        parts[key] = time.perf_counter() - t0
+    for key, mesh in (("fused_dp2_mp2", square), ("fused_dp4", quad)):
+        t0 = time.perf_counter()
+        res[key] = {dtype: rank_fused_step(K, trainer, mesh, rank,
+                                           dtype == "bf16")
+                    for dtype in ("f32", "bf16")}
         parts[key] = time.perf_counter() - t0
     if pair.active:
         t0 = time.perf_counter()
@@ -5933,18 +6342,27 @@ def parallel_rank(rank: int, world: int, tmp: str) -> None:
         json.dump(res, f)
 
 
-def parallel_phase(K, trainer, dev, batched_args) -> tuple[dict, dict]:
+def parallel_phase(K, trainer, dev, batched_args) -> tuple[dict, dict,
+                                                          list]:
     """Phase 17, the parallel layer on the one card: (a) world 1 over NCCL
-    in this process, bit-equal to the unsharded paths; (b) one spawned
-    group of 4 ranks over gloo on the card (NCCL refuses two ranks on one
+    in this process, bit-equal to the unsharded paths; (c) the kernels in
+    a dp rank's modes (:func:`check_dp_kernels`); (b) one spawned group
+    of 4 ranks over gloo on the card (NCCL refuses two ranks on one
     device; gloo is asked for here, never a fallback). Returns the
-    ``parallel`` results and each kernel's launches on the sharded paths
-    (every rank's summed). The times are per rank on one shared card, not
-    scaling numbers."""
+    ``parallel`` results, each kernel's launches on the sharded paths
+    (every rank's summed) and the dp-mode ``kernels`` entries, each with
+    its launches on the fused steps at its shape. The times are per rank
+    on one shared card, not scaling numbers."""
     import torch.multiprocessing as mp
+
+    from contrastiveprosthetics_torch.ops import train_fused as TF
 
     t_phase = time.perf_counter()
     world1, counts = parallel_world1(K, trainer, dev, batched_args)
+    t0 = time.perf_counter()
+    dp_entries = check_dp_kernels(TF, dev)
+    kernels_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         mp.spawn(parallel_rank, args=(PARALLEL_RANKS, tmp),
@@ -5958,23 +6376,42 @@ def parallel_phase(K, trainer, dev, batched_args) -> tuple[dict, dict]:
         for part in ("dp2", "dp2_mp2"):
             for k, n in r.get(part, {}).get("launches", {}).items():
                 counts[k] += n
+        for _, key in DP_RANK_ROWS:
+            for step_res in r[key].values():
+                for k, n in step_res["launches"].items():
+                    counts[k] += n
         for path in r.get("sweep", {}).values():
             for k, n in path["launches"].items():
                 counts[k] += n
         for dtype in r.get("serve", {}).values():
             for k, n in dtype["launches"].items():
                 counts[k] += n
+    # each dp-mode row's launches: its kernel's on the fused steps at its
+    # rank shape (dp2 x mp2: 164 rows a rank; dp4: 82), every rank's
+    for (kernel, lo), entry in dp_entries.items():
+        key = dict(DP_RANK_ROWS)[lo]
+        dtype = "bf16" if kernel.endswith("_bf16") else "f32"
+        n = sum(r[key][dtype]["launches"].get(kernel, 0) for r in ranks)
+        if not n:
+            raise AssertionError(f"{entry['name']} never launched on the "
+                                 f"{key} steps")
+        entry.update(launches=n, launches_by_path={f"parallel_{key}": n},
+                     kernel_ms=entry["ms"],
+                     peaks={"tf32_flops": PEAK_TF32_FLOPS,
+                            "bf16_flops": PEAK_BF16_FLOPS,
+                            "bytes_per_s": PEAK_BYTES_PER_S})
     res = dict(
         note="per-rank times on one shared card (4 ranks, gloo on the "
              "card), not scaling numbers; world 1 over NCCL",
-        world1=world1, ranks=ranks, group_s=group_s,
+        world1=world1, ranks=ranks, group_s=group_s, dp_kernels_s=kernels_s,
         phase_s=time.perf_counter() - t_phase)
     log(f"[parallel] 4-rank gloo group on the card in {group_s:.1f} s: "
-        f"dp2 and dp2 x mp2 steps at JAX's bounds, the {PARALLEL_CONFIGS}-"
-        f"config sweep bit-equal eager and fused, {SESSIONS} sessions f32 "
-        f"and bf16 equal, the CLIs' files equal; phase 17 took "
-        f"{res['phase_s']:.1f} s")
-    return res, counts
+        f"dp2 and dp2 x mp2 steps at JAX's bounds, the fused f32 steps at "
+        f"dp2 x mp2 and dp4 at JAX's bounds and the fused bf16 ones at the "
+        f"bf16 step's, the {PARALLEL_CONFIGS}-config sweep bit-equal eager "
+        f"and fused, {SESSIONS} sessions f32 and bf16 equal, the CLIs' "
+        f"files equal; phase 17 took {res['phase_s']:.1f} s")
+    return res, counts, list(dp_entries.values())
 
 
 def main() -> int:
@@ -6301,7 +6738,7 @@ def main() -> int:
                                                       sweep_res["sweep"])
 
     # ------------------------------------------- 17. the parallel layer
-    parallel_res, parallel_counts = parallel_phase(
+    parallel_res, parallel_counts, dp_entries = parallel_phase(
         K, trainer, dev, (model, mean, std,
                           torch.as_tensor(batch_blocks, device=dev),
                           torch.as_tensor(masks, device=dev)))
@@ -6366,7 +6803,7 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": list(entries.values()) + eval_entries
                       + [bf16_entry] + list(bf16_train_entries.values())
-                      + list(axis_entries.values())}))
+                      + list(axis_entries.values()) + dp_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -66,11 +66,14 @@
 // below) are written as one partial per row tile; the last row tile of a
 // column strip to finish (an integer ticket after a __threadfence) adds
 // them in row-tile order and finishes the statistics, so the glue the JAX
-// package left to XLA costs no launch. No float atomics: a rerun gives the
-// same bits. The ticket counters are reset by that last tile, so one zeroed
-// buffer serves every launch on the stream. db is summed by the wgrad
-// tiles of the first k strip: each thread over its rows in order, then the
-// threads of a column in a fixed order.
+// package left to XLA costs no launch. On a dp rank (a part of the global
+// batch's rows) K5f ends there instead, writing the strip's sums: they are
+// summed over the ranks and finished between launches, and K5b then takes
+// the global sums and the global row count for its 1/N. No float atomics:
+// a rerun gives the same bits. The ticket counters are reset by that last
+// tile, so one zeroed buffer serves every launch on the stream. db is
+// summed by the wgrad tiles of the first k strip: each thread over its rows
+// in order, then the threads of a column in a fixed order.
 // K5b is one launch with two roles of CTA: dgrad tiles (first in the grid;
 // N x K outputs, contraction over F) and wgrad tiles (K x F outputs,
 // contraction over the N rows, ragged rows zero-filled). At N = 328 and
@@ -80,7 +83,8 @@
 //
 // Dropout bits come from a counter-based Philox4x32-10: key = the step's
 // two seed words, counter = (column / 4, row, dropped block, 0), one call
-// giving the bits of four neighbouring columns. A mask is a function of
+// giving the bits of four neighbouring columns; the row is the global
+// batch's (a dp rank's launch adds its row base). A mask is a function of
 // (seed words, block, row, column) only, never of the launch geometry, so
 // the backward redraws the forward's bits and K5m replays them. An element
 // is kept iff its 32 bits are <= the keep threshold, computed here from
@@ -259,12 +263,15 @@ __device__ __forceinline__ unsigned keep_threshold(float keep) {
 }
 
 // Dropout on a block's input: none (keep null), drawn (seed), or given
-// (mask (N, K), kept where > 0).
+// (mask (N, K), kept where > 0). row_base: the global row of the launch's
+// row 0 (a dp rank's rows of the global batch), added to the row wherever
+// a Philox counter is formed; a given mask is indexed by the launch's row.
 struct Dropout {
   const int* seed;
   const float* keep;
   const float* mask;
   int block;
+  int row_base;
 };
 
 // config c's dropout: its seed words, its keep and its mask (of
@@ -285,6 +292,7 @@ struct Drop {
   unsigned threshold;
   float keep;
   int block;
+  int row_base;
 };
 
 __device__ __forceinline__ Drop read_drop(const Dropout& d) {
@@ -296,6 +304,7 @@ __device__ __forceinline__ Drop read_drop(const Dropout& d) {
   r.key = r.on && !d.mask ? make_uint2((unsigned)d.seed[0], (unsigned)d.seed[1])
                           : make_uint2(0u, 0u);
   r.block = d.block;
+  r.row_base = d.row_base;
   return r;
 }
 
@@ -312,7 +321,7 @@ __device__ __forceinline__ float4 drop4(float4 v, const Drop& d, int n, int k,
     kept[2] = m.z > 0.0f;
     kept[3] = m.w > 0.0f;
   } else {
-    const uint4 bits = mask_bits(d.key, d.block, n, k >> 2);
+    const uint4 bits = mask_bits(d.key, d.block, d.row_base + n, k >> 2);
 #pragma unroll
     for (int j = 0; j < 4; ++j) kept[j] = word(bits, j) <= d.threshold;
   }
@@ -750,8 +759,9 @@ struct FwdArgs {
   E* r;
   float* partial;
   unsigned* tickets;
-  float* stats;
+  float* stats;  // (5, F); (2, F) sums in the sums-only end
   int N, K, F;
+  int sums_only;
   float eps;
 };
 
@@ -772,7 +782,7 @@ __device__ __forceinline__ FwdArgs<E> config_fwd(FwdArgs<E> p, int c,
   p.r += c * (size_t)p.N * F;
   p.partial += c * (size_t)row_tiles * 2 * F;
   p.tickets += (size_t)c * col_strips;
-  p.stats += c * 5 * F;
+  p.stats += c * (p.sums_only ? 2 : 5) * F;
   return p;
 }
 
@@ -908,7 +918,13 @@ __global__ void __launch_bounds__(G::kThreads)
                                               blockIdx.x, gridDim.x, col0, F))
     return;
   const int gn = col0 + tid;
-  if (tid < G::BN && gn < F) {
+  if (tid < G::BN && gn < F && p.sums_only) {
+    // a dp rank's launch: the strip's sums, finished once they are summed
+    // over the ranks (ops/train_fused.py::finish_stats)
+    const float2 s = strip_sums(p.partial, gridDim.x, gn, F);
+    p.stats[gn] = s.x;
+    p.stats[F + gn] = s.y;
+  } else if (tid < G::BN && gn < F) {
     const float2 s = strip_sums(p.partial, gridDim.x, gn, F);
     const float nf = (float)N;
     const float mean = __fdiv_rn(s.x, nf);
@@ -936,6 +952,7 @@ struct BwdArgs {
   float *dw, *db, *out_sums, *partial;
   unsigned* tickets;
   int N, K, F;
+  int n_total;  // the rows the sums were taken over (N, or a dp batch's)
   int n_dgrad;  // CTAs of the dgrad role, first in the grid
 };
 
@@ -1053,7 +1070,7 @@ __device__ __forceinline__ void dgrad_tile(const BwdArgs<E>& p, int bid) {
   const int rt = bid % n_row_tiles, ct = bid / n_row_tiles;
   const int row0 = rt * G::BM, col0 = ct * G::BN;
   const Drop drop = read_drop(p.d);
-  const float inv_n = __fdiv_rn(1.0f, (float)N);
+  const float inv_n = __fdiv_rn(1.0f, (float)p.n_total);
   for (int i = tid; i < F; i += T)
     stage_dy_vectors(vec, F, i, i, p.stats, p.sums, F, inv_n);
 
@@ -1172,7 +1189,7 @@ __device__ __forceinline__ void wgrad_tile(const BwdArgs<E>& p, int wid) {
   const int k0 = kt0 * G::BM, f0 = ft * G::BN;
   const bool affine = p.in_stats != nullptr;
   const Drop drop = read_drop(p.d);
-  const float inv_n = __fdiv_rn(1.0f, (float)N);
+  const float inv_n = __fdiv_rn(1.0f, (float)p.n_total);
   for (int i = tid; i < G::BN; i += T)
     if (f0 + i < F)
       stage_dy_vectors(vec, G::BN, i, f0 + i, p.stats, p.sums, F, inv_n);
@@ -1402,14 +1419,16 @@ template <bool VEC>
 __global__ void __launch_bounds__(kRowThreads)
     dropout_masks_kernel(const int* __restrict__ seed,
                          const float* __restrict__ keep,
-                         float* __restrict__ out, int F, int block) {
+                         float* __restrict__ out, int F, int block,
+                         int row_base) {
   const int per_row = row_ctas(F);
   const int n = blockIdx.x / per_row;
   const int g = (blockIdx.x % per_row) * kRowThreads + threadIdx.x;
   if (g * 4 >= F) return;
   const unsigned thr = keep_threshold(*keep);
   const uint4 bits = mask_bits(
-      make_uint2((unsigned)seed[0], (unsigned)seed[1]), block, n, g);
+      make_uint2((unsigned)seed[0], (unsigned)seed[1]), block, row_base + n,
+      g);
   float m[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) m[j] = word(bits, j) <= thr ? 1.0f : 0.0f;
@@ -1530,18 +1549,18 @@ int fwd_entry(const E* x, const E* w, const float* b, const float* gamma,
               const float* beta, const float* in_stats, const int* seed,
               const float* keep, const float* mask, E* r, float* partial,
               unsigned* tickets, float* stats, int C, int N, int K, int F,
-              int wsk, int wsn, int drop_block, int tiling, float eps,
-              void* stream) {
+              int wsk, int wsn, int drop_block, int tiling, int row_base,
+              int sums_only, float eps, void* stream) {
   const int wrow = weight_layout(K, F, wsk, wsn);
   if (bad_configs(C) || N < 1 || K < 1 || F < 1 || ragged<E>(K) ||
-      ragged<E>(F) || wrow < 0 ||
+      ragged<E>(F) || wrow < 0 || row_base < 0 ||
       bad_dropout(seed, keep, mask) || misaligned(x) || misaligned(w) ||
       misaligned(b) || misaligned(in_stats) || misaligned(mask) ||
       misaligned(r))
     return (int)cudaErrorInvalidValue;
   const FwdArgs<E> a{x, w, b, gamma, beta, in_stats,
-                     Dropout{seed, keep, mask, drop_block},
-                     r, partial, tickets, stats, N, K, F, eps};
+                     Dropout{seed, keep, mask, drop_block, row_base},
+                     r, partial, tickets, stats, N, K, F, sums_only, eps};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (tiling * 2 + wrow) {
     case 0: return launch_fwd<FwdTile0, false>(a, C, s);
@@ -1558,18 +1577,21 @@ int bwd_entry(const E* dz, const E* r, const E* x, const E* w,
               const int* seed, const float* keep, const float* mask, E* dx,
               float* dw, float* db, float* out_sums, float* partial,
               unsigned* tickets, int C, int N, int K, int F, int wsk,
-              int wsn, int drop_block, int tiling, void* stream) {
+              int wsn, int drop_block, int tiling, int row_base, int n_total,
+              void* stream) {
   const int wrow = weight_layout(K, F, wsk, wsn);
   if (bad_configs(C) || N < 1 || K < 1 || F < 1 || ragged<E>(K) ||
-      ragged<E>(F) || wrow < 0 ||
+      ragged<E>(F) || wrow < 0 || row_base < 0 ||
       bad_dropout(seed, keep, mask) ||
-      (in_stats == nullptr) != (out_sums == nullptr) || misaligned(dz) ||
-      misaligned(r) || misaligned(x) || misaligned(w) || misaligned(in_stats) ||
+      n_total < 0 || (in_stats == nullptr) != (out_sums == nullptr) ||
+      misaligned(dz) || misaligned(r) || misaligned(x) || misaligned(w) ||
+      misaligned(in_stats) ||
       misaligned(mask) || misaligned(dx) || misaligned(dw))
     return (int)cudaErrorInvalidValue;
   const BwdArgs<E> a{dz, r, x, w, stats, sums, in_stats,
-                     Dropout{seed, keep, mask, drop_block},
-                     dx, dw, db, out_sums, partial, tickets, N, K, F, 0};
+                     Dropout{seed, keep, mask, drop_block, row_base},
+                     dx, dw, db, out_sums, partial, tickets, N, K, F,
+                     n_total ? n_total : N, 0};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (tiling * 2 + wrow) {
     case 0: return launch_bwd<DgradTile0, WgradTile0, false>(a, C, s);
@@ -1583,14 +1605,14 @@ int bwd_entry(const E* dz, const E* r, const E* x, const E* w,
 template <class E>
 int tail_fwd_entry(const E* x, const float* stats, const int* seed,
                    const float* keep, const float* mask, E* h, int C, int N,
-                   int F, int drop_block, void* stream) {
+                   int F, int drop_block, int row_base, void* stream) {
   if (bad_configs(C) || N < 1 || F < 1 || F % 4 || too_large(N, F) ||
-      bad_dropout(seed, keep, mask) || misaligned(x) || misaligned(stats) ||
-      misaligned(mask) || misaligned(h))
+      row_base < 0 || bad_dropout(seed, keep, mask) || misaligned(x) ||
+      misaligned(stats) || misaligned(mask) || misaligned(h))
     return (int)cudaErrorInvalidValue;
   chain_tail_fwd_kernel<E><<<dim3(row_grid(N, F), C), kRowThreads, 0,
                              (cudaStream_t)stream>>>(
-      x, stats, Dropout{seed, keep, mask, drop_block}, h, N, F);
+      x, stats, Dropout{seed, keep, mask, drop_block, row_base}, h, N, F);
   return (int)cudaGetLastError();
 }
 
@@ -1598,21 +1620,27 @@ template <class E>
 int tail_bwd_entry(const E* dh, const E* r, const float* stats,
                    const int* seed, const float* keep, const float* mask,
                    E* dz, float* sums, int C, int N, int F, int drop_block,
-                   void* stream) {
+                   int row_base, void* stream) {
   if (bad_configs(C) || N < 1 || F < 1 || F % 4 || too_large(N, F) ||
-      bad_dropout(seed, keep, mask) || misaligned(dh) || misaligned(r) ||
-      misaligned(stats) || misaligned(mask) || misaligned(dz))
+      row_base < 0 || bad_dropout(seed, keep, mask) || misaligned(dh) ||
+      misaligned(r) || misaligned(stats) || misaligned(mask) ||
+      misaligned(dz))
     return (int)cudaErrorInvalidValue;
   chain_tail_bwd_kernel<E><<<dim3(cdiv(F, kTailCols), C), kTailThreads, 0,
                              (cudaStream_t)stream>>>(
-      dh, r, stats, Dropout{seed, keep, mask, drop_block}, dz, sums, N, F);
+      dh, r, stats, Dropout{seed, keep, mask, drop_block, row_base}, dz, sums,
+      N, F);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C configs' arrays one after another (the config axis above; C = 1 is one
-// config). `tiling` 0 or 1 picks FwdTile0 or FwdTile1. The _bf16 launchers
+// config). `row_base`: the global row of row 0 in every Philox counter (0
+// unless the rows are a dp rank's part of a batch). `sums_only`: K5f writes
+// (sum r, sum r^2) into `stats` as (2, F) a config and finishes nothing.
+// `n_total` (K5b): the rows of the batch the sums were taken over, 0 for N.
+// `tiling` 0 or 1 picks FwdTile0 or FwdTile1. The _bf16 launchers
 // take x, w and r (K5b: dz, r, x, w and dx; the tails: x and h, dh, r and
 // dz) as bf16 bits, K and F multiples of 8; everything else as the f32
 // ones.
@@ -1621,10 +1649,11 @@ extern "C" int dense_block_fwd_launch(
     const float* beta, const float* in_stats, const int* seed,
     const float* keep, const float* mask, float* r, float* partial,
     unsigned* tickets, float* stats, int C, int N, int K, int F, int wsk,
-    int wsn, int drop_block, int tiling, float eps, void* stream) {
+    int wsn, int drop_block, int tiling, int row_base, int sums_only,
+    float eps, void* stream) {
   return fwd_entry(x, w, b, gamma, beta, in_stats, seed, keep, mask, r,
                    partial, tickets, stats, C, N, K, F, wsk, wsn, drop_block,
-                   tiling, eps, stream);
+                   tiling, row_base, sums_only, eps, stream);
 }
 
 extern "C" int dense_block_fwd_bf16_launch(
@@ -1632,10 +1661,11 @@ extern "C" int dense_block_fwd_bf16_launch(
     const float* beta, const float* in_stats, const int* seed,
     const float* keep, const float* mask, bf16_t* r, float* partial,
     unsigned* tickets, float* stats, int C, int N, int K, int F, int wsk,
-    int wsn, int drop_block, int tiling, float eps, void* stream) {
+    int wsn, int drop_block, int tiling, int row_base, int sums_only,
+    float eps, void* stream) {
   return fwd_entry(x, w, b, gamma, beta, in_stats, seed, keep, mask, r,
                    partial, tickets, stats, C, N, K, F, wsk, wsn, drop_block,
-                   tiling, eps, stream);
+                   tiling, row_base, sums_only, eps, stream);
 }
 
 // `tiling` 0 or 1 picks DgradTile0 + WgradTile0 or DgradTile1 + WgradTile1.
@@ -1645,10 +1675,10 @@ extern "C" int dense_block_bwd_launch(
     const int* seed, const float* keep, const float* mask, float* dx,
     float* dw, float* db, float* out_sums, float* partial, unsigned* tickets,
     int C, int N, int K, int F, int wsk, int wsn, int drop_block, int tiling,
-    void* stream) {
+    int row_base, int n_total, void* stream) {
   return bwd_entry(dz, r, x, w, stats, sums, in_stats, seed, keep, mask, dx,
                    dw, db, out_sums, partial, tickets, C, N, K, F, wsk, wsn,
-                   drop_block, tiling, stream);
+                   drop_block, tiling, row_base, n_total, stream);
 }
 
 extern "C" int dense_block_bwd_bf16_launch(
@@ -1657,10 +1687,10 @@ extern "C" int dense_block_bwd_bf16_launch(
     const int* seed, const float* keep, const float* mask, bf16_t* dx,
     float* dw, float* db, float* out_sums, float* partial, unsigned* tickets,
     int C, int N, int K, int F, int wsk, int wsn, int drop_block, int tiling,
-    void* stream) {
+    int row_base, int n_total, void* stream) {
   return bwd_entry(dz, r, x, w, stats, sums, in_stats, seed, keep, mask, dx,
                    dw, db, out_sums, partial, tickets, C, N, K, F, wsk, wsn,
-                   drop_block, tiling, stream);
+                   drop_block, tiling, row_base, n_total, stream);
 }
 
 // h = dropout(a x + c) of the top block: x (N, F), stats (5, F), the
@@ -1669,9 +1699,9 @@ extern "C" int chain_tail_fwd_launch(const float* x, const float* stats,
                                      const int* seed, const float* keep,
                                      const float* mask, float* h, int C,
                                      int N, int F, int drop_block,
-                                     void* stream) {
+                                     int row_base, void* stream) {
   return tail_fwd_entry(x, stats, seed, keep, mask, h, C, N, F, drop_block,
-                        stream);
+                        row_base, stream);
 }
 
 extern "C" int chain_tail_fwd_bf16_launch(const bf16_t* x,
@@ -1679,9 +1709,9 @@ extern "C" int chain_tail_fwd_bf16_launch(const bf16_t* x,
                                           const float* keep,
                                           const float* mask, bf16_t* h,
                                           int C, int N, int F, int drop_block,
-                                          void* stream) {
+                                          int row_base, void* stream) {
   return tail_fwd_entry(x, stats, seed, keep, mask, h, C, N, F, drop_block,
-                        stream);
+                        row_base, stream);
 }
 
 // dz (N, F) and sums (2, F) from dh (N, F), the top block's r (N, F) and
@@ -1690,9 +1720,10 @@ extern "C" int chain_tail_bwd_launch(const float* dh, const float* r,
                                      const float* stats, const int* seed,
                                      const float* keep, const float* mask,
                                      float* dz, float* sums, int C, int N,
-                                     int F, int drop_block, void* stream) {
+                                     int F, int drop_block, int row_base,
+                                     void* stream) {
   return tail_bwd_entry(dh, r, stats, seed, keep, mask, dz, sums, C, N, F,
-                        drop_block, stream);
+                        drop_block, row_base, stream);
 }
 
 extern "C" int chain_tail_bwd_bf16_launch(const bf16_t* dh, const bf16_t* r,
@@ -1700,22 +1731,24 @@ extern "C" int chain_tail_bwd_bf16_launch(const bf16_t* dh, const bf16_t* r,
                                           const float* keep,
                                           const float* mask, bf16_t* dz,
                                           float* sums, int C, int N, int F,
-                                          int drop_block, void* stream) {
+                                          int drop_block, int row_base,
+                                          void* stream) {
   return tail_bwd_entry(dh, r, stats, seed, keep, mask, dz, sums, C, N, F,
-                        drop_block, stream);
+                        drop_block, row_base, stream);
 }
 
 extern "C" int dropout_masks_launch(const int* seed, const float* keep,
                                     float* out, int N, int F, int block,
-                                    void* stream) {
-  if (N < 1 || F < 1 || too_large(N, F)) return (int)cudaErrorInvalidValue;
+                                    int row_base, void* stream) {
+  if (N < 1 || F < 1 || too_large(N, F) || row_base < 0)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (F % 4 == 0 && !misaligned(out))
     dropout_masks_kernel<true><<<row_grid(N, F), kRowThreads, 0, s>>>(
-        seed, keep, out, F, block);
+        seed, keep, out, F, block, row_base);
   else
     dropout_masks_kernel<false><<<row_grid(N, F), kRowThreads, 0, s>>>(
-        seed, keep, out, F, block);
+        seed, keep, out, F, block, row_base);
   return (int)cudaGetLastError();
 }
 

@@ -28,7 +28,13 @@ local apart from the dp sums) and dropout act on them locally. A
 row-parallel layer takes the matching block of the input features (its
 own slice of a whole input, with no collective) and its partial product
 is summed over mp before its bias, which is added once. The conv stack
-stays whole, as JAX's rule leaves it.
+stays whole, as JAX's rule leaves it. In bf16 a column-parallel layer is
+``low_product`` on its weight block and bias slice; a row-parallel one
+keeps its partial product of the bf16-cast operands in f32 (each product
+exact), sums it over mp in f32 and rounds it to bf16 once, after the sum,
+then adds the bias in bf16: the unsharded layer's rounding points, only
+the f32 sum's order differs. The fused chain takes each sharded weight
+whole instead (:func:`whole_weight`).
 """
 from __future__ import annotations
 
@@ -43,14 +49,27 @@ from contrastiveprosthetics_torch.models.layers import (
     RateDropout,
     at_least_f32,
     low_precision,
+    low_product,
     make_norm,
 )
 from contrastiveprosthetics_torch.parallel.collectives import (
     copy_to,
     gather_rows,
+    gather_whole,
     local_slice,
     reduce_from,
 )
+
+
+def whole_weight(m: nn.Module) -> torch.Tensor:
+    """``m.weight`` whole: a weight the mp rule sharded
+    (:meth:`EMGNet.shard_dense`) gathered over mp, its gradient narrowed
+    back to this rank's block (``gather_whole``); any other as it is."""
+    shard = m.__dict__.get("shard")
+    if shard is None:
+        return m.weight
+    dim, lo, _, n, mesh = shard
+    return gather_whole(m.weight, lo, n, mesh.mp_group, dim)
 
 
 class EMGNet(nn.Module):
@@ -155,20 +174,33 @@ class EMGNet(nn.Module):
 
     def _parallel_linear(self, m: nn.Linear, x: torch.Tensor):
         """A dense layer under mp: column-parallel (this rank's output
-        features), row-parallel (summed over mp, then the bias) or whole."""
+        features), row-parallel (summed over mp, then the bias) or whole;
+        in a bf16 tower with the unsharded layer's roundings (see the
+        module docstring)."""
+        low = self.dtype != torch.float32
         shard = m.__dict__.get("shard")
         if shard is None:
-            return m(x)
+            return low_precision(m, x, self.dtype) if low else m(x)
         dim, lo, hi, n, mesh = shard
         group = mesh.mp_group
         if dim == 0:
             bias = None if m.bias is None else local_slice(m.bias, lo, hi,
                                                            group)
-            return nnf.linear(copy_to(x, group), m.weight, bias)
+            x = copy_to(x, group)
+            if low:
+                return low_product(x, m.weight, bias, self.dtype, nnf.linear)
+            return nnf.linear(x, m.weight, bias)
         if x.shape[-1] == n:  # a whole input: this rank's features of it
             x = copy_to(x, group)[:, lo:hi]
-        y = reduce_from(nnf.linear(x, m.weight), group)
-        return y if m.bias is None else y + m.bias
+        w = m.weight
+        if low:  # the exact products' f32 partial sums, rounded after mp's
+            x, w = x.to(self.dtype).float(), w.to(self.dtype).float()
+        y = reduce_from(nnf.linear(x, w), group)
+        if low:
+            y = y.to(self.dtype)
+        if m.bias is None:
+            return y
+        return y + (m.bias.to(self.dtype) if low else m.bias)
 
     def norms(self) -> list[nn.Module]:
         """The BatchNorm layers in forward order (2 conv + n_linear, and
@@ -186,19 +218,15 @@ class EMGNet(nn.Module):
         ``generator``."""
         x = frames.reshape(-1, 1, 1, self.emg_dim)
         low = self.dtype != torch.float32
-        if low and self.mesh is not None:
-            raise NotImplementedError(
-                "a bf16 tower in tensor-parallel form is not ported to the "
-                "PyTorch package yet (ROADMAP.md, queue 1 item 14)")
         for m in (*self.conv_emg, *self.linear, *self.last):
             if isinstance(m, (BatchNorm, AdaBN)):
                 x = m(x, collect)
             elif isinstance(m, RateDropout):
                 x = m(x, dropout, generator)
-            elif low and isinstance(m, (nn.Conv2d, nn.Linear)):
-                x = low_precision(m, x, self.dtype)
             elif self.mesh is not None and isinstance(m, nn.Linear):
                 x = self._parallel_linear(m, x)
+            elif low and isinstance(m, (nn.Conv2d, nn.Linear)):
+                x = low_precision(m, x, self.dtype)
             else:
                 x = m(x)
         return at_least_f32(x)

@@ -72,11 +72,17 @@ launch_counts = {"dsp_frames": 0, "encoder_chain": 0,
                  "dense_block_fwd_bf16": 0, "dense_block_bwd_bf16": 0,
                  "chain_tail_fwd_bf16": 0, "chain_tail_bwd_bf16": 0,
                  "dropout_masks": 0}
+# launches of the fused chain's kernels in a dp rank's modes, counted
+# beside their kernel's launch_counts: K5f's sums-only end (by kernel), and
+# any chain kernel given a nonzero row base or K5b a batch's row count
+mode_counts = {"dense_block_fwd_sums": 0, "dense_block_fwd_bf16_sums": 0,
+               "row_base": 0, "n_total": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, mode_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 # ------------------------------------------------------------------ folds
@@ -232,19 +238,19 @@ _SIGNATURES = {
                              3, 4, False),
     "contrastive_loss_bwd": ("contrastive_loss", "contrastive_loss_bwd_launch",
                              5, 4, False),
-    "dense_block_fwd": ("train_fused", "dense_block_fwd_launch", 13, 8, True),
-    "dense_block_bwd": ("train_fused", "dense_block_bwd_launch", 16, 8, False),
-    "chain_tail_fwd": ("train_fused", "chain_tail_fwd_launch", 6, 4, False),
-    "chain_tail_bwd": ("train_fused", "chain_tail_bwd_launch", 8, 4, False),
+    "dense_block_fwd": ("train_fused", "dense_block_fwd_launch", 13, 10, True),
+    "dense_block_bwd": ("train_fused", "dense_block_bwd_launch", 16, 10, False),
+    "chain_tail_fwd": ("train_fused", "chain_tail_fwd_launch", 6, 5, False),
+    "chain_tail_bwd": ("train_fused", "chain_tail_bwd_launch", 8, 5, False),
     "dense_block_fwd_bf16": ("train_fused", "dense_block_fwd_bf16_launch", 13,
-                             8, True),
+                             10, True),
     "dense_block_bwd_bf16": ("train_fused", "dense_block_bwd_bf16_launch", 16,
-                             8, False),
-    "chain_tail_fwd_bf16": ("train_fused", "chain_tail_fwd_bf16_launch", 6, 4,
+                             10, False),
+    "chain_tail_fwd_bf16": ("train_fused", "chain_tail_fwd_bf16_launch", 6, 5,
                             False),
-    "chain_tail_bwd_bf16": ("train_fused", "chain_tail_bwd_bf16_launch", 8, 4,
+    "chain_tail_bwd_bf16": ("train_fused", "chain_tail_bwd_bf16_launch", 8, 5,
                             False),
-    "dropout_masks": ("train_fused", "dropout_masks_launch", 3, 3, False),
+    "dropout_masks": ("train_fused", "dropout_masks_launch", 3, 4, False),
     "philox_check": ("train_fused", "philox_check_launch", 4, 1, False),
 }
 

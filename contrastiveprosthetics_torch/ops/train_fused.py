@@ -51,6 +51,13 @@ eps)``, running averages with momentum 0.9 and the biased variance.
 Gradients flow through the batch statistics inside the backward, and the
 chain's (means, variances) outputs take none.
 
+On a dp rank of the sharded step (:class:`DpRows`: the chain's rows are
+the rank's part of a global batch) K5f ends with its raw column sums,
+which are summed over dp and finished (:func:`finish_stats`, the JAX
+package's XLA glue) between launches; K5b takes the global sums and row
+count; every Philox counter takes the rank's global row
+(``row_base``). Where dp has one rank none of this runs.
+
 A bf16 chain (the JAX package's ``compute_dtype=bfloat16``, the dtype of
 ``x0``) stores x, r, dx and the tail's h and dz in bf16 and keeps the
 statistics, the sums, dW and db in f32, rounding where the JAX kernels do
@@ -68,18 +75,22 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as nnf
 
+from contrastiveprosthetics_torch.models.emg_net import whole_weight
 from contrastiveprosthetics_torch.models.layers import (
     COMPUTE_DTYPES,
     at_least_f32,
     bf16_values,
     low_precision,
+    low_product,
 )
 from contrastiveprosthetics_torch.models.stacked import (
     StackedEMGNet,
     StackedLinear,
 )
 from contrastiveprosthetics_torch.ops import kernels as K
+from contrastiveprosthetics_torch.parallel.collectives import sum_flat
 
 U32 = 0xFFFFFFFF
 # the largest f32 below 1: keep * 2^32 then stays below 2^32 in f32
@@ -131,18 +142,20 @@ def philox4x32_10(counter, key):
     return c0, c1, c2, c3
 
 
-def mask_bits(seed: torch.Tensor, n_rows: int, width: int,
-              block: int) -> torch.Tensor:
+def mask_bits(seed: torch.Tensor, n_rows: int, width: int, block: int,
+              row_base: int = 0) -> torch.Tensor:
     """(n_rows, width) int64: the 32 random bits of each element of block
     ``block``'s mask. Key = the two seed words, counter = (column // 4,
-    row, block, 0); one Philox call covers four neighbouring columns.
+    row, block, 0); one Philox call covers four neighbouring columns. Row
+    i is the global row ``row_base + i`` (a dp rank's rows of the batch).
     Seeds (C, 2) give (C, n_rows, width), config c's from its words."""
     dev = seed.device
     words = seed.to(torch.int64) & U32
     lead = words.shape[:-1]
     groups = -(-width // 4)
     c0 = torch.arange(groups, device=dev, dtype=torch.int64)[None, :]
-    c1 = torch.arange(n_rows, device=dev, dtype=torch.int64)[:, None]
+    c1 = torch.arange(row_base, row_base + n_rows, device=dev,
+                      dtype=torch.int64)[:, None]
     c2 = torch.full((1, 1), block, device=dev, dtype=torch.int64)
     out = philox4x32_10((c0, c1, c2, torch.zeros_like(c2)),
                         (words[..., 0, None, None], words[..., 1, None, None]))
@@ -151,31 +164,51 @@ def mask_bits(seed: torch.Tensor, n_rows: int, width: int,
 
 
 def dropout_masks_reference(seed, keep, n_rows: int, width: int,
-                            block: int) -> torch.Tensor:
+                            block: int, row_base: int = 0) -> torch.Tensor:
     """Plain version of ``dropout_masks``: block ``block``'s {0,1} f32 mask,
-    (n_rows, width); or each config's, (C, n_rows, width), for seeds (C,
-    2) and ``keep`` (C,)."""
+    (n_rows, width), of global rows ``row_base`` on; or each config's, (C,
+    n_rows, width), for seeds (C, 2) and ``keep`` (C,)."""
     thr = keep_threshold(keep).to(seed.device).reshape(
         *seed.shape[:-1], 1, 1)
-    return (mask_bits(seed, n_rows, width, block) <= thr).to(torch.float32)
+    return (mask_bits(seed, n_rows, width, block, row_base) <= thr).to(
+        torch.float32)
 
 
-def dropout_masks(seed, keep, n_rows: int, width: int,
-                  block: int) -> torch.Tensor:
+def _check_row_base(row_base: int) -> None:
+    if row_base < 0:
+        raise ValueError(f"row_base {row_base}: a global row is >= 0")
+
+
+def _count_modes(name: str, row_base: int = 0, sums_only: bool = False,
+                 n_total=None) -> None:
+    """Count a launch's dp-rank modes in ``kernels.mode_counts``."""
+    if sums_only:
+        K.mode_counts[name + "_sums"] += 1
+    if row_base:
+        K.mode_counts["row_base"] += 1
+    if n_total is not None:
+        K.mode_counts["n_total"] += 1
+
+
+def dropout_masks(seed, keep, n_rows: int, width: int, block: int,
+                  row_base: int = 0) -> torch.Tensor:
     """The ``dropout_masks`` kernel (K5m): block ``block``'s mask replayed,
     one Philox call and one 16-byte store per 4 columns (scalar stores
     where the width is not a multiple of 4). ``seed`` (2,) int32 and
     ``keep`` (1,) f32, both read on the device. Off the chain's path."""
     if seed.device.type == "cpu":
-        return dropout_masks_reference(seed, keep, n_rows, width, block)
+        return dropout_masks_reference(seed, keep, n_rows, width, block,
+                                       row_base)
     dev = seed.device
     K._expect("seed", seed, (2,), torch.int32, dev)
     K._expect("keep", keep, (1,), torch.float32, dev)
     if n_rows < 1 or width < 1:
         raise ValueError(f"mask shape {(n_rows, width)} is empty")
+    _check_row_base(row_base)
     out = torch.empty((n_rows, width), dtype=torch.float32, device=dev)
     K._launch("dropout_masks", "dropout_masks", K._ptr(seed), K._ptr(keep),
-              K._ptr(out), n_rows, width, block, K._stream(dev))
+              K._ptr(out), n_rows, width, block, row_base, K._stream(dev))
+    _count_modes("dropout_masks", row_base)
     return out
 
 
@@ -219,22 +252,24 @@ def _keep_rows(keep: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return keep if x.dim() == 2 else keep.view(-1, 1, 1)
 
 
-def _kept(shape, seed, keep, mask, drop_block):
+def _kept(shape, seed, keep, mask, drop_block, row_base=0):
     """The kept elements of block ``drop_block``'s dropout: ``mask > 0``,
-    or the bits drawn from ``seed``; None without dropout."""
+    or the bits drawn from ``seed`` for global rows ``row_base`` on; None
+    without dropout."""
     if keep is None:
         return None
     if mask is None:
-        mask = dropout_masks_reference(seed, keep, *shape[-2:], drop_block)
+        mask = dropout_masks_reference(seed, keep, *shape[-2:], drop_block,
+                                       row_base)
     return mask > 0
 
 
-def _block_input(x, in_stats, seed, keep, mask, drop_block):
+def _block_input(x, in_stats, seed, keep, mask, drop_block, row_base=0):
     """h = dropout(a x + c): the previous block's BatchNorm affine
     (``in_stats`` rows 3, 4) and dropout, as the kernels apply them on
     load. Returns h and the kept elements (None without dropout)."""
     z = x if in_stats is None else x * _stat(in_stats, 3) + _stat(in_stats, 4)
-    kept = _kept(x.shape, seed, keep, mask, drop_block)
+    kept = _kept(x.shape, seed, keep, mask, drop_block, row_base)
     if kept is None:
         return z, None
     return torch.where(kept, z / _keep_rows(keep, x), 0.0), kept
@@ -242,16 +277,20 @@ def _block_input(x, in_stats, seed, keep, mask, drop_block):
 
 def dense_block_fwd_reference(x, w, b, gamma, beta, in_stats=None, *,
                               seed=None, keep=None, mask=None,
-                              drop_block: int = -1, eps: float = 1e-5):
+                              drop_block: int = -1, row_base: int = 0,
+                              sums_only: bool = False, eps: float = 1e-5):
     """Plain version of ``dense_block_fwd`` (``_fwd_block_kernel`` then
     ``_finalize_stats``/``_affine``, ``train_fused.py:183-236,495-505``).
 
     ``x`` (N, K), ``w`` (K, F), ``b``/``gamma``/``beta`` (F,); ``in_stats``
     the previous block's (5, K) statistics, whose affine (rows 3, 4) is
     applied to ``x``; dropout on the input when ``keep`` is given, with
-    ``mask`` or the bits of block ``drop_block`` drawn from ``seed``.
-    Returns r (N, F) and stats (5, F): mean, var, rstd, a, c. Or each of
-    them with a leading axis of C configs.
+    ``mask`` or the bits of block ``drop_block`` drawn from ``seed`` for
+    global rows ``row_base`` on. Returns r (N, F) and stats (5, F): mean,
+    var, rstd, a, c. Or each of them with a leading axis of C configs.
+    ``sums_only`` (a dp rank's rows): r and the raw column sums (2, F),
+    (sum r, sum r^2), which :func:`finish_stats` finishes once they are
+    summed over the ranks.
 
     bf16 ``x`` and ``w`` (``_fwd_block_kernel`` with ``cdtype`` bf16): h
     computed in f32 and rounded to bf16, f32 sums of the exact products,
@@ -259,31 +298,54 @@ def dense_block_fwd_reference(x, w, b, gamma, beta, in_stats=None, *,
     rounded values; r is returned in bf16, stats in f32."""
     low = x.dtype == BF16
     h, _ = _block_input(at_least_f32(x), in_stats, seed, keep, mask,
-                        drop_block)
+                        drop_block, row_base)
     if low:
         h, w = bf16_values(h), w.float()
     r = torch.relu(h @ w + b.unsqueeze(-2))
     if low:
         r = r.to(BF16)
     rf = at_least_f32(r)
+    s1, s2 = _col_sum(rf), _col_sum(rf * rf)
+    if sums_only:
+        return r, torch.stack([s1, s2], -2)
     n = rf.new_tensor(float(r.shape[-2]))  # a tensor: exact division on CUDA
-    mean = _col_sum(rf) / n
-    var = torch.clamp(_col_sum(rf * rf) / n - mean * mean, min=0.0)
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + eps)
     a = gamma * rstd
     return r, torch.stack([mean, var, rstd, a, beta - mean * a], -2)
 
 
+def finish_stats(sums, gamma, beta, n_total: int,
+                 eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm statistics (5, F) (mean, var, rstd, a, c) from the column
+    sums (2, F) of ``n_total`` rows, op for op as K5f finishes them
+    (``csrc/train_fused.cu``; the JAX package's XLA glue
+    ``_finalize_stats``/``_affine``, ``train_fused.py:495-505``): each
+    division a correctly rounded one, rstd = 1 / sqrt(var + eps) as
+    ``__fdiv_rn(1, __fsqrt_rn(.))``. Plain PyTorch on either device: a dp
+    rank finishes the sums of the global batch between K5f launches. C
+    configs' (C, 2, F) sums give (C, 5, F)."""
+    n = sums.new_tensor(float(n_total))  # tensors: exact division on CUDA
+    mean = sums[..., 0, :] / n
+    var = torch.clamp(sums[..., 1, :] / n - mean * mean, min=0.0)
+    rstd = torch.ones_like(var) / torch.sqrt(var + eps)
+    a = gamma * rstd
+    return torch.stack([mean, var, rstd, a, beta - mean * a], -2)
+
+
 def dense_block_bwd_reference(dz, r, x, w, stats, sums, in_stats=None, *,
                               seed=None, keep=None, mask=None,
-                              drop_block: int = -1):
+                              drop_block: int = -1, row_base: int = 0,
+                              n_total: int | None = None):
     """Plain version of ``dense_block_bwd`` (``_bwd_block_kernel``,
     ``train_fused.py:239-324``), the BatchNorm backward written out, not
     autograd.
 
     ``dz`` (N, F) the gradient at this block's BatchNorm output, ``r`` its
     ReLU output, ``x`` its input, ``stats`` its (5, F) statistics, ``sums``
-    (2, F) = (sum dz, sum dz xhat); the rest as in
+    (2, F) = (sum dz, sum dz xhat) over ``n_total`` rows (None: the N
+    given; a dp rank's: the global batch's); the rest as in
     :func:`dense_block_fwd_reference`. Returns dx (N, K), dW (K, F, laid
     out as ``w``), db (F,) and, with ``in_stats``, the lower block's (2, K)
     sums (sum dx, sum dx xhat_in), else None.
@@ -296,13 +358,14 @@ def dense_block_bwd_reference(dz, r, x, w, stats, sums, in_stats=None, *,
     returned rounded to bf16 as dx."""
     low = dz.dtype == BF16
     mean, rstd, a = (_stat(stats, i) for i in (0, 2, 3))
-    inv_n = 1.0 / stats.new_tensor(float(dz.shape[-2]))
+    inv_n = 1.0 / stats.new_tensor(float(n_total or dz.shape[-2]))
     rf, xf = at_least_f32(r), at_least_f32(x)
     xn = (rf - mean) * rstd
     t = (at_least_f32(dz) - _stat(sums, 0) * inv_n
          - xn * (_stat(sums, 1) * inv_n))
     dy = torch.where(rf > 0, a * t, 0.0)
-    h, kept = _block_input(xf, in_stats, seed, keep, mask, drop_block)
+    h, kept = _block_input(xf, in_stats, seed, keep, mask, drop_block,
+                           row_base)
     dyc = dy
     if low:
         dyc, h, w = bf16_values(dy), bf16_values(h), w.float()
@@ -402,16 +465,19 @@ def _zeroed_tickets(dev: torch.device, n: int) -> torch.Tensor:
 
 def dense_block_fwd(x, w, b, gamma, beta, in_stats=None, *, seed=None,
                     keep=None, mask=None, drop_block: int = -1,
+                    row_base: int = 0, sums_only: bool = False,
                     eps: float = 1e-5, tiling: int = FWD_TILING):
     """The ``dense_block_fwd`` kernel (K5f), or ``dense_block_fwd_bf16``
-    for bf16 ``x`` and ``w``; see :func:`dense_block_fwd_reference`.
-    ``tiling`` picks one of the kernel's two tilings (for tests and
-    timing); both give the same r. C configs' arrays (a leading axis)
-    run in one launch."""
+    for bf16 ``x`` and ``w``; see :func:`dense_block_fwd_reference`
+    (``sums_only``: the kernel's sums-only end, (2, F) sums for the
+    statistics). ``tiling`` picks one of the kernel's two tilings (for
+    tests and timing); both give the same r. C configs' arrays (a leading
+    axis) run in one launch."""
     if x.device.type == "cpu":
         return dense_block_fwd_reference(
             x, w, b, gamma, beta, in_stats, seed=seed, keep=keep, mask=mask,
-            drop_block=drop_block, eps=eps)
+            drop_block=drop_block, row_base=row_base, sums_only=sums_only,
+            eps=eps)
     dev = x.device
     lead = _configs(x, "x")
     C = lead[0] if lead else 1
@@ -426,8 +492,10 @@ def dense_block_fwd(x, w, b, gamma, beta, in_stats=None, *, seed=None,
         K._expect("in_stats", in_stats, (*lead, 5, Kw), torch.float32, dev)
     _check_dropout(seed, keep, mask, (N, Kw), dev, lead)
     _check_tiled(Kw, F, tiling, x, w, b, in_stats, mask, dtype=dtype)
+    _check_row_base(row_base)
     r = torch.empty((*lead, N, F), dtype=dtype, device=dev)
-    stats = torch.empty((*lead, 5, F), dtype=torch.float32, device=dev)
+    stats = torch.empty((*lead, 2 if sums_only else 5, F),
+                        dtype=torch.float32, device=dev)
     bm, bn = FWD_TILES[tiling]
     partial = torch.empty((C, -(-N // bm), 2, F), dtype=torch.float32,
                           device=dev)
@@ -437,12 +505,15 @@ def dense_block_fwd(x, w, b, gamma, beta, in_stats=None, *, seed=None,
               K._ptr(b), K._ptr(gamma), K._ptr(beta), K._ptr(in_stats),
               K._ptr(seed), K._ptr(keep), K._ptr(mask), K._ptr(r),
               K._ptr(partial), K._ptr(tickets), K._ptr(stats), C, N, Kw, F,
-              wsk, wsn, drop_block, tiling, eps, K._stream(dev))
+              wsk, wsn, drop_block, tiling, row_base, int(sums_only), eps,
+              K._stream(dev))
+    _count_modes(name, row_base, sums_only)
     return r, stats
 
 
 def dense_block_bwd(dz, r, x, w, stats, sums, in_stats=None, *, seed=None,
                     keep=None, mask=None, drop_block: int = -1,
+                    row_base: int = 0, n_total: int | None = None,
                     tiling: int = BWD_TILING):
     """The ``dense_block_bwd`` kernel (K5b), dgrad and wgrad tiles in one
     launch, or ``dense_block_bwd_bf16`` for bf16 ``dz``, ``r``, ``x`` and
@@ -452,7 +523,8 @@ def dense_block_bwd(dz, r, x, w, stats, sums, in_stats=None, *, seed=None,
     if dz.device.type == "cpu":
         return dense_block_bwd_reference(
             dz, r, x, w, stats, sums, in_stats, seed=seed, keep=keep,
-            mask=mask, drop_block=drop_block)
+            mask=mask, drop_block=drop_block, row_base=row_base,
+            n_total=n_total)
     dev = dz.device
     lead = _configs(dz, "dz")
     if x.dim() != dz.dim():
@@ -472,6 +544,9 @@ def dense_block_bwd(dz, r, x, w, stats, sums, in_stats=None, *, seed=None,
         K._expect("in_stats", in_stats, (*lead, 5, Kw), torch.float32, dev)
     _check_dropout(seed, keep, mask, (N, Kw), dev, lead)
     _check_tiled(Kw, F, tiling, dz, r, x, w, in_stats, mask, dtype=dtype)
+    _check_row_base(row_base)
+    if n_total is not None and n_total < N:
+        raise ValueError(f"n_total {n_total}: fewer than the {N} rows given")
     dx = torch.empty((*lead, N, Kw), dtype=dtype, device=dev)
     dw = torch.empty_like(w, dtype=torch.float32)  # the strides of w
     db = torch.empty((*lead, F), dtype=torch.float32, device=dev)
@@ -488,31 +563,35 @@ def dense_block_bwd(dz, r, x, w, stats, sums, in_stats=None, *, seed=None,
               K._ptr(in_stats), K._ptr(seed), K._ptr(keep), K._ptr(mask),
               K._ptr(dx), K._ptr(dw), K._ptr(db), K._ptr(out_sums),
               K._ptr(partial), K._ptr(tickets), C, N, Kw, F, wsk, wsn,
-              drop_block, tiling, K._stream(dev))
+              drop_block, tiling, row_base, n_total or 0, K._stream(dev))
+    _count_modes(name, row_base, n_total=n_total)
     return dx, dw, db, out_sums
 
 
 # ------------------------------------------------------- the chain's tail
 def chain_tail_fwd_reference(x, stats, *, seed=None, keep=None, mask=None,
-                             drop_block: int = -1):
+                             drop_block: int = -1, row_base: int = 0):
     """Plain version of ``chain_tail_fwd`` (the JAX chain's XLA tail,
     ``train_fused.py:593-600``): the top block's ReLU output ``x`` (N, F)
     through its BatchNorm affine (``stats`` rows 3, 4) and the dropout of
     block ``drop_block``'s output, ``h = where(kept, (a x + c) / keep,
-    0)``; bf16 ``x`` gives h rounded once to bf16."""
-    h = _block_input(at_least_f32(x), stats, seed, keep, mask, drop_block)[0]
+    0)``, the bits drawn for global rows ``row_base`` on; bf16 ``x``
+    gives h rounded once to bf16."""
+    h = _block_input(at_least_f32(x), stats, seed, keep, mask, drop_block,
+                     row_base)[0]
     return h.to(x.dtype)
 
 
 def chain_tail_bwd_reference(dh, r, stats, *, seed=None, keep=None,
-                             mask=None, drop_block: int = -1):
+                             mask=None, drop_block: int = -1,
+                             row_base: int = 0):
     """Plain version of ``chain_tail_bwd`` (``train_fused.py:624-633``):
     ``dz = where(kept, dh / keep, 0)`` with the forward's dropout, and the
     top BatchNorm's two backward sums ``(sum dz, sum dz xhat)``, xhat =
     (r - mean) rstd from ``stats`` rows 0 and 2. Returns dz (N, F) and
     sums (2, F). bf16 ``dh`` and ``r``: dz and the sums in f32 from their
     f32 values, then dz rounded once to bf16."""
-    kept = _kept(dh.shape, seed, keep, mask, drop_block)
+    kept = _kept(dh.shape, seed, keep, mask, drop_block, row_base)
     g = at_least_f32(dh)
     dz = g if kept is None else torch.where(kept, g / _keep_rows(keep, g),
                                             0.0)
@@ -544,50 +623,69 @@ def _check_tail(stats, seed, keep, mask, **arrays):
 
 
 def chain_tail_fwd(x, stats, *, seed=None, keep=None, mask=None,
-                   drop_block: int = -1):
+                   drop_block: int = -1, row_base: int = 0):
     """The ``chain_tail_fwd`` kernel (``chain_tail_fwd_bf16`` for a bf16
     ``x``): h in one pass, the mask drawn in registers and never stored;
     see :func:`chain_tail_fwd_reference`."""
     if x.device.type == "cpu":
         return chain_tail_fwd_reference(x, stats, seed=seed, keep=keep,
-                                        mask=mask, drop_block=drop_block)
+                                        mask=mask, drop_block=drop_block,
+                                        row_base=row_base)
     C, N, F = _check_tail(stats, seed, keep, mask, x=x)
+    _check_row_base(row_base)
     h = torch.empty_like(x)
     name = _variant("chain_tail_fwd", x.dtype)
     K._launch(name, name, K._ptr(x), K._ptr(stats),
               K._ptr(seed), K._ptr(keep), K._ptr(mask), K._ptr(h), C, N, F,
-              drop_block, K._stream(x.device))
+              drop_block, row_base, K._stream(x.device))
+    _count_modes(name, row_base)
     return h
 
 
 def chain_tail_bwd(dh, r, stats, *, seed=None, keep=None, mask=None,
-                   drop_block: int = -1):
+                   drop_block: int = -1, row_base: int = 0):
     """The ``chain_tail_bwd`` kernel (``chain_tail_bwd_bf16`` for bf16
     ``dh`` and ``r``): dz and the two sums in one launch, the forward's
     bits redrawn, the sums taken in f64 in a fixed order and rounded once;
     see :func:`chain_tail_bwd_reference`."""
     if dh.device.type == "cpu":
         return chain_tail_bwd_reference(dh, r, stats, seed=seed, keep=keep,
-                                        mask=mask, drop_block=drop_block)
+                                        mask=mask, drop_block=drop_block,
+                                        row_base=row_base)
     C, N, F = _check_tail(stats, seed, keep, mask, dh=dh, r=r)
+    _check_row_base(row_base)
     dz = torch.empty_like(dh)
     sums = torch.empty((*dh.shape[:-2], 2, F), dtype=torch.float32,
                        device=dh.device)
     name = _variant("chain_tail_bwd", dh.dtype)
     K._launch(name, name, K._ptr(dh), K._ptr(r),
               K._ptr(stats), K._ptr(seed), K._ptr(keep), K._ptr(mask),
-              K._ptr(dz), K._ptr(sums), C, N, F, drop_block,
+              K._ptr(dz), K._ptr(sums), C, N, F, drop_block, row_base,
               K._stream(dh.device))
+    _count_modes(name, row_base)
     return dz, sums
 
 
 # --------------------------------------------------------------- the chain
+@dataclasses.dataclass(frozen=True)
+class DpRows:
+    """The chain's rows as one dp rank's part of a global batch (the JAX
+    package's sharded step, where GSPMD computes every statistic of the
+    global batch): ``group`` the dp process group, ``row_base`` the global
+    row of the rank's first row, ``n_total`` the global batch's rows."""
+
+    group: object
+    row_base: int
+    n_total: int
+
+
 @dataclasses.dataclass(frozen=True)
 class _Chain:
     n_linear: int
     dropout_from: int  # the first block whose output is dropped
     mask_mode: str     # "prng" | "input"
     eps: float
+    dp: DpRows | None = None
 
     def dropout(self, block: int, seed, keep, masks) -> dict:
         """Keyword arguments of dropout on block ``block``'s input (the
@@ -596,7 +694,25 @@ class _Chain:
             return {}
         if self.mask_mode == "input":
             return dict(keep=keep, mask=masks[block - 1 - self.dropout_from])
-        return dict(keep=keep, seed=seed, drop_block=block - 1)
+        return dict(keep=keep, seed=seed, drop_block=block - 1,
+                    row_base=0 if self.dp is None else self.dp.row_base)
+
+    def block_fwd(self, x, w, b, gamma, beta, in_stats, drop: dict):
+        """K5f on one block: one launch, or on a dp rank the sums-only
+        launch, its (2, F) sums summed over dp and finished
+        (:func:`finish_stats`) into the global batch's statistics."""
+        if self.dp is None:
+            return dense_block_fwd(x, w, b, gamma, beta, in_stats,
+                                   eps=self.eps, **drop)
+        r, sums = dense_block_fwd(x, w, b, gamma, beta, in_stats,
+                                  sums_only=True, **drop)
+        return r, finish_stats(self.summed(sums), gamma, beta,
+                               self.dp.n_total, self.eps)
+
+    def summed(self, sums: torch.Tensor) -> torch.Tensor:
+        """Column sums over the rank's rows -> over the global batch."""
+        return sums if self.dp is None else sum_flat([sums],
+                                                     self.dp.group)[0]
 
 
 class _FusedDenseChain(torch.autograd.Function):
@@ -611,9 +727,9 @@ class _FusedDenseChain(torch.autograd.Function):
         rs, stats = [], []
         x, in_stats = x0, None
         for i in range(L):
-            r, st = dense_block_fwd(x, ws[i], bs[i], gammas[i], betas[i],
-                                    in_stats, eps=chain.eps,
-                                    **chain.dropout(i, seed, keep, masks))
+            r, st = chain.block_fwd(x, ws[i], bs[i], gammas[i], betas[i],
+                                    in_stats,
+                                    chain.dropout(i, seed, keep, masks))
             rs.append(r)
             stats.append(st)
             x, in_stats = r, st
@@ -636,18 +752,22 @@ class _FusedDenseChain(torch.autograd.Function):
         dz, sums = chain_tail_bwd(dh.contiguous(), rs[-1], stats[-1],
                                   **chain.dropout(L, seed, keep, masks))
         dws, dbs, dgammas, dbetas = ([None] * L for _ in range(4))
+        n_total = None if chain.dp is None else chain.dp.n_total
         for i in range(L - 1, -1, -1):
+            # a dp rank's sums are its rows': dgamma and dbeta, gradients,
+            # are summed over dp with the others by the step; K5b's
+            # BatchNorm backward takes the global batch's
             dbetas[i], dgammas[i] = sums[..., 0, :], sums[..., 1, :]
             dz, dws[i], dbs[i], sums = dense_block_bwd(
                 dz, rs[i], x0 if i == 0 else rs[i - 1], ws[i], stats[i],
-                sums, None if i == 0 else stats[i - 1],
-                **chain.dropout(i, seed, keep, masks))
+                chain.summed(sums), None if i == 0 else stats[i - 1],
+                n_total=n_total, **chain.dropout(i, seed, keep, masks))
         return (None, None, None, None, dz, *dws, *dbs, *dgammas, *dbetas)
 
 
 def fused_dense_chain(x0, ws, bs, gammas, betas, seeds, rate, *,
                       mask_mode: str = "prng", ext_masks=(),
-                      eps: float = 1e-5):
+                      eps: float = 1e-5, dp: DpRows | None = None):
     """The dense stack as fused kernels with their own backward
     (``fused_dense_chain``, ``train_fused.py:669-714``).
 
@@ -670,19 +790,34 @@ def fused_dense_chain(x0, ws, bs, gammas, betas, seeds, rate, *,
     ``seeds`` (C, 2), ``rate`` a (C,) f32 tensor, the masks (C, N, F);
     every kernel launches once for all of them, and the statistics come
     back (C, L, F). On the CPU a float64 chain runs too (the plain versions
-    in float64, for checks against float64 evaluations)."""
+    in float64, for checks against float64 evaluations).
+
+    ``dp``: ``x0`` holds one dp rank's rows of a global batch. Each K5f
+    launch then ends with its sums, which are summed over dp and finished
+    between launches, so every block's statistics, the returned ones
+    included, are the global batch's; the backward's BatchNorm sums are
+    summed over dp before each K5b takes them, with the global row count;
+    the masks are the global batch's rows ``row_base`` on (``ext_masks``
+    the global batch's, sliced here). The gradients, ``dgamma`` and
+    ``dbeta`` among them, are the rank's rows' share, for the caller to
+    sum over dp as it sums the rest."""
     if x0.dtype != torch.float64 or x0.device.type != "cpu":
         _kernel_dtype(x0)
     if mask_mode not in ("prng", "input"):
         raise ValueError(f"mask_mode must be 'prng' or 'input', not "
                          f"{mask_mode!r}")
+    if dp is not None and x0.dim() == 3:
+        raise ValueError("a dp rank's rows take one config's chain")
     L = len(ws)
-    chain = _Chain(L, max(0, L - 4), mask_mode, eps)
+    chain = _Chain(L, max(0, L - 4), mask_mode, eps, dp)
     masks = tuple(ext_masks) if mask_mode == "input" else ()
     if mask_mode == "input":
         if len(masks) != L - chain.dropout_from:
             raise ValueError(f"{len(masks)} masks for "
                              f"{L - chain.dropout_from} dropped blocks")
+        if dp is not None:
+            rows = slice(dp.row_base, dp.row_base + x0.shape[-2])
+            masks = tuple(m[rows] for m in masks)
         seeds = None
     elif seeds is None:
         raise ValueError("mask_mode='prng' needs the step's seed words")
@@ -774,7 +909,7 @@ def _conv_stack(emg_net, frames):
 
 
 def fused_emg_embed(emg_net, frames, rate, seeds, *, mask_mode: str = "prng",
-                    ext_masks=()):
+                    ext_masks=(), dp: DpRows | None = None):
     """EMGNet's train-mode forward with the fused dense chain
     (``fused_emg_embed``, ``train_fused.py:848-921``): the conv stack in
     plain PyTorch (cuDNN convolutions, as the JAX package leaves it to
@@ -788,6 +923,16 @@ def fused_emg_embed(emg_net, frames, rate, seeds, *, mask_mode: str = "prng",
     ``seeds`` (C, 2): its convolutions and head as its eager forward runs
     them, the chain at its config axis, one launch a kernel for all C.
 
+    Under a mesh (the sharded step): ``frames`` are a dp rank's rows and
+    ``dp`` says where they lie in the global batch (the chain's dp form;
+    the conv stack's BatchNorms take the global statistics themselves).
+    A tensor-parallel tower (``EMGNet.shard_dense``) runs the chain and
+    the head on whole weights, each weight the mp rule shards gathered
+    over mp (``whole_weight``), as GSPMD replicates the operands of a
+    ``pallas_call``, which carries no partitioning rule: every mp rank of
+    a dp group computes the same rows, and each weight's gradient comes
+    back narrowed to the rank's block.
+
     Returns ``(embeddings (rows, d_e) f32, new running statistics)``: for a
     plain-BatchNorm model one (mean, var) pair per BatchNorm in forward
     order, moved toward the batch's with flax's momentum; None for
@@ -800,18 +945,19 @@ def fused_emg_embed(emg_net, frames, rate, seeds, *, mask_mode: str = "prng",
             if isinstance(m, (torch.nn.Linear, StackedLinear))]
     norms = [_norm(m) for m in emg_net.norms()]
     h, means, variances = fused_dense_chain(
-        x0, [m.weight.transpose(-1, -2) for m in lins],
+        x0, [whole_weight(m).transpose(-1, -2) for m in lins],
         [m.bias for m in lins],
         [bn.weight for bn in norms[2:]], [bn.bias for bn in norms[2:]],
         seeds, rate, mask_mode=mask_mode, ext_masks=ext_masks,
-        eps=norms[2].eps)
+        eps=norms[2].eps, dp=dp)
     head = emg_net.last[0]
     if stacked:
         e = at_least_f32(head(h))
     elif low:
-        e = at_least_f32(low_precision(head, h, dtype))
+        e = at_least_f32(low_product(h, whole_weight(head), head.bias, dtype,
+                                     nnf.linear))
     else:
-        e = h @ head.weight.T
+        e = h @ whole_weight(head).T
     if not norms[0].track_running_stats:
         return e, None
     batch += list(zip(means.unbind(-2), variances.unbind(-2)))

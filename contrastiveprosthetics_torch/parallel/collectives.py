@@ -17,6 +17,10 @@ written out: small ``torch.autograd.Function``s over ``torch.distributed``.
   sharded weight, the served sessions' outputs, the sweep's values): each
   rank writes its block into a zeroed buffer and the buffer is summed.
   Adding zeros is exact, so the gather is bit for bit.
+* :func:`gather_whole`, the same gather with a gradient: the whole
+  tensor's gradient narrowed to the rank's block, summed over no rank (a
+  sharded weight used whole by every rank of the group, which all compute
+  the same whole gradient: the fused chain under mp).
 * :func:`sum_flat`, the non-differentiable sum of a list of tensors (a
   step's gradients, its loss and correct count) in one all-reduce.
 
@@ -70,6 +74,18 @@ class _AllReduceSum(torch.autograd.Function):
         return _summed(grad, ctx.group), None
 
 
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, part, lo, n, group, dim):
+        ctx.lo, ctx.size, ctx.dim = lo, part.shape[dim], dim
+        return gather_rows(part, lo, n, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.lo, ctx.size).contiguous(), None,
+                None, None, None)
+
+
 class _LocalSlice(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, lo, hi, group):
@@ -102,6 +118,13 @@ def local_slice(x: torch.Tensor, lo: int, hi: int, group) -> torch.Tensor:
     """Rows ``[lo, hi)`` of the replicated ``x``; the gradient is whole on
     every rank of ``group``."""
     return _LocalSlice.apply(x, lo, hi, group)
+
+
+def gather_whole(part: torch.Tensor, lo: int, n: int, group,
+                 dim: int = 0) -> torch.Tensor:
+    """:func:`gather_rows` of ``part``; its gradient is the whole
+    gradient's block ``[lo, lo + part.shape[dim])`` on this rank."""
+    return _GatherWhole.apply(part, lo, n, group, dim)
 
 
 @torch.no_grad()

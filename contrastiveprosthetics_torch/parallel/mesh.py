@@ -189,6 +189,26 @@ def gather_state(state, mesh: Mesh):
                                     info[0])))
 
 
+def gather_grads(model, grads: dict) -> dict[str, torch.Tensor]:
+    """A sharded step's gradients (``Trainer.loss_and_grads`` under a mesh:
+    one list a tower, over ``model.towers()``'s parameters) by
+    ``state_dict`` name, each sharded weight's gathered whole over mp (bit
+    for bit), the rest as they are."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    shards = {id(m.weight): m.__dict__["shard"] for m in model.modules()
+              if "shard" in m.__dict__}
+    out = {}
+    for tower, tower_grads in zip(model.towers().values(),
+                                  (grads["emg_net"], grads["glove_net"])):
+        for p, g in zip(tower.parameters(), tower_grads):
+            shard = shards.get(id(p))
+            if shard is not None:
+                dim, lo, _, n, mesh = shard
+                g = gather_rows(g, lo, n, mesh.mp_group, dim)
+            out[names[id(p)]] = g
+    return out
+
+
 def set_batch_rows(model, rows: tuple[int, int, int] | None) -> None:
     """Each dropout layer of ``model`` draws the masks of a batch of
     ``rows[0]`` items and keeps items ``[rows[1], rows[2])``, this rank's

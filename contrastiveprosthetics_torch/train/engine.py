@@ -101,8 +101,17 @@ correct count summed; BatchNorm takes the global batch's statistics;
 each dropout layer draws the global batch's masks from the step's
 generator and keeps its own rows; the L2 penalty of a weight sharded over
 mp is the whole weight's; the gradients are summed over dp and both Adam
-chains run on the shards. The eager tower only: the fused chain, remat
-and bf16 under a mesh raise (ROADMAP.md, queue 1 item 14).
+chains run on the shards. Each path runs so: the fused chain on the
+rank's rows (``ops/train_fused.py::DpRows``: K5f's sums summed over dp
+and finished between launches, K5b given the global sums, the Philox
+counters at the rank's global rows; under mp the chain and the head on
+whole weights, gathered over mp), ``remat`` (the recompute repeats the
+forward's collectives inside the backward, in the same order on every
+rank) and a bf16 tower (its tensor-parallel layers round where the
+unsharded ones do). Where dp has one rank no dp collective and no dp mode
+of a kernel runs, so a world of one is the unsharded step bit for bit.
+The state is one model's, as JAX's ``make_sharded_train_step`` takes;
+the sweep shards whole chunks instead (``parallel/spmd.py``).
 """
 from __future__ import annotations
 
@@ -153,7 +162,10 @@ from contrastiveprosthetics_torch.ops.kernels import (
     fused_contrastive_loss,
     fused_encoder_logits,
 )
-from contrastiveprosthetics_torch.ops.train_fused import fused_emg_embed
+from contrastiveprosthetics_torch.ops.train_fused import (
+    DpRows,
+    fused_emg_embed,
+)
 from contrastiveprosthetics_torch.parallel.collectives import sum_flat
 from contrastiveprosthetics_torch.parallel.mesh import (
     local_range,
@@ -463,12 +475,14 @@ class Trainer:
     # ------------------------------------------------------------- train step
     def _embed_fused(self, model: ContrastiveModel, emg_b, dp_emg,
                      generator: torch.Generator | None, ext_masks,
-                     glove_b=None, dp_glove=0.0):
+                     glove_b=None, dp_glove=0.0, dp_rows=None):
         """``model.embed`` with the EMG tower's dense stack on the fused
         chain and the class tower through ``model.embed_glove`` (the JAX
         ``engine.py:315-357``); a plain-BatchNorm model's running
         statistics move as in the eager forward, the glove MLP's too.
-        ``ext_masks``: explicit dropout masks of the chain (the tests).
+        ``ext_masks``: explicit dropout masks of the chain (the tests; the
+        global batch's under a mesh). ``dp_rows``: the chain's dp form
+        (``ops/train_fused.py::DpRows``) on a dp rank's items.
 
         A stacked model (C configs, ``emg_b`` (C, B, T, emg_dim), the
         rates (C,) tensors) runs the chain at its config axis with one
@@ -494,7 +508,7 @@ class Trainer:
         e, stats = fused_emg_embed(
             model.emg_net, emg_b.reshape(*lead, -1, emg_b.shape[-1]), dp_emg,
             seeds, mask_mode="prng" if ext_masks is None else "input",
-            ext_masks=ext_masks or ())
+            ext_masks=ext_masks or (), dp=dp_rows)
         if stats is not None:
             set_running([t for bn in model.emg_net.norms()
                          for t in (bn.running_mean, bn.running_var)],
@@ -511,23 +525,23 @@ class Trainer:
 
     def _sharded_batch(self, state: TrainState, mesh, emg_b, glove_b):
         """This rank's items of the global batch under ``mesh``, its
-        dropout layers set to keep them, and their share of the batch."""
-        if (self.use_fused_train or self.remat
-                or self.dtype != torch.float32
-                or isinstance(state.model, StackedContrastiveModel)):
-            raise NotImplementedError(
-                "the sharded step runs one f32 model on the eager tower; "
-                "the fused chain, remat and bf16 under a mesh are not "
-                "ported to the PyTorch package yet (ROADMAP.md, queue 1 "
-                "item 14)")
-        B = emg_b.shape[0]
+        dropout layers set to keep them, their share of the batch, and the
+        fused chain's dp form of them (None where dp has one rank)."""
+        if isinstance(state.model, StackedContrastiveModel):
+            raise ValueError(
+                "the sharded step takes one model's state, as JAX's "
+                "make_sharded_train_step does; a sweep shards whole chunks "
+                "of configs (parallel/spmd.py::make_sharded_crossval_run)")
+        B, T = emg_b.shape[:2]
         lo, hi = local_range(B, mesh.n_dp, mesh.dp_rank)
         if hi == lo:
             raise ValueError(f"a batch of {B} items leaves dp rank "
                              f"{mesh.dp_rank} of {mesh.n_dp} none")
         set_batch_rows(state.model, (B, lo, hi))
+        rows = None if mesh.n_dp == 1 else DpRows(mesh.dp_group, lo * T,
+                                                  B * T)
         return (emg_b[lo:hi], None if glove_b is None else glove_b[lo:hi],
-                (hi - lo) / B)
+                (hi - lo) / B, rows)
 
     def loss_and_grads(self, state: TrainState, emg_b: torch.Tensor,
                        hyper: Hyper, generator: torch.Generator | None,
@@ -569,10 +583,10 @@ class Trainer:
         l2 = stacked_l2_penalty if stacked else l2_penalty
         towers = model.towers()
         params = {k: list(t.parameters()) for k, t in towers.items()}
-        share, n_dp, emg_b_rows = 1.0, 1, emg_b.shape[-3]
+        share, n_dp, emg_b_rows, dp_rows = 1.0, 1, emg_b.shape[-3], None
         if mesh is not None:
-            emg_b, glove_b, share = self._sharded_batch(state, mesh, emg_b,
-                                                        glove_b)
+            emg_b, glove_b, share, dp_rows = self._sharded_batch(
+                state, mesh, emg_b, glove_b)
             n_dp = mesh.n_dp
         B, T = emg_b.shape[-3:-1]
 
@@ -589,7 +603,7 @@ class Trainer:
                 if self.use_fused_train:
                     e, g = self._embed_fused(model, emg_b, hyper.dp_emg,
                                              generator, ext_masks, glove_b,
-                                             hyper.dp_glove)
+                                             hyper.dp_glove, dp_rows)
                 else:
                     e, g = model.embed(emg_b, hyper.dp_emg, generator,
                                        glove_b, hyper.dp_glove)

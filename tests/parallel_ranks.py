@@ -27,6 +27,7 @@ from contrastiveprosthetics_torch.data.synthetic import make_processed_dataset
 from contrastiveprosthetics_torch.models.clip import ContrastiveModel
 from contrastiveprosthetics_torch.models.convert import model_from_state_dict
 from contrastiveprosthetics_torch.parallel.mesh import (
+    gather_grads,
     gather_state,
     make_mesh,
     shard_state,
@@ -70,12 +71,12 @@ def _moments(state) -> list:
 
 # ---------------------------------------------------------------- jobs
 def step_vs_jax(rank, mesh_shape, mode, adabn, n_linear, sd, emg_b, glove_b,
-                hyper):
+                hyper, fused=False):
     """One sharded f32 step at dropout 0 from the state dict ``sd`` (the
-    JAX state's weights): the loss, the accuracy and the gathered
-    state."""
+    JAX state's weights), eager or on the fused chain: the loss, the
+    accuracy and the gathered state."""
     mesh = make_mesh(*mesh_shape)
-    tr = trainer(mode, adabn, n_linear)
+    tr = trainer(mode, adabn, n_linear, use_fused_train=fused)
     state = TrainState.fresh(model_from_state_dict(
         {k: torch.from_numpy(v) for k, v in sd.items()}))
     step, place = make_sharded_train_step(tr, mesh)
@@ -90,8 +91,8 @@ def step_vs_jax(rank, mesh_shape, mode, adabn, n_linear, sd, emg_b, glove_b,
                 state=numpy_dict(gather_state(sharded, mesh).model))
 
 
-def _f64_case(mode, adabn, n_linear, seed):
-    tr = trainer(mode, adabn, n_linear)
+def _f64_case(mode, adabn, n_linear, seed, **kw):
+    tr = trainer(mode, adabn, n_linear, **kw)
     model = tr.init_state(tr.generator(seed)).model.double()
     rng = np.random.default_rng(seed)
     B, T = 8, CFG.max_tasks
@@ -101,17 +102,19 @@ def _f64_case(mode, adabn, n_linear, seed):
 
 
 def f64_vs_unsharded(rank, mesh_shape, mode, adabn, n_linear, seed,
-                     steps=2):
+                     steps=2, fused=False):
     """``steps`` sharded float64 steps at dropout 0.5 (0.3 in the glove
     MLP) against the unsharded steps from the same weights, batches and
-    generator seed: the largest relative difference of the losses, and of
-    every parameter, statistic and Adam moment to its tensor's largest
-    magnitude (the moments of near-zero gradients hold roundoff only),
-    and each step's count of rows right, both ways."""
+    generator seed, eager or both on the fused chain: the largest
+    relative difference of the losses, and of every parameter, statistic
+    and Adam moment to its tensor's largest magnitude (the moments of
+    near-zero gradients hold roundoff only), and each step's count of
+    rows right, both ways."""
     mesh = make_mesh(*mesh_shape)
     if not mesh.active:
         return None
-    tr, model, emg, glove = _f64_case(mode, adabn, n_linear, seed)
+    tr, model, emg, glove = _f64_case(mode, adabn, n_linear, seed,
+                                      use_fused_train=fused)
     h = Hyper.single(*DROPOUT)
     plain = TrainState.fresh(model)
     step, place = make_sharded_train_step(tr, mesh)
@@ -165,17 +168,75 @@ def shard_round_trip(rank, mode, n_linear):
     return dict(refused=refused, round_trip=bool(same))
 
 
-def fused_refused(rank):
-    """A fused-chain trainer's step under a mesh raises."""
+def remat_vs_stored(rank, mesh_shape, fused, steps=2):
+    """``steps`` sharded f32 steps at dropout 0.5 with ``remat`` and
+    without, eager or fused, from the same weights, batches and generator
+    seed: whether the losses, accuracies, gathered states (both Adam
+    chains) and the generators' states are bit-equal."""
+    mesh = make_mesh(*mesh_shape)
+    rng = np.random.default_rng(9)
+    emg = torch.from_numpy(rng.standard_normal(
+        (8, CFG.max_tasks, CFG.emg_dim)).astype(np.float32))
+    h = Hyper.single(*DROPOUT)
+    runs = []
+    for remat in (False, True):
+        tr = trainer(n_linear=3, use_fused_train=fused, remat=remat)
+        step, place = make_sharded_train_step(tr, mesh)
+        state = place(tr.init_state(tr.generator(4)))
+        gen = tr.generator(5)
+        out = [step(state, emg, h, 1e-3, 2e-3, gen) for _ in range(steps)]
+        runs.append((out, gather_state(state, mesh), gen.get_state()))
+    (o0, s0, g0), (o1, s1, g1) = runs
+    same = all(torch.equal(a, b) for x, y in zip(o0, o1)
+               for a, b in zip(x, y))
+    same &= all(torch.equal(a, b) for a, b in zip(
+        s0.model.state_dict().values(), s1.model.state_dict().values()))
+    same &= all(np.array_equal(a, b) for a, b in zip(_moments(s0),
+                                                     _moments(s1)))
+    return dict(bit_equal=bool(same and torch.equal(g0, g1)))
+
+
+def bf16_vs_unsharded(rank, mesh_shape, fused, sd, emg_b, hyper):
+    """The loss and the gradients of one sharded bf16 step at dropout 0
+    (``loss_and_grads`` under the mesh, the sharded weights' gradients
+    gathered), eager or fused, from the state dict ``sd`` (the JAX bf16
+    state's weights); on rank 0 also the unsharded port step's."""
+    mesh = make_mesh(*mesh_shape)
+    tr = trainer(use_fused_train=fused, compute_dtype="bfloat16")
+    h = Hyper.single(*hyper)
+    emg = torch.from_numpy(emg_b)
+
+    def state():
+        return TrainState.fresh(model_from_state_dict(
+            {k: torch.from_numpy(v) for k, v in sd.items()},
+            dtype=torch.bfloat16))
+
+    sharded = shard_state(state(), mesh, HIDDEN)
+    loss, _, grads = tr.loss_and_grads(sharded, emg, h, None, mesh=mesh)
+    out = dict(loss=float(loss), grads={
+        k: g.numpy().copy() for k, g in
+        gather_grads(sharded.model, grads).items()})
+    if rank == 0:
+        plain = state()
+        loss, _, grads = tr.loss_and_grads(plain, emg, h, None)
+        out.update(plain_loss=float(loss), plain_grads={
+            k: g.numpy().copy() for k, g in
+            gather_grads(plain.model, grads).items()})
+    return out
+
+
+def stacked_refused(rank):
+    """A stacked (sweep) state's sharded step raises, naming the sweep's
+    own sharding."""
     mesh = make_mesh(4, 1)
-    tr = trainer(use_fused_train=True)
-    step, place = make_sharded_train_step(tr, mesh)
-    state = place(tr.init_state(tr.generator(0)))
-    emg = torch.zeros((8, CFG.max_tasks, CFG.emg_dim))
+    tr = trainer()
+    step, _ = make_sharded_train_step(tr, mesh)
+    state = tr.init_sweep_state([tr.generator(c) for c in range(2)])
+    emg = torch.zeros((2, 8, CFG.max_tasks, CFG.emg_dim))
     try:
         step(state, emg, Hyper.single(1e-3, 0, 0, 1e-3, 0, 0), 1e-3, 1e-3,
              None)
-    except NotImplementedError as e:
+    except ValueError as e:
         return str(e)
     return None
 
@@ -246,7 +307,8 @@ def serve(rank, n_sessions, ticks, subset):
 
 
 JOBS = {f.__name__: f for f in (step_vs_jax, f64_vs_unsharded,
-                                shard_round_trip, fused_refused, sweep,
+                                shard_round_trip, remat_vs_stored,
+                                bf16_vs_unsharded, stacked_refused, sweep,
                                 serve)}
 
 

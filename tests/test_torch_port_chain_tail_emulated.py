@@ -28,9 +28,9 @@ def lib(tmp_path_factory):
     if cuda_emulation.compiler() is None:
         pytest.skip("needs a host C++ compiler to emulate the kernels")
     lib = cuda_emulation.build("train_fused", tmp_path_factory.mktemp("emu"))
-    lib.chain_tail_fwd_launch.argtypes = [P] * 6 + [I] * 4 + [P]
-    lib.chain_tail_bwd_launch.argtypes = [P] * 8 + [I] * 4 + [P]
-    lib.dropout_masks_launch.argtypes = [P] * 3 + [I] * 3 + [P]
+    lib.chain_tail_fwd_launch.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.chain_tail_bwd_launch.argtypes = [P] * 8 + [I] * 5 + [P]
+    lib.dropout_masks_launch.argtypes = [P] * 3 + [I] * 4 + [P]
     return lib
 
 
@@ -67,7 +67,7 @@ def _fwd(lib, x, stats, drop):
     rc = lib.chain_tail_fwd_launch(
         _ptr(x), _ptr(stats), _ptr(drop.get("seed")), _ptr(drop.get("keep")),
         _ptr(drop.get("mask")), _ptr(h), C, N, F, drop.get("drop_block", -1),
-        None)
+        drop.get("row_base", 0), None)
     assert rc == 0
     return h
 
@@ -80,15 +80,15 @@ def _bwd(lib, dh, r, stats, drop):
     rc = lib.chain_tail_bwd_launch(
         _ptr(dh), _ptr(r), _ptr(stats), _ptr(drop.get("seed")),
         _ptr(drop.get("keep")), _ptr(drop.get("mask")), _ptr(dz), _ptr(sums),
-        C, N, F, drop.get("drop_block", -1), None)
+        C, N, F, drop.get("drop_block", -1), drop.get("row_base", 0), None)
     assert rc == 0
     return dz, sums
 
 
-def _masks(lib, seed, keep, N, F, block):
+def _masks(lib, seed, keep, N, F, block, row_base=0):
     out = torch.full((N, F), float("nan"))
     assert lib.dropout_masks_launch(_ptr(seed), _ptr(keep), _ptr(out), N, F,
-                                    block, None) == 0
+                                    block, row_base, None) == 0
     return out
 
 
@@ -166,13 +166,13 @@ def test_emulated_tail_launchers_refuse_what_they_cannot_take(lib):
     def fwd(x, F, seed_, keep_):
         return lib.chain_tail_fwd_launch(_ptr(x), _ptr(stats), _ptr(seed_),
                                          _ptr(keep_), None, _ptr(h), 1, 8, F,
-                                         6, None)
+                                         6, 0, None)
 
     def bwd(x, F):
         return lib.chain_tail_bwd_launch(_ptr(dh), _ptr(x), _ptr(stats),
                                          _ptr(seed), _ptr(keep), None,
                                          _ptr(h), _ptr(stats), 1, 8, F, 6,
-                                         None)
+                                         0, None)
 
     assert fwd(r, 62, seed, keep) != 0
     assert fwd(odd, 64, seed, keep) != 0
@@ -255,3 +255,29 @@ def test_emulated_tail_config_axis_is_each_configs_launch(lib):
     dz_p, sums_p = TF.chain_tail_bwd_reference(dh, r, stats, **drop)
     assert torch.equal(dz, dz_p)
     assert_within_one_ulp(sums, sums_p)
+
+
+@pytest.mark.parametrize("N,F,lo", [(123, 512, 41), (9, 36, 4)])
+def test_emulated_tail_and_masks_at_a_row_base(lib, N, F, lo):
+    """A dp rank's rows [lo, N) at row base lo: the tail's h and dz and
+    ``dropout_masks`` bit-equal to those rows of the whole batch's
+    launches and to their plain versions, the tail's sums within one f32
+    ulp of the plain version's over the rank's rows."""
+    r, stats, dh, seed = _case(N, F, N + lo)
+    keep = torch.full((1,), 0.5)
+    whole = dict(seed=seed, keep=keep, drop_block=6)
+    part = dict(whole, row_base=lo)
+    h_lo = _fwd(lib, r[lo:], stats, part)
+    assert torch.equal(h_lo, _fwd(lib, r, stats, whole)[lo:])
+    assert torch.equal(h_lo, TF.chain_tail_fwd_reference(r[lo:], stats,
+                                                         **part))
+    dz_lo, sums_lo = _bwd(lib, dh[lo:], r[lo:], stats, part)
+    assert torch.equal(dz_lo, _bwd(lib, dh, r, stats, whole)[0][lo:])
+    dz_p, sums_p = TF.chain_tail_bwd_reference(dh[lo:], r[lo:], stats,
+                                               **part)
+    assert torch.equal(dz_lo, dz_p)
+    assert_within_one_ulp(sums_lo, sums_p)
+    masks = _masks(lib, seed, keep, N - lo, F, 6, lo)
+    assert torch.equal(masks, _masks(lib, seed, keep, N, F, 6)[lo:])
+    assert torch.equal(masks, TF.dropout_masks_reference(seed, keep, N - lo,
+                                                         F, 6, lo))

@@ -845,6 +845,96 @@ BF16_FLIP_SHARE, BF16_GRAD, BF16_F64 = 0.003, 0.2, 1.25
 BF16_CHAIN_SEEDS = 8  # seed 0 the case's own draw (seeded N)
 
 
+def _within_one_bf16_ulp(got, want):
+    """Each element within one bf16 ulp of the larger magnitude's, plus
+    2^-16 x the largest |value| where an f32 sum cancels to near 0."""
+    g, w = got.double(), want.double()
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    floor = 2.0 ** -16 * float(w.abs().max())
+    assert bool(((g - w).abs() <= ulp + floor).all())
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("lo", [164, 246])
+def test_dp_rank_modes_match_plain(cuda, bf16, lo):
+    """A dp rank's launches on rows [lo, 328) of the step's batch at row
+    base lo (dp=2's second rank: N=164; dp=4's last: N=82), an inner
+    block at dropout 0.5: K5f's sums-only end gives the one-shot r bit for
+    bit, and its sums on the whole batch finish (``finish_stats``) into
+    the one-shot statistics bit for bit; the rank's r, K5b's dx (given the
+    whole batch's sums and n_total 328) and the tail pair's h and dz are
+    those rows of the whole batch's launches, bit for bit, and
+    ``dropout_masks`` at the row base those rows of the whole mask; each
+    against its plain version at the existing tolerances (r rtol 1e-5 in
+    f32, one bf16 ulp in bf16; the sums, dW, db and lower sums rtol 1e-4,
+    atol 1e-5 x max; the tail bit for bit, its sums within one f32 ulp);
+    ``mode_counts`` counts the sums-only, row-base and n_total launches."""
+    N, K_in, F = 328, 512, 512
+    x, w, (b, gamma, beta), in_stats, dz, seed = _block_case(N, K_in,
+                                                             seed=lo)
+    if bf16:
+        x, w, dz = (t.to(torch.bfloat16) for t in (x, w, dz))
+    keep = torch.full((1,), 0.5, device=cuda)
+    whole = dict(seed=seed, keep=keep, drop_block=3)
+    part = dict(whole, row_base=lo)
+    K.reset_launch_counts()
+    r, stats = TF.dense_block_fwd(x, w, b, gamma, beta, in_stats, **whole)
+    r_all, sums_all = TF.dense_block_fwd(x, w, b, gamma, beta, in_stats,
+                                         sums_only=True, **whole)
+    assert torch.equal(r_all, r)
+    assert torch.equal(TF.finish_stats(sums_all, gamma, beta, N), stats)
+    r_lo, sums_lo = TF.dense_block_fwd(x[lo:], w, b, gamma, beta, in_stats,
+                                       sums_only=True, **part)
+    assert torch.equal(r_lo, r[lo:])
+    r_p, sums_p = TF.dense_block_fwd_reference(x[lo:], w, b, gamma, beta,
+                                               in_stats, sums_only=True,
+                                               **part)
+    if bf16:
+        _within_one_bf16_ulp(r_lo, r_p)
+    else:
+        _close(r_lo, r_p, rtol=1e-5)
+    _close(sums_lo, sums_p, rtol=1e-3 if bf16 else 1e-4,
+           scale_atol=1e-3 if bf16 else 1e-5)
+    rf, dzf = r.float(), dz.float()
+    sums = torch.stack([dzf.sum(0), (dzf * (rf - stats[0]) * stats[2]).sum(0)])
+    dx = TF.dense_block_bwd(dz, r, x, w, stats, sums, in_stats, **whole)[0]
+    got = TF.dense_block_bwd(dz[lo:], r[lo:], x[lo:], w, stats, sums,
+                             in_stats, n_total=N, **part)
+    assert torch.equal(got[0], dx[lo:])
+    want = TF.dense_block_bwd_reference(dz[lo:], r[lo:], x[lo:], w, stats,
+                                        sums, in_stats, n_total=N, **part)
+    if bf16:
+        _within_one_bf16_ulp(got[0], want[0])
+    else:
+        _close(got[0], want[0])
+    for g, v in zip(got[1:], want[1:], strict=True):
+        _close(g, v)
+    tail = dict(seed=seed, keep=keep, drop_block=6)
+    h = TF.chain_tail_fwd(r, stats, **tail)
+    h_lo = TF.chain_tail_fwd(r[lo:], stats, row_base=lo, **tail)
+    assert torch.equal(h_lo, h[lo:])
+    assert torch.equal(h_lo, TF.chain_tail_fwd_reference(
+        r[lo:], stats, row_base=lo, **tail))
+    dz_all = TF.chain_tail_bwd(dz, r, stats, **tail)[0]
+    tz, ts = TF.chain_tail_bwd(dz[lo:], r[lo:], stats, row_base=lo, **tail)
+    assert torch.equal(tz, dz_all[lo:])
+    tz_p, ts_p = TF.chain_tail_bwd_reference(dz[lo:], r[lo:], stats,
+                                             row_base=lo, **tail)
+    assert torch.equal(tz, tz_p)
+    _within_one_ulp(ts, ts_p)
+    masks = TF.dropout_masks(seed, keep, N - lo, F, 6, row_base=lo)
+    assert torch.equal(masks, TF.dropout_masks(seed, keep, N, F, 6)[lo:])
+    assert torch.equal(masks, TF.dropout_masks_reference(seed, keep, N - lo,
+                                                         F, 6, lo))
+    torch.cuda.synchronize()
+    sfx = "_bf16" if bf16 else ""
+    assert K.mode_counts == {"dense_block_fwd_sums": 0 if bf16 else 2,
+                             "dense_block_fwd_bf16_sums": 2 if bf16 else 0,
+                             "row_base": 5, "n_total": 1}
+    assert K.launch_counts["dense_block_fwd" + sfx] == 3
+
+
 @pytest.mark.parametrize("N", [328, 123])
 def test_bf16_chain_kernels_match_plain_and_launch(cuda, N):
     """The bf16 chain on the card: ``fused_dense_chain`` on a bf16 input

@@ -13,9 +13,19 @@ every job's inputs, and each test reads its job's results. Small width:
 * the dp=2 x mp=2 step against JAX's unsharded ``jax.jit(_sgd_step)``,
   at JAX's own bounds (``tests/test_parallel.py:98-117``): the loss
   within rtol 1e-4; more than 98 % of each parameter within rtol 5e-3,
-  atol 1e-5, and all within 2.5 lr;
+  atol 1e-5, and all within 2.5 lr; the fused chain's dp=2 x mp=2 and
+  dp=4 steps at the same bounds against JAX's unsharded fused step (its
+  Pallas kernels in interpret mode);
 * sharded against unsharded port steps in float64 at dropout 0.5: within
-  1e-9 (the largest difference over each tensor's largest magnitude);
+  1e-9 (the largest difference over each tensor's largest magnitude),
+  eager and on the fused chain (a ragged dp=3 mesh among them);
+* the sharded remat step, eager and fused: bit-equal to the sharded step
+  without remat in the same group;
+* bf16 eager and fused sharded steps against the port's and JAX's
+  unsharded bf16 steps at the bf16 steps' tolerances
+  (``test_torch_port_train_bf16.py``): the loss within 1e-2, each
+  gradient within 0.15 of the reference's 2-norm and the whole EMG
+  gradient within 0.05 (JAX's own two bf16 paths lie 0.11-0.12 apart);
 * the config-sharded sweep: bit-equal to the unsharded sweep at the
   same chunk width;
 * session-sharded serving: preds and votes equal, scores within rtol
@@ -43,6 +53,7 @@ from contrastiveprosthetics_torch.train.engine import Trainer
 from contrastiveprosthetics_tpu.config import DEFAULT_CONFIG as JCFG
 from contrastiveprosthetics_tpu.data import sampler as jax_sampler
 from contrastiveprosthetics_tpu.data.store import DeviceStore as JaxStore
+from contrastiveprosthetics_tpu.models.clip import l2_penalty as jax_l2_penalty
 from contrastiveprosthetics_tpu.parallel.mesh import make_mesh as jax_mesh
 from contrastiveprosthetics_tpu.parallel.mesh import state_shardings
 from contrastiveprosthetics_tpu.train import engine as jax_engine
@@ -57,20 +68,36 @@ LR = 1e-3
 # (mode, adabn, n_linear) of the steps against JAX
 JAX_STEPS = [("onehot", False, 2), ("glove_encoding", False, 2),
              ("prediction", False, 3), ("onehot", True, 3)]
+# (mode, n_linear) of the fused steps against JAX's, each on (2, 2) and
+# (4, 1)
+JAX_FUSED_STEPS = [("onehot", 2), ("glove_encoding", 3)]
+FUSED_MESHES = [(2, 2), (4, 1)]
 # (mesh, mode, adabn, n_linear) of the float64 steps against the port's
 F64_STEPS = [((2, 2), "onehot", False, 2), ((2, 2), "onehot", True, 3),
              ((4, 1), "glove_encoding", False, 3),
              ((1, 4), "prediction", False, 3),
              ((2, 2), "glove_encoding", True, 2),
              ((2, 1), "prediction", True, 2)]
+# ... and on the fused chain, the unsharded step fused too
+F64_FUSED_STEPS = [((2, 2), "onehot", False, 3),
+                   ((4, 1), "glove_encoding", False, 2),
+                   ((1, 4), "onehot", True, 3),
+                   ((3, 1), "onehot", False, 2)]
+BF16_MESHES = [(2, 2), (1, 4)]
+BF16_LOSS_ATOL, BF16_GRAD_REL, BF16_EMG_REL = 1e-2, 0.15, 0.05
 SWEEP_CONFIGS, SWEEP_CHUNK = 6, 2  # 3 chunks: over 2 or 4 ranks, uneven
 SESSIONS, TICKS, SUBSET = 8, 6, (3, 7, 12)
 
 
-def jax_trainer(data, mode, adabn, n_linear):
+def jax_trainer(data, mode, adabn, n_linear, **kw):
     return jax_engine.Trainer(JCFG, JaxStore(JCFG, *data), adabn=adabn,
                               batch_size=8, n_linear=n_linear,
-                              hidden=pr.HIDDEN, **JAX_MODES[mode])
+                              hidden=pr.HIDDEN, **JAX_MODES[mode], **kw)
+
+
+def rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
 def tree(x):
@@ -96,11 +123,17 @@ def data():
 
 @pytest.fixture(scope="module")
 def jax_steps(data):
-    """Each JAX_STEPS case: the JAX state's weights as the port's state
-    dict, the batch, and JAX's unsharded step from them."""
+    """Each JAX_STEPS case, then each JAX_FUSED_STEPS case (a fused
+    trainer): the JAX state's weights as the port's state dict, the batch,
+    and JAX's unsharded step from them."""
     out = []
-    for mode, adabn, n_linear in JAX_STEPS:
-        jtr = jax_trainer(data, mode, adabn, n_linear)
+    cases = [(mode, adabn, n_linear, False)
+             for mode, adabn, n_linear in JAX_STEPS]
+    cases += [(mode, False, n_linear, True)
+              for mode, n_linear in JAX_FUSED_STEPS]
+    for mode, adabn, n_linear, fused in cases:
+        jtr = jax_trainer(data, mode, adabn, n_linear,
+                          use_fused_train=fused)
         jstate = jtr.init_state(jax.random.PRNGKey(6))
         emg_b, glove_b = jax_batch(jtr, jax.random.PRNGKey(7))
         jh = jax_engine.Hyper.single(*HYPER)
@@ -118,26 +151,82 @@ def jax_steps(data):
                         n_linear=n_linear,
                         sd={k: v.numpy() for k, v in sd.items()},
                         emg_b=np.asarray(emg_b),
-                        glove_b=np.asarray(glove_b), hyper=HYPER),
+                        glove_b=np.asarray(glove_b), hyper=HYPER,
+                        fused=fused),
             loss=float(jloss), want={k: v.numpy() for k, v in want.items()}))
     return out
 
 
 @pytest.fixture(scope="module")
-def group(jax_steps, tmp_path_factory):
+def jax_bf16(data):
+    """The JAX bf16 trainer's unsharded step at dropout 0, eager and fused
+    (run op by op, as ``test_torch_port_train_bf16.py`` does): its
+    weights as the port's state dict, the batch, the loss and the
+    gradients by state-dict name."""
+    out = {}
+    for path in ("eager", "fused"):
+        jtr = jax_trainer(data, "onehot", False, 2,
+                          compute_dtype="bfloat16",
+                          use_fused_train=path == "fused")
+        jstate = jtr.init_state(jax.random.PRNGKey(8))
+        emg_b, glove_b = jax_batch(jtr, jax.random.PRNGKey(9))
+        jh = jax_engine.Hyper.single(*HYPER)
+
+        def total(p, jtr=jtr, jstate=jstate, emg_b=emg_b, glove_b=glove_b,
+                  jh=jh):
+            loss, _ = jtr._loss_and_metrics(p, jstate.batch_stats, emg_b,
+                                            glove_b, jh,
+                                            jax.random.PRNGKey(0), True)
+            return (loss + jh.reg_emg * jax_l2_penalty(p["emg_net"])
+                    + jh.reg_glove * jax_l2_penalty(p["glove_net"])), loss
+
+        with jax.disable_jit():
+            (_, loss), grads = jax.value_and_grad(total, has_aux=True)(
+                jstate.params)
+        widths = dict(n_linear=2, hidden=pr.HIDDEN)
+        sd = from_flax_variables(tree(jstate.params),
+                                 tree(jstate.batch_stats), **widths)
+        want = from_flax_variables(tree(grads), tree(jstate.batch_stats),
+                                   **widths)
+        out[path] = dict(
+            inputs=dict(fused=path == "fused",
+                        sd={k: v.numpy() for k, v in sd.items()},
+                        emg_b=np.asarray(emg_b), hyper=HYPER),
+            loss=float(loss), grads={k: v.numpy() for k, v in want.items()
+                                     if "running" not in k
+                                     and "num_batches" not in k})
+    return out
+
+
+@pytest.fixture(scope="module")
+def group(jax_steps, jax_bf16, tmp_path_factory):
     """Every job, run once by the 4-rank group: rank 0's results, and
     the directory the CLIs wrote into."""
     out_dir = str(tmp_path_factory.mktemp("spmd_cli"))
     plan = [(f"jax{i}", "step_vs_jax", case["inputs"])
-            for i, case in enumerate(jax_steps)]
+            for i, case in enumerate(jax_steps[:len(JAX_STEPS)])]
+    plan += [(f"jax_fused{i}_{m[0]}x{m[1]}", "step_vs_jax",
+              dict(case["inputs"], mesh_shape=m))
+             for i, case in enumerate(jax_steps[len(JAX_STEPS):])
+             for m in FUSED_MESHES]
     plan += [(f"f64_{i}", "f64_vs_unsharded",
               dict(mesh_shape=m, mode=mode, adabn=adabn, n_linear=nl,
                    seed=i))
              for i, (m, mode, adabn, nl) in enumerate(F64_STEPS)]
+    plan += [(f"f64_fused{i}", "f64_vs_unsharded",
+              dict(mesh_shape=m, mode=mode, adabn=adabn, n_linear=nl,
+                   seed=10 + i, fused=True))
+             for i, (m, mode, adabn, nl) in enumerate(F64_FUSED_STEPS)]
+    plan += [(f"remat_{path}", "remat_vs_stored",
+              dict(mesh_shape=(2, 2), fused=path == "fused"))
+             for path in ("eager", "fused")]
+    plan += [(f"bf16_{path}_{m[0]}x{m[1]}", "bf16_vs_unsharded",
+              dict(jax_bf16[path]["inputs"], mesh_shape=m))
+             for path in ("eager", "fused") for m in BF16_MESHES]
     plan += [(f"round_trip_{mode}", "shard_round_trip",
               dict(mode=mode, n_linear=3))
              for mode in ("onehot", "prediction")]
-    plan += [("fused", "fused_refused", {})]
+    plan += [("stacked", "stacked_refused", {})]
     plan += [(f"sweep{n}", "sweep", dict(n_dp=n, n_configs=SWEEP_CONFIGS,
                                          chunk=SWEEP_CHUNK, seed=11))
              for n in (2, 4)]
@@ -219,6 +308,28 @@ def test_dp_mp_step_matches_jax(group, jax_steps, case):
         np.testing.assert_allclose(a, b, atol=2.5 * LR, err_msg=name)
 
 
+@pytest.mark.parametrize("mesh", FUSED_MESHES, ids=["2x2", "4x1"])
+@pytest.mark.parametrize("case", range(len(JAX_FUSED_STEPS)),
+                         ids=["-".join(map(str, c)) for c in JAX_FUSED_STEPS])
+def test_fused_sharded_step_matches_jax_fused_step(group, jax_steps, case,
+                                                   mesh):
+    """The fused chain's sharded step (dp=2 x mp=2: the chain and the head
+    on weights gathered whole over mp, each K5f's sums summed over dp and
+    finished between launches; dp=4: 2 items a rank) from the JAX state's
+    weights and batch, gathered, against JAX's unsharded fused step (its
+    Pallas kernels in interpret mode) at JAX's bounds, at dropout 0."""
+    res = group[0][f"jax_fused{case}_{mesh[0]}x{mesh[1]}"]
+    want = jax_steps[len(JAX_STEPS) + case]
+    np.testing.assert_allclose(res["loss"], want["loss"], rtol=1e-4)
+    for name, b in want["want"].items():
+        if "num_batches" in name or name not in res["state"]:
+            continue
+        a = res["state"][name]
+        close = np.isclose(a, b, rtol=5e-3, atol=1e-5)
+        assert close.mean() > 0.98, f"{name}: only {close.mean():.3f} close"
+        np.testing.assert_allclose(a, b, atol=2.5 * LR, err_msg=name)
+
+
 @pytest.mark.parametrize("case", range(len(F64_STEPS)),
                          ids=["-".join(map(str, c)) for c in F64_STEPS])
 def test_sharded_step_is_the_unsharded_step_in_float64(group, case):
@@ -231,6 +342,51 @@ def test_sharded_step_is_the_unsharded_step_in_float64(group, case):
     assert all(a == b for a, b in res["hits"])
 
 
+@pytest.mark.parametrize("case", range(len(F64_FUSED_STEPS)),
+                         ids=["-".join(map(str, c)) for c in F64_FUSED_STEPS])
+def test_fused_sharded_step_is_the_unsharded_fused_step_in_float64(group,
+                                                                   case):
+    """Two sharded float64 steps on the fused chain at dropout 0.5 (each
+    rank's Philox draws at its global rows) against two unsharded fused
+    steps, as the eager ones are held, on dp=2 x mp=2, dp=4, mp=4 and
+    the ragged dp=3 (3, 3 and 2 items; rank 3 idle): within 1e-9, the
+    BatchNorm affines' gradients included (summed once over dp)."""
+    res = group[0][f"f64_fused{case}"]
+    assert res["max_rel"] <= 1e-9
+    assert all(a == b for a, b in res["hits"])
+
+
+@pytest.mark.parametrize("path", ["eager", "fused"])
+def test_sharded_remat_step_is_bit_equal(group, path):
+    """Two sharded remat steps on dp=2 x mp=2 at dropout 0.5 (the
+    recompute repeats the forward's collectives inside the backward)
+    against two sharded steps without remat in the same group: losses,
+    accuracies, the gathered state, both Adam chains and the generator
+    bit for bit."""
+    assert group[0][f"remat_{path}"]["bit_equal"]
+
+
+@pytest.mark.parametrize("mesh", BF16_MESHES, ids=["2x2", "1x4"])
+@pytest.mark.parametrize("path", ["eager", "fused"])
+def test_bf16_sharded_step_matches_the_unsharded_bf16_steps(group, jax_bf16,
+                                                            path, mesh):
+    """One sharded bf16 step at dropout 0 (eager: the tensor-parallel
+    layers' roundings; fused: the bf16 chain on whole weights), its
+    gradients gathered, against the port's unsharded bf16 step and JAX's
+    (op by op): the loss within 1e-2, each gradient within 0.15 of the
+    reference's 2-norm, the EMG tower's whole within 0.05."""
+    res = group[0][f"bf16_{path}_{mesh[0]}x{mesh[1]}"]
+    for loss, grads in ((res["plain_loss"], res["plain_grads"]),
+                        (jax_bf16[path]["loss"], jax_bf16[path]["grads"])):
+        assert abs(res["loss"] - loss) <= BF16_LOSS_ATOL
+        for name, got in res["grads"].items():  # the trained parameters
+            assert rel_l2(got, grads[name]) <= BF16_GRAD_REL, name
+        emg = [n for n in res["grads"] if n.startswith("emg_net.")]
+        assert rel_l2(np.concatenate([res["grads"][n].ravel() for n in emg]),
+                      np.concatenate([grads[n].ravel() for n in emg])
+                      ) <= BF16_EMG_REL
+
+
 @pytest.mark.parametrize("mode", ["onehot", "prediction"])
 def test_gather_of_shard_is_the_state_and_make_mesh_refuses(group, mode):
     """``gather_state(shard_state(s))`` is ``s`` bit for bit (weights,
@@ -241,10 +397,11 @@ def test_gather_of_shard_is_the_state_and_make_mesh_refuses(group, mode):
     assert res["refused"] == "need 6 devices, have 4"
 
 
-def test_fused_chain_under_a_mesh_is_not_ported(group):
-    """A ``use_fused_train`` trainer's sharded step raises NOT_PORTED,
-    naming ROADMAP queue 1 item 14 (the dp all-reduce of K5's sums)."""
-    assert "ROADMAP.md, queue 1 item 14" in group[0]["fused"]
+def test_stacked_state_under_a_mesh_is_refused(group):
+    """A stacked (sweep) state's sharded step raises: the step takes one
+    model's state, as JAX's ``make_sharded_train_step`` does, and the
+    sweep shards whole chunks instead."""
+    assert "one model's state" in group[0]["stacked"]
 
 
 # ------------------------------------------------------------------ sweep

@@ -36,10 +36,10 @@ def lib(tmp_path_factory):
     if cuda_emulation.compiler() is None:
         pytest.skip("needs a host C++ compiler to emulate the kernels")
     lib = cuda_emulation.build("train_fused", tmp_path_factory.mktemp("emu"))
-    lib.dense_block_fwd_bf16_launch.argtypes = [P] * 13 + [I] * 8 + [F32, P]
-    lib.dense_block_bwd_bf16_launch.argtypes = [P] * 16 + [I] * 8 + [P]
-    lib.chain_tail_fwd_bf16_launch.argtypes = [P] * 6 + [I] * 4 + [P]
-    lib.chain_tail_bwd_bf16_launch.argtypes = [P] * 8 + [I] * 4 + [P]
+    lib.dense_block_fwd_bf16_launch.argtypes = [P] * 13 + [I] * 10 + [F32, P]
+    lib.dense_block_bwd_bf16_launch.argtypes = [P] * 16 + [I] * 10 + [P]
+    lib.chain_tail_fwd_bf16_launch.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.chain_tail_bwd_bf16_launch.argtypes = [P] * 8 + [I] * 5 + [P]
     return lib
 
 
@@ -71,15 +71,17 @@ def _case(N, K, F, seed):
     return x, w, vecs, in_stats, dz, seed_words
 
 
-def _fwd(lib, x, w, b, gamma, beta, in_stats, drop, tiling):
+def _fwd(lib, x, w, b, gamma, beta, in_stats, drop, tiling,
+         sums_only=False):
     """The bf16 K5f through the emulation; C configs' arrays (a leading
-    axis) as one launch."""
+    axis) as one launch; ``sums_only``: the (2, F) sums in place of the
+    statistics."""
     lead = x.shape[:-2]
     C = lead[0] if lead else 1
     N, K = x.shape[-2:]
     F = w.shape[-1]
     r = torch.full((*lead, N, F), float("nan"), dtype=BF16)
-    stats = torch.full((*lead, 5, F), float("nan"))
+    stats = torch.full((*lead, 2 if sums_only else 5, F), float("nan"))
     bm, bn = TF.FWD_TILES[tiling]
     partial = torch.empty((C, -(-N // bm), 2, F))
     tickets = torch.zeros(C * -(-F // bn), dtype=torch.int32)
@@ -87,12 +89,14 @@ def _fwd(lib, x, w, b, gamma, beta, in_stats, drop, tiling):
         _ptr(x), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta), _ptr(in_stats),
         _ptr(drop.get("seed")), _ptr(drop.get("keep")), _ptr(drop.get("mask")),
         _ptr(r), _ptr(partial), _ptr(tickets), _ptr(stats), C, N, K, F,
-        *w.stride()[-2:], drop.get("drop_block", -1), tiling, 1e-5, None)
+        *w.stride()[-2:], drop.get("drop_block", -1), tiling,
+        drop.get("row_base", 0), int(sums_only), 1e-5, None)
     assert rc == 0 and not tickets.any()
     return r, stats
 
 
-def _bwd(lib, dz, r, x, w, stats, sums, in_stats, drop, tiling):
+def _bwd(lib, dz, r, x, w, stats, sums, in_stats, drop, tiling,
+         n_total=None):
     lead = dz.shape[:-2]
     C = lead[0] if lead else 1
     N, F = dz.shape[-2:]
@@ -112,7 +116,8 @@ def _bwd(lib, dz, r, x, w, stats, sums, in_stats, drop, tiling):
         _ptr(in_stats), _ptr(drop.get("seed")), _ptr(drop.get("keep")),
         _ptr(drop.get("mask")), _ptr(dx), _ptr(dw), _ptr(db), _ptr(out_sums),
         _ptr(partial), _ptr(tickets), C, N, K, F, *w.stride()[-2:],
-        drop.get("drop_block", -1), tiling, None)
+        drop.get("drop_block", -1), tiling, drop.get("row_base", 0),
+        n_total or 0, None)
     assert rc == 0 and not tickets.any()
     return dx, dw, db, out_sums
 
@@ -277,14 +282,14 @@ def test_emulated_bf16_tail_matches_plain(lib, N, F, form):
     assert lib.chain_tail_fwd_bf16_launch(
         _ptr(r), _ptr(stats), _ptr(drop.get("seed")), _ptr(keep),
         _ptr(drop.get("mask")), _ptr(h), 1, N, F, drop.get("drop_block", -1),
-        None) == 0
+        0, None) == 0
     assert torch.equal(h, TF.chain_tail_fwd_reference(r, stats, **drop))
     dz = torch.full((N, F), float("nan"), dtype=BF16)
     sums = torch.full((2, F), float("nan"))
     assert lib.chain_tail_bwd_bf16_launch(
         _ptr(dh), _ptr(r), _ptr(stats), _ptr(drop.get("seed")), _ptr(keep),
         _ptr(drop.get("mask")), _ptr(dz), _ptr(sums), 1, N, F,
-        drop.get("drop_block", -1), None) == 0
+        drop.get("drop_block", -1), 0, None) == 0
     dz_p, sums_p = TF.chain_tail_bwd_reference(dh, r, stats, **drop)
     assert torch.equal(dz, dz_p)
     ulp = torch.nextafter(sums_p.abs(), torch.tensor(float("inf"))) \
@@ -306,7 +311,7 @@ def test_emulated_bf16_launchers_refuse_widths_a_copy_cannot_take(lib):
         return lib.dense_block_fwd_bf16_launch(
             _ptr(x), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta), None, None,
             None, None, _ptr(r), _ptr(partial), _ptr(tickets), _ptr(stats),
-            1, 8, K, 32, 32, 1, -1, 0, 1e-5, None)
+            1, 8, K, 32, 32, 1, -1, 0, 0, 0, 1e-5, None)
 
     assert launch(36) != 0
     assert torch.isnan(r.float()).all()
@@ -335,10 +340,10 @@ def test_emulated_bf16_config_axis_is_each_configs_launch(lib):
     tdrop = dict(seed=seed, keep=keep, drop_block=6)
     assert lib.chain_tail_fwd_bf16_launch(
         _ptr(r), _ptr(stats), _ptr(seed), _ptr(keep), None, _ptr(h), C, N, F,
-        6, None) == 0
+        6, 0, None) == 0
     assert lib.chain_tail_bwd_bf16_launch(
         _ptr(r), _ptr(r), _ptr(stats), _ptr(seed), _ptr(keep), None,
-        _ptr(tdz), _ptr(tsums), C, N, F, 6, None) == 0
+        _ptr(tdz), _ptr(tsums), C, N, F, 6, 0, None) == 0
     assert torch.equal(h, TF.chain_tail_fwd_reference(r, stats, **tdrop))
     for c in range(C):
         one = dict(seed=seed[c], keep=keep[c:c + 1], drop_block=1)
@@ -354,10 +359,44 @@ def test_emulated_bf16_config_axis_is_each_configs_launch(lib):
         s1 = torch.full((2, F), float("nan"))
         assert lib.chain_tail_fwd_bf16_launch(
             _ptr(r[c]), _ptr(stats[c]), _ptr(seed[c]), _ptr(keep[c:c + 1]),
-            None, _ptr(h1), 1, N, F, 6, None) == 0
+            None, _ptr(h1), 1, N, F, 6, 0, None) == 0
         assert lib.chain_tail_bwd_bf16_launch(
             _ptr(r[c]), _ptr(r[c]), _ptr(stats[c]), _ptr(seed[c]),
-            _ptr(keep[c:c + 1]), None, _ptr(dz1), _ptr(s1), 1, N, F, 6,
+            _ptr(keep[c:c + 1]), None, _ptr(dz1), _ptr(s1), 1, N, F, 6, 0,
             None) == 0
         assert torch.equal(h[c], h1) and torch.equal(tdz[c], dz1)
         assert torch.equal(tsums[c], s1)
+
+
+def test_emulated_bf16_dp_rank_rows_are_the_whole_launch_rows(lib):
+    """The bf16 K5f and K5b on a dp rank's rows [lo, N) at row base lo:
+    r (sums-only end) and dx (the whole batch's sums, n_total N)
+    bit-equal to those rows of the whole batch's launches; the sums-only
+    end's r the one-shot r's bits and its sums, from the rounded r, at the
+    plain version's statistics tolerance; the rank's dW, db and lower sums
+    at the f32 K5b's tolerances against the plain version."""
+    N, Kw, F, lo = 41, 40, 48, 17
+    x, w, (b, gamma, beta), in_stats, dz, seed = _case(N, Kw, F, 9)
+    keep = torch.full((1,), 0.5)
+    whole = dict(seed=seed, keep=keep, drop_block=2)
+    part = dict(whole, row_base=lo)
+    r, stats = _fwd(lib, x, w, b, gamma, beta, in_stats, whole, 0)
+    assert torch.equal(_fwd(lib, x, w, b, gamma, beta, in_stats, whole, 0,
+                            sums_only=True)[0], r)
+    r_lo, sums_lo = _fwd(lib, x[lo:], w, b, gamma, beta, in_stats, part, 0,
+                         sums_only=True)
+    assert torch.equal(r_lo, r[lo:])
+    _, sums_p = TF.dense_block_fwd_reference(x[lo:], w, b, gamma, beta,
+                                             in_stats, sums_only=True, **part)
+    _close(sums_lo, sums_p, 1e-3, 1e-3)
+    rf, dzf = r.float(), dz.float()
+    sums = torch.stack([dzf.sum(0), (dzf * (rf - stats[0]) * stats[2]).sum(0)])
+    full = _bwd(lib, dz, r, x, w, stats, sums, in_stats, whole, 0)
+    got = _bwd(lib, dz[lo:], r[lo:], x[lo:], w, stats, sums, in_stats, part,
+               0, n_total=N)
+    assert torch.equal(got[0], full[0][lo:])
+    want = TF.dense_block_bwd_reference(dz[lo:], r[lo:], x[lo:], w, stats,
+                                        sums, in_stats, n_total=N, **part)
+    assert_within_one_bf16_ulp(got[0], want[0])
+    for g, v in zip(got[1:], want[1:], strict=True):
+        _close(g, v)

@@ -28,8 +28,8 @@ def lib(tmp_path_factory):
     if cuda_emulation.compiler() is None:
         pytest.skip("needs a host C++ compiler to emulate the kernels")
     lib = cuda_emulation.build("train_fused", tmp_path_factory.mktemp("emu"))
-    lib.dense_block_fwd_launch.argtypes = [P] * 13 + [I] * 8 + [F32, P]
-    lib.dense_block_bwd_launch.argtypes = [P] * 16 + [I] * 8 + [P]
+    lib.dense_block_fwd_launch.argtypes = [P] * 13 + [I] * 10 + [F32, P]
+    lib.dense_block_bwd_launch.argtypes = [P] * 16 + [I] * 10 + [P]
     return lib
 
 
@@ -58,16 +58,18 @@ def _case(N, K, F, seed):
     return x, w, vecs, in_stats, dz, seed_words
 
 
-def _fwd(lib, x, w, b, gamma, beta, in_stats, drop, tiling):
-    """K5f through the emulation; ``drop`` the wrapper's dropout keywords.
-    The ticket counters must come back zeroed. C configs' arrays (a
-    leading axis) run as one launch."""
+def _fwd(lib, x, w, b, gamma, beta, in_stats, drop, tiling,
+         sums_only=False):
+    """K5f through the emulation; ``drop`` the wrapper's dropout keywords
+    (``row_base`` among them). The ticket counters must come back zeroed.
+    C configs' arrays (a leading axis) run as one launch. ``sums_only``:
+    the (2, F) sums in place of the statistics."""
     lead = x.shape[:-2]
     C = lead[0] if lead else 1
     N, K = x.shape[-2:]
     F = w.shape[-1]
     r = torch.full((*lead, N, F), float("nan"))
-    stats = torch.full((*lead, 5, F), float("nan"))
+    stats = torch.full((*lead, 2 if sums_only else 5, F), float("nan"))
     bm, bn = TF.FWD_TILES[tiling]
     partial = torch.empty((C, -(-N // bm), 2, F))
     tickets = torch.zeros(C * -(-F // bn), dtype=torch.int32)
@@ -75,12 +77,14 @@ def _fwd(lib, x, w, b, gamma, beta, in_stats, drop, tiling):
         _ptr(x), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta), _ptr(in_stats),
         _ptr(drop.get("seed")), _ptr(drop.get("keep")), _ptr(drop.get("mask")),
         _ptr(r), _ptr(partial), _ptr(tickets), _ptr(stats), C, N, K, F,
-        *w.stride()[-2:], drop.get("drop_block", -1), tiling, 1e-5, None)
+        *w.stride()[-2:], drop.get("drop_block", -1), tiling,
+        drop.get("row_base", 0), int(sums_only), 1e-5, None)
     assert rc == 0 and not tickets.any()
     return r, stats
 
 
-def _bwd(lib, dz, r, x, w, stats, sums, in_stats, drop, tiling):
+def _bwd(lib, dz, r, x, w, stats, sums, in_stats, drop, tiling,
+         n_total=None):
     lead = dz.shape[:-2]
     C = lead[0] if lead else 1
     N, F = dz.shape[-2:]
@@ -99,7 +103,8 @@ def _bwd(lib, dz, r, x, w, stats, sums, in_stats, drop, tiling):
         _ptr(in_stats), _ptr(drop.get("seed")), _ptr(drop.get("keep")),
         _ptr(drop.get("mask")), _ptr(dx), _ptr(dw), _ptr(db), _ptr(out_sums),
         _ptr(partial), _ptr(tickets), C, N, K, F, *w.stride()[-2:],
-        drop.get("drop_block", -1), tiling, None)
+        drop.get("drop_block", -1), tiling, drop.get("row_base", 0),
+        n_total or 0, None)
     assert rc == 0 and not tickets.any()
     return dx, dw, db, out_sums
 
@@ -193,7 +198,7 @@ def test_emulated_launchers_refuse_what_the_copies_cannot_take(lib):
         return lib.dense_block_fwd_launch(
             _ptr(xv), _ptr(w), _ptr(b), _ptr(gamma), _ptr(beta), None, None,
             None, None, _ptr(r), _ptr(partial), _ptr(tickets), _ptr(stats),
-            1, 8, K, 32, wsk, wsn, -1, 0, 1e-5, None)
+            1, 8, K, 32, wsk, wsn, -1, 0, 0, 0, 1e-5, None)
 
     assert launch(x, 62, 32, 1) != 0
     assert launch(odd, 64, 32, 1) != 0
@@ -253,3 +258,46 @@ def test_emulated_config_axis_is_each_configs_launch(lib, N, K, F, tiling,
     for g, v in zip(got, want, strict=True):
         _close(g, v, 1e-4)
     assert got[1].stride() == w.stride()
+
+
+@pytest.mark.parametrize("N,K,F,tiling,lo", [(50, 64, 64, 0, 17),
+                                             (33, 36, 44, 1, 16)])
+def test_emulated_dp_rank_rows_are_the_whole_launch_rows(lib, N, K, F,
+                                                         tiling, lo):
+    """A dp rank's launches on rows [lo, N) of a batch, at row base lo:
+    K5f's r (sums-only end) and K5b's dx (given the whole batch's sums and
+    n_total N) bit-equal to those rows of the launches on the whole batch,
+    the dropout drawn at the global rows; the sums-only end's r the
+    one-shot r's bits, its sums and the rank's dW, db and lower sums at
+    the plain versions' tolerances, the two ranks' dW, db and lower sums
+    adding up to the whole batch's; ``finish_stats`` of the whole batch's
+    sums the one-shot statistics (rtol 1e-6: the CPU's vectorised f32
+    root may sit an ulp off the kernel's; the card holds them bit for
+    bit); the tickets back at 0."""
+    x, w, (b, gamma, beta), in_stats, dz, seed = _case(N, K, F, N + lo)
+    keep = torch.full((1,), 0.5)
+    whole = dict(seed=seed, keep=keep, drop_block=3)
+    part = dict(whole, row_base=lo)
+    r, stats = _fwd(lib, x, w, b, gamma, beta, in_stats, whole, tiling)
+    r_all, sums_all = _fwd(lib, x, w, b, gamma, beta, in_stats, whole,
+                           tiling, sums_only=True)
+    assert torch.equal(r_all, r)
+    _close(TF.finish_stats(sums_all, gamma, beta, N), stats, 1e-6, 1e-6)
+    r_lo, sums_lo = _fwd(lib, x[lo:], w, b, gamma, beta, in_stats, part,
+                         tiling, sums_only=True)
+    assert torch.equal(r_lo, r[lo:])
+    _, sums_p = TF.dense_block_fwd_reference(x[lo:], w, b, gamma, beta,
+                                             in_stats, sums_only=True, **part)
+    _close(sums_lo, sums_p, 1e-4)
+    sums = torch.stack([dz.sum(0), (dz * (r - stats[0]) * stats[2]).sum(0)])
+    full = _bwd(lib, dz, r, x, w, stats, sums, in_stats, whole, tiling)
+    ranks = [_bwd(lib, dz[a:z], r[a:z], x[a:z], w, stats, sums, in_stats,
+                  dict(whole, row_base=a), tiling, n_total=N)
+             for a, z in ((0, lo), (lo, N))]
+    assert torch.equal(ranks[1][0], full[0][lo:])
+    want = TF.dense_block_bwd_reference(dz[lo:], r[lo:], x[lo:], w, stats,
+                                        sums, in_stats, n_total=N, **part)
+    for g, v in zip(ranks[1], want, strict=True):
+        _close(g, v, 1e-4)
+    for j in (1, 2, 3):
+        _close(ranks[0][j] + ranks[1][j], full[j], 1e-4)
