@@ -32,7 +32,10 @@ alike; the checkpoint stays the f32 reference state_dict and is reloaded
 in bf16. ``--profile`` traces the whole run with ``torch.profiler``
 (CPU and CUDA activities on the card, the CPU alone on the CPU) and
 writes a Chrome trace under ``$TMPDIR/cptorch_trace`` (``/tmp`` by
-default), as the JAX CLI traces to ``/tmp/cptpu_trace``.
+default), as the JAX CLI traces to ``/tmp/cptpu_trace``; it prints the
+mean device time a step of each ``cptorch.train.*`` span (the step and
+its forward, backward and Adam) once for the sweep's stacked steps and
+once for the final train's.
 ``--fused_train on`` and ``--fused_encoder`` hold for the sweep too: its
 stacked steps run the fused chain at its config axis and its validation
 the fused encoder, one ``encoder_chain`` call a batch for the chunk.
@@ -59,6 +62,7 @@ import numpy as np
 import torch.distributed as dist
 
 from contrastiveprosthetics_torch.device import add_platform_flag, select_device
+from contrastiveprosthetics_torch.utils import spans
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -231,7 +235,8 @@ def trace_dir() -> str:
 @contextlib.contextmanager
 def profiled(on: bool, device):
     """``--profile``: the enclosed run under ``torch.profiler``, its
-    Chrome trace written to :func:`trace_dir` when the run ends."""
+    Chrome trace written to :func:`trace_dir` when the run ends, then the
+    final train's :func:`step_spans`."""
     if not on:
         yield
         return
@@ -240,6 +245,7 @@ def profiled(on: bool, device):
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+    spans.clear()
     with profile(activities=activities) as prof:
         yield
     out = trace_dir()
@@ -249,6 +255,19 @@ def profiled(on: bool, device):
     prof.export_chrome_trace(path)
     print(f"profile trace written to {out}")
     print(f"  {path}")
+    step_spans("final train")
+
+
+def step_spans(phase: str) -> None:
+    """Under ``--profile``, each train step span's mean device time a step
+    of ``phase`` (``utils/spans.py``: its newest ``KEEP`` steps), one line
+    a span, then forget them; nothing where no span was kept."""
+    for name in spans.names("cptorch.train."):
+        ms = spans.device_ms(name)
+        print(f"  {phase} {name}: " + (f"{ms:.3f} ms a step on the device"
+                                       if ms is not None else
+                                       "device time not measured (no CUDA)"))
+    spans.clear()
 
 
 def checkpoint_file(checkpoint_dir: str) -> str:
@@ -406,6 +425,7 @@ def run(args, device, crossval_load: bool, sweep: bool, mesh=None) -> int:
             return 0
         print(f"crossval: {args.crossval_size} configs in "
               f"{time.time() - t0:.1f}s")
+        step_spans("crossval sweep")
         keys = keys_array(hypers, trainer.d_e)
     if not rank0():
         return 0

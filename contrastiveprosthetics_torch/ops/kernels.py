@@ -40,7 +40,10 @@ Every wrapper has its plain PyTorch version beside it (``*_reference``),
 which repeats the kernel's arithmetic with ``torch.matmul`` and loops. A
 wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises, never falls back. ``launch_counts`` counts
-kernel launches, one per CUDA kernel launched.
+kernel launches, one per CUDA kernel launched; a span of
+``utils/spans.py`` counts them between its edges (this module hands it
+the counter), and the tick chain's three phases each run in one
+(``cptorch.serve.<phase>``).
 
 The folds (:func:`fold_encoder_params`, :func:`fold_encoder_params_shared`,
 :func:`session_bn_affines`) are plain torch on the weights, in the JAX
@@ -60,6 +63,7 @@ import torch
 from contrastiveprosthetics_torch.config import INGEST_PRESCALE
 from contrastiveprosthetics_torch.models.stacked import StackedLinear
 from contrastiveprosthetics_torch.ops import _build
+from contrastiveprosthetics_torch.utils.spans import count_with, span
 
 NEG = torch.finfo(torch.float32).min  # the mask value of stream.py:268
 
@@ -77,6 +81,7 @@ launch_counts = {"dsp_frames": 0, "encoder_chain": 0,
 # any chain kernel given a nonzero row base or K5b a batch's row count
 mode_counts = {"dense_block_fwd_sums": 0, "dense_block_fwd_bf16_sums": 0,
                "row_base": 0, "n_total": 0}
+count_with(lambda: sum(launch_counts.values()))
 
 
 def reset_launch_counts() -> None:
@@ -745,13 +750,18 @@ def vote_scan(scores, masks, votes, n_seen, masked=False):
 def _chain(dsp, enc, vote, iir_state, tail, votes, n_seen, blocks,
            subset_masks, sos, mean, std, folded, affines=None, masked=True):
     """K ticks of S sessions through the three phases ``dsp -> enc ->
-    vote`` (the kernels or their plain versions); the masked scores only
-    with ``masked``, else None in their place."""
+    vote`` (the kernels or their plain versions), each in its span; the
+    masked scores only with ``masked``, else None in their place."""
     K, S = blocks.shape[:2]
-    frames, iir_state, tail = dsp(iir_state, tail, blocks, sos, mean, std)
-    scores = enc(frames.reshape(K * S, -1), folded, affines).view(K, S, -1)
-    preds, vote_preds, votes, n_seen, *rest = vote(
-        scores, subset_masks, votes, n_seen, masked)
+    with span("cptorch.serve.dsp_frames"):
+        frames, iir_state, tail = dsp(iir_state, tail, blocks, sos, mean,
+                                      std)
+    with span("cptorch.serve.encoder_chain"):
+        scores = enc(frames.reshape(K * S, -1), folded, affines).view(
+            K, S, -1)
+    with span("cptorch.serve.vote_scan"):
+        preds, vote_preds, votes, n_seen, *rest = vote(
+            scores, subset_masks, votes, n_seen, masked)
     return ((iir_state, tail, votes, n_seen), preds, vote_preds,
             rest[0] if masked else None)
 

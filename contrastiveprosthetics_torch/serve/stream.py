@@ -27,6 +27,11 @@ block of sessions (DSP carries, vote windows, BN affines), takes every
 session's blocks and subset masks, runs the tick's kernels on its own
 rows and returns every session's outputs, gathered. Left out against the
 JAX engines: the TPU's VMEM session-block census and its compile probe.
+
+Under ``torch.profiler`` each engine's ``step`` runs in the span
+``cptorch.serve.step`` (``utils/spans.py``), and inside it the host's
+work before the first launch (the blocks as a tensor, the subset masks,
+the per-session affines) in ``cptorch.serve.prepare``.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ from contrastiveprosthetics_torch.ops.kernels import (
 from contrastiveprosthetics_torch.ops.signal import butter_bandpass_sos
 from contrastiveprosthetics_torch.parallel.collectives import gather_rows
 from contrastiveprosthetics_torch.parallel.mesh import local_range
+from contrastiveprosthetics_torch.utils.spans import span
 
 
 @torch.no_grad()
@@ -167,14 +173,17 @@ class StreamingEngine:
     def step(self, carry: StreamCarry, raw_block, subset_mask=None):
         """One tick: ``raw_block`` (factor, emg_dim). Returns (carry,
         pred (), vote (), masked scores (n_classes,))."""
-        block = self._tensor(raw_block)
-        (iir, tail, votes, n_seen), preds, vote_preds, masked = tick_chain(
-            carry.iir_state[None], carry.tail[None], carry.votes[None],
-            carry.n_seen.reshape(1), block[None, None],
-            self._mask(subset_mask, (1, self.n_classes)), self._sos,
-            self._mean, self._std, self._folded)
-        return (StreamCarry(iir[0], tail[0], votes[0], n_seen[0]),
-                preds[0, 0], vote_preds[0, 0], masked[0, 0])
+        with span("cptorch.serve.step"):
+            with span("cptorch.serve.prepare"):
+                block = self._tensor(raw_block)
+                mask = self._mask(subset_mask, (1, self.n_classes))
+            (iir, tail, votes, n_seen), preds, vote_preds, masked = (
+                tick_chain(carry.iir_state[None], carry.tail[None],
+                           carry.votes[None], carry.n_seen.reshape(1),
+                           block[None, None], mask, self._sos, self._mean,
+                           self._std, self._folded))
+            return (StreamCarry(iir[0], tail[0], votes[0], n_seen[0]),
+                    preds[0, 0], vote_preds[0, 0], masked[0, 0])
 
     def steps(self, carry: StreamCarry, raw_blocks, subset_mask=None):
         """``(K, factor, emg_dim)`` blocks in one call, tick for tick the
@@ -311,11 +320,14 @@ class BatchedStreamingEngine:
         """One tick of every session: ``raw_blocks`` (S, factor, emg_dim),
         ``subset_masks`` (S, n_classes) bool or None. Returns (carries,
         preds (S,), votes (S,), masked scores (S, n_classes))."""
-        carry, preds, vote_preds, masked = tick_chain(
-            *carries, self._single._tensor(raw_blocks[self.lo:self.hi])[None],
-            *self._args(subset_masks))
-        return (StreamCarry(*carry),
-                *self._gathered(0, preds[0], vote_preds[0], masked[0]))
+        with span("cptorch.serve.step"):
+            with span("cptorch.serve.prepare"):
+                blocks = self._single._tensor(raw_blocks[self.lo:self.hi])
+                args = self._args(subset_masks)
+            carry, preds, vote_preds, masked = tick_chain(
+                *carries, blocks[None], *args)
+            return (StreamCarry(*carry),
+                    *self._gathered(0, preds[0], vote_preds[0], masked[0]))
 
     def steps(self, carries: StreamCarry, raw_blocks_seq, subset_masks=None):
         """``(K, S, factor, emg_dim)`` blocks in one call. Returns

@@ -179,6 +179,7 @@ from contrastiveprosthetics_torch.train.loss import (
     symmetric_contrastive_loss,
     symmetric_contrastive_loss_per_item,
 )
+from contrastiveprosthetics_torch.utils.spans import span
 
 
 class Hyper(NamedTuple):
@@ -618,21 +619,25 @@ class Trainer:
             loss = loss * share
             return loss + penalty / n_dp, loss, acc
 
-        with f32_convolutions():
+        # the spans here, not in forward(): remat replays forward() inside
+        # the backward
+        with span("cptorch.train.forward", timed=True), f32_convolutions():
             if self.remat:
                 (total, loss, acc), running = rematerialized(forward,
                                                              generator)
             else:
                 total, loss, acc = forward()
-            flat = torch.autograd.grad(
-                total.sum(), params["emg_net"] + params["glove_net"])
-        if self.remat:
-            write_running(running)
-        loss = loss.detach()
-        if mesh is not None:
-            flat = sum_flat(flat, mesh.dp_group)
-            loss, hits = sum_flat((loss, acc.detach()), mesh.dp_group)
-            acc = hits / (emg_b_rows * T)
+        with span("cptorch.train.backward", timed=True):
+            with f32_convolutions():
+                flat = torch.autograd.grad(
+                    total.sum(), params["emg_net"] + params["glove_net"])
+            if self.remat:
+                write_running(running)
+            loss = loss.detach()
+            if mesh is not None:
+                flat = sum_flat(flat, mesh.dp_group)
+                loss, hits = sum_flat((loss, acc.detach()), mesh.dp_group)
+                acc = hits / (emg_b_rows * T)
         n = len(params["emg_net"])
         grads = {"emg_net": list(flat[:n]), "glove_net": list(flat[n:])}
         return loss, acc, grads
@@ -645,15 +650,20 @@ class Trainer:
         two Adam updates. Returns (loss, accuracy) on the device. On a
         stacked state (see :meth:`loss_and_grads`) it is one step of every
         config, with (C,) lr tensors; under ``mesh`` one sharded step,
-        each rank's Adam chains on its shards."""
-        loss, acc, grads = self.loss_and_grads(state, emg_b, hyper, generator,
-                                               ext_masks, glove_b, mesh)
-        towers = state.model.towers()
-        adam_step_(towers["emg_net"].parameters(), grads["emg_net"],
-                   state.opt_emg, lr_emg)
-        adam_step_(towers["glove_net"].parameters(), grads["glove_net"],
-                   state.opt_glove, lr_glove)
-        return loss, acc
+        each rank's Adam chains on its shards. Under ``torch.profiler`` it
+        runs in the span ``cptorch.train.step``, whose children
+        ``cptorch.train.forward``, ``.backward`` and ``.adam`` partition
+        it (``utils/spans.py``)."""
+        with span("cptorch.train.step", timed=True):
+            loss, acc, grads = self.loss_and_grads(
+                state, emg_b, hyper, generator, ext_masks, glove_b, mesh)
+            towers = state.model.towers()
+            with span("cptorch.train.adam", timed=True):
+                adam_step_(towers["emg_net"].parameters(), grads["emg_net"],
+                           state.opt_emg, lr_emg)
+                adam_step_(towers["glove_net"].parameters(),
+                           grads["glove_net"], state.opt_glove, lr_glove)
+            return loss, acc
 
     # ----------------------------------------------------------------- epoch
     def train_epoch_from_indices(self, state: TrainState, emg_rand, batches,

@@ -626,6 +626,24 @@ def test_cli_profile_writes_a_chrome_trace(tmp_path, small_train_cli,
     assert out.index("Loading dataset") < out.index("profile trace written")
 
 
+def test_cli_profile_prints_the_sweep_and_the_final_train_apart(
+        small_train_cli, capsys):
+    """``--profile`` prints the train step's spans once for the sweep's
+    stacked steps, after the sweep, and once for the final train's, after
+    the trace's path: each phase's steps alone (no device time on the
+    CPU)."""
+    assert cli_train.main([*small_train_cli, "--crossval_size", "2",
+                           "--profile"]) == 0
+    out = capsys.readouterr().out
+    parts = ("step", "forward", "backward", "adam")
+    sweep = [out.index(f"crossval sweep cptorch.train.{p}:") for p in parts]
+    final = [out.index(f"final train cptorch.train.{p}:") for p in parts]
+    assert (out.index("crossval: 2 configs in") < min(sweep)
+            and max(sweep) < out.index("Best combination"))
+    assert out.index("profile trace written") < min(final)
+    assert out.count("device time not measured (no CUDA)") == 8
+
+
 def test_cli_spmd_crossval_runs_unsharded_on_one_device(small_train_cli,
                                                         capsys):
     """With one device (here the CPU) ``--spmd_crossval`` runs the sweep
