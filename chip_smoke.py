@@ -11,7 +11,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernel sources from
+It builds the seven CUDA kernel sources from
 ``contrastiveprosthetics_torch/csrc`` and drives the port at full model
 width (d_e=16, 64 conv features, 7 x 512 dense, 41 classes) with weights
 from a seeded ``torch.Generator`` and raw recordings and synthetic data
@@ -100,10 +100,13 @@ made with numpy from a seed:
    val accuracy above 0.1, its ``.npy`` files read back; profiler traces
    of 10 stacked steps (the last a tail step) at C=2 and C=150: device
    time by family, idle share, launches per stacked step, which must not
-   differ between the two by a launch per step, and one K1f and one K1b
-   per stacked step; the
+   differ between the two by a launch per step, one K1f and one K1b
+   per stacked step and one ``adam_stacked`` a live tower; the
    chunk-width scan (20 stacked steps at 1, 2, 10, 50 and 150 configs);
-   ``cptorch-train --crossval_size 3``;
+   ``cptorch-train --crossval_size 3``; then ``adam_stacked`` against its
+   plain version at the sweep's C=150 and the EMG tower's 37 parameters,
+   f32 and bf16 mu, bit for bit over 3 updates, timed in turns beside
+   its byte bound;
 10. evaluation and results on phase 7's trained state (plain BatchNorm,
    bs 8; the DB3 test split's 48 items are one batch of 49,200 encoder
    rows, the val split's 24 three batches of 8,200): the test pass from
@@ -259,9 +262,9 @@ made with numpy from a seed:
    on one shared card, not scaling numbers.
 
 Launch counts are reset just before the calibration, phases 3, 4, 7's and
-8's ``train_loop``, 9's ``cross_validate``, 10's test and val passes,
-11's ``cptorch-load`` and 12's ``train_loop`` runs (read again after each
-run's test pass) and ``cross_validate``, 13's calibration, ``step`` loop,
+8's ``train_loop``, 9's ``cross_validate`` and ``adam_stacked`` check,
+10's test and val passes, 11's ``cptorch-load`` and 12's ``train_loop``
+runs (read again after each run's test pass) and ``cross_validate``, 13's calibration, ``step`` loop,
 ``steps``, batched replays and CLI runs, 14's ``train_loop`` runs,
 sweep and test passes, 15's serving from the checkpoints and its
 profiled run, and read just after each (phase
@@ -270,6 +273,7 @@ kernel must have launched on each of the three serve paths,
 ``iir_rms_frames`` once per calibration recording and once per ingested
 subject, each K1
 kernel once per train step in 7 and 8 and once per stacked step in 9,
+``adam_stacked`` once a call in 9's check (reset just before it),
 and the chain's kernels as its depth says in 8; in 12 K1 once per step
 of both glove-encoding runs and per stacked step of their sweep and never
 in the baseline, the chain's kernels as its depth says in the fused run,
@@ -310,6 +314,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -376,6 +381,9 @@ REPLACES = {
                       "(vmapped by data/ingest.py:63-84) and "
                       "serve/stream.py:356-366 (preprocess_recording) run "
                       "them",
+    "adam_stacked": "no Pallas kernel: optax.scale_by_adam "
+                    "(contrastiveprosthetics_tpu/train/engine.py:257) under "
+                    "the sweep's jax.vmap, fused into the step by XLA",
 }
 SERVE_KERNELS = ("dsp_frames", "encoder_chain", "vote_scan")
 TRAIN_KERNELS = ("contrastive_loss_fwd", "contrastive_loss_bwd")
@@ -410,7 +418,8 @@ DEVICE_FUNCTIONS = {"dsp_frames_kernel": "dsp_frames",
                     "chain_tail_fwd_kernel": "chain_tail_fwd",
                     "chain_tail_bwd_kernel": "chain_tail_bwd",
                     "dropout_masks_kernel": "dropout_masks",
-                    "iir_rms_frames_kernel": "iir_rms_frames"}
+                    "iir_rms_frames_kernel": "iir_rms_frames",
+                    "adam_stacked_kernel": "adam_stacked"}
 # kernel families of a train step, by (lower-case) name fragment, in the
 # order they are tried
 TRAIN_FAMILIES = (
@@ -419,6 +428,7 @@ TRAIN_FAMILIES = (
     ("chain_tail_fwd", ("chain_tail_fwd",)),
     ("chain_tail_bwd", ("chain_tail_bwd",)),
     ("dropout_masks", ("dropout_masks",)),
+    ("adam_stacked", ("adam_stacked",)),
     ("contrastive_loss_fwd", ("contrastive_loss_fwd",)),
     ("contrastive_loss_bwd", ("contrastive_loss_bwd",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
@@ -446,6 +456,7 @@ SCAN_STEPS = 20
 SWEEP_TRACE_STEPS = 10
 SWEEP_TRACE_REPEATS = 2  # cut from 3 for phase 16's time
 SWEEP_CHECK_STEPS = 5
+ADAM_CHECK_UPDATES = 3  # stacked Adam updates a mu dtype, each checked
 # the step check's 3 configs at dropout 0, each its own lr and reg
 SWEEP_STEP_HYPERS = ((1e-3, 1e-6, 0.0, 1e-3, 1e-6, 0.0),
                      (3e-4, 1e-3, 0.0, 3e-3, 1e-2, 0.0),
@@ -2270,8 +2281,8 @@ def sweep_trace(K, trainer, hypers, C: int,
                 repeats: int = SWEEP_TRACE_REPEATS) -> dict:
     """Phase 9, part 3: profiler traces of 10 stacked steps of C configs
     (the last a 5-item tail step) with dropout, taken ``repeats`` times
-    on one state. K1f and K1b must launch once per stacked step, by
-    their wrappers' counts. The breakdown is the first trace's; the
+    on one state. K1f and K1b must launch once per stacked step, and
+    ``adam_stacked`` once a live tower, by their wrappers' counts. The breakdown is the first trace's; the
     launches per step are the most any trace counted, since a trace only
     ever misses records."""
     from contrastiveprosthetics_torch.train import engine
@@ -2285,13 +2296,19 @@ def sweep_trace(K, trainer, hypers, C: int,
         K.reset_launch_counts()
         run_sweep_steps(trainer, inputs, 2, n, tail=5)
         k1.append({k: K.launch_counts[k] / n
-                   for k in (*TRAIN_KERNELS, *AXIS_K5)})
+                   for k in (*TRAIN_KERNELS, *AXIS_K5, "adam_stacked")})
 
     for _ in range(repeats):
         traces.append(trace_families(
             lambda: run_sweep_steps(trainer, inputs, 0, 2), run, n))
     if any(per[k] != 1.0 for per in k1 for k in TRAIN_KERNELS):
         raise AssertionError(f"K1 launches per stacked step at C={C}: {k1}")
+    state = inputs[0]
+    live = sum(opt.flat is not None for opt in (state.opt_emg,
+                                                state.opt_glove))
+    if any(per["adam_stacked"] != live for per in k1):
+        raise AssertionError(f"adam_stacked launches per stacked step at "
+                             f"C={C}: {k1}, want one a live tower ({live})")
     trace = traces[0]
     trace["configs"] = C
     trace["k1_wrapper_launches_per_step"] = {k: k1[0][k]
@@ -2311,8 +2328,8 @@ def sweep_phase(K, trainer, sweep_dir: str) -> tuple[dict, dict, dict]:
     """Phase 9, the crossval sweep on phase 7's store and trainer (bs 8,
     plain BatchNorm, full width); ``cross_validate`` writes its files into
     ``sweep_dir``, where phase 10 loads them. Returns the ``sweep``
-    results, the K1 launch counts of the 150-config ``cross_validate`` and
-    the trace of its stacked step at C=150."""
+    results, the K1 and ``adam_stacked`` launch counts of the 150-config
+    ``cross_validate`` and the trace of its stacked step at C=150."""
     from contrastiveprosthetics_torch.cli import train as cli_train
     from contrastiveprosthetics_torch.models.convert import (
         load_reference_checkpoint,
@@ -2430,7 +2447,109 @@ def sweep_phase(K, trainer, sweep_dir: str) -> tuple[dict, dict, dict]:
                launches_per_stacked_step=launches, chunk_scan=scan,
                best_scan_width=best,
                default_chunk=crossval.DEFAULT_SWEEP_CHUNK, phase_s=phase_s)
+    counts["adam_stacked"] = all_counts["adam_stacked"]
     return res, counts, traces[n]
+
+
+def check_adam_stacked(K, dev) -> dict:
+    """The stacked Adam kernel against its plain version at the sweep's
+    shape: C=150 configs of the EMG tower (37 parameters, 2,022,848
+    elements a config), a distinct lr a config, an f32 and a bf16 ``mu``.
+    From one state, ``ADAM_CHECK_UPDATES`` updates each way (steps 1 to
+    3's bias corrections, gradients of another scale each step, exact
+    zeros among them): parameters, mu and nu bit for bit
+    (``torch.equal``) after each. Launches counted from a reset just
+    before those updates: one a call, bf16-mu ones under
+    ``adam_stacked_bf16_mu`` too. Times: CUDA-event means of a wrapper
+    call, kernel and plain version in turns (kernel, plain, plain,
+    kernel); device time a launch, the mean of the launches a profiler
+    trace kept; ``bound_ms`` from 28 bytes an element with an f32 mu and
+    24 with a bf16 one (p, g, mu and nu read once, p, mu and nu written
+    once) at 3.35 TB/s, which no launch can beat. Returns
+    the f32 mu's ``kernels`` entry, the bf16 mu's under ``bf16_mu``."""
+    from contrastiveprosthetics_torch.models.clip import ContrastiveModel
+    from contrastiveprosthetics_torch.train.engine import stacked_adam_init
+
+    C = SWEEP_CONFIGS
+    gen = torch.Generator(device=dev).manual_seed(24)
+    params = [torch.randn((C, *p.shape), generator=gen, device=dev)
+              for p in ContrastiveModel().towers()["emg_net"].parameters()]
+    N = sum(p[0].numel() for p in params)
+    lr = torch.linspace(1e-4, 3e-3, C, device=dev)
+    out = {}
+    for name, mu_dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        ours = [p.clone() for p in params]
+        plain = [p.clone() for p in params]
+        st_k, st_p = (stacked_adam_init(x, mu_dtype) for x in (ours, plain))
+        K.reset_launch_counts()
+        for step in range(1, ADAM_CHECK_UPDATES + 1):
+            grads = [torch.randn(p.shape, generator=gen, device=dev)
+                     * 10.0 ** -(step % 3 + 1) for p in params]
+            for g in grads:
+                g.view(-1)[::7] = 0
+            t = np.float32(step)
+            bc1 = float(np.float32(1) - np.float32(0.9) ** t)
+            bc2 = float(np.float32(1) - np.float32(0.999) ** t)
+            K.adam_stacked(ours, grads, st_k, lr, bc1, bc2)
+            K.adam_stacked_reference(plain, grads, st_p, lr, bc1, bc2)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(
+                    ours + list(st_k.flat), plain + list(st_p.flat))):
+                raise AssertionError(f"adam_stacked, {name} mu, not "
+                                     f"bit-equal to its plain version at "
+                                     f"step {step}")
+        launches = K.launch_counts["adam_stacked"]
+        low = K.mode_counts["adam_stacked_bf16_mu"]
+        want = ADAM_CHECK_UPDATES
+        if (launches, low) != (want, want if name == "bf16" else 0):
+            raise AssertionError(f"adam_stacked, {name} mu: {launches} "
+                                 f"launches ({low} bf16-mu) for {want} calls")
+        err = max(max_abs(a, b) for a, b in zip(ours + list(st_k.flat),
+                                                plain + list(st_p.flat)))
+        del plain, st_p
+
+        def kernel():
+            K.adam_stacked(ours, grads, st_k, lr, bc1, bc2)
+
+        def reference():
+            K.adam_stacked_reference(ours, grads, st_k, lr, bc1, bc2)
+
+        turns = {"kernel": [], "plain": []}
+        for who in ("kernel", "plain", "plain", "kernel"):
+            turns[who].append(time_ms(kernel if who == "kernel"
+                                      else reference, reps=20, warmup=2))
+        # a launch's device time from the records the trace kept: a trace
+        # on an H100 kept 12 of 20 launches, so the sum over calls read low
+        # (``device_records_per_call`` says how many it kept)
+        total_ms, records = device_per_call(kernel, n=20, only="adam_stacked")
+        device_ms = total_ms / records
+        bd, by = bound_ms(C * N * (20 + 2 * mu_dtype.itemsize),
+                          15.0 * C * N)
+        if bd > 1.05 * device_ms:
+            raise AssertionError(f"adam_stacked, {name} mu: {device_ms} ms "
+                                 f"a launch, under its bound {bd} ms")
+        out[name] = dict(
+            route="cuda", max_abs_err=err,
+            tolerance="parameters, mu and nu bit for bit (torch.equal)",
+            ms=statistics.median(turns["kernel"]),
+            plain_ms=statistics.median(turns["plain"]),
+            ms_in_turns=turns["kernel"], plain_ms_in_turns=turns["plain"],
+            device_ms=device_ms, device_records_per_call=records,
+            bound_ms=bd, bound_by=by, roofline_share=bd / device_ms,
+            bytes_per_s=C * N * (20 + 2 * mu_dtype.itemsize)
+            / device_ms * 1e3,
+            library_ms=None,
+            library_note=("torch.optim's fused Adam orders the bias "
+                          "correction otherwise and takes a scalar lr"),
+            launches_checked=launches, bf16_mu_launches_checked=low,
+            shape=f"C={C} x N={N} (the EMG tower), {name} mu")
+        log(f"[kernels] adam_stacked, {name} mu, at C={C} x N={N}: "
+            f"bit-equal to its plain version over {want} updates, "
+            f"{launches} launches; {json.dumps(out[name])}")
+        del ours, st_k, grads
+    entry = out["f32"]
+    entry["bf16_mu"] = out["bf16"]
+    return entry
 
 
 def eval_tied_items(a: torch.Tensor, b: torch.Tensor, D: int,
@@ -4343,7 +4462,7 @@ def bf16_train_phase(K, TF, eager, train_res, fused_res,
     sweep_counts = {k: c for k, c in K.launch_counts.items() if c}
     if not (np.isfinite(values).all() and np.nanmax(values[:, 1]) > 0.1):
         raise AssertionError(f"bf16 sweep values {values.tolist()}")
-    if set(sweep_counts) != set(TRAIN_KERNELS):
+    if set(sweep_counts) != {*TRAIN_KERNELS, "adam_stacked"}:
         raise AssertionError(f"bf16 sweep launches {sweep_counts}")
     log(f"[bf16 train] cross_validate of {CLI_SWEEP_CONFIGS} configs x 1 "
         f"epoch in bf16: {sweep_s:.2f} s, best val acc "
@@ -6698,6 +6817,7 @@ def main() -> int:
         # -------------------------------------------- 9. the crossval sweep
         sweep_res, sweep_counts, sweep_trace_150 = sweep_phase(K, trainer,
                                                                sweep_dir)
+        adam_entry = check_adam_stacked(K, dev)
         # ---------------------------------- 10. evaluation and the results
         eval_res, eval_entries = eval_phase(K, trainer, state, sweep_dir)
 
@@ -6795,6 +6915,19 @@ def main() -> int:
     print(json.dumps({"bf16_train": bf16_train_res}))
     print(json.dumps({"interop": interop_res}))
     print(json.dumps({"sweep_fused": sweep_fused_res}))
+    fam = sweep_trace_150["device_ms_by_family"]
+    by_path = {"check": adam_entry["launches_checked"]
+               + adam_entry["bf16_mu"]["launches_checked"],
+               "sweep": sweep_counts["adam_stacked"],
+               "bf16_train": bf16_train_res["sweep"]["launches"][
+                   "adam_stacked"],
+               "parallel": parallel_counts["adam_stacked"]}
+    adam_entry.update(
+        name="adam_stacked", source=SOURCES["adam_stacked"],
+        replaces=REPLACES["adam_stacked"], kernel_ms=adam_entry["ms"],
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        device_ms_per_step_traced=fam.get("adam_stacked"),
+        peaks={"f32_flops": PEAK_F32_FLOPS, "bytes_per_s": PEAK_BYTES_PER_S})
     bf16_entry["launches_by_path"]["parallel"] = parallel_counts[
         "encoder_chain_bf16"]
     bf16_entry["launches"] += parallel_counts["encoder_chain_bf16"]
@@ -6802,7 +6935,8 @@ def main() -> int:
     log(f"[done] phases 1-17 took {time.perf_counter() - t_script:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(entries.values()) + eval_entries
-                      + [bf16_entry] + list(bf16_train_entries.values())
+                      + [bf16_entry, adam_entry]
+                      + list(bf16_train_entries.values())
                       + list(axis_entries.values()) + dp_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

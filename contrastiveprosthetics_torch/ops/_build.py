@@ -21,7 +21,7 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("dsp_frames", "encoder_chain", "vote_scan", "contrastive_loss",
-           "train_fused", "iir_rms")
+           "train_fused", "iir_rms", "adam_stacked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

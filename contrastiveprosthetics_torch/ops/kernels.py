@@ -31,6 +31,11 @@ the chain's tail pair and K5m) launch through the same table and count
 here too; the bf16 chain's four (K5f, K5b and the tail pair on bf16
 activations) count under their own names, ``*_bf16``.
 
+The crossval sweep's stacked Adam update is one more kernel,
+:func:`adam_stacked` (``csrc/adam_stacked.cu``): one pass over every
+parameter of a tower, for all its C configs, bit for bit the plain tensor
+ops it replaced (:func:`adam_stacked_reference`).
+
 The train step's K1 pair (``pallas_ops.py:185,213``) is
 :func:`fused_contrastive_loss`, a ``torch.autograd.Function`` whose forward
 launches ``contrastive_loss_fwd`` and whose backward launches
@@ -56,7 +61,9 @@ biases and the per-session affines stay f32 (``pallas_ops.py:318-322``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -75,12 +82,13 @@ launch_counts = {"dsp_frames": 0, "encoder_chain": 0,
                  "chain_tail_fwd": 0, "chain_tail_bwd": 0,
                  "dense_block_fwd_bf16": 0, "dense_block_bwd_bf16": 0,
                  "chain_tail_fwd_bf16": 0, "chain_tail_bwd_bf16": 0,
-                 "dropout_masks": 0}
+                 "dropout_masks": 0, "adam_stacked": 0}
 # launches of the fused chain's kernels in a dp rank's modes, counted
 # beside their kernel's launch_counts: K5f's sums-only end (by kernel), and
-# any chain kernel given a nonzero row base or K5b a batch's row count
+# any chain kernel given a nonzero row base or K5b a batch's row count; and
+# adam_stacked's launches on a bf16 first moment
 mode_counts = {"dense_block_fwd_sums": 0, "dense_block_fwd_bf16_sums": 0,
-               "row_base": 0, "n_total": 0}
+               "row_base": 0, "n_total": 0, "adam_stacked_bf16_mu": 0}
 count_with(lambda: sum(launch_counts.values()))
 
 
@@ -258,6 +266,15 @@ _SIGNATURES = {
     "dropout_masks": ("train_fused", "dropout_masks_launch", 3, 4, False),
     "philox_check": ("train_fused", "philox_check_launch", 4, 1, False),
 }
+# adam_stacked_launch: the leaf table (parameter and gradient pointers,
+# column offsets, sizes, vector flags, its length), mu, nu, lr, C, N, the
+# kind, seven float64 numbers, the grid and the stream
+_ADAM_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] * 2
+                  + [ctypes.POINTER(ctypes.c_longlong)]
+                  + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
+                                             ctypes.c_int]
+                  + [ctypes.c_double] * 7 + [ctypes.c_int, ctypes.c_void_p])
 
 
 _fns: dict = {}
@@ -274,6 +291,9 @@ def _fn(name: str):
                             ctypes.POINTER(ctypes.c_int), ctypes.c_int]
                            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p])
+        elif name == "adam_stacked":
+            fn = _build.load(name).adam_stacked_launch
+            fn.argtypes = _ADAM_ARGTYPES
         else:
             library, symbol, n_ptr, n_int, has_float = _SIGNATURES[name]
             fn = getattr(_build.load(library), symbol)
@@ -932,3 +952,175 @@ def fused_contrastive_loss(e, g):
     if e.device.type == "cpu":
         return fused_contrastive_reference(e, g)
     return _FusedContrastiveLoss.apply(e, g)
+
+
+# ----------------------------------------------------------- adam_stacked
+ADAM_MAX_LEAVES = 64     # csrc/adam_stacked.cu's kMaxLeaves: a tower's table
+ADAM_BLOCKS_PER_SM = 4   # its __launch_bounds__: blocks resident on an SM
+# (parameter dtype, first moment dtype) -> the kernel's instance
+ADAM_KINDS = {(torch.float32, torch.float32): 0,
+              (torch.float32, torch.bfloat16): 1,
+              (torch.float64, torch.float64): 2}
+
+
+class AdamLeaf(NamedTuple):
+    """One parameter of a stacked tower, as ``adam_stacked`` takes it:
+    element (c, j) at ``p`` and ``g`` + (c n + j) elements, its moments at
+    column ``off`` + j of row c; ``vec``: 16-byte runs of 4 elements."""
+
+    p: int
+    g: int
+    n: int
+    off: int
+    vec: bool
+
+
+def bf16_decay(mu: torch.Tensor, b1: float) -> torch.Tensor:
+    """optax's ``b1 * mu`` for a bf16 ``mu``, as f32 values: jnp takes the
+    Python float b1 as a weak-typed bf16 constant and rounds the product to
+    bf16 (``tree_update_moment``)."""
+    return (mu.float() * float(torch.tensor(b1, dtype=torch.bfloat16))
+            ).to(torch.bfloat16).float()
+
+
+@torch.no_grad()
+def adam_stacked_reference(params, grads, state, lr, bc1: float, bc2: float,
+                           b1: float = 0.9, b2: float = 0.999,
+                           eps: float = 1e-8) -> None:
+    """Plain version of ``adam_stacked``: one ``optax.scale_by_adam`` update
+    (eps_root 0) and ``p -= lr * u`` of stacked parameters (C configs on the
+    leading axis) in place, over the flat (C, N) moments ``state.flat`` of
+    ``train/engine.py::stacked_adam_init`` (config c's moments of every
+    parameter in row c), with a (C,) ``lr`` and the bias corrections
+    ``bc1``, ``bc2`` taken in f32. A bf16 ``mu`` takes ``b1 mu`` in bf16
+    and the sum in f32; the update is computed from that f32 moment, and
+    only the stored ``mu`` is rounded to bf16. On CUDA, ``x / bc`` is a
+    product with the reciprocal of the Python float ``bc``, taken in
+    float64 and rounded to the tensor's dtype; on the CPU a division."""
+    mu, nu = state.flat
+    g = torch.cat([x.reshape(mu.shape[0], -1) for x in grads], 1)
+    if mu.dtype == torch.bfloat16:
+        m = bf16_decay(mu, b1) + g * (1 - b1)
+        mu.copy_(m)
+    else:
+        m = mu.mul_(b1).add_(g * (1 - b1))
+    nu.mul_(b2).add_(g * g * (1 - b2))
+    update = (m / bc1).div_((nu / bc2).sqrt_().add_(eps)).mul_(
+        lr.view(-1, 1))
+    for p, u in zip(params, update.split([p[0].numel() for p in params], 1)):
+        p.sub_(u.view(p.shape))
+
+
+def adam_stacked_leaves(params, grads, state) -> list[AdamLeaf]:
+    """The leaf table of :func:`adam_stacked`, read off ``state``: leaf i's
+    moments start at the column of the flat (C, N) ``mu`` where
+    ``state.mu[i]``, the view ``stacked_adam_init`` made of it, starts
+    (``state.nu[i]`` must start at the same column of ``nu``); 16-byte runs
+    where the f32 leaf's size, its column and N are multiples of 4 and
+    every pointer is aligned (8 bytes for a bf16 ``mu``). Raises
+    ``ValueError`` where the views are not rows of the flat moments that
+    take every column once."""
+    mu, nu = state.flat
+    C, N = mu.shape
+    if not len(params) == len(grads) == len(state.mu) == len(state.nu):
+        raise ValueError(f"adam_stacked: {len(params)} parameters, "
+                         f"{len(grads)} gradients, moments of "
+                         f"{len(state.mu)}")
+    aligned = (mu.data_ptr() % (8 if mu.dtype == torch.bfloat16 else 16) == 0
+               and nu.data_ptr() % 16 == 0 and N % 4 == 0
+               and nu.dtype == torch.float32)
+    leaves = []
+    for i, (p, g, vm, vn) in enumerate(zip(params, grads, state.mu,
+                                           state.nu)):
+        n = p[0].numel()
+        off = (vm.data_ptr() - mu.data_ptr()) // mu.element_size()
+        if not (vm.shape == vn.shape == p.shape and vm[0].is_contiguous()
+                and vn[0].is_contiguous()
+                and (C == 1 or vm.stride(0) == vn.stride(0) == N)
+                and vn.data_ptr() - nu.data_ptr() == off * nu.element_size()
+                and 0 <= off <= N - n):
+            raise ValueError(f"adam_stacked: the moments of parameter {i} "
+                             "are no columns of the flat moments' rows")
+        vec = (aligned and n % 4 == 0 and off % 4 == 0
+               and p.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
+        leaves.append(AdamLeaf(p.data_ptr(), g.data_ptr(), n, off, vec))
+    spans = sorted((x.off, x.n) for x in leaves)
+    if (sum(n for _, n in spans) != N
+            or any(a + n > b for (a, n), (b, _) in zip(spans, spans[1:]))):
+        raise ValueError(f"adam_stacked: the parameters hold "
+                         f"{sum(n for _, n in spans)} elements a config in "
+                         f"the moments' rows of {N}, not each column once")
+    return leaves
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@torch.no_grad()
+def adam_stacked(params, grads, state, lr, bc1: float, bc2: float,
+                 b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8) -> None:
+    """The ``adam_stacked`` kernel (see :func:`adam_stacked_reference`): one
+    launch a tower of up to ``ADAM_MAX_LEAVES`` parameters, reading each
+    gradient where it lies (no ``torch.cat``) and each (C,) ``lr`` on the
+    card; the leaf table goes in the launch's arguments. ``state`` is a
+    stacked ``AdamState`` (``train/engine.py::stacked_adam_init``): the
+    flat moments ``state.flat`` and a view of them a parameter. It takes
+    f32 parameters with an f32 or bf16 ``mu``, and float64 ones with a
+    float64 ``mu`` (``ADAM_KINDS``)."""
+    params, grads = list(params), list(grads)
+    if state.flat[0].device.type == "cpu":
+        return adam_stacked_reference(params, grads, state, lr, bc1, bc2,
+                                      b1, b2, eps)
+    mu, nu = state.flat
+    dev, (C, N) = mu.device, mu.shape
+    dtype = params[0].dtype
+    kind = ADAM_KINDS.get((dtype, mu.dtype))
+    if kind is None:
+        raise ValueError(f"adam_stacked kernel: parameters {dtype} with mu "
+                         f"{mu.dtype}; takes {list(ADAM_KINDS)}")
+    _expect("mu", mu, (C, N), mu.dtype, dev)
+    _expect("nu", nu, (C, N), dtype, dev)
+    _expect("lr", lr, (C,), dtype, dev)
+    grads = [g.contiguous() for g in grads]  # copies a strided one only
+    if len(grads) != len(params):
+        raise ValueError(f"adam_stacked: {len(grads)} gradients for "
+                         f"{len(params)} parameters")
+    for i, (p, g) in enumerate(zip(params, grads)):
+        if p.shape[0] != C:
+            raise ValueError(f"parameter {i}: {p.shape[0]} configs, the "
+                             f"moments {C}")
+        _expect(f"parameter {i}", p, p.shape, dtype, dev)
+        _expect(f"gradient {i}", g, p.shape, dtype, dev)
+    grid = _sm_count(dev.index if dev.index is not None
+                     else torch.cuda.current_device()) * ADAM_BLOCKS_PER_SM
+    args = adam_stacked_args(params, grads, state, lr, bc1, bc2, b1, b2, eps,
+                             grid)
+    _launch("adam_stacked", "adam_stacked", *args, _stream(dev))
+    if kind == 1:
+        mode_counts["adam_stacked_bf16_mu"] += 1
+
+
+def adam_stacked_args(params, grads, state, lr, bc1, bc2, b1, b2, eps,
+                      grid) -> tuple:
+    """The arguments of ``adam_stacked_launch`` but the stream, on checked
+    tensors: the one launch of a tower. Raises ``ValueError`` above
+    ``ADAM_MAX_LEAVES`` parameters."""
+    leaves = adam_stacked_leaves(params, grads, state)
+    k = len(leaves)
+    if k > ADAM_MAX_LEAVES:
+        raise ValueError(f"adam_stacked: {k} parameters in a tower, takes "
+                         f"up to {ADAM_MAX_LEAVES}")
+    mu, nu = state.flat
+    kind = ADAM_KINDS[params[0].dtype, mu.dtype]
+    b1_mu = float(torch.tensor(b1, dtype=torch.bfloat16)) if kind == 1 else b1
+    C, N = mu.shape
+    return ((ctypes.c_void_p * k)(*[x.p for x in leaves]),
+            (ctypes.c_void_p * k)(*[x.g for x in leaves]),
+            (ctypes.c_longlong * k)(*[x.off for x in leaves]),
+            (ctypes.c_int * k)(*[x.n for x in leaves]),
+            (ctypes.c_int * k)(*[int(x.vec) for x in leaves]), k,
+            _ptr(mu), _ptr(nu), _ptr(lr), C, N, kind, b1_mu, 1 - b1, b2,
+            1 - b2, bc1, bc2, eps, grid)

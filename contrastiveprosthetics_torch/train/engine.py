@@ -158,6 +158,8 @@ from contrastiveprosthetics_torch.models.stacked import (
     stacked_l2_penalty,
 )
 from contrastiveprosthetics_torch.ops.kernels import (
+    adam_stacked,
+    bf16_decay,
     fold_encoder_params,
     fused_contrastive_loss,
     fused_encoder_logits,
@@ -248,14 +250,6 @@ def _f32_product(a: float, b: float) -> float:
     return float(np.float32(a) * np.float32(b))
 
 
-def _bf16_decay(mu: torch.Tensor, b1: float) -> torch.Tensor:
-    """optax's ``b1 * mu`` for a bf16 ``mu``, as f32 values: jnp takes the
-    Python float b1 as a weak-typed bf16 constant and rounds the product to
-    bf16 (``tree_update_moment``)."""
-    return (mu.float() * float(torch.tensor(b1, dtype=torch.bfloat16))
-            ).to(torch.bfloat16).float()
-
-
 @torch.no_grad()
 def adam_step_(params, grads, state: AdamState, lr: float | torch.Tensor,
                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
@@ -270,8 +264,9 @@ def adam_step_(params, grads, state: AdamState, lr: float | torch.Tensor,
 
     Stacked parameters (a state of :func:`stacked_adam_init`) take a (C,)
     ``lr``, one per config; the count and the bias corrections are shared,
-    since all configs step together. Their update runs as plain tensor
-    operations over the flat (C, N) gradients and moments: a foreach
+    since all configs step together. Their update is one launch of the
+    ``adam_stacked`` kernel over the flat (C, N) moments
+    (``ops/kernels.py``; its plain version on the CPU): a foreach
     operation splits its work into launches by size, so its launches
     would grow with C."""
     params, grads = list(params), list(grads)
@@ -282,23 +277,11 @@ def adam_step_(params, grads, state: AdamState, lr: float | torch.Tensor,
     bc1 = float(np.float32(1) - np.float32(b1) ** t)
     bc2 = float(np.float32(1) - np.float32(b2) ** t)
     if state.flat is not None:
-        mu, nu = state.flat
-        g = torch.cat([x.reshape(mu.shape[0], -1) for x in grads], 1)
-        if mu.dtype == torch.bfloat16:
-            m = _bf16_decay(mu, b1) + g * (1 - b1)
-            mu.copy_(m)
-        else:
-            m = mu.mul_(b1).add_(g * (1 - b1))
-        nu.mul_(b2).add_(g * g * (1 - b2))
-        update = (m / bc1).div_((nu / bc2).sqrt_().add_(eps)).mul_(
-            lr.view(-1, 1))
-        for p, u in zip(params, update.split([p[0].numel() for p in params],
-                                             1)):
-            p.sub_(u.view(p.shape))
+        adam_stacked(params, grads, state, lr, bc1, bc2, b1, b2, eps)
         return
     low = state.mu[0].dtype == torch.bfloat16
     if low:
-        mu = torch._foreach_add([_bf16_decay(m, b1) for m in state.mu],
+        mu = torch._foreach_add([bf16_decay(m, b1) for m in state.mu],
                                 torch._foreach_mul(grads, 1 - b1))
     else:
         mu = state.mu

@@ -19,7 +19,8 @@ products summed in float64) and the f32 -> bf16 conversion
 programmatic dependent launch as plain ordering (a launch runs to its end
 before the next starts, so ``griddepcontrol`` is dropped), ``cp.async`` as a
 synchronous 16-byte copy (zeros past the edges), atomics (on 32-bit ints,
-global or shared) as host atomics. A kernel's static ``__shared__`` arrays
+global or shared) as host atomics, a ``__grid_constant__`` parameter as a
+by-value argument. A kernel's static ``__shared__`` arrays
 become function statics, which the CTAs share one after another.
 Shared memory starts as NaN, so a read of what no thread wrote shows. The
 launchers keep their C interface, so a test calls them through ctypes on
@@ -60,6 +61,7 @@ RUNTIME = r"""
 #define __restrict__
 #define __align__(n) __attribute__((aligned(n)))
 #define __launch_bounds__(...)
+#define __grid_constant__
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -84,6 +86,11 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 inline float __frcp_rn(float a) { volatile float r = 1.0f / a; return r; }
+inline double __dadd_rn(double a, double b) { volatile double r = a + b; return r; }
+inline double __dsub_rn(double a, double b) { volatile double r = a - b; return r; }
+inline double __dmul_rn(double a, double b) { volatile double r = a * b; return r; }
+inline double __ddiv_rn(double a, double b) { volatile double r = a / b; return r; }
+inline double __dsqrt_rn(double a) { return std::sqrt(a); }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 inline unsigned __umulhi(unsigned a, unsigned b) {

@@ -1121,6 +1121,179 @@ def test_config_axis_encoder_chain_is_each_configs_call(cuda, dtype):
     torch.testing.assert_close(got, want, **tol)
 
 
+# ------------------------------------------------------------ adam_stacked
+ADAM_KINDS = {"f32": (torch.float32, torch.float32),
+              "bf16": (torch.float32, torch.bfloat16),
+              "f64": (torch.float64, torch.float64)}
+# (shapes, configs): the sweep's chunk at the reference EMG tower's widths,
+# a --spmd_crossval rank's 4 configs, one config, and leaves no multiple of
+# 4 long (every element alone)
+ADAM_CASES = [("model", 150), ("model", 4), ("model", 1), ("ragged", 4)]
+
+
+def _adam_shapes(case):
+    if case == "ragged":
+        return [(3,), (5, 7), (1,), (6,), (130,), (2, 3, 3)]
+    return [tuple(p.shape) for p in
+            ContrastiveModel().towers()["emg_net"].parameters()]
+
+
+def _adam_bias_corrections(step, b1=0.9, b2=0.999):
+    t = np.float32(step)
+    return (float(np.float32(1) - np.float32(b1) ** t),
+            float(np.float32(1) - np.float32(b2) ** t))
+
+
+@pytest.mark.parametrize("case,n_cfg,kind", [
+    (case, n_cfg, kind) for case, n_cfg in ADAM_CASES for kind in ADAM_KINDS
+    if not (kind == "f64" and n_cfg == 150)])
+def test_adam_stacked_kernel_matches_plain(cuda, case, n_cfg, kind):
+    """Five updates, a distinct lr a config, gradients of another scale
+    each step with exact zeros among them: the kernel's parameters, mu and
+    nu bit for bit those of its plain version (the tensor ops it replaced)
+    on the card; one launch an update, counted as a bf16-mu launch where it
+    is one."""
+    from contrastiveprosthetics_torch.train.engine import stacked_adam_init
+
+    dtype, mu_dtype = ADAM_KINDS[kind]
+    gen = torch.Generator(device=cuda).manual_seed(n_cfg + 7)
+    ours = [torch.randn((n_cfg, *s), generator=gen, device=cuda, dtype=dtype)
+            for s in _adam_shapes(case)]
+    plain = [p.clone() for p in ours]
+    st_k, st_p = (stacked_adam_init(x, mu_dtype) for x in (ours, plain))
+    (mu_k, nu_k), (mu_p, nu_p) = st_k.flat, st_p.flat
+    lr = (torch.linspace(1e-4, 3e-3, n_cfg, dtype=torch.float64,
+                         device=cuda) * 0.75).to(dtype)
+    for step in range(1, 6):
+        grads = []
+        for p in ours:
+            g = torch.randn(p.shape, generator=gen, device=cuda,
+                            dtype=dtype) * 10.0 ** -(step % 3 + 1)
+            g.view(-1)[::7] = 0
+            grads.append(g)
+        bc1, bc2 = _adam_bias_corrections(step)
+        launches = K.launch_counts["adam_stacked"]
+        low = K.mode_counts["adam_stacked_bf16_mu"]
+        K.adam_stacked(ours, grads, st_k, lr, bc1, bc2)
+        K.adam_stacked_reference(plain, grads, st_p, lr, bc1, bc2)
+        torch.cuda.synchronize()
+        assert K.launch_counts["adam_stacked"] == launches + 1
+        assert K.mode_counts["adam_stacked_bf16_mu"] == low + (kind == "bf16")
+        for a, b in zip(ours + [mu_k, nu_k], plain + [mu_p, nu_p]):
+            assert a.dtype == b.dtype and torch.equal(a, b), step
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_adam_stacked_kernel_takes_any_bias_correction_as_torch(cuda, kind):
+    """Bias corrections given as float64 numbers that no f32 holds (the
+    step's own are f32 values): the kernel's reciprocals are those torch
+    multiplies by for ``x / bc``, so the update stays bit for bit."""
+    from contrastiveprosthetics_torch.train.engine import stacked_adam_init
+
+    dtype, mu_dtype = ADAM_KINDS[kind]
+    n_cfg = 4
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    ours = [torch.randn((n_cfg, *s), generator=gen, device=cuda)
+            for s in _adam_shapes("model")]
+    plain = [p.clone() for p in ours]
+    st_k, st_p = (stacked_adam_init(x, mu_dtype) for x in (ours, plain))
+    (mu_k, nu_k), (mu_p, nu_p) = st_k.flat, st_p.flat
+    lr = torch.linspace(1e-4, 3e-3, n_cfg, device=cuda)
+    # each pair with a reciprocal that f32 division would round otherwise
+    for bc1, bc2 in ((0.19, 0.001999), (0.6123, 0.0123)):
+        assert np.float32(1.0 / bc2) != np.float32(1) / np.float32(bc2)
+        grads = [torch.randn(p.shape, generator=gen, device=cuda) * 1e-2
+                 for p in ours]
+        K.adam_stacked(ours, grads, st_k, lr, bc1, bc2)
+        K.adam_stacked_reference(plain, grads, st_p, lr, bc1, bc2)
+        torch.cuda.synchronize()
+        for a, b in zip(ours + [mu_k, nu_k], plain + [mu_p, nu_p]):
+            assert torch.equal(a, b), (bc1, bc2)
+
+
+def test_adam_stacked_kernel_rounds_bf16_ties_as_torch(cuda):
+    """A bf16 mu stored from first moments halfway between two bf16 values
+    (b1 = 0.5, gradients whose low 16 bits are 0x8000): the kernel's
+    rounding to even is torch's conversion, bit for bit, over two steps."""
+    from contrastiveprosthetics_torch.train.engine import stacked_adam_init
+
+    b1, n_cfg = 0.5, 4
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ours = [torch.randn((n_cfg, *s), generator=gen, device=cuda)
+            for s in ((64,), (16, 64), (8,))]
+    plain = [p.clone() for p in ours]
+    st_k, st_p = (stacked_adam_init(x, torch.bfloat16) for x in (ours, plain))
+    (mu_k, nu_k), (mu_p, nu_p) = st_k.flat, st_p.flat
+    lr = torch.linspace(1e-4, 3e-3, n_cfg, device=cuda)
+    for step in (1, 2):
+        grads = []
+        for p in ours:
+            u = torch.randn(p.shape, generator=gen, device=cuda).view(
+                torch.int32)
+            grads.append(((u & ~0xFFFF) | 0x8000).view(torch.float32))
+        bc1, bc2 = _adam_bias_corrections(step, b1=b1)
+        K.adam_stacked(ours, grads, st_k, lr, bc1, bc2, b1=b1)
+        K.adam_stacked_reference(plain, grads, st_p, lr, bc1, bc2,
+                                 b1=b1)
+        torch.cuda.synchronize()
+        for a, b in zip(ours + [mu_k, nu_k], plain + [mu_p, nu_p]):
+            assert torch.equal(a, b), step
+
+
+def test_adam_stacked_launches_once_a_live_tower(cuda):
+    """``adam_step_`` on a stacked state's two chains, three steps: one
+    ``adam_stacked`` launch a live tower a step, none for an idle one (the
+    baseline's class tower), whose count still advances."""
+    from contrastiveprosthetics_torch.models.stacked import (
+        StackedContrastiveModel,
+    )
+    from contrastiveprosthetics_torch.train.engine import (
+        TrainState,
+        adam_step_,
+    )
+
+    n_cfg = 3
+    lr = torch.full((n_cfg,), 1e-3, device=cuda)
+    for prediction, live in ((False, 2), (True, 1)):
+        model = StackedContrastiveModel.from_models([
+            ContrastiveModel(prediction=prediction,
+                             generator=torch.Generator().manual_seed(c))
+            for c in range(n_cfg)]).to(cuda)
+        state = TrainState.fresh(model)
+        towers = model.towers()
+        for _ in range(3):
+            before = K.launch_counts["adam_stacked"]
+            for name, opt in (("emg_net", state.opt_emg),
+                              ("glove_net", state.opt_glove)):
+                params = list(towers[name].parameters())
+                adam_step_(params, [torch.randn_like(p) for p in params],
+                           opt, lr)
+            torch.cuda.synchronize()
+            assert K.launch_counts["adam_stacked"] == before + live
+        assert state.opt_emg.count == state.opt_glove.count == 3
+
+
+def test_adam_stacked_refuses_what_it_does_not_take(cuda):
+    """float64 parameters with a bf16 mu, an lr of another dtype or shape,
+    a gradient of another shape: ``ValueError`` before any launch."""
+    from contrastiveprosthetics_torch.train.engine import stacked_adam_init
+
+    params = [torch.randn((2, 8), device=cuda) for _ in range(2)]
+    state = stacked_adam_init(params)
+    lr = torch.full((2,), 1e-3, device=cuda)
+    p64 = [p.double() for p in params]
+    state64 = stacked_adam_init(p64, torch.bfloat16)
+    before = dict(K.launch_counts)
+    bad = [(p64, p64, state64, lr.double()),
+           (params, params, state, lr.double()),
+           (params, params, state, lr[:1]),
+           (params, [params[0], params[1][:, :4]], state, lr)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            K.adam_stacked(*args, 0.1, 0.001)
+    assert K.launch_counts == before
+
+
 # ------------------------------------------------------ the parallel layer
 def test_world1_sharded_serving_is_the_unsharded_engine(cuda, tmp_path):
     """A world of one rank over NCCL: ``BatchedStreamingEngine(mesh=)`` at

@@ -233,7 +233,8 @@ def test_step_event_times_sum_to_busy_time():
     """At the sweep's C=150 and full width, device-bound, the forward,
     backward and Adam spans' event times of 10 stacked steps sum to the
     trace's busy time within 5 %, once the steps and the profiler are warm
-    (as the benchmark traces after its window); the tick's spans count its
+    (as the benchmark traces after its window), and the Adam span counts
+    one ``adam_stacked`` launch a tower; the tick's spans count its
     launches and record no events."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -264,6 +265,8 @@ def test_step_event_times_sum_to_busy_time():
     parts = sum(spans.device_ms(name, last=n) for name in TRAIN[1:]) * n
     busy = busy_ms(prof)
     assert abs(parts - busy) <= 0.05 * busy, (parts, busy)
+    # the stacked Adam: one adam_stacked launch a tower (both are live)
+    assert spans.launches("cptorch.train.adam", last=n) == 2
 
     eng, carry, shape = serve_engine("batched", dev, {})
     blocks = torch.randn(shape, device=dev)
